@@ -80,3 +80,5 @@ def pytest_configure(config):
     config.addinivalue_line("markers", "asyncio: asyncio-based test")
     config.addinivalue_line(
         "markers", "slow: long-running test, excluded from the tier-1 gate")
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device; skips without one")
