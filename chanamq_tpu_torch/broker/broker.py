@@ -121,8 +121,8 @@ class Broker:
         # span attribution for message traces (chanamq_tpu/trace/):
         # ClusterNode.start() overwrites with its host:port name
         self.trace_node = "local"
-        # set by chanamq_tpu.models.service.ForecastService when forecasting
-        # is on (chana.mq.forecast.enabled); admin serves its snapshot
+        # set by chanamq_tpu_torch.models.service.ForecastService when
+        # forecasting is on; snapshot() is its read surface
         self.forecaster = None
         # set by chanamq_tpu.telemetry.service.TelemetryService when
         # per-entity sampling is on (chana.mq.telemetry.enabled)

@@ -1,4 +1,5 @@
-"""Build the port's CUDA sources into shared libraries and load them.
+"""Build the port's CUDA sources into shared libraries, load them, and
+bind checked launches of their C functions.
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 on first use into ``chanamq_tpu_torch/_build/lib<name>-<hash>.so``, where
@@ -17,6 +18,8 @@ import shutil
 import subprocess
 import time
 from typing import NamedTuple
+
+import torch
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -88,3 +91,40 @@ def load(name: str) -> tuple[ctypes.CDLL, Built]:
         built = build(name)
         got = _LOADED[name] = (ctypes.CDLL(built.path), built)
     return got
+
+
+def check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,
+          device: torch.device) -> None:
+    """Raise unless ``t`` has this dtype, rank and device and is
+    contiguous: what a kernel's C launcher takes."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name}: {t.dim()}-d, expected {ndim}-d")
+    if t.device != device:
+        raise ValueError(f"{name} on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} is not contiguous")
+
+
+def check_shape(name: str, t: torch.Tensor, shape: tuple) -> None:
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+
+
+def launcher(lib: ctypes.CDLL, fn, name: str, device: torch.device, *args):
+    """A zero-argument launch of ``fn(*args)`` on ``device``'s current
+    stream that raises if the launch fails (``fn`` returns
+    ``cudaGetLastError()``; ``lib.chana_cuda_error_string`` names it). The
+    arguments are bound once, so a caller can time repeated launches
+    without the wrapper's checks."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+
+    def launch() -> None:
+        code = fn(*args, stream)
+        if code != 0:
+            msg = lib.chana_cuda_error_string(code).decode()
+            raise RuntimeError(f"{name} kernel launch failed: {msg} ({code})")
+
+    return launch

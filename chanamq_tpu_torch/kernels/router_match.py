@@ -51,39 +51,6 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,
-           device: torch.device) -> None:
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
-    if t.dim() != ndim:
-        raise ValueError(f"{name}: {t.dim()}-d, expected {ndim}-d")
-    if t.device != device:
-        raise ValueError(f"{name} on {t.device}, expected {device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} is not contiguous")
-
-
-def _shape(name: str, t: torch.Tensor, shape: tuple) -> None:
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
-
-
-def _launcher(fn, name: str, device: torch.device, *args):
-    """A zero-argument launch of ``fn(*args)`` on ``device``'s current
-    stream that raises if the launch fails. The arguments are bound once,
-    so a caller can time repeated launches without the wrapper's checks."""
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-
-    def launch() -> None:
-        code = fn(*args, stream)
-        if code != 0:
-            msg = library().chana_cuda_error_string(code).decode()
-            raise RuntimeError(f"{name} kernel launch failed: {msg} ({code})")
-
-    return launch
-
-
 def _or_rows(ok: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
     """OR of ``masks[n]`` over the n with ``ok[b, n]``: ``[B, W]`` int32.
 
@@ -132,7 +99,7 @@ def prepare_topic_match(pre, suf, plen, slen, has_hash, masks,
                             ("pre_m", pre_m, _I32, 2),
                             ("suf_m", suf_m, _I32, 2),
                             ("mlen", mlen, _I32, 1)):
-        _check(name, t, dt, nd, device)
+        build.check(name, t, dt, nd, device)
     n, p = pre.shape
     s = suf.shape[1]
     w = masks.shape[1]
@@ -141,14 +108,15 @@ def prepare_topic_match(pre, suf, plen, slen, has_hash, masks,
                            ("slen", slen, (n,)), ("has_hash", has_hash, (n,)),
                            ("masks", masks, (n, w)), ("pre_m", pre_m, (b, p)),
                            ("suf_m", suf_m, (b, s)), ("mlen", mlen, (b,))):
-        _shape(name, t, shape)
+        build.check_shape(name, t, shape)
     out = torch.empty((b, w), dtype=_I32, device=device)
     if b == 0 or w == 0:
         return out, None
     if n == 0:
         return out.zero_(), None
-    return out, _launcher(
-        library().chana_topic_match, "topic_match", device,
+    lib = library()
+    return out, build.launcher(
+        lib, lib.chana_topic_match, "topic_match", device,
         pre.data_ptr(), suf.data_ptr(), plen.data_ptr(), slen.data_ptr(),
         has_hash.data_ptr(), masks.data_ptr(), pre_m.data_ptr(),
         suf_m.data_ptr(), mlen.data_ptr(), out.data_ptr(), b, n, p, s, w)
@@ -198,13 +166,13 @@ def prepare_headers_match(req, rcount, is_all, masks, pids):
                             ("is_all", is_all, torch.bool, 1),
                             ("masks", masks, _I32, 2),
                             ("pids", pids, _I32, 2)):
-        _check(name, t, dt, nd, device)
+        build.check(name, t, dt, nd, device)
     n, r = req.shape
     w = masks.shape[1]
     b, h = pids.shape
     for name, t, shape in (("rcount", rcount, (n,)), ("is_all", is_all, (n,)),
                            ("masks", masks, (n, w))):
-        _shape(name, t, shape)
+        build.check_shape(name, t, shape)
     if h * 4 > 48 * 1024:
         raise ValueError(f"headers_match: {h} pair ids per message exceed "
                          "the kernel's shared memory")
@@ -213,8 +181,9 @@ def prepare_headers_match(req, rcount, is_all, masks, pids):
         return out, None
     if n == 0:
         return out.zero_(), None
-    return out, _launcher(
-        library().chana_headers_match, "headers_match", device,
+    lib = library()
+    return out, build.launcher(
+        lib, lib.chana_headers_match, "headers_match", device,
         req.data_ptr(), rcount.data_ptr(), is_all.data_ptr(),
         masks.data_ptr(), pids.data_ptr(), out.data_ptr(), b, n, r, h, w)
 

@@ -1,0 +1,200 @@
+"""Broker-metrics forecaster: a small causal transformer in PyTorch.
+
+The port of ``chanamq_tpu/models/forecaster.py``'s serving half. Input: a
+window of per-tick broker telemetry vectors (models/telemetry.py's
+FEATURES); output: the forecast telemetry vector for the next tick. Used for
+backlog and capacity prediction, never on the message path;
+models/service.py runs the live loop.
+
+``forward`` computes what the reference's ``forward`` computes, at its
+rounding points: activations in ``cfg.dtype`` (bf16 by default), the
+embed, the four products of each layer and the head as plain matrix
+products (``torch.matmul``, as the reference leaves them to XLA), and the
+layernorm, the attention core and the tanh-GELU through the hand-written
+kernels of ``kernels/forecaster.py`` (``ops``; on CPU tensors those run
+their plain versions). The bf16 activations need bf16 products that
+accumulate in float32, as the reference's do, and the float32 head needs
+float32 products, not TF32: ``set_matmul_precision`` sets both, and
+``forward`` refuses CUDA tensors while torch allows less.
+
+Parameters are the reference's flat ``{name: tensor}`` set, float32, in its
+``[in, out]`` layout and under its names, so ``params_from_numpy`` carries
+the JAX package's parameters across. The reference casts each weight
+matrix to ``cfg.dtype`` on every call (forecaster.py:106-117);
+``cast_weights`` does that once per parameter set and ``forward`` takes its
+result, which is the same numbers.
+
+The training step (``make_train_step``, ``init_momentum``) is not ported
+yet: it needs backward kernels for layernorm, attention and GELU.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from ..kernels import forecaster as kernels
+
+
+@dataclasses.dataclass(frozen=True)
+class ForecasterConfig:
+    n_features: int = 8
+    seq_len: int = 64
+    d_model: int = 256
+    n_heads: int = 4
+    d_ff: int = 1024
+    n_layers: int = 4
+    dtype: Any = torch.bfloat16
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_model // self.n_heads
+
+
+Params = dict[str, torch.Tensor]
+
+_CAST = ("attn/qkv", "attn/proj", "mlp/w1", "mlp/w2")
+
+
+def param_shapes(cfg: ForecasterConfig) -> dict[str, tuple]:
+    """Every parameter's name and shape, in the reference's draw order."""
+    shapes = {
+        "embed/kernel": (cfg.n_features, cfg.d_model),
+        "embed/bias": (cfg.d_model,),
+        "pos": (cfg.seq_len, cfg.d_model),
+        "out/kernel": (cfg.d_model, cfg.n_features),
+        "out/bias": (cfg.n_features,),
+    }
+    for layer in range(cfg.n_layers):
+        pre = f"layer{layer}"
+        shapes[f"{pre}/ln1/scale"] = (cfg.d_model,)
+        shapes[f"{pre}/ln2/scale"] = (cfg.d_model,)
+        shapes[f"{pre}/attn/qkv"] = (cfg.d_model, 3 * cfg.d_model)
+        shapes[f"{pre}/attn/proj"] = (cfg.d_model, cfg.d_model)
+        shapes[f"{pre}/mlp/w1"] = (cfg.d_model, cfg.d_ff)
+        shapes[f"{pre}/mlp/w2"] = (cfg.d_ff, cfg.d_model)
+    return shapes
+
+
+def init_params(generator: torch.Generator, cfg: ForecasterConfig,
+                device="cuda") -> Params:
+    """Flat ``{name: float32 tensor}`` parameters, drawn on the CPU from
+    ``generator`` (so the numbers do not depend on the device) and moved
+    to ``device``. The scales are the reference's; the numbers are not,
+    since torch's generator is not jax.random."""
+    def normal(shape, std):
+        return torch.randn(shape, generator=generator) * std
+
+    p: Params = {}
+    for name, shape in param_shapes(cfg).items():
+        if name.endswith("/bias"):
+            p[name] = torch.zeros(shape)
+        elif name.endswith("/scale"):
+            p[name] = torch.ones(shape)
+        elif name == "pos":
+            p[name] = normal(shape, 0.02)
+        else:
+            p[name] = normal(shape, 1.0 / math.sqrt(shape[0]))  # fan-in
+    return {k: v.to(device) for k, v in p.items()}
+
+
+def params_from_numpy(params: dict, cfg: ForecasterConfig,
+                      device="cuda") -> Params:
+    """Parameters given as ``{name: array}`` (the JAX package's, through
+    ``np.asarray``) as float32 tensors on ``device``. Raises unless the
+    names and shapes are exactly those ``cfg`` needs."""
+    shapes = param_shapes(cfg)
+    if set(params) != set(shapes):
+        raise ValueError(
+            f"parameter names differ: missing "
+            f"{sorted(set(shapes) - set(params))}, unexpected "
+            f"{sorted(set(params) - set(shapes))}")
+    out: Params = {}
+    for name, shape in shapes.items():
+        arr = np.asarray(params[name], dtype=np.float32)
+        if arr.shape != shape:
+            raise ValueError(f"{name}: shape {arr.shape}, expected {shape}")
+        out[name] = torch.from_numpy(arr.copy()).to(device)
+    return out
+
+
+def cast_weights(params: Params, cfg: ForecasterConfig) -> Params:
+    """What ``forward`` reads in ``cfg.dtype``: the embedding, the position
+    table and each layer's four product weights, cast once. The layernorm
+    scales and the head stay float32, as the reference uses them."""
+    names = ["embed/kernel", "embed/bias", "pos"] + [
+        f"layer{layer}/{w}" for layer in range(cfg.n_layers) for w in _CAST]
+    return {name: params[name].to(cfg.dtype) for name in names}
+
+
+def set_matmul_precision() -> None:
+    """Matrix products on the card as the reference computes them: bf16
+    products accumulate in float32 and float32 products do not round
+    through TF32. These are process-wide torch flags."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+def _check_matmul_precision() -> None:
+    flags = torch.backends.cuda.matmul
+    if flags.allow_tf32 or flags.allow_bf16_reduced_precision_reduction:
+        raise RuntimeError(
+            "the forecaster's products would accumulate below float32 "
+            "(torch.backends.cuda.matmul.allow_tf32 or "
+            "allow_bf16_reduced_precision_reduction is set); call "
+            "set_matmul_precision() first")
+
+
+def forward(params: Params, x: torch.Tensor, cfg: ForecasterConfig, *,
+            weights: Optional[Params] = None,
+            ops: kernels.Ops = kernels.KERNELS) -> torch.Tensor:
+    """x: [batch, seq_len, n_features] float32 -> forecast [batch,
+    n_features] float32. ``weights`` is ``cast_weights(params, cfg)``,
+    cast here when not given; ``ops`` the layernorm, attention and GELU to
+    run (the kernels' wrappers, or ``kernels.PLAIN`` to compare). On a
+    card it raises unless ``set_matmul_precision()`` holds."""
+    if x.is_cuda:
+        _check_matmul_precision()
+    w = cast_weights(params, cfg) if weights is None else weights
+    b, t, _ = x.shape
+    h = torch.matmul(x.to(cfg.dtype), w["embed/kernel"])
+    h = h + w["embed/bias"]
+    h = h + w["pos"][None, :t]
+    for layer in range(cfg.n_layers):
+        pre = f"layer{layer}"
+        a = ops.layernorm(h, params[f"{pre}/ln1/scale"])
+        fused = torch.matmul(a, w[f"{pre}/attn/qkv"])
+        att = ops.causal_attention(fused, cfg.n_heads)
+        h = h + torch.matmul(att, w[f"{pre}/attn/proj"])
+        m = ops.layernorm(h, params[f"{pre}/ln2/scale"])
+        m = ops.gelu_tanh(torch.matmul(m, w[f"{pre}/mlp/w1"]))
+        h = h + torch.matmul(m, w[f"{pre}/mlp/w2"])
+    last = h[:, -1, :].to(torch.float32)
+    return last @ params["out/kernel"] + params["out/bias"]
+
+
+def loss_fn(params: Params, batch: tuple, cfg: ForecasterConfig, *,
+            weights: Optional[Params] = None,
+            ops: kernels.Ops = kernels.KERNELS) -> torch.Tensor:
+    """Mean squared error of ``forward`` on ``batch = (x, y)``."""
+    x, y = batch
+    pred = forward(params, x, cfg, weights=weights, ops=ops)
+    return torch.mean((pred - y) ** 2)
+
+
+def synthetic_batch(rng: np.random.Generator, cfg: ForecasterConfig,
+                    batch: int, device="cuda") -> tuple:
+    """Synthetic telemetry, noisy seasonal rates (for tests and smoke
+    runs): ``(x [batch, seq_len, n_features], y [batch, n_features])``
+    float32 on ``device``, drawn from a numpy generator."""
+    t = np.arange(cfg.seq_len + 1, dtype=np.float32)
+    phase = rng.uniform(size=(batch, 1, cfg.n_features)) * 2 * np.pi
+    freq = 0.1 + rng.uniform(size=(batch, 1, cfg.n_features)) * 0.3
+    series = np.sin(t[None, :, None] * freq + phase) + 1.5
+    series = series + rng.normal(size=series.shape) * 0.05
+    series = torch.from_numpy(series.astype(np.float32)).to(device)
+    return series[:, :-1, :].contiguous(), series[:, -1, :].contiguous()

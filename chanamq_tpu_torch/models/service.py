@@ -1,0 +1,357 @@
+"""Forecast service: live telemetry -> off-path forecast on the card.
+
+The port of ``chanamq_tpu/models/service.py``, batch analytics over broker
+metrics, never on the message path:
+
+- a sampler task on the broker's event loop appends one telemetry vector
+  per tick to a TelemetryRing (models/telemetry.py) — numpy only, O(#queues)
+  per tick, no torch on the loop;
+- every train-interval, a single worker thread (run_in_executor) takes a
+  copy of the ring, z-scores it, forwards the newest window through the
+  causal transformer (models/forecaster.py, its layernorm, attention and
+  GELU as CUDA kernels on ``device``) to produce the next-tick forecast,
+  denormalized back to real units. The event loop never blocks: torch runs
+  entirely on the worker thread, and at most one round is in flight;
+- the latest forecast is read with ``snapshot()``.
+
+The round keeps the reference's order (normalization, training batch,
+forward, divergence check, de-normalize, clamp at 0), and draws its
+training batch from the same numpy generator, so a port service and a
+reference service given the same history stay in step. Training is not
+ported yet: ``steps_per_round`` is 0, any other value is refused, and the
+reference's ``lr`` comes back with training (ROADMAP.md §A.5, training +
+``parallel/``).
+
+The forecast runs on ``device``, ``cuda`` unless the caller asks for the
+CPU; with no card the first round raises.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import concurrent.futures
+import logging
+import time
+from typing import TYPE_CHECKING, Any, Optional
+
+import numpy as np
+
+from .telemetry import (
+    FEATURES, TelemetryRing, TopKSlots, counter_state, normalization,
+    sample, training_batch,
+)
+
+if TYPE_CHECKING:  # pragma: no cover
+    import torch
+
+    from ..broker.broker import Broker
+
+log = logging.getLogger("chanamq.forecast")
+
+
+class ForecastService:
+    """Samples broker telemetry and maintains a next-tick forecast."""
+
+    def __init__(
+        self,
+        broker: "Broker",
+        *,
+        interval_s: float = 1.0,
+        train_interval_s: float = 30.0,
+        seq_len: int = 64,
+        history: int = 4096,
+        batch: int = 16,
+        steps_per_round: int = 0,
+        queue_top_k: int = 0,
+        model_kwargs: Optional[dict[str, Any]] = None,
+        device: "str | torch.device" = "cuda",
+    ) -> None:
+        if steps_per_round:
+            raise NotImplementedError(
+                "forecast training is not ported yet (ROADMAP.md §A.5, "
+                "training + parallel/): steps_per_round must be 0, got "
+                f"{steps_per_round}")
+        self.broker = broker
+        self.interval_s = interval_s
+        self.train_interval_s = train_interval_s
+        self.seq_len = seq_len
+        self.batch = batch
+        # per-queue awareness: widen each sample with (depth, publish_rate)
+        # of the K busiest queues from the per-entity telemetry rings
+        # (broker.telemetry). Slot columns are PINNED to queue identity
+        # (TopKSlots): a slot keeps tracking the same queue while it stays
+        # in the top-K set, with explicit eviction + a one-tick zero reset
+        # on reassignment, so a training window never splices two queues'
+        # series into one column. Zeros when telemetry is off.
+        self.queue_top_k = queue_top_k
+        self.topk = TopKSlots(queue_top_k)
+        self.feature_names: tuple[str, ...] = FEATURES + tuple(
+            name
+            for i in range(queue_top_k)
+            for name in (f"top{i}_depth", f"top{i}_publish_rate"))
+        self.n_features = len(self.feature_names)
+        self.steps_per_round = steps_per_round
+        self.device = device
+        # compact model by default: 8 features need nowhere near the
+        # flagship dims, and the worker thread shares cores with the broker
+        self.model_kwargs = dict(model_kwargs or {})
+        self.model_kwargs.setdefault("d_model", 64)
+        self.model_kwargs.setdefault("n_heads", 4)
+        self.model_kwargs.setdefault("d_ff", 256)
+        self.model_kwargs.setdefault("n_layers", 2)
+        if history < seq_len + 1:
+            # the train gate needs seq_len+1 retained vectors; a smaller
+            # ring would silently never train
+            raise ValueError(
+                f"forecast history ({history}) must exceed window "
+                f"({seq_len}) — the ring must hold window+1 vectors")
+        self.ring = TelemetryRing(history, width=self.n_features)
+        self._task: Optional[asyncio.Task] = None
+        # one worker: params live on this thread, rounds never overlap
+        self._executor = concurrent.futures.ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="chanamq-forecast")
+        self._round_inflight = False
+        self._stopping = False  # cooperative cancel for an in-flight round
+        self._np_rng = np.random.default_rng(0)
+        # lazily-built torch state (worker thread only)
+        self._torch_state: Optional[dict[str, Any]] = None
+        # latest results (event loop writes, anyone reads)
+        self.forecast: Optional[dict[str, float]] = None
+        self.loss: Optional[float] = None
+        self.trained_steps = 0
+        self.rounds = 0
+        self.updated_at: Optional[float] = None
+        self.last_error: Optional[str] = None
+        # forecast accuracy: each realized tick is scored against the
+        # forecast that predicted it (per-feature absolute error; running
+        # MAE). The control plane gates actuation on this, and operators
+        # see it at GET /admin/forecast + chanamq_forecast_error_* gauges.
+        self._pending_forecast: Optional[np.ndarray] = None
+        self.error_scored = 0
+        self.error_last: Optional[np.ndarray] = None
+        self.error_mae: Optional[np.ndarray] = None
+
+    # -- lifecycle ---------------------------------------------------------
+
+    async def start(self) -> None:
+        self.broker.forecaster = self
+        self._task = asyncio.get_event_loop().create_task(self._run())
+        self._task.add_done_callback(self._on_run_done)
+        log.info(
+            "forecast service on: interval=%.3gs train-interval=%.3gs "
+            "window=%d model=%s device=%s", self.interval_s,
+            self.train_interval_s, self.seq_len, self.model_kwargs,
+            self.device)
+
+    async def stop(self) -> None:
+        # cooperative cancel: concurrent.futures joins worker threads at
+        # interpreter exit regardless of shutdown(wait=False), so an
+        # in-flight round must notice and bail before its forward
+        self._stopping = True
+        if self._task is not None:
+            self._task.cancel()
+            try:
+                await self._task
+            except asyncio.CancelledError:
+                pass
+            self._task = None
+        self._executor.shutdown(wait=False, cancel_futures=True)
+        if getattr(self.broker, "forecaster", None) is self:
+            self.broker.forecaster = None
+
+    # -- sampling loop (event loop; numpy only) ----------------------------
+
+    async def _run(self) -> None:
+        counters = counter_state(self.broker)
+        last = time.monotonic()
+        next_train = last + self.train_interval_s
+        while True:
+            await asyncio.sleep(self.interval_s)
+            try:
+                now = time.monotonic()
+                vec, counters = sample(self.broker, counters, now - last)
+                last = now
+                if self.queue_top_k:
+                    telemetry = getattr(self.broker, "telemetry", None)
+                    extra = (
+                        self.topk.update(*telemetry.queues.latest_matrix())
+                        if telemetry is not None
+                        else np.zeros(2 * self.queue_top_k, dtype=np.float32))
+                    vec = np.concatenate([vec, extra])
+                self.score_tick(vec)
+                self.ring.push(vec)
+                if (now >= next_train and not self._round_inflight
+                        and len(self.ring) >= self.seq_len + 1):
+                    next_train = now + self.train_interval_s
+                    self._round_inflight = True
+                    history = self.ring.history()  # copy: worker never sees the ring
+                    loop = asyncio.get_event_loop()
+                    loop.run_in_executor(
+                        self._executor, self._round, history
+                    ).add_done_callback(self._on_round_done)
+            except asyncio.CancelledError:
+                raise
+            except Exception as exc:  # noqa: BLE001 — a bad sample tick
+                # must not kill forecasting forever; record and keep sampling
+                self.last_error = repr(exc)
+                log.exception("forecast sample tick failed")
+
+    def _on_run_done(self, task: "asyncio.Task") -> None:
+        if task.cancelled():
+            return
+        exc = task.exception()
+        if exc is not None:
+            self.last_error = repr(exc)
+            log.error("forecast sampler task died", exc_info=exc)
+
+    def _on_round_done(self, fut: "asyncio.Future") -> None:
+        self._round_inflight = False
+        try:
+            result = fut.result()
+        except Exception as exc:  # noqa: BLE001 — survives a bad round
+            self.last_error = repr(exc)
+            log.exception("forecast round failed")
+            return
+        steps, loss, forecast = result
+        self.trained_steps += steps
+        if forecast is None:
+            return  # round bailed early (service stopping)
+        self.rounds += 1
+        self.loss = loss
+        self.forecast = forecast
+        self.updated_at = time.time()
+        self.last_error = None
+        # the next realized tick scores this forecast (score_tick)
+        self._pending_forecast = np.array(
+            [forecast[name] for name in self.feature_names],
+            dtype=np.float32)
+
+    # -- forecast accuracy (event loop; numpy only) ------------------------
+
+    def score_tick(self, vec: np.ndarray) -> None:
+        """Score the pending next-tick forecast against the realized
+        vector: per-feature absolute error, folded into a running MAE.
+        A forecast is consumed by the first tick that follows it."""
+        pending = self._pending_forecast
+        if pending is None or len(pending) != len(vec):
+            return
+        self._pending_forecast = None
+        err = np.abs(np.asarray(vec, dtype=np.float32) - pending)
+        self.error_last = err
+        self.error_scored += 1
+        if self.error_mae is None:
+            self.error_mae = err.copy()
+        else:
+            self.error_mae += (err - self.error_mae) / self.error_scored
+        # NaN/inf can only come from a poisoned forecast; drop the stats
+        # rather than serving non-finite gauges
+        if not np.isfinite(err).all():
+            self.error_last = None
+            self.error_mae = None
+            self.error_scored = 0
+
+    def accuracy(self) -> Optional[dict[str, Any]]:
+        if not self.error_scored or self.error_mae is None:
+            return None
+        return {
+            "scored": self.error_scored,
+            "mae": {name: float(v) for name, v in
+                    zip(self.feature_names, self.error_mae)},
+            "last_abs_error": (
+                {name: float(v) for name, v in
+                 zip(self.feature_names, self.error_last)}
+                if self.error_last is not None else None),
+        }
+
+    def slot_queues(self) -> list:
+        """Queue identity pinned to each top-K feature slot (None=free);
+        lets the control plane map top{i}_* forecasts back to queues."""
+        return self.topk.slot_queues()
+
+    # -- predict round (worker thread; owns all torch state) ---------------
+
+    def _torch_setup(self, params: Optional[dict] = None) -> dict[str, Any]:
+        """The worker's model state: ``params`` (float32 tensors on the
+        service's device, e.g. from ``params_from_numpy``) or, by default,
+        ``init_params`` from a generator seeded with 0. ``forward`` maps a
+        [1, seq_len, n_features] float32 array to the [n_features]
+        forecast. On a card it sets the process's matrix-product precision
+        to the reference's (``set_matmul_precision``)."""
+        import torch
+
+        from .forecaster import (
+            ForecasterConfig, cast_weights, forward, init_params,
+            set_matmul_precision,
+        )
+
+        cfg = ForecasterConfig(
+            n_features=self.n_features, seq_len=self.seq_len,
+            **self.model_kwargs)
+        device = torch.device(self.device)
+        if device.type == "cuda":
+            set_matmul_precision()
+        if params is None:
+            params = init_params(torch.Generator().manual_seed(0), cfg,
+                                 device)
+        weights = cast_weights(params, cfg)
+
+        def predict(window: np.ndarray) -> np.ndarray:
+            x = torch.from_numpy(window).to(device)
+            return forward(params, x, cfg, weights=weights).cpu().numpy()
+
+        return {"cfg": cfg, "params": params, "forward": predict}
+
+    def _round(
+        self, history: np.ndarray
+    ) -> tuple[int, Optional[float], Optional[dict[str, float]]]:
+        """One off-path round: the next-tick forecast (no train steps)."""
+        if self._torch_state is None:
+            self._torch_state = self._torch_setup()
+        state = self._torch_state
+        mean, std = normalization(history)
+        normed = (history - mean) / std
+        # drawn as the reference draws it, so the generator stays in step;
+        # the training step that would consume it is not ported yet
+        training_batch(normed, self.seq_len, self.batch, self._np_rng)
+        if self._stopping:
+            return 0, None, None
+        window = normed[-self.seq_len:][None, ...].astype(np.float32)
+        pred = state["forward"](window)[0]
+        if not np.isfinite(pred).all():
+            # drop the poisoned state and start clean next round rather
+            # than serving NaN forecasts
+            self._torch_state = None
+            raise RuntimeError(
+                "forecaster diverged (non-finite forecast); reinitializing")
+        real = pred * std + mean
+        # rates/gauges cannot be negative; the model can briefly overshoot
+        real = np.maximum(real, 0.0)
+        forecast = {name: float(v)
+                    for name, v in zip(self.feature_names, real)}
+        return 0, None, forecast
+
+    # -- introspection -----------------------------------------------------
+
+    def snapshot(self) -> dict[str, Any]:
+        observed = self.ring.latest()
+        return {
+            "enabled": True,
+            "samples": self.ring.count,
+            "interval_s": self.interval_s,
+            "window": self.seq_len,
+            "rounds": self.rounds,
+            "trained_steps": self.trained_steps,
+            "loss": self.loss,
+            "queue_top_k": self.queue_top_k,
+            "observed": (
+                {name: float(v)
+                 for name, v in zip(self.feature_names, observed)}
+                if observed is not None else None),
+            "forecast": self.forecast,
+            "accuracy": self.accuracy(),
+            "slot_queues": [
+                list(key) if key is not None else None
+                for key in self.topk.slot_queues()],
+            "updated_at": self.updated_at,
+            "error": self.last_error,
+        }

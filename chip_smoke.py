@@ -8,9 +8,12 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 Phases, each a function of a device and a size so that a CPU test can
 rehearse it; any failure exits non-zero:
 
-1. device: the card's name and power limit (``nvidia-smi``);
-2. build: ``csrc/router_match.cu`` with nvcc for sm_90a, with ptxas's
-   register, shared-memory and spill report;
+1. device: the card's name and power limit (``nvidia-smi``); float32
+   products in full float32 (``allow_tf32 = False``) for the router's
+   plain versions;
+2. build: ``csrc/router_match.cu`` and ``csrc/forecaster.cu``, one nvcc
+   each, started together, for sm_90a, with ptxas's register,
+   shared-memory and spill report;
 3. kernels at the router's caps: both router match kernels at N=512
    rows, W=128 mask words and full token widths (topic P=S=8, headers
    R=8, H=16) against their plain PyTorch versions, word for word, at B in
@@ -27,7 +30,28 @@ rehearse it; any failure exits non-zero:
 5. main-path kernels: every kept call replayed through the kernel and its
    plain version, word for word; the most common shape is timed and
    bounded, and the kernels line reports it;
-6. the kernels line, the card line, and the result line.
+6. forecaster kernels at the flagship width (``ForecasterConfig()``: T=64,
+   d_model 256, 4 heads of 64, d_ff 1024) at B in {1, 32} (the service's
+   one window; ``__graft_entry__``'s batch): layernorm, causal attention
+   and tanh-GELU against their plain versions in bf16, each within its
+   stated limit, with device times, the bound, and one PyTorch library
+   call as a yardstick;
+7. forward at full width: ``ForecasterConfig()`` at B in {1, 32}, the
+   kernel path against the plain path, with host-clock and CUDA-event ms,
+   under the reference's product precision (``set_matmul_precision``:
+   bf16 products accumulate in float32, float32 products avoid TF32);
+8. forecast path: the port's ``BrokerServer`` under a publishing load,
+   with a ``ForecastService`` at flagship width (window 64, no training)
+   on the card until it has made at least 200 forecasts, a forecast
+   every ~0.04 s; the first forward (the worker thread's first cuBLAS
+   call) is reported apart from the latency statistics of the rest. The
+   product precision is reset to torch's default first, so the service
+   must set its own. The forecasts must be finite and non-negative, each
+   kernel's launches must equal the forwards times its launches a
+   forward (8 layernorm, 4 attention, 4 GELU), the sampler must have seen
+   the load, and every forward's window is replayed through the plain
+   path;
+9. the kernels line, the card line, and the result line.
 
 Without a card, or without the repository beside it, it exits non-zero and
 prints no result.
@@ -67,6 +91,18 @@ CAPS_REPORT_B = 256  # the caps run's batch that the kernels line also shows
 # loop behind it
 SLEEP_CYCLES = 200_000_000
 
+# H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores and
+# dense bf16 on them
+F32_FLOPS_PER_S = 67e12
+BF16_TC_FLOPS_PER_S = 989e12
+# the service forwards one window; __graft_entry__.entry() a batch of 32
+FORECAST_BATCHES = (1, 32)
+# the limit the tests hold the port's forward to against the JAX forward
+# in bf16 (measured 0.031 there): the two paths differ only in the order
+# of float32 sums, so bf16 roundings that land on the other side of a
+# boundary carry through the layers
+FORWARD_LIMIT = 0.1
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -76,6 +112,7 @@ def log(msg: str) -> None:
 
 
 def phase_device() -> dict:
+    torch.backends.cuda.matmul.allow_tf32 = False
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -89,17 +126,31 @@ def phase_device() -> dict:
 # -- 2. build ------------------------------------------------------------------
 
 
+SOURCES = ("router_match", "forecaster")
+
+
 def phase_build() -> dict:
+    """Every CUDA source of the port, one nvcc each, all started together;
+    raises if any build fails."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from chanamq_tpu_torch.kernels import build
 
-    built = build.build("router_match")
-    ptxas = [ln.strip() for ln in built.log.splitlines()
-             if re.search(r"registers|spill|Compiling entry", ln)]
-    log(f"[build] {built.path} in {built.seconds:.2f} s"
-        f"{' (already built)' if built.seconds == 0.0 else ''}")
-    for ln in ptxas:
-        log(f"[build] ptxas: {ln}")
-    return {"seconds": built.seconds, "ptxas": ptxas}
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        built = dict(zip(SOURCES, pool.map(build.build, SOURCES)))
+    out = {}
+    for name, b in built.items():
+        ptxas = [ln.strip() for ln in b.log.splitlines()
+                 if re.search(r"registers|spill|Compiling entry", ln)]
+        log(f"[build] {b.path} in {b.seconds:.2f} s"
+            f"{' (already built)' if b.seconds == 0.0 else ''}")
+        for ln in ptxas:
+            log(f"[build] ptxas: {ln}")
+        out[name] = {"seconds": b.seconds, "ptxas": ptxas}
+    log(f"[build] {len(SOURCES)} sources in "
+        f"{time.perf_counter() - t0:.2f} s (wall)")
+    return out
 
 
 # -- 3. kernels at full width --------------------------------------------------
@@ -688,10 +739,10 @@ def _recording(fn, calls: list):
     return wrapper
 
 
-def device_busy(trace) -> dict:
+def device_busy(trace, names=("topic_match", "headers_match")) -> dict:
     """The card's work in a ``torch.profiler`` trace: the union of its
-    kernel and copy intervals (us), and per router kernel its launches
-    and device time (us)."""
+    kernel and copy intervals (us), and per kernel of ``names`` its
+    launches and device time (us)."""
     spans = sorted((e.time_range.start, e.time_range.end)
                    for e in trace.events()
                    if e.device_type == DeviceType.CUDA)
@@ -704,7 +755,7 @@ def device_busy(trace) -> dict:
     for e in trace.events():
         if e.device_type != DeviceType.CUDA:
             continue
-        for name in ("topic_match", "headers_match"):
+        for name in names:
             if f"{name}_kernel" in e.name:
                 k = kernels.setdefault(name, {"launches": 0, "us": 0.0})
                 k["launches"] += 1
@@ -791,7 +842,392 @@ def phase_main(device: torch.device, seed: int, *, consumers: int = 16,
     return res
 
 
-# -- 5. entry point -------------------------------------------------------------
+# -- 6. forecaster kernels -------------------------------------------------------
+
+
+def bf16_ulp(x: float) -> float:
+    """The spacing of bf16 values at magnitude ``x`` (8 significant bits)."""
+    return 2.0 ** (np.floor(np.log2(max(abs(x), 2.0 ** -126))) - 7)
+
+
+def forecaster_limit(name: str, want: torch.Tensor) -> float:
+    """Max abs error allowed between a forecaster kernel and its plain
+    version on the same bf16 inputs. Both compute in float32 and round to
+    bf16 at the same points, but sum in a different order, so a value can
+    round to the neighbouring bf16: one step at the largest output for
+    layernorm and GELU. Attention rounds twice inside (q . k and the
+    weights), and a flipped logit or weight moves the output by about one
+    step more: two steps."""
+    top = float(want.float().abs().max()) if want.numel() else 0.0
+    return (2.0 if name == "causal_attention" else 1.0) * bf16_ulp(top)
+
+
+def forecaster_inputs(gen: torch.Generator, cfg, b: int,
+                      device: torch.device) -> dict:
+    """Seeded bf16 inputs at the shapes ``forward`` gives each kernel at
+    batch ``b``: the residual stream [b, T, d_model] (offset, so the mean
+    matters) with a layernorm scale, the fused qkv product [b, T,
+    3 d_model], and the w1 product [b, T, d_ff]."""
+    t, d, f = cfg.seq_len, cfg.d_model, cfg.d_ff
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen)
+
+    bf16 = torch.bfloat16
+    return {
+        "layernorm": ((randn(b, t, d) * 2 + 0.5).to(bf16).to(device),
+                      (1 + 0.1 * randn(d)).to(device)),
+        "causal_attention": (randn(b, t, 3 * d).to(bf16).to(device),
+                             cfg.n_heads),
+        "gelu_tanh": ((randn(b, t, f) * 2).to(bf16).to(device),),
+    }
+
+
+def forecaster_work(name: str, args) -> tuple[int, int, float]:
+    """(bytes, operations, least seconds for those operations) that one
+    forecaster kernel call needs: each input read once, each output
+    written once. Layernorm does 7 float32 operations a value (sum; sub,
+    square, add; sub, two multiplies), GELU 9 (tanh counted as one);
+    attention two bf16 products over the causal pairs (2 * head_dim a
+    pair each, on the tensor cores) and 5 float32 softmax operations a
+    pair (divide, subtract, exp, add, divide)."""
+    if name == "layernorm":
+        x, scale = args
+        nbytes = 2 * x.numel() * x.element_size() + _nbytes(scale)
+        ops = 7 * x.numel()
+        return nbytes, ops, ops / F32_FLOPS_PER_S
+    if name == "gelu_tanh":
+        (x,) = args
+        ops = 9 * x.numel()
+        return 2 * x.numel() * x.element_size(), ops, ops / F32_FLOPS_PER_S
+    qkv, heads = args
+    b, t, d3 = qkv.shape
+    hd = d3 // 3 // heads
+    pairs = b * heads * t * (t + 1) // 2
+    mma, soft = 2 * 2 * hd * pairs, 5 * pairs
+    nbytes = qkv.numel() * qkv.element_size() * 4 // 3  # qkv + [B,T,D] out
+    return (nbytes, mma + soft,
+            mma / BF16_TC_FLOPS_PER_S + soft / F32_FLOPS_PER_S)
+
+
+def _library_call(name: str, args):
+    """One PyTorch call that computes the same function, as a yardstick:
+    the port never calls it."""
+    import torch.nn.functional as F
+
+    if name == "layernorm":
+        x, scale = args
+        w = scale.to(x.dtype)
+        return lambda: F.layer_norm(x, (x.shape[-1],), w, None, 1e-6)
+    if name == "gelu_tanh":
+        (x,) = args
+        return lambda: F.gelu(x, approximate="tanh")
+    qkv, heads = args
+    b, t, d3 = qkv.shape
+    q, k, v = qkv.view(b, t, 3, heads, d3 // 3 // heads).permute(
+        2, 0, 3, 1, 4)
+    return lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)
+
+
+def hold_forecaster(name: str, args, *, iters: int = 100) -> dict:
+    """One forecaster kernel call through its wrapper and its plain version
+    on the same inputs, within ``forecaster_limit``; on a card also the
+    kernel's device time, the wrapper's per-call time, the plain
+    version's and the library call's device times, and the bound."""
+    from chanamq_tpu_torch.kernels import forecaster as fk
+
+    kern = getattr(fk, name)
+    ref = getattr(fk, f"{name}_ref")
+    got = kern(*args)
+    want = ref(*args)
+    err = float((got.float() - want.float()).abs().max())
+    limit = forecaster_limit(name, want)
+    shape = "x".join(str(n) for n in args[0].shape)
+    if not err <= limit:
+        raise AssertionError(f"{name} [{shape}]: max abs error {err} over "
+                             f"the limit {limit}")
+    if not torch.isfinite(got.float()).all():
+        raise AssertionError(f"{name} [{shape}]: non-finite output")
+    nbytes, ops, ops_s = forecaster_work(name, args)
+    bytes_s = nbytes / HBM_BYTES_PER_S
+    row = {"shape": shape, "max_abs_err": err, "limit": limit,
+           "bytes": nbytes, "ops": ops, "bound_ms": max(bytes_s, ops_s) * 1e3,
+           "bound_by": "operations" if ops_s > bytes_s else "bytes"}
+    if got.is_cuda:
+        _, launch = getattr(fk, f"prepare_{name}")(*args)
+        row["ms"] = _time_ms(launch, iters, device_only=True)
+        row["wrapper_ms"] = _time_ms(lambda: kern(*args), iters,
+                                     device_only=False)
+        row["plain_ms"] = _time_ms(lambda: ref(*args), iters,
+                                   device_only=True)
+        row["library_ms"] = _time_ms(_library_call(name, args), iters,
+                                     device_only=True)
+    return row
+
+
+FORECASTER_KERNELS = ("layernorm", "causal_attention", "gelu_tanh")
+
+
+def phase_forecaster_kernels(device: torch.device, seed: int, cfg=None,
+                             batches=FORECAST_BATCHES,
+                             iters: int = 100) -> dict:
+    """The three forecaster kernels against their plain versions at the
+    shapes ``forward`` gives them at each batch. Returns {kernel name:
+    {B: row}} and raises on an error over its limit."""
+    from chanamq_tpu_torch.models.forecaster import ForecasterConfig
+
+    cfg = cfg or ForecasterConfig()
+    gen = torch.Generator().manual_seed(seed)
+    out: dict = {name: {} for name in FORECASTER_KERNELS}
+    for b in batches:
+        inputs = forecaster_inputs(gen, cfg, b, device)
+        for name in FORECASTER_KERNELS:
+            row = out[name][b] = hold_forecaster(name, inputs[name],
+                                                 iters=iters)
+            nan = float("nan")
+            log(f"[fc-kernels] {name} B={b} [{row['shape']}]: max abs err "
+                f"{row['max_abs_err']:.6g} (limit {row['limit']:.6g}); "
+                f"kernel {row.get('ms', nan) * 1e3:.3f} us (wrapper call "
+                f"{row.get('wrapper_ms', nan) * 1e3:.3f} us), plain "
+                f"{row.get('plain_ms', nan) * 1e3:.3f} us, library "
+                f"{row.get('library_ms', nan) * 1e3:.3f} us, bound "
+                f"{row['bound_ms'] * 1e3:.4f} us ({row['bound_by']}: "
+                f"{row['ops']} ops, {row['bytes']} B)")
+    return out
+
+
+# -- 7. forward at full width ----------------------------------------------------
+
+
+def _host_ms(fn, iters: int) -> float:
+    """Mean host-clock time of ``fn()`` followed by a synchronize."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def phase_forward(device: torch.device, seed: int, cfg=None,
+                  batches=FORECAST_BATCHES, iters: int = 20) -> dict:
+    """``forward`` through the kernels against ``forward`` through the
+    plain versions, same parameters and inputs, within FORWARD_LIMIT.
+    Returns {B: row}; on a card with the host-clock ms of one forward
+    (synchronized) and its CUDA-event ms, for both paths."""
+    from chanamq_tpu_torch.kernels.forecaster import PLAIN
+    from chanamq_tpu_torch.models.forecaster import (
+        ForecasterConfig, cast_weights, forward, init_params,
+        set_matmul_precision, synthetic_batch)
+
+    if device.type == "cuda":
+        set_matmul_precision()
+    cfg = cfg or ForecasterConfig()
+    params = init_params(torch.Generator().manual_seed(seed), cfg, device)
+    weights = cast_weights(params, cfg)
+    out = {}
+    for b in batches:
+        x, _ = synthetic_batch(np.random.default_rng(seed + b), cfg, b,
+                               device)
+
+        def kern():
+            return forward(params, x, cfg, weights=weights)
+
+        def plain():
+            return forward(params, x, cfg, weights=weights, ops=PLAIN)
+
+        got, want = kern(), plain()
+        err = float((got - want).abs().max())
+        if got.shape != (b, cfg.n_features) or not torch.isfinite(got).all():
+            raise AssertionError(f"forward B={b}: shape {tuple(got.shape)} "
+                                 "or non-finite values")
+        if not err <= FORWARD_LIMIT:
+            raise AssertionError(f"forward B={b}: max abs error {err} over "
+                                 f"the limit {FORWARD_LIMIT}")
+        row = out[b] = {"max_abs_err": err, "limit": FORWARD_LIMIT,
+                        "max_abs_out": float(want.abs().max())}
+        if got.is_cuda:
+            row.update({
+                "host_ms": _host_ms(kern, iters),
+                "event_ms": _time_ms(kern, iters, device_only=False),
+                "plain_host_ms": _host_ms(plain, iters),
+                "plain_event_ms": _time_ms(plain, iters, device_only=False)})
+        nan = float("nan")
+        log(f"[forward] B={b} {cfg.n_layers} layers d_model {cfg.d_model}: "
+            f"kernel path against plain path max abs err {err:.6g} (limit "
+            f"{FORWARD_LIMIT}, outputs up to {row['max_abs_out']:.4g}); one "
+            f"forward {row.get('host_ms', nan):.4f} ms host clock, "
+            f"{row.get('event_ms', nan):.4f} ms CUDA events (plain path "
+            f"{row.get('plain_host_ms', nan):.4f} / "
+            f"{row.get('plain_event_ms', nan):.4f} ms)")
+    return out
+
+
+# -- 8. forecast path ------------------------------------------------------------
+
+
+async def _forecast_run(device: torch.device, svc_kwargs: dict,
+                        min_rounds: int, timeout_s: float,
+                        forwards: list, trace=None) -> dict:
+    from chanamq_tpu_torch.broker.broker import Broker
+    from chanamq_tpu_torch.broker.server import BrokerServer
+    from chanamq_tpu_torch.client import AMQPClient
+    from chanamq_tpu_torch.models.service import ForecastService
+
+    broker = Broker(router_device=device.type)
+    server = BrokerServer(broker, host="127.0.0.1", port=0, heartbeat_s=0)
+    await server.start()
+    svc = ForecastService(server.broker, steps_per_round=0, device=device,
+                          **svc_kwargs)
+    real_setup = svc._torch_setup
+
+    def setup(params=None) -> dict:
+        # the worker builds its state as always; its forward is wrapped to
+        # keep each window, its forecast and its host-clock time
+        state = real_setup(params)
+        real_forward = state["forward"]
+
+        def recorded(window):
+            t0 = time.perf_counter()
+            pred = real_forward(window)
+            forwards.append({"window": window, "pred": pred,
+                             "s": time.perf_counter() - t0,
+                             "state": state})
+            return pred
+
+        state["forward"] = recorded
+        return state
+
+    svc._torch_setup = setup
+    published = [0]
+    stop = asyncio.Event()
+    client = await AMQPClient.connect("127.0.0.1", server.bound_port,
+                                      heartbeat=0)
+    try:
+        await svc.start()
+        ch = await client.channel()
+        await ch.queue_declare("forecast.q")
+        received: list = []
+        await ch.basic_consume("forecast.q", received.append, no_ack=True)
+
+        async def load() -> None:
+            while not stop.is_set():
+                for _ in range(20):
+                    ch.basic_publish(b"x" * 512, exchange="",
+                                     routing_key="forecast.q")
+                    published[0] += 1
+                await asyncio.sleep(0.01)
+
+        task = asyncio.get_event_loop().create_task(load())
+        if trace is not None:
+            trace.start()
+        try:
+            t0 = time.perf_counter()
+            while svc.rounds < min_rounds:
+                if time.perf_counter() - t0 > timeout_s:
+                    raise AssertionError(
+                        f"{svc.rounds} forecasts in {timeout_s} s; last "
+                        f"error {svc.last_error}")
+                await asyncio.sleep(0.05)
+            run_s = time.perf_counter() - t0
+            stop.set()
+            await task
+        finally:
+            if trace is not None:
+                trace.stop()
+        snap = svc.snapshot()
+        history = svc.ring.history()
+    finally:
+        stop.set()
+        await client.close()
+        await svc.stop()
+        # no round may still run when the launch counts are read
+        await asyncio.to_thread(svc._executor.shutdown, wait=True)
+        await server.stop()
+    return {"snapshot": snap, "history": history, "run_s": run_s,
+            "published": published[0], "received": len(received),
+            "feature_names": svc.feature_names}
+
+
+def phase_forecast(device: torch.device, *,
+                   model_kwargs: dict | None = None, seq_len: int = 64,
+                   interval_s: float = 0.02, train_interval_s: float = 0.03,
+                   min_rounds: int = 200, timeout_s: float = 120.0) -> dict:
+    """The forecast path end to end: a ForecastService on ``device`` (no
+    training) beside the port's BrokerServer under a publishing load,
+    until ``min_rounds`` forecasts. Checks that the forecasts are finite
+    and non-negative and that the sampler saw the load; every forward's
+    window is replayed through the plain path within FORWARD_LIMIT.
+    Returns the run's numbers with ``forwards``, the count of forwards
+    made (the kernels' launches must be that many times their launches a
+    forward), and the host-clock ms of each forward: the first (the
+    worker thread's first products) apart, and the mean, median, p90 and
+    p99 of the rest. On a card the run is traced with ``torch.profiler``
+    for the device's busy time and each kernel's in-path launches and
+    time."""
+    from chanamq_tpu_torch.kernels.forecaster import PLAIN
+    from chanamq_tpu_torch.models.forecaster import ForecasterConfig, forward
+    from chanamq_tpu_torch.models.telemetry import FEATURES
+
+    if model_kwargs is None:  # the flagship width, ForecasterConfig()'s
+        flagship = ForecasterConfig()
+        model_kwargs = {k: getattr(flagship, k)
+                        for k in ("d_model", "n_heads", "d_ff", "n_layers")}
+    forwards: list = []
+    kwargs = {"interval_s": interval_s, "train_interval_s": train_interval_s,
+              "seq_len": seq_len, "model_kwargs": model_kwargs}
+    trace = None
+    if device.type == "cuda":
+        trace = torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA])
+    res = asyncio.run(_forecast_run(device, kwargs, min_rounds, timeout_s,
+                                    forwards, trace))
+    snap = res["snapshot"]
+    forecast = snap["forecast"]
+    if snap["error"] is not None or not forecast:
+        raise AssertionError(f"forecast path: error {snap['error']}")
+    bad = {k: v for k, v in forecast.items()
+           if not (np.isfinite(v) and v >= 0.0)}
+    if bad:
+        raise AssertionError(f"forecast path: bad forecasts {bad}")
+    saw = float(res["history"][:, FEATURES.index("publish_rate")].max())
+    if not saw > 0:
+        raise AssertionError("the sampler saw no publish traffic")
+    worst = 0.0
+    for fw in forwards:
+        state = fw["state"]
+        x = torch.from_numpy(fw["window"]).to(device)
+        want = forward(state["params"], x, state["cfg"],
+                       ops=PLAIN).cpu().numpy()
+        if not np.isfinite(fw["pred"]).all():
+            raise AssertionError("a forward gave non-finite values")
+        worst = max(worst, float(np.abs(fw["pred"] - want).max()))
+    if not worst <= FORWARD_LIMIT:
+        raise AssertionError(f"forecast path: a forward differs from the "
+                             f"plain path by {worst} (limit {FORWARD_LIMIT})")
+    if len(forwards) < 2:
+        raise AssertionError(f"forecast path: {len(forwards)} forwards")
+    ms = np.array([fw["s"] * 1e3 for fw in forwards[1:]])
+    return {"rounds": snap["rounds"], "forwards": len(forwards),
+            "samples": snap["samples"], "run_s": res["run_s"],
+            "published": res["published"], "received": res["received"],
+            "max_publish_rate": saw, "forecast": forecast,
+            "replay_max_abs_err": worst,
+            "cfg": forwards[0]["state"]["cfg"],
+            "ms_first_forward": forwards[0]["s"] * 1e3,
+            "ms_per_forward": {
+                "n": len(ms), "mean": float(ms.mean()),
+                "median": float(np.median(ms)),
+                "p90": float(np.percentile(ms, 90)),
+                "p99": float(np.percentile(ms, 99)),
+                "max": float(ms.max())},
+            "trace": (device_busy(trace, FORECASTER_KERNELS)
+                      if trace is not None else None)}
+
+
+# -- 9. entry point -------------------------------------------------------------
 
 
 def main() -> int:
@@ -802,12 +1238,15 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing was measured",
               file=sys.stderr)
         return 2
+    from chanamq_tpu_torch.kernels import forecaster as fk
     from chanamq_tpu_torch.kernels import router_match as rm
 
     dev = phase_device()
     phase_build()
     device = torch.device("cuda", 0)
     caps = phase_kernels(device, args.seed)
+    fc_kernels = phase_forecaster_kernels(device, args.seed)
+    phase_forward(device, args.seed)
 
     calls: dict = {}
     rm.topic_match.launches = 0
@@ -847,10 +1286,58 @@ def main() -> int:
     else:
         log("[trace] the profiler saw no device event: device busy time "
             "and idle share not measured")
-
     path = phase_path_kernels(calls)
+
+    # torch's default: the service must set the reference's precision
+    # itself (its forward raises on the card while this allows less)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
+    for name in FORECASTER_KERNELS:
+        getattr(fk, name).launches = 0
+    fc = phase_forecast(device)
+    for name in FORECASTER_KERNELS:
+        launches[name] = getattr(fk, name).launches
+    cfg = fc["cfg"]
+    ms_stats = ", ".join(f"{k} {v:.4f}" for k, v in
+                         fc["ms_per_forward"].items() if k != "n")
+    per_forward = {"layernorm": 2 * cfg.n_layers,
+                   "causal_attention": cfg.n_layers,
+                   "gelu_tanh": cfg.n_layers}
+    log(f"[forecast] {fc['rounds']} rounds, {fc['forwards']} forwards at "
+        f"d_model {cfg.d_model}, {cfg.n_layers} layers, window "
+        f"{cfg.seq_len}, on the card in {fc['run_s']:.3f} s; ms per "
+        f"forward (host clock, synchronized) over forwards 2-"
+        f"{fc['forwards']}: {ms_stats}; the first "
+        f"{fc['ms_first_forward']:.4f}; kernel launches "
+        f"{ {k: launches[k] for k in FORECASTER_KERNELS} }; replay against "
+        f"the plain path max abs err {fc['replay_max_abs_err']:.6g}; "
+        f"{fc['samples']} samples, publish rate up to "
+        f"{fc['max_publish_rate']:.1f}/s, {fc['published']} published; "
+        f"card {dev['smi']}")
+    tr = fc["trace"]
+    window_us = fc["run_s"] * 1e6
+    if tr["events"]:
+        traced = {k: {"launches": v["launches"],
+                      "mean_us": v["us"] / max(1, v["launches"])}
+                  for k, v in tr["kernels"].items()}
+        log(f"[forecast-trace] window {window_us:.0f} us: {tr['events']} "
+            f"device events, busy {tr['busy_us']:.1f} us = "
+            f"{100 * tr['busy_us'] / window_us:.4f}%, idle "
+            f"{100 * (1 - tr['busy_us'] / window_us):.4f}%; forecaster "
+            f"kernels {traced}")
+    else:
+        log("[forecast-trace] the profiler saw no device event: device "
+            "busy time and idle share not measured")
+    for name, n in per_forward.items():
+        if fc["forwards"] < 1 or launches[name] != n * fc["forwards"]:
+            raise AssertionError(
+                f"{name}: {launches[name]} launches for {fc['forwards']} "
+                f"forwards of {n} each")
+
     replaces = {"topic_match": "chanamq_tpu/router/compile.py:289",
-                "headers_match": "chanamq_tpu/router/compile.py:372"}
+                "headers_match": "chanamq_tpu/router/compile.py:372",
+                "layernorm": "chanamq_tpu/models/forecaster.py:77",
+                "causal_attention": "chanamq_tpu/models/forecaster.py:84",
+                "gelu_tanh": "chanamq_tpu/models/forecaster.py:116"}
     line = []
     for name in ("topic_match", "headers_match"):
         row = path[name]
@@ -868,6 +1355,17 @@ def main() -> int:
             "library_ms": None,
             "at_caps": {k: caps[name][CAPS_REPORT_B][k] for k in (
                 "shape", "ms", "plain_ms", "bound_ms", "bound_by")}})
+    keys = ("shape", "max_abs_err", "limit", "ms", "wrapper_ms", "plain_ms",
+            "library_ms", "bound_ms", "bound_by")
+    for name in FORECASTER_KERNELS:
+        rows = fc_kernels[name]
+        main_b, other_b = FORECAST_BATCHES  # the service's batch first
+        line.append({
+            "name": name, "route": "cuda",
+            "source": "chanamq_tpu_torch/csrc/forecaster.cu",
+            "replaces": replaces[name], "launches": launches[name],
+            **{k: rows[main_b][k] for k in keys},
+            f"at_b{other_b}": {k: rows[other_b][k] for k in keys}})
     print(json.dumps({"kernels": line}))
     print(dev["smi"])
     print(json.dumps({"ok": True, "device": {

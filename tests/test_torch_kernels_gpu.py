@@ -1,12 +1,26 @@
-"""The port's CUDA router match kernels against their plain PyTorch
-versions, on the card. Marked ``gpu``; skipped where no CUDA device is
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card: the router match kernels and the forecaster's layernorm, causal
+attention and tanh-GELU. Marked ``gpu``; skipped where no CUDA device is
 present. Run on a machine with a card:
 
     python -m pytest tests/test_torch_kernels_gpu.py -m gpu -q
 
-Each kernel is also held against the JAX package's own kernel body
+(``--junitxml`` keeps each JAX comparison's measured error as a test
+property.)
+
+Each router kernel is also held against the JAX package's own kernel body
 (``_topic_kernel(np, ...)``, ``_headers_kernel(np, ...)``) on the same
 numpy inputs. The outputs are integer bitmasks, so the comparison is exact.
+Each forecaster kernel is held to its plain version within
+``chip_smoke.forecaster_limit`` (one bf16 step at the largest output, two
+for attention: the same float32 math summed in another order), and the
+whole forward through the kernels to the forward through the plain
+versions within ``chip_smoke.FORWARD_LIMIT``.
+
+The forecaster kernels and the kernel-path forward are also held against
+the JAX package's own functions (``_layernorm``, ``_attention``,
+``jax.nn.gelu``, the jitted ``forward`` on its ``init_params(PRNGKey(0))``)
+run on the CPU beside the card, on the same numpy-made inputs.
 """
 
 import numpy as np
@@ -15,7 +29,9 @@ import torch
 
 import chip_smoke
 from chanamq_tpu.router import compile as ref_compile
+from chanamq_tpu_torch.kernels import forecaster as fk
 from chanamq_tpu_torch.kernels import router_match as rm
+from chanamq_tpu_torch.models import forecaster as port_fc
 from chanamq_tpu_torch.router.tables import tables_from_numpy
 
 pytestmark = pytest.mark.gpu
@@ -95,3 +111,224 @@ def test_kernel_rejects_bad_input(cuda):
     with pytest.raises(ValueError):
         rm.topic_match(t["pre"], t["suf"], t["plen"], t["slen"],
                        t["has_hash"], t["masks"], pre_m.cpu(), suf_m, mlen)
+
+
+# (B, T, d_model, heads, d_ff): the flagship at the service's batch and
+# __graft_entry__'s, the tests' small config, odd batch and window, a head
+# width of 6 (odd pairs a row), and a window of 200 at head width 128
+# (above 48 KB of shared memory)
+FORECASTER_SHAPES = [(1, 64, 256, 4, 1024), (32, 64, 256, 4, 1024),
+                     (2, 8, 32, 4, 64), (3, 33, 64, 2, 100),
+                     (2, 17, 12, 2, 25), (1, 200, 256, 2, 8)]
+
+
+@pytest.mark.parametrize("b,t,d,heads,f", FORECASTER_SHAPES)
+def test_forecaster_kernels_match_plain(cuda, b, t, d, heads, f):
+    cfg = port_fc.ForecasterConfig(seq_len=t, d_model=d, n_heads=heads,
+                                   d_ff=f)
+    gen = torch.Generator().manual_seed(b * 1000 + t)
+    inputs = chip_smoke.forecaster_inputs(gen, cfg, b, cuda)
+    for name in chip_smoke.FORECASTER_KERNELS:
+        args = inputs[name]
+        if name == "layernorm" and d % 8:
+            with pytest.raises(ValueError):
+                fk.layernorm(*args)
+            continue
+        kern = getattr(fk, name)
+        before = kern.launches
+        got = kern(*args)
+        torch.cuda.synchronize()
+        assert kern.launches == before + 1
+        want = getattr(fk, f"{name}_ref")(*args)
+        assert got.dtype == torch.bfloat16 and got.shape == want.shape
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= chip_smoke.forecaster_limit(name, want), (name, err)
+
+
+@pytest.mark.parametrize("b", [1, 32])
+def test_forecaster_forward_matches_plain(cuda, b):
+    port_fc.set_matmul_precision()
+    cfg = port_fc.ForecasterConfig()
+    params = port_fc.init_params(torch.Generator().manual_seed(0), cfg, cuda)
+    x, _ = port_fc.synthetic_batch(np.random.default_rng(b), cfg, b, cuda)
+    before = (fk.layernorm.launches, fk.causal_attention.launches,
+              fk.gelu_tanh.launches)
+    got = port_fc.forward(params, x, cfg)
+    torch.cuda.synchronize()
+    assert (fk.layernorm.launches, fk.causal_attention.launches,
+            fk.gelu_tanh.launches) == tuple(
+                n + k for n, k in zip(before, (8, 4, 4)))
+    want = port_fc.forward(params, x, cfg, ops=fk.PLAIN)
+    assert got.shape == (b, 8) and torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= chip_smoke.FORWARD_LIMIT
+
+
+def test_forecaster_kernels_reject_bad_input(cuda):
+    x = torch.zeros(2, 64, 256, dtype=torch.float32, device=cuda)
+    with pytest.raises(TypeError):  # bf16 only
+        fk.layernorm(x, torch.ones(256, device=cuda))
+    with pytest.raises(TypeError):
+        fk.gelu_tanh(x)
+    with pytest.raises(ValueError):  # scale on the wrong device
+        fk.layernorm(x.bfloat16(), torch.ones(256))
+    with pytest.raises(ValueError):  # not [B, T, 3 * heads * head_dim]
+        fk.causal_attention(torch.zeros(2, 64, 100, dtype=torch.bfloat16,
+                                        device=cuda), 4)
+    with pytest.raises(ValueError):  # not contiguous
+        fk.gelu_tanh(torch.zeros(64, 32, dtype=torch.bfloat16,
+                                 device=cuda).t())
+
+
+
+# -- the forecaster against the JAX package -------------------------------------
+
+
+# the forward's batches: the service's window, and __graft_entry__'s batch
+JAX_FORWARD_BATCHES = (1, 32)
+# against the JAX package, max abs error: two bf16 steps at the op's
+# largest output (one from a float32 sum taken in another order, one more
+# as JAX computes GELU in bf16 with bf16 constants), and for the forward
+# the limit the CPU tests hold the plain path to
+JAX_OP_STEPS = 2
+
+
+def jax_kernel_inputs() -> dict:
+    """The kernels' inputs at the service's flagship shapes (batch 1),
+    float32 numpy from a fixed seed: ``ln_x`` and ``ln_scale``; ``attn_a``
+    and ``attn_w``, whose bf16 product the reference's ``_attention``
+    forms; ``gelu_x``. The bf16 inputs are these rounded to bf16, by torch
+    and by JAX alike."""
+    rng = np.random.default_rng(2024)
+    cfg = port_fc.ForecasterConfig()
+    t, d, f = cfg.seq_len, cfg.d_model, cfg.d_ff
+
+    def normal(*shape, std=1.0, mean=0.0):
+        return (mean + std * rng.normal(size=shape)).astype(np.float32)
+
+    return {"ln_x": normal(1, t, d, std=2.0, mean=0.5),
+            "ln_scale": normal(d, std=0.1, mean=1.0),
+            "attn_a": normal(1, t, d),
+            "attn_w": normal(d, 3 * d, std=d ** -0.5),
+            "gelu_x": normal(1, t, f, std=2.0)}
+
+
+def _bf16_from_jax(a) -> torch.Tensor:
+    bits = np.asarray(a).view(np.int16).copy()
+    return torch.from_numpy(bits).view(torch.bfloat16)
+
+
+def jax_kernel_outputs(inputs: dict) -> dict:
+    """The JAX package's functions on ``inputs``, on the CPU, as bf16 CPU
+    tensors: ``_layernorm``; the fused qkv product (``fused``) and
+    ``_attention``'s core, which is ``_attention`` with an identity
+    ``proj`` (a product with one non-zero term changes no bf16 value);
+    ``jax.nn.gelu``."""
+    import jax
+    import jax.numpy as jnp
+
+    from chanamq_tpu.models import forecaster as ref
+
+    cfg = ref.ForecasterConfig()
+    bf16 = jnp.bfloat16
+    a = jnp.asarray(inputs["attn_a"], bf16)
+    w = jnp.asarray(inputs["attn_w"])
+    out = {
+        "layernorm": ref._layernorm(jnp.asarray(inputs["ln_x"], bf16),
+                                    jnp.asarray(inputs["ln_scale"])),
+        # the expression _attention's first line evaluates
+        "fused": jnp.einsum("btd,de->bte", a, w.astype(bf16)),
+        "causal_attention": ref._attention(
+            a, w, jnp.eye(cfg.d_model, dtype=jnp.float32), cfg),
+        "gelu_tanh": jax.nn.gelu(jnp.asarray(inputs["gelu_x"], bf16)),
+    }
+    return {k: _bf16_from_jax(v) for k, v in out.items()}
+
+
+def jax_forward(b: int) -> tuple:
+    """The JAX package's flagship ``forward`` (jitted, on the CPU) on its
+    own ``init_params(PRNGKey(0))`` and a window of ``b`` from a numpy
+    seed. Returns (parameters as numpy, x, the forecast)."""
+    import jax
+
+    from chanamq_tpu.models import forecaster as ref
+
+    cfg = ref.ForecasterConfig()
+    params = ref.init_params(jax.random.PRNGKey(0), cfg)
+    x = np.random.default_rng(b).normal(
+        size=(b, cfg.seq_len, cfg.n_features)).astype(np.float32)
+    want = np.asarray(jax.jit(lambda p, x: ref.forward(p, x, cfg))(
+        params, x))
+    return {k: np.asarray(v) for k, v in params.items()}, x, want
+
+
+def kernel_args_for_jax(name: str, inputs: dict, outputs: dict,
+                        device) -> tuple:
+    """A forecaster kernel's arguments for ``jax_kernel_inputs()``: the
+    attention takes the reference's own fused product, so both sides
+    start from the same bits."""
+    bf16 = torch.bfloat16
+    if name == "layernorm":
+        return (torch.from_numpy(inputs["ln_x"]).to(device, bf16),
+                torch.from_numpy(inputs["ln_scale"]).to(device))
+    if name == "causal_attention":
+        return (outputs["fused"].to(device),
+                port_fc.ForecasterConfig().n_heads)
+    return (torch.from_numpy(inputs["gelu_x"]).to(device, bf16),)
+
+
+def jax_op_limit(want: torch.Tensor) -> float:
+    return JAX_OP_STEPS * chip_smoke.bf16_ulp(
+        float(want.float().abs().max()))
+
+
+@pytest.mark.parametrize("name", chip_smoke.FORECASTER_KERNELS)
+def test_forecaster_kernels_match_jax(cuda, record_property, name):
+    """Each kernel on the card against the JAX package's function on the
+    same bf16 inputs at the service's flagship shapes."""
+    inputs = jax_kernel_inputs()
+    outputs = jax_kernel_outputs(inputs)
+    kern = getattr(fk, name)
+    before = kern.launches
+    got = kern(*kernel_args_for_jax(name, inputs, outputs, cuda))
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    want = outputs[name]
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    err = float((got.cpu().float() - want.float()).abs().max())
+    record_property("max_abs_err", err)
+    record_property("limit", jax_op_limit(want))
+    assert err <= jax_op_limit(want), (name, err)
+
+
+@pytest.mark.parametrize("b", JAX_FORWARD_BATCHES)
+def test_forecaster_forward_matches_jax(cuda, record_property, b):
+    """The flagship forward through the kernels on the card against the
+    JAX package's jitted forward on the CPU, on the JAX package's
+    ``init_params(PRNGKey(0))`` carried across by ``params_from_numpy``."""
+    port_fc.set_matmul_precision()
+    params, x, want = jax_forward(b)
+    cfg = port_fc.ForecasterConfig()
+    got = port_fc.forward(port_fc.params_from_numpy(params, cfg, cuda),
+                          torch.from_numpy(x).to(cuda), cfg)
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    err = float(np.abs(got.cpu().numpy() - want).max())
+    record_property("max_abs_err", err)
+    record_property("max_abs_out", float(np.abs(want).max()))
+    assert err <= chip_smoke.FORWARD_LIMIT, err
+
+
+def test_forward_refuses_reduced_precision_products(cuda):
+    """With torch's default bf16 reductions the products would not
+    accumulate in float32 as the reference's do: forward raises."""
+    cfg = port_fc.ForecasterConfig(seq_len=8, d_model=32, n_heads=4,
+                                   d_ff=64, n_layers=1)
+    params = port_fc.init_params(torch.Generator().manual_seed(0), cfg, cuda)
+    x = torch.zeros(1, 8, 8, device=cuda)
+    flags = torch.backends.cuda.matmul
+    try:
+        flags.allow_bf16_reduced_precision_reduction = True
+        with pytest.raises(RuntimeError, match="set_matmul_precision"):
+            port_fc.forward(params, x, cfg)
+    finally:
+        port_fc.set_matmul_precision()
+    assert torch.isfinite(port_fc.forward(params, x, cfg)).all()
