@@ -1,0 +1,650 @@
+// Forecaster training kernels for Hopper (sm_90a): the backward passes of
+// layernorm, causal attention and tanh-GELU, and the clipped momentum SGD
+// update, the non-product steps of the telemetry forecaster's train step.
+// The products' gradients stay plain matrix products, as the reference
+// leaves them to XLA.
+//
+// What they replace. chanamq_tpu/models/forecaster.py::make_train_step's
+// step (forecaster.py:130-157), the XLA-jitted program the forecast service
+// runs for every train step (models/service.py:277): the gradients JAX's
+// autodiff derives for _layernorm (:77), the attention core of _attention
+// (:88-99) and jax.nn.gelu (:116), and the global-norm clip, momentum and
+// SGD update (:142-152). Each computes what the reference computes, at the
+// reference's rounding points: bf16 cotangents in and out, float32 inside,
+// float32 parameters, momentum and gradients.
+//
+// What bounds them on this card. All four move far more bytes than they do
+// operations. The three backward passes read a few bf16 tensors and write
+// one; the attention backward does about 4 * head_dim multiply-adds a
+// causal pair, under the ~295 operations a byte at which the tensor cores
+// would become the limit. The update reads the gradients twice (once for
+// the global norm, once to apply it), reads the parameters and the
+// momentum and writes both: 6 * 4 bytes a parameter, 76 MB at the flagship
+// width, and it is the one kernel of the step whose bytes take real time.
+//
+// What the design does about it. Nothing is staged through device memory
+// that the reference does not also produce, and every cross-block sum is
+// deterministic (per-block partials, then the last block to finish sums
+// them in a fixed order; no float atomics), so a run repeats bit for bit
+// and each kernel can be held against its plain version. Layernorm keeps a
+// row in registers and recomputes its statistics from x; attention
+// recomputes the softmax from q and k exactly as csrc/forecaster.cu's
+// forward does and writes dq | dk | dv straight into the fused [B, T, 3D]
+// cotangent of the qkv product; GELU is one pass of 16-byte loads; the
+// update walks all parameter tensors in one launch from a table of
+// pointers passed by value, two launches a step in all. This is the first,
+// simple design: attention runs one block per (batch, head) on CUDA cores.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define CHANA_LNB_WARPS 8
+#define CHANA_LNB_CHUNKS 4  // 16-byte chunks a lane holds: D <= 4 * 256
+#define CHANA_LNB_ROWS 32   // rows a block takes: 4 a warp
+#define CHANA_ATTB_WARPS 8
+#define CHANA_GELU_THREADS 256
+#define CHANA_UPD_THREADS 256
+#define CHANA_UPD_PER_THREAD 16
+#define CHANA_UPD_CHUNK (CHANA_UPD_THREADS * CHANA_UPD_PER_THREAD)
+#define CHANA_UPD_MAX_TENSORS 96
+
+namespace {
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  }
+  return v;
+}
+
+__device__ __forceinline__ float2 pair_to_float2(uint32_t w) {
+  __nv_bfloat162 p;
+  *reinterpret_cast<uint32_t*>(&p) = w;
+  return __bfloat1622float2(p);
+}
+
+__device__ __forceinline__ uint32_t float2_to_pair(float a, float b) {
+  __nv_bfloat162 p = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<uint32_t*>(&p);
+}
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// Sum of one float a thread over the block (blockDim.x a multiple of 32,
+// at most 1024), in a fixed order; every thread gets the total.
+__device__ float block_sum(float v, float* scratch) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  v = warp_sum(v);
+  __syncthreads();  // scratch may still be read from an earlier call
+  if (lane == 0) scratch[warp] = v;
+  __syncthreads();
+  float total = 0.f;
+  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) total += scratch[w];
+  return total;
+}
+
+// True in the block that finishes last, after every block has written its
+// partials (the threadfence-reduction pattern: an integer counter, so the
+// order of the final sum does not depend on which block is last).
+__device__ bool last_block(unsigned int* counter) {
+  __shared__ bool is_last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    is_last = atomicAdd(counter, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  return is_last;
+}
+
+// -- layernorm backward -----------------------------------------------------
+//
+// y = bf16(xhat * scale), xhat = (x - mean) * rsqrt(var + eps), float32
+// statistics recomputed from x as the forward computes them. With g = dy *
+// scale (dy read as float32, the cotangent of the forward's cast):
+//   dx     = bf16(rstd * (g - mean(g) - xhat * mean(g * xhat)))
+//   dscale = sum over rows of dy * xhat                     (float32)
+// One warp a row, lane l holding the 8 values at columns 8 * (32 * c + l);
+// each lane keeps its columns' dscale sums over the block's rows, the warps'
+// sums meet in shared memory, each block writes one partial row, and the
+// last block sums the partial rows in block order.
+
+__global__ void __launch_bounds__(CHANA_LNB_WARPS * 32) layernorm_bwd_kernel(
+    const __nv_bfloat16* __restrict__ dy, const __nv_bfloat16* __restrict__ x,
+    const float* __restrict__ scale, __nv_bfloat16* __restrict__ dx,
+    float* __restrict__ partial, float* __restrict__ dscale,
+    unsigned int* __restrict__ counter, int R, int D, float eps) {
+  __shared__ float s_ds[CHANA_LNB_WARPS][CHANA_LNB_CHUNKS * 256];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  float ds[CHANA_LNB_CHUNKS][8];
+#pragma unroll
+  for (int c = 0; c < CHANA_LNB_CHUNKS; ++c) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) ds[c][k] = 0.f;
+  }
+  const int row0 = blockIdx.x * CHANA_LNB_ROWS;
+  for (int row = row0 + warp; row < min(row0 + CHANA_LNB_ROWS, R);
+       row += CHANA_LNB_WARPS) {
+    const size_t off = (size_t)row * D;
+    float xv[CHANA_LNB_CHUNKS][8], gv[CHANA_LNB_CHUNKS][8];
+    float sum = 0.f;
+#pragma unroll
+    for (int c = 0; c < CHANA_LNB_CHUNKS; ++c) {
+      const int col = (c * 32 + lane) * 8;
+      if (col < D) {
+        const uint4 rx = *reinterpret_cast<const uint4*>(x + off + col);
+        const uint4 rd = *reinterpret_cast<const uint4*>(dy + off + col);
+        const uint32_t wx[4] = {rx.x, rx.y, rx.z, rx.w};
+        const uint32_t wd[4] = {rd.x, rd.y, rd.z, rd.w};
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const float2 fx = pair_to_float2(wx[k]);
+          const float2 fd = pair_to_float2(wd[k]);
+          xv[c][2 * k] = fx.x;
+          xv[c][2 * k + 1] = fx.y;
+          gv[c][2 * k] = fd.x;  // dy for now; times scale below
+          gv[c][2 * k + 1] = fd.y;
+          sum += fx.x + fx.y;
+        }
+      }
+    }
+    const float mu = warp_sum(sum) / (float)D;
+    float sq = 0.f;
+#pragma unroll
+    for (int c = 0; c < CHANA_LNB_CHUNKS; ++c) {
+      if ((c * 32 + lane) * 8 < D) {
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const float d = xv[c][k] - mu;
+          sq += d * d;
+        }
+      }
+    }
+    const float rstd = rsqrtf(warp_sum(sq) / (float)D + eps);
+    float sg = 0.f, sgx = 0.f;
+#pragma unroll
+    for (int c = 0; c < CHANA_LNB_CHUNKS; ++c) {
+      const int col = (c * 32 + lane) * 8;
+      if (col < D) {
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const float xh = (xv[c][k] - mu) * rstd;
+          ds[c][k] += gv[c][k] * xh;
+          const float g = gv[c][k] * scale[col + k];
+          xv[c][k] = xh;
+          gv[c][k] = g;
+          sg += g;
+          sgx += g * xh;
+        }
+      }
+    }
+    const float mg = warp_sum(sg) / (float)D;
+    const float mgx = warp_sum(sgx) / (float)D;
+#pragma unroll
+    for (int c = 0; c < CHANA_LNB_CHUNKS; ++c) {
+      const int col = (c * 32 + lane) * 8;
+      if (col < D) {
+        uint32_t w[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          w[k] = float2_to_pair(
+              rstd * (gv[c][2 * k] - mg - xv[c][2 * k] * mgx),
+              rstd * (gv[c][2 * k + 1] - mg - xv[c][2 * k + 1] * mgx));
+        }
+        *reinterpret_cast<uint4*>(dx + off + col) =
+            make_uint4(w[0], w[1], w[2], w[3]);
+      }
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < CHANA_LNB_CHUNKS; ++c) {
+    const int col = (c * 32 + lane) * 8;
+    if (col < D) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) s_ds[warp][col + k] = ds[c][k];
+    }
+  }
+  __syncthreads();
+  for (int col = threadIdx.x; col < D; col += blockDim.x) {
+    float s = 0.f;
+    for (int w = 0; w < CHANA_LNB_WARPS; ++w) s += s_ds[w][col];
+    partial[(size_t)blockIdx.x * D + col] = s;
+  }
+  if (last_block(counter)) {
+    for (int col = threadIdx.x; col < D; col += blockDim.x) {
+      float s = 0.f;
+      for (unsigned b = 0; b < gridDim.x; ++b) {
+        s += __ldcg(partial + (size_t)b * D + col);
+      }
+      dscale[col] = s;
+    }
+    if (threadIdx.x == 0) *counter = 0u;  // ready for the next launch
+  }
+}
+
+// -- causal attention backward ----------------------------------------------
+//
+// qkv [B, T, 3D] and dout [B, T, D] -> dqkv [B, T, 3D], the cotangent of the
+// fused qkv product (dq | dk | dv, head h at columns h * HD of each third).
+// One block per (b, h); the head's q, k, v and dout are staged in shared
+// memory as bf16 pairs with an odd row stride. Each warp takes query rows
+// i = warp, warp + WARPS, ...; its lanes take keys j = lane, lane + 32, ...
+// <= i and recompute the forward's softmax exactly as the forward kernel
+// does (logit = float(bf16(q_i . k_j)) / sqrt(HD), float32 softmax y), then
+//   dW_j  = bf16(dout_i . v_j)                 (the second einsum's cotangent)
+//   u_j   = y_j * dW_j,  dl_j = u_j - y_j * sum_j u_j     (softmax's jvp rule,
+//           transposed: it differentiates through the float32 y)
+//   dlog  = bf16(dl_j / sqrt(HD))   (the cotangent of the logits' bf16 cast)
+// and keeps W = bf16(y) and dlog as [T, T] float matrices in shared memory;
+// masked entries (j > i) are never read. Then, with lanes over columns:
+//   dq_i = bf16(sum_j<=i dlog_ij k_j),  dk_j = bf16(sum_i>=j dlog_ij q_i),
+//   dv_j = bf16(sum_i>=j W_ij dout_i).
+
+__global__ void __launch_bounds__(CHANA_ATTB_WARPS * 32)
+    causal_attention_bwd_kernel(const __nv_bfloat16* __restrict__ qkv,
+                                const __nv_bfloat16* __restrict__ dout,
+                                __nv_bfloat16* __restrict__ dqkv, int T,
+                                int H, int HD, float scale_div) {
+  extern __shared__ uint32_t smem[];
+  const int hw = HD / 2;
+  const int ld = (hw % 2 == 0) ? hw + 1 : hw;
+  uint32_t* s_q = smem;
+  uint32_t* s_k = s_q + T * ld;
+  uint32_t* s_v = s_k + T * ld;
+  uint32_t* s_do = s_v + T * ld;
+  float* s_w = reinterpret_cast<float*>(s_do + T * ld);  // [T][T]
+  float* s_dl = s_w + T * T;                              // [T][T]
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x - b * H;
+  const int D = H * HD;
+  const size_t row_words = (size_t)3 * D / 2;
+  const uint32_t* src =
+      reinterpret_cast<const uint32_t*>(qkv) + (size_t)b * T * row_words;
+  const uint32_t* dsrc =
+      reinterpret_cast<const uint32_t*>(dout) + (size_t)b * T * (D / 2);
+  const int per_part = T * hw;
+  for (int idx = threadIdx.x; idx < 4 * per_part; idx += blockDim.x) {
+    const int part = idx / per_part;  // 0 q, 1 k, 2 v, 3 dout
+    const int rem = idx - part * per_part;
+    const int t = rem / hw;
+    const int c = rem - t * hw;
+    smem[part * T * ld + t * ld + c] =
+        part < 3 ? src[t * row_words + (part * D + h * HD) / 2 + c]
+                 : dsrc[(size_t)t * (D / 2) + h * hw + c];
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  for (int i = warp; i < T; i += CHANA_ATTB_WARPS) {
+    const uint32_t* q_i = s_q + i * ld;
+    const uint32_t* do_i = s_do + i * ld;
+    float* w_row = s_w + i * T;
+    float* d_row = s_dl + i * T;
+    float mx = __int_as_float(0xff800000);  // -inf
+    for (int j = lane; j <= i; j += 32) {
+      const uint32_t* k_j = s_k + j * ld;
+      float acc = 0.f;
+      for (int c = 0; c < hw; ++c) {
+        const float2 qf = pair_to_float2(q_i[c]);
+        const float2 kf = pair_to_float2(k_j[c]);
+        acc = fmaf(qf.x, kf.x, acc);
+        acc = fmaf(qf.y, kf.y, acc);
+      }
+      const float logit = round_bf16(acc) / scale_div;
+      w_row[j] = logit;
+      mx = fmaxf(mx, logit);
+    }
+    mx = warp_max(mx);
+    float sum = 0.f;
+    for (int j = lane; j <= i; j += 32) {
+      const float e = expf(w_row[j] - mx);
+      w_row[j] = e;
+      sum += e;
+    }
+    sum = warp_sum(sum);
+    float su = 0.f;
+    for (int j = lane; j <= i; j += 32) {
+      const uint32_t* v_j = s_v + j * ld;
+      float acc = 0.f;
+      for (int c = 0; c < hw; ++c) {
+        const float2 df = pair_to_float2(do_i[c]);
+        const float2 vf = pair_to_float2(v_j[c]);
+        acc = fmaf(df.x, vf.x, acc);
+        acc = fmaf(df.y, vf.y, acc);
+      }
+      const float y = w_row[j] / sum;
+      const float dw = round_bf16(acc);
+      d_row[j] = y;
+      w_row[j] = dw;
+      su += y * dw;
+    }
+    su = warp_sum(su);
+    for (int j = lane; j <= i; j += 32) {
+      const float y = d_row[j];
+      const float u = y * w_row[j];
+      d_row[j] = round_bf16((u - y * su) / scale_div);
+      w_row[j] = round_bf16(y);
+    }
+  }
+  __syncthreads();
+
+  uint32_t* dst = reinterpret_cast<uint32_t*>(dqkv) + (size_t)b * T * row_words;
+  for (int r = warp; r < T; r += CHANA_ATTB_WARPS) {
+    for (int c = lane; c < hw; c += 32) {
+      float qx = 0.f, qy = 0.f;  // dq_r: keys j <= r
+      for (int j = 0; j <= r; ++j) {
+        const float d = s_dl[r * T + j];
+        const float2 kf = pair_to_float2(s_k[j * ld + c]);
+        qx = fmaf(d, kf.x, qx);
+        qy = fmaf(d, kf.y, qy);
+      }
+      float kx = 0.f, ky = 0.f, vx = 0.f, vy = 0.f;  // dk_r, dv_r: i >= r
+      for (int i = r; i < T; ++i) {
+        const float d = s_dl[i * T + r];
+        const float w = s_w[i * T + r];
+        const float2 qf = pair_to_float2(s_q[i * ld + c]);
+        const float2 df = pair_to_float2(s_do[i * ld + c]);
+        kx = fmaf(d, qf.x, kx);
+        ky = fmaf(d, qf.y, ky);
+        vx = fmaf(w, df.x, vx);
+        vy = fmaf(w, df.y, vy);
+      }
+      uint32_t* row = dst + (size_t)r * row_words + h * hw + c;
+      row[0] = float2_to_pair(qx, qy);
+      row[D / 2] = float2_to_pair(kx, ky);
+      row[D] = float2_to_pair(vx, vy);
+    }
+  }
+}
+
+// -- tanh-GELU backward -----------------------------------------------------
+//
+// dx = bf16(dy * (0.5 (1 + tanh u) + 0.5 x (1 - tanh^2 u) k (1 + 3 a x^2))),
+// u = k (x + a x^3), k = sqrt(2/pi), a = 0.044715, in float32: the
+// derivative of jax.nn.gelu's tanh form, rounded once. 8 values a thread
+// from one 16-byte load of each input; the tail one value at a time.
+
+__device__ __forceinline__ float gelu_tanh_grad(float x) {
+  const float k = 0.7978845608028654f;  // sqrt(2 / pi)
+  const float a = 0.044715f;  // 3 a = 0.134145
+  const float x2 = x * x;
+  const float t = tanhf(k * (x + a * (x2 * x)));
+  return 0.5f * (1.0f + t) +
+         0.5f * x * (1.0f - t * t) * k * (1.0f + 0.134145f * x2);
+}
+
+__global__ void __launch_bounds__(CHANA_GELU_THREADS) gelu_tanh_bwd_kernel(
+    const __nv_bfloat16* __restrict__ dy, const __nv_bfloat16* __restrict__ x,
+    __nv_bfloat16* __restrict__ dx, long long N) {
+  const long long base =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) * 8;
+  if (base + 8 <= N) {
+    const uint4 rx = *reinterpret_cast<const uint4*>(x + base);
+    const uint4 rd = *reinterpret_cast<const uint4*>(dy + base);
+    const uint32_t wx[4] = {rx.x, rx.y, rx.z, rx.w};
+    const uint32_t wd[4] = {rd.x, rd.y, rd.z, rd.w};
+    uint32_t o[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float2 fx = pair_to_float2(wx[k]);
+      const float2 fd = pair_to_float2(wd[k]);
+      o[k] = float2_to_pair(fd.x * gelu_tanh_grad(fx.x),
+                            fd.y * gelu_tanh_grad(fx.y));
+    }
+    *reinterpret_cast<uint4*>(dx + base) = make_uint4(o[0], o[1], o[2], o[3]);
+  } else {
+    for (long long n = base; n < N; ++n) {
+      dx[n] = __float2bfloat16_rn(__bfloat162float(dy[n]) *
+                                  gelu_tanh_grad(__bfloat162float(x[n])));
+    }
+  }
+}
+
+// -- clip + momentum + SGD --------------------------------------------------
+//
+// Over every parameter tensor t (float32 p, m, g of n[t] values):
+//   sq = sum over all tensors of sum g^2                 (launch 1)
+//   s  = min(1, clip * rsqrt(sq + 1e-12))     (no clip: s = 1; launch 2 ...)
+//   m  = 0.9 m + g * s,  p = p - lr * m      (... in place, each op rounded
+//        as written: __fmul_rn / __fadd_rn keep nvcc from fusing them)
+// The tensors come as a table of pointers and sizes passed by value; block
+// k takes 4096 values of the tensor whose block range holds k. Launch 1
+// writes one partial sum a block and its last block sums them in block
+// order into sq; launch 2 reads sq on the device, so the step needs no host
+// sync, and block 0 also writes s.
+
+struct TensorTable {
+  float* p[CHANA_UPD_MAX_TENSORS];
+  float* m[CHANA_UPD_MAX_TENSORS];
+  const float* g[CHANA_UPD_MAX_TENSORS];
+  long long n[CHANA_UPD_MAX_TENSORS];
+  int first_block[CHANA_UPD_MAX_TENSORS + 1];
+  int count;
+};
+
+__device__ __forceinline__ int tensor_of_block(const TensorTable& tab,
+                                               int blk) {
+  int t = 0;
+  while (t + 1 < tab.count && tab.first_block[t + 1] <= blk) ++t;
+  return t;
+}
+
+__global__ void __launch_bounds__(CHANA_UPD_THREADS) sumsq_kernel(
+    const TensorTable tab, float* __restrict__ partial,
+    float* __restrict__ sq, unsigned int* __restrict__ counter) {
+  __shared__ float scratch[CHANA_UPD_THREADS / 32];
+  const int t = tensor_of_block(tab, blockIdx.x);
+  const long long base =
+      (long long)(blockIdx.x - tab.first_block[t]) * CHANA_UPD_CHUNK;
+  const float* g = tab.g[t];
+  const long long n = tab.n[t];
+  float acc = 0.f;
+#pragma unroll 4
+  for (int k = 0; k < CHANA_UPD_PER_THREAD; ++k) {
+    const long long idx = base + (long long)k * CHANA_UPD_THREADS + threadIdx.x;
+    if (idx < n) {
+      const float v = g[idx];
+      acc = fmaf(v, v, acc);
+    }
+  }
+  const float total = block_sum(acc, scratch);
+  if (threadIdx.x == 0) partial[blockIdx.x] = total;
+  if (last_block(counter)) {
+    float s = 0.f;
+    for (unsigned b = threadIdx.x; b < gridDim.x; b += blockDim.x) {
+      s += __ldcg(partial + b);
+    }
+    s = block_sum(s, scratch);
+    if (threadIdx.x == 0) {
+      sq[0] = s;
+      *counter = 0u;  // ready for the next launch
+    }
+  }
+}
+
+__global__ void __launch_bounds__(CHANA_UPD_THREADS) momentum_sgd_kernel(
+    const TensorTable tab, const float* __restrict__ sq,
+    float* __restrict__ scale_out, float clip, int has_clip, float lr,
+    float beta) {
+  float s = 1.0f;
+  if (has_clip) {
+    s = fminf(1.0f, __fmul_rn(clip, __frsqrt_rn(__fadd_rn(sq[0], 1e-12f))));
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) scale_out[0] = s;
+  const int t = tensor_of_block(tab, blockIdx.x);
+  const long long base =
+      (long long)(blockIdx.x - tab.first_block[t]) * CHANA_UPD_CHUNK;
+  float* p = tab.p[t];
+  float* m = tab.m[t];
+  const float* g = tab.g[t];
+  const long long n = tab.n[t];
+#pragma unroll 4
+  for (int k = 0; k < CHANA_UPD_PER_THREAD; ++k) {
+    const long long idx = base + (long long)k * CHANA_UPD_THREADS + threadIdx.x;
+    if (idx < n) {
+      const float gs = __fmul_rn(g[idx], s);
+      const float mm = __fadd_rn(__fmul_rn(beta, m[idx]), gs);
+      m[idx] = mm;
+      p[idx] = __fsub_rn(p[idx], __fmul_rn(lr, mm));
+    }
+  }
+}
+
+bool fill_table(TensorTable* tab, void* const* p, void* const* m,
+                const void* const* g, const long long* n, int count,
+                int* blocks) {
+  if (count <= 0 || count > CHANA_UPD_MAX_TENSORS) return false;
+  long long total = 0;
+  for (int t = 0; t < count; ++t) {
+    if (n[t] <= 0 || !p[t] || !m[t] || !g[t]) return false;
+    tab->p[t] = (float*)p[t];
+    tab->m[t] = (float*)m[t];
+    tab->g[t] = (const float*)g[t];
+    tab->n[t] = n[t];
+    tab->first_block[t] = (int)total;
+    total += (n[t] + CHANA_UPD_CHUNK - 1) / CHANA_UPD_CHUNK;
+    if (total > 0x7fffffffLL) return false;
+  }
+  tab->first_block[count] = (int)total;
+  tab->count = count;
+  *blocks = (int)total;
+  return true;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Each launcher runs on the caller's stream and returns cudaGetLastError()
+// (0 = launched). The Python wrapper checks dtypes, shapes, contiguity and
+// 16-byte alignment, and allocates the outputs and the scratch (partial
+// sums and a zeroed counter); the checks here refuse what the kernels
+// cannot take.
+
+// Partial dscale rows the layernorm backward needs for R rows.
+int chana_layernorm_bwd_blocks(int R) {
+  return R <= 0 ? 0 : (R + CHANA_LNB_ROWS - 1) / CHANA_LNB_ROWS;
+}
+
+int chana_layernorm_bwd(const void* dy, const void* x, const void* scale,
+                        void* dx, void* partial, void* dscale, void* counter,
+                        int R, int D, float eps, void* stream) {
+  if (R <= 0 || D <= 0 || D % 8 != 0 || D > CHANA_LNB_CHUNKS * 256) {
+    return (int)cudaErrorInvalidValue;
+  }
+  layernorm_bwd_kernel<<<chana_layernorm_bwd_blocks(R), CHANA_LNB_WARPS * 32,
+                         0, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)dy, (const __nv_bfloat16*)x, (const float*)scale,
+      (__nv_bfloat16*)dx, (float*)partial, (float*)dscale,
+      (unsigned int*)counter, R, D, eps);
+  return (int)cudaGetLastError();
+}
+
+// Dynamic shared memory the attention backward needs for T rows of head
+// width HD (0 when the shape is refused).
+size_t chana_causal_attention_bwd_smem(int T, int HD) {
+  if (T <= 0 || HD <= 0 || HD % 2 != 0) return 0;
+  const int hw = HD / 2;
+  const int ld = (hw % 2 == 0) ? hw + 1 : hw;
+  return (size_t)(4 * T * ld) * sizeof(uint32_t) +
+         (size_t)2 * T * T * sizeof(float);
+}
+
+int chana_causal_attention_bwd(const void* qkv, const void* dout, void* dqkv,
+                               int B, int T, int H, int HD, float scale_div,
+                               void* stream) {
+  const size_t smem = chana_causal_attention_bwd_smem(T, HD);
+  if (B <= 0 || H <= 0 || smem == 0 || smem > 227 * 1024) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        causal_attention_bwd_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  causal_attention_bwd_kernel<<<B * H, CHANA_ATTB_WARPS * 32, smem,
+                                (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)qkv, (const __nv_bfloat16*)dout,
+      (__nv_bfloat16*)dqkv, T, H, HD, scale_div);
+  return (int)cudaGetLastError();
+}
+
+int chana_gelu_tanh_bwd(const void* dy, const void* x, void* dx, long long N,
+                        void* stream) {
+  if (N <= 0) return (int)cudaErrorInvalidValue;
+  const long long threads = (N + 7) / 8;
+  const long long blocks =
+      (threads + CHANA_GELU_THREADS - 1) / CHANA_GELU_THREADS;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  gelu_tanh_bwd_kernel<<<(unsigned)blocks, CHANA_GELU_THREADS, 0,
+                         (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)dy, (const __nv_bfloat16*)x, (__nv_bfloat16*)dx,
+      N);
+  return (int)cudaGetLastError();
+}
+
+int chana_update_max_tensors(void) { return CHANA_UPD_MAX_TENSORS; }
+
+// Blocks the update takes (one partial sum each) for these tensor sizes;
+// 0 when the table is refused.
+int chana_update_blocks(const long long* n, int count) {
+  if (count <= 0 || count > CHANA_UPD_MAX_TENSORS) return 0;
+  long long total = 0;
+  for (int t = 0; t < count; ++t) {
+    if (n[t] <= 0) return 0;
+    total += (n[t] + CHANA_UPD_CHUNK - 1) / CHANA_UPD_CHUNK;
+  }
+  return total > 0x7fffffffLL ? 0 : (int)total;
+}
+
+// Launch 1: sq[0] = the sum of every g^2 (partial: one float a block,
+// counter: one unsigned int, zero before the first launch; the last
+// block sets it back to zero).
+int chana_sumsq(const void* const* g, const long long* n, int count,
+                void* partial, void* sq, void* counter, void* stream) {
+  TensorTable tab;
+  int blocks = 0;
+  // p and m are not read here: g stands in so the table checks pass
+  if (!fill_table(&tab, (void* const*)g, (void* const*)g, g, n, count,
+                  &blocks)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  sumsq_kernel<<<blocks, CHANA_UPD_THREADS, 0, (cudaStream_t)stream>>>(
+      tab, (float*)partial, (float*)sq, (unsigned int*)counter);
+  return (int)cudaGetLastError();
+}
+
+// Launch 2: the clipped momentum SGD update in place; scale_out[0] = s.
+int chana_momentum_sgd(void* const* p, void* const* m, const void* const* g,
+                       const long long* n, int count, const void* sq,
+                       void* scale_out, float clip, int has_clip, float lr,
+                       float beta, void* stream) {
+  TensorTable tab;
+  int blocks = 0;
+  if (!fill_table(&tab, p, m, g, n, count, &blocks)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  momentum_sgd_kernel<<<blocks, CHANA_UPD_THREADS, 0, (cudaStream_t)stream>>>(
+      tab, (const float*)sq, (float*)scale_out, clip, has_clip, lr, beta);
+  return (int)cudaGetLastError();
+}
+
+const char* chana_cuda_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+}  // extern "C"

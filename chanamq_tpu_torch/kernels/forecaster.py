@@ -5,24 +5,30 @@ non-product steps of ``chanamq_tpu/models/forecaster.py::forward``:
 ``_layernorm`` (scale only, float32 statistics, eps 1e-6), the core of
 ``_attention`` between its two projections (causal mask, float32 softmax,
 bf16 logits and weights), and ``jax.nn.gelu``'s default tanh form.
+``layernorm_bwd``, ``causal_attention_bwd`` and ``gelu_tanh_bwd`` compute
+their gradients as JAX's autodiff of the reference does, for
+``make_train_step`` (forecaster.py:130-157).
 
 On CUDA tensors they launch the hand-written kernels of
-``csrc/forecaster.cu`` (built on first use, see ``build.py``) or raise; the
-kernels take bf16 activations only. On CPU tensors they run the plain
-PyTorch versions ``layernorm_ref``, ``causal_attention_ref`` and
-``gelu_tanh_ref``, in any float dtype. Nothing falls back from one to the
-other.
+``csrc/forecaster.cu`` and ``csrc/forecaster_train.cu`` (built on first
+use, see ``build.py``) or raise; the kernels take bf16 activations only.
+On CPU tensors they run the plain PyTorch versions (``*_ref``), in any
+float dtype. Nothing falls back from one to the other.
 
 Each plain version rounds where the reference rounds: float32 inside, the
 input's dtype out; attention also rounds ``q . k`` and the softmax weights
-to the input's dtype, as the reference's bf16 einsums do.
+to the input's dtype, as the reference's bf16 einsums do, and its backward
+the cotangents of those two einsums.
 
 Each wrapper's ``launches`` attribute counts its kernel launches, and only
 those. ``prepare_*`` check a call's CUDA inputs and bind its launch; the
 wrappers launch what they return, and a timing loop can launch it again
-without the checks (and without counting). ``KERNELS`` and ``PLAIN`` name
-the wrappers and the plain versions as one set of ops, so a caller can run
-the same forward through either.
+without the checks (and without counting). ``LayerNorm``,
+``CausalAttention`` and ``GeluTanh`` are the differentiable ops: each
+forward launches the forward kernel, each backward the backward kernel.
+``KERNELS`` names them and the update kernel (``update.py``) as one set of
+ops, ``PLAIN`` the plain versions (torch autograd differentiates those),
+so a caller can run the same forward or train step through either.
 """
 
 from __future__ import annotations
@@ -33,7 +39,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from . import build
+from . import build, update
 
 EPS = 1e-6  # forecaster.py:81
 GELU_K = math.sqrt(2.0 / math.pi)
@@ -227,6 +233,271 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
 gelu_tanh.launches = 0
 
 
+# -- training: backward passes -------------------------------------------------
+#
+# ``csrc/forecaster_train.cu`` holds the backward kernels of the three ops
+# (a source of its own, so the forward library keeps its hash). Each
+# computes what JAX's autodiff of the reference computes, at its rounding
+# points: the bf16 cotangent read as float32, float32 inside, one rounding
+# to the input's dtype out; attention also rounds the cotangents of its two
+# bf16 einsums (``dout . v`` and the logits) where the reference does.
+
+
+def train_library() -> ctypes.CDLL:
+    """The built ``csrc/forecaster_train.cu``'s backward launchers, typed."""
+    lib, _ = build.load("forecaster_train")
+    if not getattr(lib, "_chana_bwd_typed", False):
+        lib.chana_layernorm_bwd_blocks.argtypes = [_int]
+        lib.chana_layernorm_bwd_blocks.restype = _int
+        lib.chana_layernorm_bwd.argtypes = [_ptr] * 7 + [_int] * 2 + [
+            ctypes.c_float, _ptr]
+        lib.chana_layernorm_bwd.restype = _int
+        lib.chana_causal_attention_bwd.argtypes = [_ptr] * 3 + [_int] * 4 + [
+            ctypes.c_float, _ptr]
+        lib.chana_causal_attention_bwd.restype = _int
+        lib.chana_causal_attention_bwd_smem.argtypes = [_int, _int]
+        lib.chana_causal_attention_bwd_smem.restype = ctypes.c_size_t
+        lib.chana_gelu_tanh_bwd.argtypes = [_ptr] * 3 + [ctypes.c_int64, _ptr]
+        lib.chana_gelu_tanh_bwd.restype = _int
+        lib.chana_cuda_error_string.argtypes = [_int]
+        lib.chana_cuda_error_string.restype = ctypes.c_char_p
+        lib._chana_bwd_typed = True
+    return lib
+
+
+def layernorm_bwd_ref(dy: torch.Tensor, x: torch.Tensor,
+                      scale: torch.Tensor) -> tuple:
+    """Plain PyTorch version of the layernorm backward kernel (any
+    device): ``(dx in x's dtype, dscale float32)`` for the cotangent ``dy``
+    of ``layernorm(x, scale)``."""
+    x32 = x.to(_F32)
+    mu = x32.mean(-1, keepdim=True)
+    var = ((x32 - mu) ** 2).mean(-1, keepdim=True)
+    rstd = torch.rsqrt(var + EPS)
+    xhat = (x32 - mu) * rstd
+    dy32 = dy.to(_F32)
+    dscale = (dy32 * xhat).reshape(-1, x.shape[-1]).sum(0)
+    g = dy32 * scale
+    dx = rstd * (g - g.mean(-1, keepdim=True)
+                 - xhat * (g * xhat).mean(-1, keepdim=True))
+    return dx.to(x.dtype), dscale
+
+
+def prepare_layernorm_bwd(dy: torch.Tensor, x: torch.Tensor,
+                          scale: torch.Tensor):
+    """Check the layernorm backward kernel's CUDA inputs and bind its
+    launch: ``((dx, dscale), launch)``; ``launch`` is None when there is no
+    row (dscale is then 0)."""
+    device = _cuda_device("layernorm_bwd", x)
+    build.check("x", x, _BF16, x.dim(), device)
+    build.check("dy", dy, _BF16, x.dim(), device)
+    build.check_shape("dy", dy, tuple(x.shape))
+    build.check("scale", scale, _F32, 1, device)
+    d = x.shape[-1] if x.dim() else 0
+    build.check_shape("scale", scale, (d,))
+    if d % 8 or not 0 < d <= 1024:
+        raise ValueError(f"layernorm_bwd: width {d}; the kernel takes a "
+                         "multiple of 8 up to 1024")
+    dx = torch.empty_like(x)
+    rows = x.numel() // d
+    if rows == 0:
+        return (dx, torch.zeros(d, dtype=_F32, device=device)), None
+    _aligned("layernorm_bwd", dy, x, dx)
+    lib = train_library()
+    dscale = torch.empty(d, dtype=_F32, device=device)
+    partial = torch.empty((lib.chana_layernorm_bwd_blocks(rows), d),
+                          dtype=_F32, device=device)
+    counter = torch.zeros(1, dtype=torch.int32, device=device)
+    return (dx, dscale), build.launcher(
+        lib, lib.chana_layernorm_bwd, "layernorm_bwd", device,
+        dy.data_ptr(), x.data_ptr(), scale.data_ptr(), dx.data_ptr(),
+        partial.data_ptr(), dscale.data_ptr(), counter.data_ptr(), rows, d,
+        EPS)
+
+
+def layernorm_bwd(dy: torch.Tensor, x: torch.Tensor,
+                  scale: torch.Tensor) -> tuple:
+    """Backward of ``layernorm``: ``(dx, dscale)`` for the cotangent ``dy``
+    (bf16 on a card, ``x``'s shape); ``dscale`` is summed over every row in
+    a fixed order."""
+    if x.device.type == "cpu":
+        return layernorm_bwd_ref(dy, x, scale)
+    out, launch = prepare_layernorm_bwd(dy, x, scale)
+    if launch is not None:
+        launch()
+        layernorm_bwd.launches += 1
+    return out
+
+
+layernorm_bwd.launches = 0
+
+
+def _heads(z: torch.Tensor, n_heads: int) -> torch.Tensor:
+    b, t, d = z.shape
+    return z.reshape(b, t, n_heads, d // n_heads).transpose(1, 2)
+
+
+def causal_attention_bwd_ref(qkv: torch.Tensor, dout: torch.Tensor,
+                             n_heads: int) -> torch.Tensor:
+    """Plain PyTorch version of the attention backward kernel (any
+    device): the cotangent of the fused ``qkv`` product for the cotangent
+    ``dout [B, T, D]`` of ``causal_attention(qkv, n_heads)``."""
+    b, t, d3 = qkv.shape
+    d = d3 // 3
+    hd = d // n_heads
+    q, k, v = (_heads(z, n_heads) for z in qkv.split(d, dim=-1))
+    do = _heads(dout, n_heads)
+    logits = torch.matmul(q, k.transpose(-1, -2)).to(_F32) / math.sqrt(hd)
+    causal = torch.ones(t, t, dtype=torch.bool, device=qkv.device).tril()
+    logits = torch.where(causal, logits, torch.full_like(logits, -1e30))
+    e = torch.exp(logits - logits.amax(-1, keepdim=True))
+    y = e / e.sum(-1, keepdim=True)
+    dw = torch.matmul(do, v.transpose(-1, -2)).to(_F32)
+    u = y * dw
+    dl = u - y * u.sum(-1, keepdim=True)
+    dl = torch.where(causal, dl, torch.zeros_like(dl)) / math.sqrt(hd)
+    dlog = dl.to(qkv.dtype)
+    dq = torch.matmul(dlog, k)
+    dk = torch.matmul(dlog.transpose(-1, -2), q)
+    dv = torch.matmul(y.to(qkv.dtype).transpose(-1, -2), do)
+    return torch.cat([z.transpose(1, 2).reshape(b, t, d)
+                      for z in (dq, dk, dv)], dim=-1)
+
+
+def prepare_causal_attention_bwd(qkv: torch.Tensor, dout: torch.Tensor,
+                                 n_heads: int):
+    """Check the attention backward kernel's CUDA inputs and bind its
+    launch: ``(dqkv, launch)``; ``launch`` is None for an empty batch."""
+    device = _cuda_device("causal_attention_bwd", qkv)
+    build.check("qkv", qkv, _BF16, 3, device)
+    b, t, d3 = qkv.shape
+    if n_heads <= 0 or d3 % (3 * n_heads):
+        raise ValueError(f"causal_attention_bwd: qkv shape "
+                         f"{tuple(qkv.shape)} is not [B, T, 3 * {n_heads} "
+                         "* head_dim]")
+    build.check("dout", dout, _BF16, 3, device)
+    build.check_shape("dout", dout, (b, t, d3 // 3))
+    hd = d3 // 3 // n_heads
+    dqkv = torch.empty_like(qkv)
+    if b == 0 or t == 0:
+        return dqkv, None
+    lib = train_library()
+    smem = lib.chana_causal_attention_bwd_smem(t, hd)
+    if smem == 0 or smem > 227 * 1024:
+        raise ValueError(f"causal_attention_bwd: T={t}, head_dim={hd} does "
+                         "not fit the kernel (even head_dim, shared memory "
+                         "up to 227 KB)")
+    _aligned("causal_attention_bwd", qkv, dout, dqkv)
+    return dqkv, build.launcher(
+        lib, lib.chana_causal_attention_bwd, "causal_attention_bwd", device,
+        qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), b, t, n_heads, hd,
+        math.sqrt(hd))
+
+
+def causal_attention_bwd(qkv: torch.Tensor, dout: torch.Tensor,
+                         n_heads: int) -> torch.Tensor:
+    """Backward of ``causal_attention``: dq | dk | dv in the fused ``[B, T,
+    3D]`` layout of ``qkv``, the cotangent of the qkv product."""
+    if qkv.device.type == "cpu":
+        return causal_attention_bwd_ref(qkv, dout, n_heads)
+    dqkv, launch = prepare_causal_attention_bwd(qkv, dout, n_heads)
+    if launch is not None:
+        launch()
+        causal_attention_bwd.launches += 1
+    return dqkv
+
+
+causal_attention_bwd.launches = 0
+
+
+def gelu_tanh_bwd_ref(dy: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the GELU backward kernel (any device):
+    ``dy * gelu'(x)`` in float32, rounded once to ``x``'s dtype."""
+    x32 = x.to(_F32)
+    x2 = x32 * x32
+    t = torch.tanh(GELU_K * (x32 + 0.044715 * (x2 * x32)))
+    grad = 0.5 * (1.0 + t) + 0.5 * x32 * (1.0 - t * t) * GELU_K * (
+        1.0 + 0.134145 * x2)
+    return (dy.to(_F32) * grad).to(x.dtype)
+
+
+def prepare_gelu_tanh_bwd(dy: torch.Tensor, x: torch.Tensor):
+    """Check the GELU backward kernel's CUDA inputs and bind its launch:
+    ``(dx, launch)``; ``launch`` is None for an empty tensor."""
+    device = _cuda_device("gelu_tanh_bwd", x)
+    build.check("x", x, _BF16, x.dim(), device)
+    build.check("dy", dy, _BF16, x.dim(), device)
+    build.check_shape("dy", dy, tuple(x.shape))
+    dx = torch.empty_like(x)
+    if x.numel() == 0:
+        return dx, None
+    _aligned("gelu_tanh_bwd", dy, x, dx)
+    lib = train_library()
+    return dx, build.launcher(
+        lib, lib.chana_gelu_tanh_bwd, "gelu_tanh_bwd", device, dy.data_ptr(),
+        x.data_ptr(), dx.data_ptr(), x.numel())
+
+
+def gelu_tanh_bwd(dy: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Backward of ``gelu_tanh``: ``dy * gelu'(x)``, in ``x``'s dtype."""
+    if x.device.type == "cpu":
+        return gelu_tanh_bwd_ref(dy, x)
+    dx, launch = prepare_gelu_tanh_bwd(dy, x)
+    if launch is not None:
+        launch()
+        gelu_tanh_bwd.launches += 1
+    return dx
+
+
+gelu_tanh_bwd.launches = 0
+
+
+# -- differentiable ops ----------------------------------------------------------
+
+
+class LayerNorm(torch.autograd.Function):
+    """``layernorm`` whose backward is ``layernorm_bwd``."""
+
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.save_for_backward(x, scale)
+        return layernorm(x, scale)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        return layernorm_bwd(dy.contiguous(), x, scale)
+
+
+class CausalAttention(torch.autograd.Function):
+    """``causal_attention`` whose backward is ``causal_attention_bwd``."""
+
+    @staticmethod
+    def forward(ctx, qkv, n_heads):
+        ctx.save_for_backward(qkv)
+        ctx.n_heads = n_heads
+        return causal_attention(qkv, n_heads)
+
+    @staticmethod
+    def backward(ctx, dout):
+        (qkv,) = ctx.saved_tensors
+        return causal_attention_bwd(qkv, dout.contiguous(), ctx.n_heads), None
+
+
+class GeluTanh(torch.autograd.Function):
+    """``gelu_tanh`` whose backward is ``gelu_tanh_bwd``."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return gelu_tanh(x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        (x,) = ctx.saved_tensors
+        return gelu_tanh_bwd(dy.contiguous(), x)
+
+
 # -- op sets -----------------------------------------------------------------
 
 
@@ -234,7 +505,10 @@ class Ops(NamedTuple):
     layernorm: Callable
     causal_attention: Callable
     gelu_tanh: Callable
+    update: Callable  # clip + momentum + SGD, kernels/update.py
 
 
-KERNELS = Ops(layernorm, causal_attention, gelu_tanh)
-PLAIN = Ops(layernorm_ref, causal_attention_ref, gelu_tanh_ref)
+KERNELS = Ops(LayerNorm.apply, CausalAttention.apply, GeluTanh.apply,
+              update.clip_momentum_sgd)
+PLAIN = Ops(layernorm_ref, causal_attention_ref, gelu_tanh_ref,
+            update.clip_momentum_sgd_ref)

@@ -4,8 +4,10 @@ The port of ``chanamq_tpu/models``: a small causal transformer forecasts
 the broker's next telemetry vector from a sliding window of its metrics
 (models/forecaster.py), fed by a sampler on the broker's event loop
 (models/telemetry.py) and run by a worker thread (models/service.py). Its
-layernorm, attention core and tanh-GELU are hand-written CUDA kernels
-(``kernels/forecaster.py``, ``csrc/forecaster.cu``).
+layernorm, attention core and tanh-GELU, their backward passes and the
+train step's clipped momentum update are hand-written CUDA kernels
+(``kernels/forecaster.py``, ``kernels/update.py``, ``csrc/forecaster.cu``,
+``csrc/forecaster_train.cu``).
 
 Lazy attribute access, as in the reference: importing this package does
 not import torch. The broker imports models.service and models.telemetry
@@ -22,6 +24,8 @@ _FORECASTER_SYMBOLS = (
     "set_matmul_precision",
     "forward",
     "loss_fn",
+    "make_train_step",
+    "init_momentum",
     "synthetic_batch",
 )
 

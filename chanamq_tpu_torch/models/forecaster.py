@@ -1,10 +1,10 @@
 """Broker-metrics forecaster: a small causal transformer in PyTorch.
 
-The port of ``chanamq_tpu/models/forecaster.py``'s serving half. Input: a
-window of per-tick broker telemetry vectors (models/telemetry.py's
-FEATURES); output: the forecast telemetry vector for the next tick. Used for
-backlog and capacity prediction, never on the message path;
-models/service.py runs the live loop.
+The port of ``chanamq_tpu/models/forecaster.py``. Input: a window of
+per-tick broker telemetry vectors (models/telemetry.py's FEATURES);
+output: the forecast telemetry vector for the next tick. Used for backlog
+and capacity prediction, never on the message path; models/service.py runs
+the live loop.
 
 ``forward`` computes what the reference's ``forward`` computes, at its
 rounding points: activations in ``cfg.dtype`` (bf16 by default), the
@@ -17,22 +17,25 @@ accumulate in float32, as the reference's do, and the float32 head needs
 float32 products, not TF32: ``set_matmul_precision`` sets both, and
 ``forward`` refuses CUDA tensors while torch allows less.
 
+``make_train_step`` is the reference's SGD-with-momentum step: the MSE
+loss's gradients by torch autograd (the three ops' backward passes are
+kernels too, ``kernels.KERNELS``), then the global-norm clip, momentum and
+SGD update as two kernel launches (``kernels/update.py``), in place.
+
 Parameters are the reference's flat ``{name: tensor}`` set, float32, in its
 ``[in, out]`` layout and under its names, so ``params_from_numpy`` carries
-the JAX package's parameters across. The reference casts each weight
-matrix to ``cfg.dtype`` on every call (forecaster.py:106-117);
-``cast_weights`` does that once per parameter set and ``forward`` takes its
-result, which is the same numbers.
-
-The training step (``make_train_step``, ``init_momentum``) is not ported
-yet: it needs backward kernels for layernorm, attention and GELU.
+the JAX package's parameters (and its momentum tree) across. The reference
+casts each weight matrix to ``cfg.dtype`` on every call
+(forecaster.py:106-117); ``cast_weights`` does that once per parameter set
+for a caller that forwards many times between updates, and the train step
+casts inside its autograd graph on every step.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -106,7 +109,8 @@ def params_from_numpy(params: dict, cfg: ForecasterConfig,
                       device="cuda") -> Params:
     """Parameters given as ``{name: array}`` (the JAX package's, through
     ``np.asarray``) as float32 tensors on ``device``. Raises unless the
-    names and shapes are exactly those ``cfg`` needs."""
+    names and shapes are exactly those ``cfg`` needs. A momentum tree has
+    the parameters' names and shapes and crosses the same way."""
     shapes = param_shapes(cfg)
     if set(params) != set(shapes):
         raise ValueError(
@@ -184,6 +188,40 @@ def loss_fn(params: Params, batch: tuple, cfg: ForecasterConfig, *,
     x, y = batch
     pred = forward(params, x, cfg, weights=weights, ops=ops)
     return torch.mean((pred - y) ** 2)
+
+
+def init_momentum(params: Params) -> Params:
+    """Zero momentum for ``params``: same names, shapes and device."""
+    return {name: torch.zeros_like(p) for name, p in params.items()}
+
+
+def make_train_step(cfg: ForecasterConfig, lr: float = 1e-3,
+                    clip_norm: Optional[float] = 1.0, *,
+                    ops: kernels.Ops = kernels.KERNELS) -> Callable:
+    """The reference's SGD-with-momentum train step (forecaster.py:130-157):
+    ``step(params, momentum, batch) -> (params, momentum, loss)``.
+
+    The loss and its gradients come from ``loss_fn`` under torch autograd,
+    the weights cast to ``cfg.dtype`` inside the graph on every step; the
+    gradients, in the reference's ``tree_leaves`` order (sorted names),
+    are clipped by their global norm (``clip_norm``, None for none), fed
+    into momentum 0.9 and applied with ``lr`` by ``ops.update``. ``params``
+    and ``momentum`` are updated in place, as the reference donates both
+    buffers, and returned; ``loss`` is the step's loss before the update,
+    a float32 tensor on the device (reading it is the caller's sync).
+    ``ops`` picks the kernels (``kernels.KERNELS``) or the plain versions
+    under torch autograd (``kernels.PLAIN``)."""
+    names = sorted(param_shapes(cfg))
+
+    def step(params: Params, momentum: Params, batch: tuple) -> tuple:
+        leaves = {n: params[n].detach().requires_grad_() for n in names}
+        loss = loss_fn(leaves, batch, cfg, ops=ops)
+        grads = torch.autograd.grad(loss, [leaves[n] for n in names])
+        ops.update([params[n] for n in names], [momentum[n] for n in names],
+                   [g.contiguous() for g in grads], lr, clip_norm)
+        return params, momentum, loss.detach()
+
+    return step
 
 
 def synthetic_batch(rng: np.random.Generator, cfg: ForecasterConfig,

@@ -7,20 +7,21 @@ metrics, never on the message path:
   per tick to a TelemetryRing (models/telemetry.py) — numpy only, O(#queues)
   per tick, no torch on the loop;
 - every train-interval, a single worker thread (run_in_executor) takes a
-  copy of the ring, z-scores it, forwards the newest window through the
-  causal transformer (models/forecaster.py, its layernorm, attention and
-  GELU as CUDA kernels on ``device``) to produce the next-tick forecast,
-  denormalized back to real units. The event loop never blocks: torch runs
-  entirely on the worker thread, and at most one round is in flight;
+  copy of the ring, z-scores it, runs ``steps_per_round`` train steps of
+  the causal transformer (models/forecaster.py's ``make_train_step``; its
+  layernorm, attention and GELU, their backward passes and the clipped
+  momentum update as CUDA kernels on ``device``) on sampled (window ->
+  next-vector) pairs, then forwards the newest window to produce the
+  next-tick forecast, denormalized back to real units. The event loop
+  never blocks: torch runs entirely on the worker thread, and at most one
+  round is in flight;
 - the latest forecast is read with ``snapshot()``.
 
 The round keeps the reference's order (normalization, training batch,
-forward, divergence check, de-normalize, clamp at 0), and draws its
-training batch from the same numpy generator, so a port service and a
-reference service given the same history stay in step. Training is not
-ported yet: ``steps_per_round`` is 0, any other value is refused, and the
-reference's ``lr`` comes back with training (ROADMAP.md §A.5, training +
-``parallel/``).
+train steps, forward, divergence check, de-normalize, clamp at 0) and its
+defaults (20 steps a round at lr 1e-3), and draws its training batch from
+the same numpy generator, so a port service and a reference service given
+the same history stay in step.
 
 The forecast runs on ``device``, ``cuda`` unless the caller asks for the
 CPU; with no card the first round raises.
@@ -61,16 +62,12 @@ class ForecastService:
         seq_len: int = 64,
         history: int = 4096,
         batch: int = 16,
-        steps_per_round: int = 0,
+        steps_per_round: int = 20,
+        lr: float = 1e-3,
         queue_top_k: int = 0,
         model_kwargs: Optional[dict[str, Any]] = None,
         device: "str | torch.device" = "cuda",
     ) -> None:
-        if steps_per_round:
-            raise NotImplementedError(
-                "forecast training is not ported yet (ROADMAP.md §A.5, "
-                "training + parallel/): steps_per_round must be 0, got "
-                f"{steps_per_round}")
         self.broker = broker
         self.interval_s = interval_s
         self.train_interval_s = train_interval_s
@@ -91,6 +88,7 @@ class ForecastService:
             for name in (f"top{i}_depth", f"top{i}_publish_rate"))
         self.n_features = len(self.feature_names)
         self.steps_per_round = steps_per_round
+        self.lr = lr
         self.device = device
         # compact model by default: 8 features need nowhere near the
         # flagship dims, and the worker thread shares cores with the broker
@@ -146,7 +144,7 @@ class ForecastService:
     async def stop(self) -> None:
         # cooperative cancel: concurrent.futures joins worker threads at
         # interpreter exit regardless of shutdown(wait=False), so an
-        # in-flight round must notice and bail before its forward
+        # in-flight round must notice and bail between train steps
         self._stopping = True
         if self._task is not None:
             self._task.cancel()
@@ -268,20 +266,23 @@ class ForecastService:
         lets the control plane map top{i}_* forecasts back to queues."""
         return self.topk.slot_queues()
 
-    # -- predict round (worker thread; owns all torch state) ---------------
+    # -- train/predict round (worker thread; owns all torch state) ---------
 
     def _torch_setup(self, params: Optional[dict] = None) -> dict[str, Any]:
         """The worker's model state: ``params`` (float32 tensors on the
         service's device, e.g. from ``params_from_numpy``) or, by default,
-        ``init_params`` from a generator seeded with 0. ``forward`` maps a
-        [1, seq_len, n_features] float32 array to the [n_features]
-        forecast. On a card it sets the process's matrix-product precision
-        to the reference's (``set_matmul_precision``)."""
+        ``init_params`` from a generator seeded with 0, zero ``momentum``,
+        the train ``step`` at the service's ``lr``, and ``forward``, which
+        maps a [1, seq_len, n_features] float32 array to the [n_features]
+        forecast through ``weights``, the parameters cast once
+        (``recast`` casts them again after the parameters change). On a
+        card it sets the process's matrix-product precision to the
+        reference's (``set_matmul_precision``)."""
         import torch
 
         from .forecaster import (
-            ForecasterConfig, cast_weights, forward, init_params,
-            set_matmul_precision,
+            ForecasterConfig, cast_weights, forward, init_momentum,
+            init_params, make_train_step, set_matmul_precision,
         )
 
         cfg = ForecasterConfig(
@@ -293,42 +294,67 @@ class ForecastService:
         if params is None:
             params = init_params(torch.Generator().manual_seed(0), cfg,
                                  device)
-        weights = cast_weights(params, cfg)
+        state = {"cfg": cfg, "params": params,
+                 "momentum": init_momentum(params),
+                 "step": make_train_step(cfg, lr=self.lr),
+                 "device": device}
+
+        def recast() -> None:
+            state["weights"] = cast_weights(state["params"], cfg)
 
         def predict(window: np.ndarray) -> np.ndarray:
             x = torch.from_numpy(window).to(device)
-            return forward(params, x, cfg, weights=weights).cpu().numpy()
+            return forward(state["params"], x, cfg,
+                           weights=state["weights"]).cpu().numpy()
 
-        return {"cfg": cfg, "params": params, "forward": predict}
+        recast()
+        state.update(recast=recast, forward=predict)
+        return state
 
     def _round(
         self, history: np.ndarray
     ) -> tuple[int, Optional[float], Optional[dict[str, float]]]:
-        """One off-path round: the next-tick forecast (no train steps)."""
+        """One off-path round: K train steps + next-tick forecast."""
+        import torch
+
         if self._torch_state is None:
             self._torch_state = self._torch_setup()
         state = self._torch_state
         mean, std = normalization(history)
         normed = (history - mean) / std
-        # drawn as the reference draws it, so the generator stays in step;
-        # the training step that would consume it is not ported yet
-        training_batch(normed, self.seq_len, self.batch, self._np_rng)
+        pairs = training_batch(normed, self.seq_len, self.batch, self._np_rng)
+        steps = 0
+        loss = None
+        if pairs is not None:
+            batch = tuple(torch.from_numpy(a).to(state["device"])
+                          for a in pairs)
+            for _ in range(self.steps_per_round):
+                if self._stopping:
+                    return steps, loss, None
+                _, _, loss_t = state["step"](state["params"],
+                                             state["momentum"], batch)
+                steps += 1
+            if steps:  # steps_per_round == 0 leaves loss_t unbound
+                loss = float(loss_t)
+                # the forecast must see the trained weights
+                state["recast"]()
         if self._stopping:
-            return 0, None, None
+            return steps, loss, None
         window = normed[-self.seq_len:][None, ...].astype(np.float32)
         pred = state["forward"](window)[0]
-        if not np.isfinite(pred).all():
-            # drop the poisoned state and start clean next round rather
-            # than serving NaN forecasts
+        if (loss is not None and not np.isfinite(loss)) \
+                or not np.isfinite(pred).all():
+            # diverged despite clipping: drop the poisoned state and start
+            # clean next round rather than serving NaN forecasts
             self._torch_state = None
             raise RuntimeError(
-                "forecaster diverged (non-finite forecast); reinitializing")
+                f"forecaster diverged (loss={loss}); reinitializing")
         real = pred * std + mean
         # rates/gauges cannot be negative; the model can briefly overshoot
         real = np.maximum(real, 0.0)
         forecast = {name: float(v)
                     for name, v in zip(self.feature_names, real)}
-        return 0, None, forecast
+        return steps, loss, forecast
 
     # -- introspection -----------------------------------------------------
 

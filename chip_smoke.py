@@ -11,14 +11,39 @@ rehearse it; any failure exits non-zero:
 1. device: the card's name and power limit (``nvidia-smi``); float32
    products in full float32 (``allow_tf32 = False``) for the router's
    plain versions;
-2. build: ``csrc/router_match.cu`` and ``csrc/forecaster.cu``, one nvcc
-   each, started together, for sm_90a, with ptxas's register,
-   shared-memory and spill report;
+2. build: ``csrc/router_match.cu``, ``csrc/forecaster.cu`` and
+   ``csrc/forecaster_train.cu``, one nvcc each, started together, for
+   sm_90a, with ptxas's register, shared-memory and spill report;
 3. kernels at the router's caps: both router match kernels at N=512
    rows, W=128 mask words and full token widths (topic P=S=8, headers
    R=8, H=16) against their plain PyTorch versions, word for word, at B in
    {16, 256, 1024}, with device times and the bound for those inputs;
-4. main path: the port's ``BrokerServer`` on 127.0.0.1 with default
+4. forecaster kernels at the flagship width (``ForecasterConfig()``: T=64,
+   d_model 256, 4 heads of 64, d_ff 1024) at B in {1, 32} (the service's
+   one window; ``__graft_entry__``'s batch): layernorm, causal attention
+   and tanh-GELU against their plain versions in bf16, each within its
+   stated limit, with device times, the bound, and one PyTorch library
+   call as a yardstick;
+5. forward at full width: ``ForecasterConfig()`` at B in {1, 32}, the
+   kernel path against the plain path, with host-clock and CUDA-event ms,
+   under the reference's product precision (``set_matmul_precision``:
+   bf16 products accumulate in float32, float32 products avoid TF32);
+6. training kernels at the flagship width at B in {16, 32} (the service's
+   training batch; ``__graft_entry__``'s): the layernorm, attention and
+   GELU backward passes against their plain versions within their stated
+   bf16 limits, and the clip + momentum + SGD update over all 29 parameter
+   tensors bit for bit at the kernel's clip scale, with device times, the
+   bound and a PyTorch library yardstick (autograd of ``F.layer_norm``,
+   ``F.scaled_dot_product_attention``, ``F.gelu``; ``clip_grad_norm_``
+   and a foreach ``SGD`` step);
+7. train step at full width: ``make_train_step`` through the kernels
+   against the same step through the plain versions under torch autograd,
+   from one state on one ``synthetic_batch`` (B=16), 20 steps: every
+   parameter and momentum tree within its stated limit after 1 and 20
+   steps, the loss falling, host-clock and CUDA-event ms of a step, and
+   each kernel's launches a step (8 / 4 / 4 forward, 8 / 4 / 4 backward,
+   2 for the update);
+8. main path: the port's ``BrokerServer`` on 127.0.0.1 with default
    router config (backend torch, device cuda) and verify on; 4 publisher
    connections with confirms send 100,000 topic and 50,000 headers
    messages of 256 B; every queue's count must equal a host oracle built
@@ -27,20 +52,10 @@ rehearse it; any failure exits non-zero:
    launch counts must be above zero. The publish window is traced with
    ``torch.profiler`` for the card's busy time and idle share, and every
    kernel call's arguments are kept;
-5. main-path kernels: every kept call replayed through the kernel and its
+9. main-path kernels: every kept call replayed through the kernel and its
    plain version, word for word; the most common shape is timed and
    bounded, and the kernels line reports it;
-6. forecaster kernels at the flagship width (``ForecasterConfig()``: T=64,
-   d_model 256, 4 heads of 64, d_ff 1024) at B in {1, 32} (the service's
-   one window; ``__graft_entry__``'s batch): layernorm, causal attention
-   and tanh-GELU against their plain versions in bf16, each within its
-   stated limit, with device times, the bound, and one PyTorch library
-   call as a yardstick;
-7. forward at full width: ``ForecasterConfig()`` at B in {1, 32}, the
-   kernel path against the plain path, with host-clock and CUDA-event ms,
-   under the reference's product precision (``set_matmul_precision``:
-   bf16 products accumulate in float32, float32 products avoid TF32);
-8. forecast path: the port's ``BrokerServer`` under a publishing load,
+10. forecast path: the port's ``BrokerServer`` under a publishing load,
    with a ``ForecastService`` at flagship width (window 64, no training)
    on the card until it has made at least 200 forecasts, a forecast
    every ~0.04 s; the first forward (the worker thread's first cuBLAS
@@ -51,7 +66,13 @@ rehearse it; any failure exits non-zero:
    forward (8 layernorm, 4 attention, 4 GELU), the sampler must have seen
    the load, and every forward's window is replayed through the plain
    path;
-9. the kernels line, the card line, and the result line.
+11. training forecast path: the same with the reference's training
+   defaults (20 steps a round on a batch of 16 at lr 1e-3) for at least
+   20 rounds: ms per round and per step (the first apart), finite losses,
+   each kernel's launches equal to the steps and forwards times their
+   launches each, every forward replayed on the parameters it forwarded,
+   and the card's busy and idle share;
+12. the kernels line (nine kernels), the card line, and the result line.
 
 Without a card, or without the repository beside it, it exits non-zero and
 prints no result.
@@ -62,6 +83,7 @@ from __future__ import annotations
 import argparse
 import asyncio
 import json
+import math
 import random
 import re
 import subprocess
@@ -126,7 +148,7 @@ def phase_device() -> dict:
 # -- 2. build ------------------------------------------------------------------
 
 
-SOURCES = ("router_match", "forecaster")
+SOURCES = ("router_match", "forecaster", "forecaster_train")
 
 
 def phase_build() -> dict:
@@ -739,6 +761,10 @@ def _recording(fn, calls: list):
     return wrapper
 
 
+# the CUDA kernels behind a wrapper whose kernels are not "<name>_kernel"
+KERNEL_SYMBOLS = {"clip_momentum_sgd": ("sumsq_kernel", "momentum_sgd_kernel")}
+
+
 def device_busy(trace, names=("topic_match", "headers_match")) -> dict:
     """The card's work in a ``torch.profiler`` trace: the union of its
     kernel and copy intervals (us), and per kernel of ``names`` its
@@ -756,7 +782,8 @@ def device_busy(trace, names=("topic_match", "headers_match")) -> dict:
         if e.device_type != DeviceType.CUDA:
             continue
         for name in names:
-            if f"{name}_kernel" in e.name:
+            if any(sym in e.name for sym in KERNEL_SYMBOLS.get(
+                    name, (f"{name}_kernel",))):
                 k = kernels.setdefault(name, {"launches": 0, "us": 0.0})
                 k["launches"] += 1
                 k["us"] += e.time_range.elapsed_us()
@@ -1010,6 +1037,59 @@ def _host_ms(fn, iters: int) -> float:
     return (time.perf_counter() - t0) / iters * 1e3
 
 
+# cuBLAS's matrix-product kernels on this card are named after GEMMs
+# ("gemm", "xmma", "cutlass") or, for many of cuBLAS 12's Hopper products,
+# "nvjet"
+GEMM_MARKERS = ("gemm", "nvjet", "xmma", "cutlass")
+
+
+def device_split(fn, names) -> dict:
+    """One call of ``fn`` (after a warm-up call) traced with
+    ``torch.profiler``: the device time and launches of the matrix
+    products (cuBLAS), of the port's kernels ``names``, and of the rest
+    (elementwise ops, casts, reductions, copies), in us."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {k: {"launches": 0, "us": 0.0}
+           for k in ("products", "port_kernels", "other")}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        low = e.name.lower()
+        if any(any(sym in e.name for sym in KERNEL_SYMBOLS.get(
+                n, (f"{n}_kernel",))) for n in names):
+            kind = "port_kernels"
+        elif any(m in low for m in GEMM_MARKERS):
+            kind = "products"
+        else:
+            kind = "other"
+        out[kind]["launches"] += 1
+        out[kind]["us"] += e.time_range.elapsed_us()
+    return out
+
+
+def products_work(cfg, b: int) -> tuple[int, float]:
+    """(bytes, least seconds) of ``forward``'s matrix products at batch
+    ``b``: the embed, each layer's qkv, proj, w1 and w2 (bf16, on the
+    tensor cores) and the float32 head; each operand read once and each
+    product written once."""
+    t, d, f, n = cfg.seq_len, cfg.d_model, cfg.d_ff, cfg.n_features
+    rows = b * t
+    shapes = [(rows, n, d)] + [(rows, d, 3 * d), (rows, d, d), (rows, d, f),
+                               (rows, f, d)] * cfg.n_layers
+    nbytes = sum(2 * (m * k + k * e + m * e) for m, k, e in shapes)
+    flops = sum(2 * m * k * e for m, k, e in shapes)
+    head = 2 * b * d * n
+    nbytes += 4 * (b * d + d * n + b * n)
+    seconds = max(nbytes / HBM_BYTES_PER_S,
+                  flops / BF16_TC_FLOPS_PER_S + head / F32_FLOPS_PER_S)
+    return nbytes, seconds
+
+
 def phase_forward(device: torch.device, seed: int, cfg=None,
                   batches=FORECAST_BATCHES, iters: int = 20) -> dict:
     """``forward`` through the kernels against ``forward`` through the
@@ -1047,12 +1127,16 @@ def phase_forward(device: torch.device, seed: int, cfg=None,
                                  f"the limit {FORWARD_LIMIT}")
         row = out[b] = {"max_abs_err": err, "limit": FORWARD_LIMIT,
                         "max_abs_out": float(want.abs().max())}
+        nbytes, seconds = products_work(cfg, b)
+        row.update({"products_bytes": nbytes,
+                    "products_bound_ms": seconds * 1e3})
         if got.is_cuda:
             row.update({
                 "host_ms": _host_ms(kern, iters),
                 "event_ms": _time_ms(kern, iters, device_only=False),
                 "plain_host_ms": _host_ms(plain, iters),
-                "plain_event_ms": _time_ms(plain, iters, device_only=False)})
+                "plain_event_ms": _time_ms(plain, iters, device_only=False),
+                "traced": device_split(kern, FORECASTER_KERNELS)})
         nan = float("nan")
         log(f"[forward] B={b} {cfg.n_layers} layers d_model {cfg.d_model}: "
             f"kernel path against plain path max abs err {err:.6g} (limit "
@@ -1060,16 +1144,388 @@ def phase_forward(device: torch.device, seed: int, cfg=None,
             f"forward {row.get('host_ms', nan):.4f} ms host clock, "
             f"{row.get('event_ms', nan):.4f} ms CUDA events (plain path "
             f"{row.get('plain_host_ms', nan):.4f} / "
-            f"{row.get('plain_event_ms', nan):.4f} ms)")
+            f"{row.get('plain_event_ms', nan):.4f} ms); traced on the card: "
+            f"{row.get('traced')}; the products' bound "
+            f"{row['products_bound_ms'] * 1e3:.4f} us "
+            f"({row['products_bytes']} B)")
     return out
 
 
-# -- 8. forecast path ------------------------------------------------------------
+# -- 8. training kernels ---------------------------------------------------------
+
+
+TRAIN_KERNELS = ("layernorm_bwd", "causal_attention_bwd", "gelu_tanh_bwd",
+                 "clip_momentum_sgd")
+# the service's training batch, and __graft_entry__'s batch
+TRAIN_BATCHES = (16, 32)
+# bf16 steps at the largest output between a backward kernel and its plain
+# version: layernorm and GELU round once from float32 math summed in
+# another order (one step); attention rounds dout . v, the logits'
+# cotangent and the weights inside before its output, and a value that
+# lands on the other side of one of those boundaries moves the sums it
+# enters by about a step more each (four)
+TRAIN_STEPS = {"layernorm_bwd": 1.0, "causal_attention_bwd": 4.0,
+               "gelu_tanh_bwd": 1.0}
+# relative limit between the update kernel's clip scale and the plain
+# version's: both sum 3.2 M float32 squares, in blocks of 16 a thread and
+# in a pairwise tree, each within a few 1e-7 of the exact sum
+SCALE_RTOL = 1e-5
+
+
+def train_inputs(gen: torch.Generator, cfg, b: int,
+                 device: torch.device) -> dict:
+    """Seeded inputs at the shapes the train step gives each backward
+    kernel at batch ``b`` (bf16 activations and cotangents), and, for the
+    update, float32 parameters, momentum and gradients at ``cfg``'s
+    parameter shapes (gradients of global norm about 2, so that the clip
+    at 1 is active)."""
+    from chanamq_tpu_torch.models.forecaster import param_shapes
+
+    t, d, f = cfg.seq_len, cfg.d_model, cfg.d_ff
+    bf16 = torch.bfloat16
+
+    def randn(*shape, std=1.0):
+        return torch.randn(shape, generator=gen) * std
+
+    shapes = sorted(param_shapes(cfg).items())
+    g_std = 2.0 / math.sqrt(sum(math.prod(s) for _, s in shapes))
+    return {
+        "layernorm_bwd": (randn(b, t, d).to(bf16).to(device),
+                          (randn(b, t, d, std=2.0) + 0.5).to(bf16).to(device),
+                          (1 + 0.1 * randn(d)).to(device)),
+        "causal_attention_bwd": (randn(b, t, 3 * d).to(bf16).to(device),
+                                 randn(b, t, d).to(bf16).to(device),
+                                 cfg.n_heads),
+        "gelu_tanh_bwd": (randn(b, t, f).to(bf16).to(device),
+                          randn(b, t, f, std=2.0).to(bf16).to(device)),
+        "clip_momentum_sgd": (
+            [randn(*s, std=0.05).to(device) for _, s in shapes],
+            [randn(*s, std=0.01).to(device) for _, s in shapes],
+            [randn(*s, std=g_std).to(device) for _, s in shapes],
+            1e-3, 1.0),
+    }
+
+
+def train_work(name: str, args) -> tuple[int, int, float]:
+    """(bytes, operations, least seconds for those operations) of one
+    training kernel call: each input read once, each output written once.
+    Layernorm's backward does ~17 float32 operations a value (the
+    statistics again, 7; the backward, 10), GELU's ~16; attention's
+    backward five bf16 products over the causal pairs (q . k, dout . v,
+    dq, dk, dv: 2 * head_dim each, on the tensor cores) and ~8 float32
+    softmax operations a pair; the update 7 float32 operations a
+    parameter (g^2 and its sum, g * s, 0.9 m, + g, lr * m, p -)."""
+    if name == "layernorm_bwd":
+        dy, x, scale = args
+        nbytes = 3 * _nbytes(x) + 2 * _nbytes(scale)
+        ops = 17 * x.numel()
+        return nbytes, ops, ops / F32_FLOPS_PER_S
+    if name == "gelu_tanh_bwd":
+        dy, x = args
+        ops = 16 * x.numel()
+        return 3 * _nbytes(x), ops, ops / F32_FLOPS_PER_S
+    if name == "clip_momentum_sgd":
+        params, _, _, _, _ = args
+        n = sum(p.numel() for p in params)
+        return 5 * 4 * n, 7 * n, 7 * n / F32_FLOPS_PER_S
+    qkv, dout, heads = args
+    b, t, d3 = qkv.shape
+    hd = d3 // 3 // heads
+    pairs = b * heads * t * (t + 1) // 2
+    mma, soft = 5 * 2 * hd * pairs, 8 * pairs
+    return (2 * _nbytes(qkv) + _nbytes(dout), mma + soft,
+            mma / BF16_TC_FLOPS_PER_S + soft / F32_FLOPS_PER_S)
+
+
+def _train_library_call(name: str, args):
+    """One PyTorch call that computes the same function, as a yardstick
+    the port never calls: autograd's backward of ``F.layer_norm`` (weight
+    only, eps 1e-6), ``F.scaled_dot_product_attention(is_causal=True)``
+    and ``F.gelu(approximate="tanh")``; ``clip_grad_norm_`` and a foreach
+    ``SGD(momentum=0.9)`` step for the update."""
+    import torch.nn.functional as F
+
+    if name == "clip_momentum_sgd":
+        params, momentum, grads, lr, clip = args
+        leaves = [torch.nn.Parameter(p.clone()) for p in params]
+        for leaf, g in zip(leaves, grads):
+            leaf.grad = g.clone()
+        opt = torch.optim.SGD(leaves, lr=lr, momentum=0.9, foreach=True)
+        opt.step()  # the momentum buffers exist from here on
+
+        def update():
+            torch.nn.utils.clip_grad_norm_(leaves, clip, foreach=True)
+            opt.step()
+        return update
+    if name == "layernorm_bwd":
+        dy, x, scale = args
+        xr = x.detach().requires_grad_()
+        w = scale.to(x.dtype).requires_grad_()
+        out = F.layer_norm(xr, (x.shape[-1],), w, None, 1e-6)
+        inputs = (xr, w)
+    elif name == "gelu_tanh_bwd":
+        dy, x = args
+        xr = x.detach().requires_grad_()
+        out = F.gelu(xr, approximate="tanh")
+        inputs = (xr,)
+    else:
+        qkv, dy, heads = args
+        b, t, d3 = qkv.shape
+        q, k, v = (z.detach().requires_grad_() for z in qkv.view(
+            b, t, 3, heads, d3 // 3 // heads).permute(2, 0, 3, 1, 4))
+        out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        dy = dy.view(b, t, heads, -1).transpose(1, 2)
+        inputs = (q, k, v)
+    return lambda: torch.autograd.grad(out, inputs, dy, retain_graph=True)
+
+
+def _max_err(got, want) -> float:
+    return float((got.float() - want.float()).abs().max()) if got.numel() \
+        else 0.0
+
+
+def hold_train_kernel(name: str, args, *, timed: bool = True,
+                      iters: int = 100) -> dict:
+    """One training kernel call through its wrapper and its plain version
+    on the same inputs: the backward passes within ``TRAIN_STEPS`` bf16
+    steps at the largest output (layernorm's float32 dscale within the
+    float32 error of a sum over its rows), the update's clip scale within
+    ``SCALE_RTOL`` and, given the kernel's scale, its parameters and
+    momentum bit for bit; and the bound. With ``timed``, on a card, also
+    the kernel's device time, the wrapper's per-call time, and the plain
+    version's and the library call's device times."""
+    from chanamq_tpu_torch.kernels import forecaster as fk
+    from chanamq_tpu_torch.kernels import update as upd
+
+    mod = upd if name == "clip_momentum_sgd" else fk
+    kern = getattr(mod, name)
+    ref = getattr(mod, f"{name}_ref")
+    shape = "x".join(str(n) for n in args[0].shape) if name != \
+        "clip_momentum_sgd" else f"{len(args[0])} tensors, " \
+        f"{sum(p.numel() for p in args[0])} values"
+    row: dict = {"shape": shape}
+    if name == "clip_momentum_sgd":
+        params, momentum, grads, lr, clip = args
+        p_k = [p.clone() for p in params]
+        m_k = [m.clone() for m in momentum]
+        p_r = [p.clone() for p in params]
+        m_r = [m.clone() for m in momentum]
+        s_k = kern(p_k, m_k, grads, lr, clip)
+        s_r = ref([p.clone() for p in params], [m.clone() for m in momentum],
+                  grads, lr, clip)
+        ref(p_r, m_r, grads, lr, clip, scale=s_k)
+        err = max(_max_err(a, b) for a, b in zip(p_k + m_k, p_r + m_r))
+        s_err = abs(float(s_k) - float(s_r)) / float(s_r)
+        row.update({"max_abs_err": err, "limit": 0.0, "scale": float(s_k),
+                    "scale_rel_err": s_err, "scale_limit": SCALE_RTOL})
+        if err != 0.0 or not s_err <= SCALE_RTOL or not float(s_k) < 1.0:
+            raise AssertionError(f"{name}: update differs by {err} at the "
+                                 f"kernel's scale, scale {float(s_k)} vs "
+                                 f"{float(s_r)} (clip must be active)")
+    else:
+        got = kern(*args)
+        want = ref(*args)
+        if name == "layernorm_bwd":
+            (got, got_ds), (want, want_ds) = got, want
+            dy, x, _ = args
+            rows = x.numel() // x.shape[-1]
+            x32 = x.float()
+            xhat = (x32 - x32.mean(-1, keepdim=True)) * torch.rsqrt(
+                x32.var(-1, unbiased=False, keepdim=True) + 1e-6)
+            terms = (dy.float() * xhat).abs().reshape(rows, -1).sum(0)
+            ds_limit = rows * 2.0 ** -24 * float(terms.max())
+            ds_err = _max_err(got_ds, want_ds)
+            row.update({"dscale_err": ds_err, "dscale_limit": ds_limit})
+            if not ds_err <= ds_limit:
+                raise AssertionError(f"{name} [{shape}]: dscale error "
+                                     f"{ds_err} over {ds_limit}")
+        err = _max_err(got, want)
+        top = float(want.float().abs().max())
+        limit = TRAIN_STEPS[name] * bf16_ulp(top)
+        row.update({"max_abs_err": err, "limit": limit})
+        if not err <= limit or not torch.isfinite(got.float()).all():
+            raise AssertionError(f"{name} [{shape}]: max abs error {err} "
+                                 f"over the limit {limit}, or non-finite")
+    nbytes, ops, ops_s = train_work(name, args)
+    bytes_s = nbytes / HBM_BYTES_PER_S
+    row.update({"bytes": nbytes, "ops": ops,
+                "bound_ms": max(bytes_s, ops_s) * 1e3,
+                "bound_by": "operations" if ops_s > bytes_s else "bytes"})
+    on_card = (args[0][0] if name == "clip_momentum_sgd" else args[0]).is_cuda
+    if timed and on_card:
+        if name == "clip_momentum_sgd":
+            params, momentum, grads, lr, clip = args
+            work = ([p.clone() for p in params], [m.clone() for m in momentum],
+                    grads, lr, clip)
+            _, launches = upd.prepare_clip_momentum_sgd(*work)
+
+            def launch():
+                for one in launches:
+                    one()
+        else:
+            _, launch = getattr(mod, f"prepare_{name}")(*args)
+            work = args
+        row["ms"] = _time_ms(launch, iters, device_only=True)
+        row["wrapper_ms"] = _time_ms(lambda: kern(*work), iters,
+                                     device_only=False)
+        row["plain_ms"] = _time_ms(lambda: ref(*work), iters,
+                                   device_only=True)
+        row["library_ms"] = _time_ms(_train_library_call(name, args), iters,
+                                     device_only=True)
+    return row
+
+
+def phase_train_kernels(device: torch.device, seed: int, cfg=None,
+                        batches=TRAIN_BATCHES, iters: int = 100) -> dict:
+    """The four training kernels against their plain versions at the
+    shapes the train step gives them at each batch (the update's shapes
+    do not depend on the batch). Returns {kernel name: {B: row}} and
+    raises on an error over its limit."""
+    from chanamq_tpu_torch.models.forecaster import ForecasterConfig
+
+    cfg = cfg or ForecasterConfig()
+    gen = torch.Generator().manual_seed(seed + 1)
+    out: dict = {name: {} for name in TRAIN_KERNELS}
+    nan = float("nan")
+    for b in batches:
+        inputs = train_inputs(gen, cfg, b, device)
+        for name in TRAIN_KERNELS:
+            row = out[name][b] = hold_train_kernel(name, inputs[name],
+                                                   iters=iters)
+            extra = ""
+            if name == "layernorm_bwd":
+                extra = (f", dscale err {row['dscale_err']:.6g} (limit "
+                         f"{row['dscale_limit']:.6g})")
+            elif name == "clip_momentum_sgd":
+                extra = (f" at the kernel's scale {row['scale']:.9g}, which "
+                         f"is within {row['scale_rel_err']:.3g} of the plain "
+                         f"version's (limit {SCALE_RTOL})")
+            log(f"[fc-train-kernels] {name} B={b} [{row['shape']}]: max abs "
+                f"err {row['max_abs_err']:.6g} (limit {row['limit']:.6g})"
+                f"{extra}; kernel {row.get('ms', nan) * 1e3:.3f} us "
+                f"(wrapper call {row.get('wrapper_ms', nan) * 1e3:.3f} us), "
+                f"plain {row.get('plain_ms', nan) * 1e3:.3f} us, library "
+                f"{row.get('library_ms', nan) * 1e3:.3f} us, bound "
+                f"{row['bound_ms'] * 1e3:.4f} us ({row['bound_by']}: "
+                f"{row['ops']} ops, {row['bytes']} B)")
+    return out
+
+
+# -- 9. train step at full width --------------------------------------------------
+
+
+# max abs difference between the train step through the kernels and the
+# same step through the plain versions under torch autograd, from one state
+# (bf16 activations): a momentum tree within MOMENTUM_STEPS bf16 steps at
+# its largest value (each gradient is a bf16 product's output, rounded
+# where the two paths may round to neighbours, and the clip scales both
+# alike); a parameter tree within what its momentum differences allow,
+# |dp_n| <= lr * sum over steps of |dm_k|, plus the float32 rounding of
+# each subtraction
+MOMENTUM_STEPS = 3.0
+
+
+def tree_limits(p_k: dict, p_r: dict, m_k: dict, m_r: dict, lr: float,
+                dm_sum: dict, steps: int) -> dict:
+    """Per tree: (max abs diff, limit) of the momentum and the parameters
+    after ``steps`` steps; ``dm_sum`` accumulates each tree's largest
+    momentum difference over the steps so far (updated in place)."""
+    out = {}
+    for name in p_k:
+        dm = float((m_k[name] - m_r[name]).abs().max())
+        dm_sum[name] = dm_sum.get(name, 0.0) + dm
+        dp = float((p_k[name] - p_r[name]).abs().max())
+        top_m = float(m_r[name].abs().max())
+        top_p = float(p_r[name].abs().max())
+        out[name] = {
+            "momentum": (dm, MOMENTUM_STEPS * bf16_ulp(top_m)),
+            # lr as float32 is above 1e-3 by 5e-8 of itself
+            "params": (dp, lr * (1 + 2.0 ** -20) * dm_sum[name]
+                       + 8 * steps * 2.0 ** -24 * top_p),
+        }
+    return out
+
+
+def phase_train(device: torch.device, seed: int, cfg=None, batch: int = 16,
+                steps: int = 20, iters: int = 10) -> dict:
+    """``make_train_step`` through the kernels against the same step
+    through the plain versions (``ops=PLAIN``), from one state on one
+    ``synthetic_batch``, for ``steps`` steps: every tree within
+    ``tree_limits`` after step 1 and after the last, finite losses, and
+    the loss must fall. On a card also the host-clock and CUDA-event ms
+    of one step (the kernel step from where the run ended) and each
+    kernel's launches in one step."""
+    from chanamq_tpu_torch.kernels import forecaster as fk
+    from chanamq_tpu_torch.models.forecaster import (
+        ForecasterConfig, init_momentum, init_params, make_train_step,
+        set_matmul_precision, synthetic_batch)
+
+    if device.type == "cuda":
+        set_matmul_precision()
+    cfg = cfg or ForecasterConfig()
+    lr = 1e-3
+    params = init_params(torch.Generator().manual_seed(seed), cfg, device)
+    p_k = {k: v.clone() for k, v in params.items()}
+    p_r = {k: v.clone() for k, v in params.items()}
+    m_k, m_r = init_momentum(p_k), init_momentum(p_r)
+    data = synthetic_batch(np.random.default_rng(seed), cfg, batch, device)
+    kern = make_train_step(cfg, lr=lr)
+    plain = make_train_step(cfg, lr=lr, ops=fk.PLAIN)
+    losses_k, losses_r = [], []
+    dm_sum: dict = {}
+    checked = {}
+    for step in range(1, steps + 1):
+        _, _, lk = kern(p_k, m_k, data)
+        _, _, lr_ = plain(p_r, m_r, data)
+        losses_k.append(float(lk))
+        losses_r.append(float(lr_))
+        trees = tree_limits(p_k, p_r, m_k, m_r, lr, dm_sum, step)
+        if step in (1, steps):
+            checked[step] = trees
+            bad = {(n, kind): v for n, t in trees.items()
+                   for kind, v in t.items() if not v[0] <= v[1]}
+            if bad:
+                raise AssertionError(f"train step {step}: trees over their "
+                                     f"limits {bad}")
+    losses = np.array(losses_k + losses_r)
+    if not np.isfinite(losses).all():
+        raise AssertionError("train: a non-finite loss")
+    if not (losses_k[-1] < losses_k[0] and losses_r[-1] < losses_r[0]):
+        raise AssertionError(f"train: the loss did not fall: {losses_k}")
+    res = {"losses": losses_k, "plain_losses": losses_r, "trees": checked,
+           "cfg": cfg, "batch": batch}
+    if device.type == "cuda":
+        counted = counted_wrappers()
+        before = {k: f.launches for k, f in counted.items()}
+        kern(p_k, m_k, data)
+        torch.cuda.synchronize()
+        res["launches_per_step"] = {k: f.launches - before[k]
+                                    for k, f in counted.items()}
+        res["traced"] = device_split(lambda: kern(p_k, m_k, data),
+                                     FORECASTER_KERNELS + TRAIN_KERNELS)
+        res.update({
+            "host_ms": _host_ms(lambda: kern(p_k, m_k, data), iters),
+            "event_ms": _time_ms(lambda: kern(p_k, m_k, data), iters,
+                                 device_only=False),
+            "plain_host_ms": _host_ms(lambda: plain(p_r, m_r, data), iters),
+            "plain_event_ms": _time_ms(lambda: plain(p_r, m_r, data), iters,
+                                       device_only=False)})
+    return res
+
+
+# -- 10. forecast path ------------------------------------------------------------
+
+
+def _synchronize(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 async def _forecast_run(device: torch.device, svc_kwargs: dict,
                         min_rounds: int, timeout_s: float,
-                        forwards: list, trace=None) -> dict:
+                        forwards: list, trace=None,
+                        rounds: list | None = None,
+                        steps: list | None = None) -> dict:
     from chanamq_tpu_torch.broker.broker import Broker
     from chanamq_tpu_torch.broker.server import BrokerServer
     from chanamq_tpu_torch.client import AMQPClient
@@ -1078,28 +1534,52 @@ async def _forecast_run(device: torch.device, svc_kwargs: dict,
     broker = Broker(router_device=device.type)
     server = BrokerServer(broker, host="127.0.0.1", port=0, heartbeat_s=0)
     await server.start()
-    svc = ForecastService(server.broker, steps_per_round=0, device=device,
-                          **svc_kwargs)
+    svc = ForecastService(server.broker, device=device, **svc_kwargs)
     real_setup = svc._torch_setup
+    training = svc.steps_per_round > 0
 
     def setup(params=None) -> dict:
         # the worker builds its state as always; its forward is wrapped to
-        # keep each window, its forecast and its host-clock time
+        # keep each window, its forecast, the parameters it forwarded
+        # (copied when training changes them) and its host-clock time, and
+        # its train step to keep each step's host-clock time, synchronized
         state = real_setup(params)
-        real_forward = state["forward"]
+        real_forward, real_step = state["forward"], state["step"]
 
         def recorded(window):
             t0 = time.perf_counter()
             pred = real_forward(window)
-            forwards.append({"window": window, "pred": pred,
-                             "s": time.perf_counter() - t0,
-                             "state": state})
+            forwards.append({
+                "window": window, "pred": pred,
+                "s": time.perf_counter() - t0, "state": state,
+                "params": ({k: v.clone() for k, v in state["params"].items()}
+                           if training else state["params"])})
             return pred
 
+        def step(*args):
+            t0 = time.perf_counter()
+            out = real_step(*args)
+            _synchronize(device)
+            steps.append((t0, time.perf_counter()))
+            return out
+
         state["forward"] = recorded
+        if steps is not None:
+            state["step"] = step
         return state
 
     svc._torch_setup = setup
+    if rounds is not None:
+        real_round = svc._round
+
+        def timed_round(history):
+            t0 = time.perf_counter()
+            out = real_round(history)
+            if out[2] is not None:  # a round that bailed is not counted
+                rounds.append(time.perf_counter() - t0)
+            return out
+
+        svc._round = timed_round
     published = [0]
     stop = asyncio.Event()
     client = await AMQPClient.connect("127.0.0.1", server.bound_port,
@@ -1130,7 +1610,8 @@ async def _forecast_run(device: torch.device, svc_kwargs: dict,
                         f"{svc.rounds} forecasts in {timeout_s} s; last "
                         f"error {svc.last_error}")
                 await asyncio.sleep(0.05)
-            run_s = time.perf_counter() - t0
+            t_end = time.perf_counter()
+            run_s = t_end - t0
             stop.set()
             await task
         finally:
@@ -1146,26 +1627,42 @@ async def _forecast_run(device: torch.device, svc_kwargs: dict,
         await asyncio.to_thread(svc._executor.shutdown, wait=True)
         await server.stop()
     return {"snapshot": snap, "history": history, "run_s": run_s,
+            "t_end": t_end,
             "published": published[0], "received": len(received),
             "feature_names": svc.feature_names}
+
+
+def _ms_stats(seconds: list) -> dict:
+    """The first apart, and the mean, median, p90, p99 and max of the
+    rest, in ms."""
+    ms = np.array(seconds[1:]) * 1e3
+    return {"first": seconds[0] * 1e3, "n": len(ms), "mean": float(ms.mean()),
+            "median": float(np.median(ms)),
+            "p90": float(np.percentile(ms, 90)),
+            "p99": float(np.percentile(ms, 99)), "max": float(ms.max())}
 
 
 def phase_forecast(device: torch.device, *,
                    model_kwargs: dict | None = None, seq_len: int = 64,
                    interval_s: float = 0.02, train_interval_s: float = 0.03,
-                   min_rounds: int = 200, timeout_s: float = 120.0) -> dict:
-    """The forecast path end to end: a ForecastService on ``device`` (no
-    training) beside the port's BrokerServer under a publishing load,
+                   min_rounds: int = 200, timeout_s: float = 120.0,
+                   steps_per_round: int = 0, batch: int = 16,
+                   lr: float = 1e-3) -> dict:
+    """The forecast path end to end: a ForecastService on ``device``
+    (``steps_per_round`` train steps a round at ``batch`` and ``lr``; 0
+    for none) beside the port's BrokerServer under a publishing load,
     until ``min_rounds`` forecasts. Checks that the forecasts are finite
-    and non-negative and that the sampler saw the load; every forward's
-    window is replayed through the plain path within FORWARD_LIMIT.
-    Returns the run's numbers with ``forwards``, the count of forwards
-    made (the kernels' launches must be that many times their launches a
-    forward), and the host-clock ms of each forward: the first (the
-    worker thread's first products) apart, and the mean, median, p90 and
-    p99 of the rest. On a card the run is traced with ``torch.profiler``
-    for the device's busy time and each kernel's in-path launches and
-    time."""
+    and non-negative, the losses finite, and that the sampler saw the
+    load; every forward's window is replayed through the plain path, on
+    the parameters it forwarded, within FORWARD_LIMIT. Returns the run's
+    numbers with ``forwards`` and ``steps``, the counts of forwards and
+    train steps made (each kernel's launches must be those times its
+    launches a forward and a step), and the host-clock ms of each forward,
+    and when training of each round and each step that ended in the
+    window (synchronized): the first (the worker thread's first products)
+    apart, and the mean, median, p90 and p99 of the rest. On a card the run is traced with
+    ``torch.profiler`` for the device's busy time and each kernel's
+    in-path launches and time."""
     from chanamq_tpu_torch.kernels.forecaster import PLAIN
     from chanamq_tpu_torch.models.forecaster import ForecasterConfig, forward
     from chanamq_tpu_torch.models.telemetry import FEATURES
@@ -1175,15 +1672,18 @@ def phase_forecast(device: torch.device, *,
         model_kwargs = {k: getattr(flagship, k)
                         for k in ("d_model", "n_heads", "d_ff", "n_layers")}
     forwards: list = []
+    rounds: list = []
+    steps: list = []
     kwargs = {"interval_s": interval_s, "train_interval_s": train_interval_s,
-              "seq_len": seq_len, "model_kwargs": model_kwargs}
+              "seq_len": seq_len, "model_kwargs": model_kwargs,
+              "steps_per_round": steps_per_round, "batch": batch, "lr": lr}
     trace = None
     if device.type == "cuda":
         trace = torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA])
     res = asyncio.run(_forecast_run(device, kwargs, min_rounds, timeout_s,
-                                    forwards, trace))
+                                    forwards, trace, rounds, steps))
     snap = res["snapshot"]
     forecast = snap["forecast"]
     if snap["error"] is not None or not forecast:
@@ -1195,11 +1695,13 @@ def phase_forecast(device: torch.device, *,
     saw = float(res["history"][:, FEATURES.index("publish_rate")].max())
     if not saw > 0:
         raise AssertionError("the sampler saw no publish traffic")
+    if steps_per_round and not (snap["loss"] is not None
+                                and np.isfinite(snap["loss"])):
+        raise AssertionError(f"forecast path: loss {snap['loss']}")
     worst = 0.0
     for fw in forwards:
-        state = fw["state"]
         x = torch.from_numpy(fw["window"]).to(device)
-        want = forward(state["params"], x, state["cfg"],
+        want = forward(fw["params"], x, fw["state"]["cfg"],
                        ops=PLAIN).cpu().numpy()
         if not np.isfinite(fw["pred"]).all():
             raise AssertionError("a forward gave non-finite values")
@@ -1209,25 +1711,108 @@ def phase_forecast(device: torch.device, *,
                              f"plain path by {worst} (limit {FORWARD_LIMIT})")
     if len(forwards) < 2:
         raise AssertionError(f"forecast path: {len(forwards)} forwards")
-    ms = np.array([fw["s"] * 1e3 for fw in forwards[1:]])
-    return {"rounds": snap["rounds"], "forwards": len(forwards),
-            "samples": snap["samples"], "run_s": res["run_s"],
-            "published": res["published"], "received": res["received"],
-            "max_publish_rate": saw, "forecast": forecast,
-            "replay_max_abs_err": worst,
-            "cfg": forwards[0]["state"]["cfg"],
-            "ms_first_forward": forwards[0]["s"] * 1e3,
-            "ms_per_forward": {
-                "n": len(ms), "mean": float(ms.mean()),
-                "median": float(np.median(ms)),
-                "p90": float(np.percentile(ms, 90)),
-                "p99": float(np.percentile(ms, 99)),
-                "max": float(ms.max())},
-            "trace": (device_busy(trace, FORECASTER_KERNELS)
-                      if trace is not None else None)}
+    out = {"rounds": snap["rounds"], "forwards": len(forwards),
+           "steps": len(steps), "trained_steps": snap["trained_steps"],
+           "loss": snap["loss"], "samples": snap["samples"],
+           "run_s": res["run_s"], "published": res["published"],
+           "received": res["received"], "max_publish_rate": saw,
+           "forecast": forecast, "replay_max_abs_err": worst,
+           "cfg": forwards[0]["state"]["cfg"],
+           "ms_first_forward": forwards[0]["s"] * 1e3,
+           "ms_per_forward": {k: v for k, v in _ms_stats(
+               [fw["s"] for fw in forwards]).items() if k != "first"},
+           "trace": (device_busy(trace, FORECASTER_KERNELS + TRAIN_KERNELS)
+                     if trace is not None else None)}
+    if steps_per_round:
+        if len(rounds) < 2 or len(steps) < 2:
+            raise AssertionError(f"forecast path: {len(rounds)} trained "
+                                 f"rounds, {len(steps)} steps")
+        out["ms_per_round"] = _ms_stats(rounds)
+        # steps that ended in the window: a round still running when the
+        # window closes competes with the trace's processing
+        out["ms_per_step"] = _ms_stats([b - a for a, b in steps
+                                        if b <= res["t_end"]])
+    return out
 
 
-# -- 9. entry point -------------------------------------------------------------
+# -- 11. entry point -------------------------------------------------------------
+
+
+# the service's defaults, and enough rounds for a median and a p99
+STEPS_PER_ROUND = 20
+TRAIN_ROUNDS = 20
+
+
+def counted_wrappers() -> dict:
+    """Every forecaster kernel wrapper with a launch count, by name."""
+    from chanamq_tpu_torch.kernels import forecaster as fk
+    from chanamq_tpu_torch.kernels import update as upd
+
+    out = {name: getattr(fk, name)
+           for name in FORECASTER_KERNELS + TRAIN_KERNELS[:3]}
+    out["clip_momentum_sgd"] = upd.clip_momentum_sgd
+    return out
+
+
+def train_per_step(cfg) -> dict:
+    """Each kernel's launches in one train step: the forward's (two
+    layernorms, one attention and one GELU a layer), as many backward
+    passes, and the update's two (sum of squares, then update)."""
+    fwd = {"layernorm": 2 * cfg.n_layers, "causal_attention": cfg.n_layers,
+           "gelu_tanh": cfg.n_layers}
+    return {**fwd, **{f"{k}_bwd": n for k, n in fwd.items()},
+            "clip_momentum_sgd": 2}
+
+
+def log_train(train: dict, dev: dict) -> None:
+    """The [train] line; raises unless a step launched each kernel as
+    often as ``train_per_step`` says."""
+    cfg = train["cfg"]
+    worst = {}
+    for step, trees in train["trees"].items():
+        for kind in ("momentum", "params"):
+            err, limit, name = max((v[kind][0] / max(v[kind][1], 1e-30),
+                                    v[kind][1], n) for n, v in trees.items())
+            worst[f"{kind} after {step}"] = (
+                f"{name} {trees[name][kind][0]:.6g} (limit {limit:.6g})")
+    want = train_per_step(cfg)
+    got = train.get("launches_per_step")
+    log(f"[train] {len(train['losses'])} steps at d_model {cfg.d_model}, "
+        f"{cfg.n_layers} layers, batch {train['batch']}: losses through the "
+        f"kernels {[round(v, 6) for v in train['losses']]}, through the plain "
+        f"versions {[round(v, 6) for v in train['plain_losses']]}; closest "
+        f"to its limit, kernels against plain: {worst}; one step "
+        f"{train.get('host_ms', float('nan')):.4f} ms host clock, "
+        f"{train.get('event_ms', float('nan')):.4f} ms CUDA events (plain "
+        f"{train.get('plain_host_ms', float('nan')):.4f} / "
+        f"{train.get('plain_event_ms', float('nan')):.4f} ms); launches a "
+        f"step {got}; one step traced on the card: {train.get('traced')}; "
+        f"card {dev['smi']}")
+    for step, trees in train["trees"].items():
+        log(f"[train-trees] after step {step}, max abs difference (limit) "
+            "of each tree, momentum | parameters: " + "; ".join(
+                f"{n} {t['momentum'][0]:.3g} ({t['momentum'][1]:.3g}) | "
+                f"{t['params'][0]:.3g} ({t['params'][1]:.3g})"
+                for n, t in trees.items()))
+    if got != want:
+        raise AssertionError(f"train: launches a step {got}, want {want}")
+
+
+def log_trace(tag: str, res: dict) -> None:
+    tr = res["trace"]
+    window_us = res["run_s"] * 1e6
+    if tr["events"]:
+        traced = {k: {"launches": v["launches"],
+                      "mean_us": v["us"] / max(1, v["launches"])}
+                  for k, v in tr["kernels"].items()}
+        log(f"[{tag}] window {window_us:.0f} us: {tr['events']} device "
+            f"events, busy {tr['busy_us']:.1f} us = "
+            f"{100 * tr['busy_us'] / window_us:.4f}%, idle "
+            f"{100 * (1 - tr['busy_us'] / window_us):.4f}%; forecaster "
+            f"kernels {traced}")
+    else:
+        log(f"[{tag}] the profiler saw no device event: device busy time "
+            "and idle share not measured")
 
 
 def main() -> int:
@@ -1238,7 +1823,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing was measured",
               file=sys.stderr)
         return 2
-    from chanamq_tpu_torch.kernels import forecaster as fk
     from chanamq_tpu_torch.kernels import router_match as rm
 
     dev = phase_device()
@@ -1247,6 +1831,9 @@ def main() -> int:
     caps = phase_kernels(device, args.seed)
     fc_kernels = phase_forecaster_kernels(device, args.seed)
     phase_forward(device, args.seed)
+    train_kernels = phase_train_kernels(device, args.seed)
+    train = phase_train(device, args.seed)
+    log_train(train, dev)
 
     calls: dict = {}
     rm.topic_match.launches = 0
@@ -1291,11 +1878,12 @@ def main() -> int:
     # torch's default: the service must set the reference's precision
     # itself (its forward raises on the card while this allows less)
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
-    for name in FORECASTER_KERNELS:
-        getattr(fk, name).launches = 0
+    counted = counted_wrappers()
+    for wrapper in counted.values():
+        wrapper.launches = 0
     fc = phase_forecast(device)
-    for name in FORECASTER_KERNELS:
-        launches[name] = getattr(fk, name).launches
+    for name in FORECASTER_KERNELS + TRAIN_KERNELS:
+        launches[name] = counted[name].launches
     cfg = fc["cfg"]
     ms_stats = ", ".join(f"{k} {v:.4f}" for k, v in
                          fc["ms_per_forward"].items() if k != "n")
@@ -1313,31 +1901,57 @@ def main() -> int:
         f"{fc['samples']} samples, publish rate up to "
         f"{fc['max_publish_rate']:.1f}/s, {fc['published']} published; "
         f"card {dev['smi']}")
-    tr = fc["trace"]
-    window_us = fc["run_s"] * 1e6
-    if tr["events"]:
-        traced = {k: {"launches": v["launches"],
-                      "mean_us": v["us"] / max(1, v["launches"])}
-                  for k, v in tr["kernels"].items()}
-        log(f"[forecast-trace] window {window_us:.0f} us: {tr['events']} "
-            f"device events, busy {tr['busy_us']:.1f} us = "
-            f"{100 * tr['busy_us'] / window_us:.4f}%, idle "
-            f"{100 * (1 - tr['busy_us'] / window_us):.4f}%; forecaster "
-            f"kernels {traced}")
-    else:
-        log("[forecast-trace] the profiler saw no device event: device "
-            "busy time and idle share not measured")
+    log_trace("forecast-trace", fc)
     for name, n in per_forward.items():
         if fc["forwards"] < 1 or launches[name] != n * fc["forwards"]:
             raise AssertionError(
                 f"{name}: {launches[name]} launches for {fc['forwards']} "
                 f"forwards of {n} each")
+    for name in TRAIN_KERNELS:
+        if launches[name]:
+            raise AssertionError(f"{name}: {launches[name]} launches on a "
+                                 "path that does not train")
+
+    # the training path, with the service's defaults: 20 steps a round on
+    # a batch of 16 at lr 1e-3
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
+    for wrapper in counted.values():
+        wrapper.launches = 0
+    ft = phase_forecast(device, steps_per_round=STEPS_PER_ROUND, batch=16,
+                        lr=1e-3, min_rounds=TRAIN_ROUNDS, timeout_s=300.0)
+    train_launches = {name: w.launches for name, w in counted.items()}
+    per_step = train_per_step(ft["cfg"])
+    want = {name: per_step.get(name, 0) * ft["steps"]
+            + per_forward.get(name, 0) * ft["forwards"]
+            for name in FORECASTER_KERNELS + TRAIN_KERNELS}
+    stats = {kind: ", ".join(f"{k} {v:.4f}" for k, v in ft[kind].items()
+                             if k not in ("n", "first"))
+             for kind in ("ms_per_round", "ms_per_step", "ms_per_forward")}
+    log(f"[forecast-train] {ft['rounds']} rounds of {STEPS_PER_ROUND} steps "
+        f"(batch 16, lr 1e-3), {ft['steps']} steps and {ft['forwards']} "
+        f"forwards at d_model {cfg.d_model}, {cfg.n_layers} layers, on the "
+        f"card in {ft['run_s']:.3f} s; ms per round (host clock) over rounds "
+        f"2-{ft['ms_per_round']['n'] + 1}: {stats['ms_per_round']}; the "
+        f"first {ft['ms_per_round']['first']:.4f}; ms per step (host clock, "
+        f"synchronized): {stats['ms_per_step']}; the first "
+        f"{ft['ms_per_step']['first']:.4f}; ms per forward: "
+        f"{stats['ms_per_forward']}; last loss {ft['loss']:.6g}; kernel "
+        f"launches {train_launches} (want {want}); replay against the plain "
+        f"path max abs err {ft['replay_max_abs_err']:.6g}; card {dev['smi']}")
+    log_trace("forecast-train-trace", ft)
+    if train_launches != want or ft["steps"] < STEPS_PER_ROUND * TRAIN_ROUNDS:
+        raise AssertionError(f"training path: launches {train_launches}, "
+                             f"want {want} for {ft['steps']} steps")
 
     replaces = {"topic_match": "chanamq_tpu/router/compile.py:289",
                 "headers_match": "chanamq_tpu/router/compile.py:372",
                 "layernorm": "chanamq_tpu/models/forecaster.py:77",
                 "causal_attention": "chanamq_tpu/models/forecaster.py:84",
-                "gelu_tanh": "chanamq_tpu/models/forecaster.py:116"}
+                "gelu_tanh": "chanamq_tpu/models/forecaster.py:116",
+                "layernorm_bwd": "chanamq_tpu/models/forecaster.py:141",
+                "causal_attention_bwd": "chanamq_tpu/models/forecaster.py:141",
+                "gelu_tanh_bwd": "chanamq_tpu/models/forecaster.py:141",
+                "clip_momentum_sgd": "chanamq_tpu/models/forecaster.py:142"}
     line = []
     for name in ("topic_match", "headers_match"):
         row = path[name]
@@ -1364,6 +1978,16 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "chanamq_tpu_torch/csrc/forecaster.cu",
             "replaces": replaces[name], "launches": launches[name],
+            "launches_training_path": train_launches[name],
+            **{k: rows[main_b][k] for k in keys},
+            f"at_b{other_b}": {k: rows[other_b][k] for k in keys}})
+    for name in TRAIN_KERNELS:
+        rows = train_kernels[name]
+        main_b, other_b = TRAIN_BATCHES  # the service's batch first
+        line.append({
+            "name": name, "route": "cuda",
+            "source": "chanamq_tpu_torch/csrc/forecaster_train.cu",
+            "replaces": replaces[name], "launches": train_launches[name],
             **{k: rows[main_b][k] for k in keys},
             f"at_b{other_b}": {k: rows[other_b][k] for k in keys}})
     print(json.dumps({"kernels": line}))

@@ -5,14 +5,20 @@
 - the telemetry copies (ring, sampler, training batch, normalization,
   top-K slots) give the reference's outputs on the same inputs;
 - slice parity: one history array goes through both services' ``_round``
-  (no training), the port's model carrying the JAX service's own
-  ``init_params(PRNGKey(0))`` across through numpy; the forecasts agree
-  within the bf16 forward limit, 0.1 in normalized units (see
-  tests/test_torch_forecaster.py), which de-normalization scales by each
-  feature's std;
+  over three rounds with training on, the port's model carrying the JAX
+  service's own ``init_params(PRNGKey(0))`` across through numpy. In
+  bf16 the forecasts agree within the forward limit, 0.1 in normalized
+  units (see tests/test_torch_forecaster.py), plus what the trained
+  parameters' differences add (0.05: the train steps' bf16 gradients
+  differ by under 1%, see tests/test_torch_forecaster_train.py, and lr
+  1e-3 keeps what they move small), which de-normalization scales by each
+  feature's std; the losses within 2% of the reference's. In float32 the
+  forecasts agree within 1e-4 and the losses within 1e-5 of themselves;
+- the forecast after a trained round reads the trained weights;
 - the reference's observed-traffic test on the port's BrokerServer and
-  client with ``device="cpu"``;
-- training (``steps_per_round > 0``) is refused, not skipped.
+  client with ``device="cpu"``, training with the reference's
+  ``steps_per_round=5``;
+- the defaults are the reference's (20 steps a round, lr 1e-3).
 """
 
 import asyncio
@@ -38,6 +44,17 @@ from chanamq_tpu_torch.models.service import ForecastService as PortService
 
 FORWARD_LIMIT = 0.1  # bf16 forward, normalized units
 TINY_MODEL = {"d_model": 32, "n_heads": 4, "d_ff": 64, "n_layers": 2}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """These tests run beside other test files on every core, and their
+    training rounds are small: one torch thread keeps them from crowding
+    out their neighbours' timing-sensitive tests."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _history(n: int, seed: int) -> np.ndarray:
@@ -133,16 +150,28 @@ def test_topk_slots_match_reference():
 # -- slice parity: one history through both services --------------------------
 
 
-@pytest.mark.parametrize("model_kwargs", [None, TINY_MODEL],
-                         ids=["compact-default", "tiny"])
-def test_round_matches_reference_service(model_kwargs):
-    """Both services' ``_round`` on the same histories, no training: the
-    same forecast within the bf16 limit, the same draws from the numpy
+TRAINED_LIMIT = {"bfloat16": FORWARD_LIMIT + 0.05, "float32": 1e-4}
+LOSS_RTOL = {"bfloat16": 0.02, "float32": 1e-5}
+
+
+@pytest.mark.parametrize("model_kwargs,dtype", [
+    (None, "bfloat16"), (TINY_MODEL, "bfloat16"), (TINY_MODEL, "float32")],
+    ids=["compact-default", "tiny", "tiny-float32"])
+def test_round_matches_reference_service(model_kwargs, dtype):
+    """Both services' ``_round`` on the same histories, three rounds of 5
+    train steps each: the same steps, losses and forecasts within the
+    limits the module docstring states, the same draws from the numpy
     generator, and the reference's clamp at 0."""
+    import jax.numpy as jnp
+
     kw = dict(interval_s=1.0, seq_len=16, history=512, batch=8,
-              steps_per_round=0, model_kwargs=model_kwargs)
-    ref_svc = RefService(types.SimpleNamespace(), **kw)
-    port_svc = PortService(types.SimpleNamespace(), device="cpu", **kw)
+              steps_per_round=5)
+    model = dict(model_kwargs or {})
+    ref_svc = RefService(types.SimpleNamespace(), **kw, model_kwargs=dict(
+        model, dtype=getattr(jnp, dtype)))
+    port_svc = PortService(types.SimpleNamespace(), device="cpu", **kw,
+                           model_kwargs=dict(model,
+                                             dtype=getattr(torch, dtype)))
     jcfg = ref_fc.ForecasterConfig(
         n_features=ref_svc.n_features, seq_len=16, **ref_svc.model_kwargs)
     params = ref_fc.init_params(jax.random.PRNGKey(0), jcfg)
@@ -156,15 +185,66 @@ def test_round_matches_reference_service(model_kwargs):
         history = _history(n, seed)
         ref_steps, ref_loss, want = ref_svc._round(history)
         steps, loss, got = port_svc._round(history)
-        assert (steps, loss) == (ref_steps, ref_loss) == (0, None)
+        assert steps == ref_steps == (5 if n > 16 else 0)
+        if steps:
+            assert abs(loss - ref_loss) <= LOSS_RTOL[dtype] * ref_loss
+        else:
+            assert loss is ref_loss is None
         assert list(got) == list(want) == list(port_tm.FEATURES)
         _, std = port_tm.normalization(history)
         for i, name in enumerate(port_tm.FEATURES):
             assert got[name] >= 0.0 and np.isfinite(got[name])
-            assert abs(got[name] - want[name]) <= FORWARD_LIMIT * std[i], \
+            assert abs(got[name] - want[name]) <= \
+                TRAINED_LIMIT[dtype] * std[i], \
                 (name, got[name], want[name], std[i])
         assert (port_svc._np_rng.bit_generator.state
                 == ref_svc._np_rng.bit_generator.state)
+
+
+def test_forecast_reads_the_trained_weights():
+    """After a round that trained, the forecast runs the updated
+    parameters cast afresh, not the weights cast before training: the
+    service's forward equals a forward on freshly cast trained
+    parameters and differs from one on the untrained weights."""
+    svc = PortService(types.SimpleNamespace(), seq_len=8, history=64,
+                      batch=4, steps_per_round=3, model_kwargs=TINY_MODEL,
+                      device="cpu")
+    svc._torch_state = state = svc._torch_setup()
+    cfg = state["cfg"]
+    untrained = {k: v.clone() for k, v in state["params"].items()}
+    stale = state["weights"]
+    history = _history(40, 3)
+    steps, loss, _ = svc._round(history)
+    assert steps == 3 and np.isfinite(loss)
+    assert not torch.equal(state["params"]["layer0/mlp/w1"],
+                           untrained["layer0/mlp/w1"])
+    fresh = port_fc.cast_weights(state["params"], cfg)
+    assert all(torch.equal(state["weights"][k], fresh[k]) for k in fresh)
+    mean, std = port_tm.normalization(history)
+    window = ((history - mean) / std)[-8:][None].astype(np.float32)
+    x = torch.from_numpy(window)
+    got = state["forward"](window)
+    assert np.array_equal(got, port_fc.forward(state["params"], x, cfg,
+                                               weights=fresh).numpy())
+    assert not np.array_equal(got, port_fc.forward(
+        state["params"], x, cfg, weights=stale).numpy())
+
+
+def test_round_refuses_nonfinite_loss():
+    """A loss that is not finite raises and drops the state, as the
+    reference's divergence check does; the next round starts clean."""
+    svc = PortService(types.SimpleNamespace(), seq_len=8, history=64,
+                      batch=4, steps_per_round=2, model_kwargs=TINY_MODEL,
+                      device="cpu")
+    state = svc._torch_setup()
+    state["params"]["embed/kernel"][0, 0] = float("inf")
+    svc._torch_state = state
+    with pytest.raises(RuntimeError, match="diverged"):
+        svc._round(_history(40, 0))
+    assert svc._torch_state is None
+    steps, loss, forecast = svc._round(_history(40, 0))
+    assert steps == 2 and np.isfinite(loss)
+    assert all(np.isfinite(v) for v in forecast.values())
 
 
 def test_round_refuses_nonfinite_forecast():
@@ -183,17 +263,22 @@ def test_round_refuses_nonfinite_forecast():
     assert all(np.isfinite(v) for v in forecast.values())
 
 
-def test_training_is_refused():
-    """Training is not ported: any ``steps_per_round`` but 0 raises, and
-    the reference's ``lr`` is not taken; the default serves without
-    training."""
+def test_defaults_match_reference():
+    """The port's service trains by default as the reference's does: 20
+    steps a round at lr 1e-3 (and the same batch, window and intervals);
+    only ``device`` is the port's own."""
+    import inspect
+
     broker = types.SimpleNamespace()
-    for steps in (20, 1):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            PortService(broker, steps_per_round=steps, device="cpu")
-    with pytest.raises(TypeError):
-        PortService(broker, lr=1e-3)
-    assert PortService(broker).steps_per_round == 0
+    port_svc, ref_svc = PortService(broker), RefService(broker)
+    assert (port_svc.steps_per_round, port_svc.lr) == (20, 1e-3)
+    assert (port_svc.steps_per_round, port_svc.lr) == (ref_svc.steps_per_round,
+                                                       ref_svc.lr)
+    ref_params = inspect.signature(RefService).parameters
+    port_params = inspect.signature(PortService).parameters
+    assert set(port_params) - set(ref_params) == {"device"}
+    for name, p in ref_params.items():
+        assert port_params[name].default == p.default, name
 
 
 def test_default_device_is_the_card():
@@ -213,15 +298,16 @@ def test_default_device_is_the_card():
 
 async def test_forecast_from_observed_traffic():
     """The reference's test_forecast_from_observed_traffic on the port's
-    server and client, without training and without the admin API: the
-    sampler sees the real traffic and the service serves a finite,
-    non-negative next-tick forecast."""
+    server and client, training with its ``steps_per_round=5``, without
+    the admin API: the sampler sees the real traffic, the model trains to
+    a finite loss and the service serves a finite, non-negative next-tick
+    forecast."""
     server = PortServer(PortBroker(router_device="cpu"), host="127.0.0.1",
                         port=0, heartbeat_s=0)
     await server.start()
     forecaster = PortService(
         server.broker, interval_s=0.02, train_interval_s=0.2, seq_len=8,
-        history=4096, batch=8, steps_per_round=0, model_kwargs=TINY_MODEL,
+        history=4096, batch=8, steps_per_round=5, model_kwargs=TINY_MODEL,
         device="cpu")
     await forecaster.start()
     assert server.broker.forecaster is forecaster
@@ -249,7 +335,8 @@ async def test_forecast_from_observed_traffic():
 
         snap = forecaster.snapshot()
         assert snap["error"] is None
-        assert snap["trained_steps"] == 0 and snap["loss"] is None
+        assert snap["trained_steps"] >= 5 and snap["trained_steps"] % 5 == 0
+        assert np.isfinite(snap["loss"])
         history = forecaster.ring.history()
         assert history[:, port_tm.FEATURES.index("publish_rate")].max() > 0
         assert history[:, port_tm.FEATURES.index("deliver_rate")].max() > 0
@@ -338,3 +425,100 @@ def test_chip_smoke_forecast_phase_rehearsal():
     assert 0 < stats["median"] <= stats["p90"] <= stats["p99"] <= stats["max"]
     assert res["ms_first_forward"] > 0
     assert fk.layernorm.launches == before
+
+
+def test_chip_smoke_train_kernel_phase_rehearsal():
+    """chip_smoke's training kernel phase on the CPU at a tiny width: each
+    backward's plain path within its limit, the update exact at the
+    scale it computed with the clip active, and a bound for each."""
+    cfg = port_fc.ForecasterConfig(seq_len=8, **TINY_MODEL)
+    res = chip_smoke.phase_train_kernels(torch.device("cpu"), 0, cfg,
+                                         batches=(1, 3))
+    assert set(res) == set(chip_smoke.TRAIN_KERNELS)
+    for name, rows in res.items():
+        assert set(rows) == {1, 3}
+        for row in rows.values():
+            assert row["max_abs_err"] <= row["limit"]
+            assert row["bound_ms"] > 0 and "ms" not in row
+    update = res["clip_momentum_sgd"][1]
+    assert update["max_abs_err"] == 0.0 and 0 < update["scale"] < 1
+    assert res["layernorm_bwd"][3]["dscale_err"] <= \
+        res["layernorm_bwd"][3]["dscale_limit"]
+
+
+def test_chip_smoke_train_work_counts_by_hand():
+    """The bytes and operations behind the training kernels' bounds."""
+    bf = torch.bfloat16
+    x = torch.zeros(2, 4, 16, dtype=bf)
+    nbytes, ops, _ = chip_smoke.train_work(
+        "layernorm_bwd", (x, x, torch.ones(16)))
+    assert (nbytes, ops) == (3 * 128 * 2 + 2 * 16 * 4, 17 * 128)
+    nbytes, ops, _ = chip_smoke.train_work("gelu_tanh_bwd", (x, x))
+    assert (nbytes, ops) == (3 * 128 * 2, 16 * 128)
+    qkv = torch.zeros(1, 4, 48, dtype=bf)
+    nbytes, ops, _ = chip_smoke.train_work(
+        "causal_attention_bwd", (qkv, torch.zeros(1, 4, 16, dtype=bf), 2))
+    assert nbytes == (2 * 4 * 48 + 4 * 16) * 2
+    assert ops == 2 * 10 * (5 * 2 * 8 + 8)
+    params = [torch.zeros(3, 5), torch.zeros(7)]
+    nbytes, ops, _ = chip_smoke.train_work(
+        "clip_momentum_sgd", (params, params, params, 1e-3, 1.0))
+    assert (nbytes, ops) == (5 * 4 * 22, 7 * 22)
+
+
+def test_chip_smoke_train_phase_rehearsal():
+    """chip_smoke's train phase on the CPU at a tiny width: the step
+    through the kernels' plain versions against the step through plain
+    autograd, every tree within its limit, and the loss falls."""
+    cfg = port_fc.ForecasterConfig(seq_len=8, **TINY_MODEL)
+    res = chip_smoke.phase_train(torch.device("cpu"), 0, cfg, batch=4,
+                                 steps=5)
+    assert len(res["losses"]) == 5 and res["losses"][-1] < res["losses"][0]
+    assert set(res["trees"]) == {1, 5}
+    for trees in res["trees"].values():
+        assert set(trees) == set(port_fc.param_shapes(cfg))
+        for tree in trees.values():
+            for err, limit in tree.values():
+                assert err <= limit
+    assert "host_ms" not in res
+    per_step = chip_smoke.train_per_step(cfg)
+    assert per_step == {"layernorm": 4, "causal_attention": 2,
+                        "gelu_tanh": 2, "layernorm_bwd": 4,
+                        "causal_attention_bwd": 2, "gelu_tanh_bwd": 2,
+                        "clip_momentum_sgd": 2}
+
+
+def test_chip_smoke_forecast_train_phase_rehearsal():
+    """chip_smoke's training forecast path on the CPU at a tiny width:
+    rounds of train steps beside the loaded broker, finite losses, every
+    forward replayed on the parameters it forwarded, and the round and
+    step times with the first apart."""
+    res = chip_smoke.phase_forecast(
+        torch.device("cpu"), model_kwargs=TINY_MODEL, seq_len=8,
+        min_rounds=3, steps_per_round=4, batch=4)
+    assert res["rounds"] >= 3 and res["steps"] >= 4 * res["rounds"]
+    assert np.isfinite(res["loss"])
+    assert res["replay_max_abs_err"] <= chip_smoke.FORWARD_LIMIT
+    for kind in ("ms_per_round", "ms_per_step"):
+        stats = res[kind]
+        assert stats["first"] > 0 and stats["n"] >= 2
+        assert 0 < stats["median"] <= stats["p99"] <= stats["max"]
+    assert res["ms_per_step"]["n"] <= res["steps"] - 1
+
+
+def test_chip_smoke_products_work_by_hand():
+    """The bytes and least time behind the bound of forward's products."""
+    cfg = port_fc.ForecasterConfig(seq_len=4, d_model=8, n_heads=2, d_ff=16,
+                                   n_layers=1, n_features=3)
+    nbytes, seconds = chip_smoke.products_work(cfg, 2)
+    rows = 8
+    shapes = [(rows, 3, 8), (rows, 8, 24), (rows, 8, 8), (rows, 8, 16),
+              (rows, 16, 8)]
+    want = sum(2 * (m * k + k * n + m * n) for m, k, n in shapes)
+    want += 4 * (2 * 8 + 8 * 3 + 2 * 3)
+    assert nbytes == want
+    flops = sum(2 * m * k * n for m, k, n in shapes)
+    assert seconds == pytest.approx(max(
+        want / chip_smoke.HBM_BYTES_PER_S,
+        flops / chip_smoke.BF16_TC_FLOPS_PER_S
+        + 2 * 2 * 8 * 3 / chip_smoke.F32_FLOPS_PER_S))

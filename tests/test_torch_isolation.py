@@ -55,6 +55,7 @@ def test_importing_the_port_loads_no_jax_or_reference():
         "import chanamq_tpu_torch.models.service\n"
         "import chanamq_tpu_torch.models.forecaster\n"
         "import chanamq_tpu_torch.kernels.forecaster\n"
+        "import chanamq_tpu_torch.kernels.update\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'chanamq_tpu'))\n"

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card: the router match kernels and the forecaster's layernorm, causal
-attention and tanh-GELU. Marked ``gpu``; skipped where no CUDA device is
+card: the router match kernels, the forecaster's layernorm, causal
+attention and tanh-GELU, their backward passes and the train step's
+clipped momentum update. Marked ``gpu``; skipped where no CUDA device is
 present. Run on a machine with a card:
 
     python -m pytest tests/test_torch_kernels_gpu.py -m gpu -q
@@ -17,6 +18,12 @@ for attention: the same float32 math summed in another order), and the
 whole forward through the kernels to the forward through the plain
 versions within ``chip_smoke.FORWARD_LIMIT``.
 
+The training kernels are held to their plain versions within
+``chip_smoke.hold_train_kernel``'s limits (the update bit for bit at the
+kernel's clip scale), and the flagship train step through the kernels to
+the JAX package's jitted ``step`` within the limits the CPU tests hold the
+plain versions to (``tests/test_torch_forecaster_train.py``).
+
 The forecaster kernels and the kernel-path forward are also held against
 the JAX package's own functions (``_layernorm``, ``_attention``,
 ``jax.nn.gelu``, the jitted ``forward`` on its ``init_params(PRNGKey(0))``)
@@ -31,6 +38,7 @@ import chip_smoke
 from chanamq_tpu.router import compile as ref_compile
 from chanamq_tpu_torch.kernels import forecaster as fk
 from chanamq_tpu_torch.kernels import router_match as rm
+from chanamq_tpu_torch.kernels import update as upd
 from chanamq_tpu_torch.models import forecaster as port_fc
 from chanamq_tpu_torch.router.tables import tables_from_numpy
 
@@ -332,3 +340,125 @@ def test_forward_refuses_reduced_precision_products(cuda):
     finally:
         port_fc.set_matmul_precision()
     assert torch.isfinite(port_fc.forward(params, x, cfg)).all()
+
+
+# -- the training kernels --------------------------------------------------------
+
+
+# (B, T, d_model, heads, d_ff): the flagship at the service's training batch
+# and __graft_entry__'s, the tests' small config, odd batch and window, a
+# head width of 6 (odd pairs a row), three heads of 8 at an odd window,
+# and a window of 100 at head width 128 (above 48 KB of shared memory)
+TRAIN_SHAPES = [(16, 64, 256, 4, 1024), (32, 64, 256, 4, 1024),
+                (2, 8, 32, 4, 64), (3, 33, 64, 2, 100), (2, 17, 12, 2, 25),
+                (1, 13, 24, 3, 8), (1, 100, 128, 1, 8)]
+
+
+@pytest.mark.parametrize("b,t,d,heads,f", TRAIN_SHAPES)
+def test_train_kernels_match_plain(cuda, b, t, d, heads, f):
+    """Each training kernel against its plain version within
+    ``chip_smoke.hold_train_kernel``'s limits (the update bit for bit at
+    the kernel's scale, with the clip active), one launch each (two for
+    the update)."""
+    cfg = port_fc.ForecasterConfig(seq_len=t, d_model=d, n_heads=heads,
+                                   d_ff=f)
+    gen = torch.Generator().manual_seed(b * 1000 + t + 1)
+    inputs = chip_smoke.train_inputs(gen, cfg, b, cuda)
+    counted = chip_smoke.counted_wrappers()
+    for name in chip_smoke.TRAIN_KERNELS:
+        args = inputs[name]
+        if name == "layernorm_bwd" and d % 8:
+            with pytest.raises(ValueError):
+                fk.layernorm_bwd(*args)
+            continue
+        before = counted[name].launches
+        chip_smoke.hold_train_kernel(name, args, timed=False)
+        torch.cuda.synchronize()
+        assert counted[name].launches == before + (
+            2 if name == "clip_momentum_sgd" else 1)
+
+
+def test_update_kernel_without_clip(cuda):
+    """``clip_norm=None``: one launch, s = 1, and the update bit for bit
+    with the plain version."""
+    cfg = port_fc.ForecasterConfig(seq_len=8, d_model=32, n_heads=4, d_ff=64)
+    params, momentum, grads, lr, _ = chip_smoke.train_inputs(
+        torch.Generator().manual_seed(5), cfg, 1, cuda)["clip_momentum_sgd"]
+    p_k, m_k = [p.clone() for p in params], [m.clone() for m in momentum]
+    before = upd.clip_momentum_sgd.launches
+    s = upd.clip_momentum_sgd(p_k, m_k, grads, lr, None)
+    torch.cuda.synchronize()
+    assert upd.clip_momentum_sgd.launches == before + 1 and float(s) == 1.0
+    assert float(upd.clip_momentum_sgd_ref(params, momentum, grads, lr,
+                                           None)) == 1.0
+    for a, b in zip(p_k + m_k, params + momentum):
+        assert torch.equal(a, b)
+
+
+def test_train_kernels_reject_bad_input(cuda):
+    bf16 = torch.bfloat16
+    x = torch.zeros(2, 64, 256, device=cuda)
+    scale = torch.ones(256, device=cuda)
+    with pytest.raises(TypeError):  # bf16 only
+        fk.layernorm_bwd(x, x, scale)
+    with pytest.raises(TypeError):
+        fk.gelu_tanh_bwd(x, x)
+    xb = x.to(bf16)
+    with pytest.raises(ValueError):  # dy's shape is not x's
+        fk.gelu_tanh_bwd(xb[:1].contiguous(), xb)
+    with pytest.raises(ValueError):  # scale on the wrong device
+        fk.layernorm_bwd(xb, xb, torch.ones(256))
+    qkv = torch.zeros(2, 64, 768, dtype=bf16, device=cuda)
+    with pytest.raises(ValueError):  # dout is not [B, T, D]
+        fk.causal_attention_bwd(qkv, torch.zeros(2, 64, 128, dtype=bf16,
+                                                 device=cuda), 4)
+    with pytest.raises(ValueError):  # T=300 needs more shared memory
+        fk.causal_attention_bwd(
+            torch.zeros(1, 300, 768, dtype=bf16, device=cuda),
+            torch.zeros(1, 300, 256, dtype=bf16, device=cuda), 4)
+    p = [torch.zeros(4, device=cuda)]
+    with pytest.raises(TypeError):  # float32 only
+        upd.clip_momentum_sgd([p[0].double()], [p[0].double()],
+                              [p[0].double()], 1e-3)
+    with pytest.raises(ValueError):  # a gradient of another shape
+        upd.clip_momentum_sgd(p, p, [torch.zeros(5, device=cuda)], 1e-3)
+    with pytest.raises(ValueError):  # a gradient on the CPU
+        upd.clip_momentum_sgd(p, p, [torch.zeros(4)], 1e-3)
+    many = [torch.zeros(4, device=cuda) for _ in range(97)]
+    with pytest.raises(ValueError):  # more tensors than the table holds
+        upd.clip_momentum_sgd(many, many, many, 1e-3)
+
+
+def test_train_step_matches_jax(cuda, record_property):
+    """The flagship train step through the kernels on the card against
+    the JAX package's jitted ``step`` on the CPU beside it, from the JAX
+    package's ``init_params(PRNGKey(0))`` on one ``synthetic_batch`` (B =
+    16) with the service's clip, after 1 and 5 steps, within the limits of
+    ``tests/test_torch_forecaster_train.py::compare_train_steps`` (the
+    same the CPU holds the plain versions to)."""
+    import jax
+
+    from chanamq_tpu.models import forecaster as ref
+    from test_torch_forecaster_train import compare_train_steps, configs
+
+    port_fc.set_matmul_precision()
+    jcfg, tcfg = configs("bfloat16")
+    params = ref.init_params(jax.random.PRNGKey(0), jcfg)
+    tparams = port_fc.params_from_numpy(
+        {k: np.asarray(v) for k, v in params.items()}, tcfg, cuda)
+    x, y = (np.array(a) for a in ref.synthetic_batch(
+        jax.random.PRNGKey(1), jcfg, 16))
+    counted = chip_smoke.counted_wrappers()
+    before = {k: w.launches for k, w in counted.items()}
+    worst = compare_train_steps(jcfg, tcfg, params, tparams, x, y, 1.0)
+    for kind, (ratio, step, name) in worst.items():
+        record_property(f"{kind}_of_limit", ratio)
+        record_property(f"{kind}_worst", f"{name} after {step}")
+    # 5 steps, and the bias bound's two gradient passes (forward and
+    # backward kernels, no update)
+    per_step = chip_smoke.train_per_step(tcfg)
+    for name, w in counted.items():
+        n = per_step[name] * 5
+        if name != "clip_momentum_sgd":
+            n += 2 * per_step[name]
+        assert w.launches - before[name] == n, name
