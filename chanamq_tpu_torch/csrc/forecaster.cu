@@ -25,17 +25,22 @@
 // one 16-byte load); attention reads q, k and v straight out of the fused
 // qkv product and writes the [B, T, D] layout the proj product takes, so
 // the reference's splits, reshapes and transposes become indexing; GELU is
-// one pass of 16-byte loads and stores. This is the first, simple design:
-// attention runs one block per (batch, head) on CUDA cores with no tensor
-// cores, and nothing is fused across kernels.
+// one pass of 16-byte loads and stores. Nothing is fused across kernels.
+//
+// Attention is the tensor-core design of attention_tiles.cuh: both of its
+// products (q . k^T and W . V) on mma.sync, its softmax on the accumulator
+// fragments in registers, one block of four warps per (batch, head, 16-row
+// query tile), so that the service's batch of 1 runs on 16 blocks at
+// T = 64, in one launch a call.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "attention_tiles.cuh"
+
 #define CHANA_LN_WARPS 8
 #define CHANA_LN_CHUNKS 4  // 16-byte chunks a lane holds: D <= 4 * 256
-#define CHANA_ATT_WARPS 8
 #define CHANA_GELU_THREADS 256
 
 namespace {
@@ -43,14 +48,6 @@ namespace {
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  }
   return v;
 }
 
@@ -63,10 +60,6 @@ __device__ __forceinline__ float2 pair_to_float2(uint32_t w) {
 __device__ __forceinline__ uint32_t float2_to_pair(float a, float b) {
   __nv_bfloat162 p = __floats2bfloat162_rn(a, b);
   return *reinterpret_cast<uint32_t*>(&p);
-}
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
 }
 
 // -- layernorm --------------------------------------------------------------
@@ -135,88 +128,173 @@ __global__ void __launch_bounds__(CHANA_LN_WARPS * 32) layernorm_kernel(
 // -- causal attention -------------------------------------------------------
 //
 // qkv [B, T, 3D] (q | k | v, head h at columns h * HD of each third) ->
-// out [B, T, D], head h at columns h * HD. One block per (b, h): q, k and v
-// of the head are staged in shared memory as bf16 pairs with an odd row
-// stride, so the 32 lanes that each take one key read 32 different banks.
-// Each warp takes query rows i = warp, warp + WARPS, ...; its lanes take
-// keys j = lane, lane + 32, ... <= i and compute
+// out [B, T, D], head h at columns h * HD. One block of kFwdWarps (4) warps
+// per (b, h, 16-row query tile), the longest rows first. The block stages
+// its query tile and the key prefix the tile sees (keys < 16 (tile + 1))
+// of k and v with cp.async (attention_tiles.cuh); warp w takes key tiles
+// w, w + 4, ... of the prefix and, on the tensor cores, forms
 //   logit = float(bf16(q_i . k_j)) / sqrt(HD)       (the einsum's bf16 out)
-// then the float32 softmax over j <= i (a key past the query would get
-// exp(-1e30 - max) = 0 in the reference, so it is skipped, which is exact),
-// round each weight to bf16, and accumulate sum_j w_j * v_j in float32 with
-// lanes over the head's columns.
+// for j <= i in registers. The float32 two-pass softmax runs on those
+// accumulator fragments: each warp's row max and row sum over its lane
+// quads, then over the warps through shared memory in warp order (keys
+// past the query get exp(-inf) = 0, as the reference's -1e30 does, which
+// is exact). W = bf16(e / sum) is repacked in registers as the A fragment
+// of W . V; each warp's float32 partial of sum_j W_ij v_j is added into
+// one shared buffer in warp order, and out = bf16 of the total, 64 columns
+// at a time.
 
-__global__ void __launch_bounds__(CHANA_ATT_WARPS * 32)
+__global__ void __launch_bounds__(chana_att::kFwdWarps * 32, 4)
     causal_attention_kernel(const __nv_bfloat16* __restrict__ qkv,
                             __nv_bfloat16* __restrict__ out, int T, int H,
-                            int HD, float scale_div) {
-  extern __shared__ uint32_t smem[];
-  const int hw = HD / 2;                   // bf16 pairs in a head row
-  const int ld = (hw % 2 == 0) ? hw + 1 : hw;  // odd stride: no bank clash
-  uint32_t* s_q = smem;
-  uint32_t* s_k = s_q + T * ld;
-  uint32_t* s_v = s_k + T * ld;
-  float* s_w = reinterpret_cast<float*>(s_v + T * ld);  // [WARPS][T]
-  const int b = blockIdx.x / H;
-  const int h = blockIdx.x - b * H;
+                            int HD, int HDP, int ld, int tiles, int bytes,
+                            float scale_div) {
+  using namespace chana_att;
+  constexpr int W = kFwdWarps;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* s_part = reinterpret_cast<float*>(smem_raw);  // [2][W][16]
+  float* s_o = s_part + 2 * W * kTile;                // [16][kOutLd]
+  __nv_bfloat16* s_q = reinterpret_cast<__nv_bfloat16*>(s_o + kTile * kOutLd);
+  __nv_bfloat16* s_k = s_q + kTile * ld;
+  __nv_bfloat16* s_v = s_k + tiles * kTile * ld;
+  const int bh = blockIdx.x / tiles;
+  const int tile = tiles - 1 - (blockIdx.x - bh * tiles);
+  const int h = bh % H;
+  const int b = bh / H;
   const int D = H * HD;
-  const size_t row_words = (size_t)3 * D / 2;  // words in a (b, t) row
-  const uint32_t* src =
-      reinterpret_cast<const uint32_t*>(qkv) + (size_t)b * T * row_words;
-  const int per_part = T * hw;
-  for (int idx = threadIdx.x; idx < 3 * per_part; idx += blockDim.x) {
-    const int part = idx / per_part;  // 0 q, 1 k, 2 v
-    const int rem = idx - part * per_part;
-    const int t = rem / hw;
-    const int c = rem - t * hw;
-    smem[part * T * ld + t * ld + c] =
-        src[t * row_words + (part * D + h * HD) / 2 + c];
-  }
+  const size_t stride = (size_t)3 * D;
+  const __nv_bfloat16* src = qkv + (size_t)b * T * stride + h * HD;
+  const int row0 = tile * kTile;
+  const int nkt = tile + 1;  // key tiles the query tile sees
+  stage_rows(s_q, src, stride, row0, kTile, T, HD, HDP, ld, bytes);
+  stage_rows(s_k, src + D, stride, 0, nkt * kTile, T, HD, HDP, ld, bytes);
+  stage_rows(s_v, src + 2 * D, stride, 0, nkt * kTile, T, HD, HDP, ld,
+             bytes);
+  cp_async_wait_all();
   __syncthreads();
 
   const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  float* w_row = s_w + warp * T;
-  uint32_t* dst = reinterpret_cast<uint32_t*>(out) + (size_t)b * T * (D / 2);
-  for (int i = warp; i < T; i += CHANA_ATT_WARPS) {
-    const uint32_t* q_i = s_q + i * ld;
-    float mx = __int_as_float(0xff800000);  // -inf
-    for (int j = lane; j <= i; j += 32) {
-      const uint32_t* k_j = s_k + j * ld;
-      float acc = 0.f;
-      for (int c = 0; c < hw; ++c) {
-        const float2 qf = pair_to_float2(q_i[c]);
-        const float2 kf = pair_to_float2(k_j[c]);
-        acc = fmaf(qf.x, kf.x, acc);
-        acc = fmaf(qf.y, kf.y, acc);
+  const int g = (threadIdx.x & 31) >> 2;
+  const int c = threadIdx.x & 3;
+  const int active = min(W, nkt);                        // warps with keys
+  const int mine = warp < nkt ? (nkt - warp + W - 1) / W : 0;
+  constexpr int CH = kFwdChunk;
+  const int nchunk = (mine + CH - 1) / CH;
+  const bool held = nchunk <= 1;  // else each pass recomputes its chunks
+  // chunk ch holds this warp's key tiles warp + W (CH ch + kt)
+  auto key0 = [&](int ch) { return (warp + W * CH * ch) * kTile; };
+  auto ckt = [&](int ch) { return min(CH, mine - ch * CH); };
+  float s[CH][8];
+  float m0 = neg_inf(), m1 = neg_inf();  // rows g and g + 8
+  for (int ch = 0; ch < nchunk; ++ch) {
+    chunk_logits(s, s_q, s_k, ld, HDP, row0, key0(ch), W * kTile, ckt(ch), T,
+                 scale_div);
+    row_max(s, m0, m1);
+  }
+  m0 = quad_max(m0);
+  m1 = quad_max(m1);
+  if (c == 0) {
+    s_part[warp * kTile + g] = m0;
+    s_part[warp * kTile + g + 8] = m1;
+  }
+  __syncthreads();
+  for (int w = 0; w < W; ++w) {
+    m0 = fmaxf(m0, s_part[w * kTile + g]);
+    m1 = fmaxf(m1, s_part[w * kTile + g + 8]);
+  }
+  float l0 = 0.f, l1 = 0.f;
+  for (int ch = 0; ch < nchunk; ++ch) {
+    if (!held) {
+      chunk_logits(s, s_q, s_k, ld, HDP, row0, key0(ch), W * kTile, ckt(ch),
+                   T, scale_div);
+    }
+    chunk_exp(s, m0, m1);
+    row_sum(s, l0, l1);
+  }
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  float* s_sum = s_part + W * kTile;
+  if (c == 0) {
+    s_sum[warp * kTile + g] = l0;
+    s_sum[warp * kTile + g + 8] = l1;
+  }
+  __syncthreads();
+  l0 = 0.f;
+  l1 = 0.f;
+  for (int w = 0; w < W; ++w) {
+    l0 += s_sum[w * kTile + g];
+    l1 += s_sum[w * kTile + g + 8];
+  }
+
+  __nv_bfloat16* dst = out + (size_t)b * T * D + h * HD;
+  for (int col0 = 0; col0 < HDP; col0 += kColChunk) {
+    float o[kColChunk / 8][4];
+#pragma unroll
+    for (int n = 0; n < kColChunk / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+    }
+    for (int ch = 0; ch < nchunk; ++ch) {
+      if (!held) {
+        chunk_logits(s, s_q, s_k, ld, HDP, row0, key0(ch), W * kTile,
+                     ckt(ch), T, scale_div);
+        chunk_exp(s, m0, m1);
       }
-      const float logit = round_bf16(acc) / scale_div;
-      w_row[j] = logit;
-      mx = fmaxf(mx, logit);
-    }
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int j = lane; j <= i; j += 32) {
-      const float e = expf(w_row[j] - mx);
-      w_row[j] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    for (int j = lane; j <= i; j += 32) {
-      w_row[j] = round_bf16(w_row[j] / sum);
-    }
-    __syncwarp();  // every lane reads every weight below
-    for (int c = lane; c < hw; c += 32) {
-      float ax = 0.f, ay = 0.f;
-      for (int j = 0; j <= i; ++j) {
-        const float w = w_row[j];
-        const float2 vf = pair_to_float2(s_v[j * ld + c]);
-        ax = fmaf(w, vf.x, ax);
-        ay = fmaf(w, vf.y, ay);
+#pragma unroll
+      for (int kt = 0; kt < CH; ++kt) {
+        if (kt < ckt(ch)) {
+          float w[8];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            w[e] = s[kt][e] / (((e >> 1) & 1) ? l1 : l0);
+          }
+          uint32_t a[4];
+          pack_a(a, w);
+          const __nv_bfloat16* v_tile =
+              s_v + (key0(ch) + kt * W * kTile) * ld + col0;
+#pragma unroll
+          for (int p = 0; p < kColChunk / 16; ++p) {
+            if (col0 + p * 16 < HDP) {
+              uint32_t bv[4];
+              load_b_kn(bv, v_tile + p * 16, ld);
+              mma_bf16(o[2 * p], a, bv[0], bv[1]);
+              mma_bf16(o[2 * p + 1], a, bv[2], bv[3]);
+            }
+          }
+        }
       }
-      dst[(size_t)i * (D / 2) + h * hw + c] = float2_to_pair(ax, ay);
     }
-    __syncwarp();  // w_row is rewritten for the warp's next row
+    // the warps' partials, added in warp order
+    for (int w = 0; w < active; ++w) {
+      if (warp == w) {
+#pragma unroll
+        for (int n = 0; n < kColChunk / 8; ++n) {
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            float2* p = reinterpret_cast<float2*>(
+                s_o + (g + 8 * half) * kOutLd + n * 8 + 2 * c);
+            float2 v = make_float2(o[n][2 * half], o[n][2 * half + 1]);
+            if (w > 0) {
+              v.x += p->x;
+              v.y += p->y;
+            }
+            *p = v;
+          }
+        }
+      }
+      __syncthreads();
+    }
+    for (int idx = threadIdx.x; idx < kTile * kColChunk / 2;
+         idx += W * 32) {
+      const int row = idx / (kColChunk / 2);
+      const int col = 2 * (idx - row * (kColChunk / 2));
+      if (row0 + row < T && col0 + col < HD) {
+        const float2 v =
+            *reinterpret_cast<const float2*>(s_o + row * kOutLd + col);
+        *reinterpret_cast<uint32_t*>(dst + (size_t)(row0 + row) * D + col0 +
+                                     col) = pack_bf16(v.x, v.y);
+      }
+    }
+    __syncthreads();  // s_o is rewritten for the next 64 columns
   }
 }
 
@@ -278,17 +356,21 @@ int chana_layernorm(const void* x, const void* scale, void* out, int R,
 // Dynamic shared memory the attention kernel needs for T rows of head
 // width HD (0 when the shape is refused).
 size_t chana_causal_attention_smem(int T, int HD) {
-  if (T <= 0 || HD <= 0 || HD % 2 != 0) return 0;
-  const int hw = HD / 2;
-  const int ld = (hw % 2 == 0) ? hw + 1 : hw;
-  return (size_t)(3 * T * ld) * sizeof(uint32_t) +
-         (size_t)CHANA_ATT_WARPS * T * sizeof(float);
+  chana_att::Geometry g;
+  return chana_att::geometry(T, HD, &g) ? g.fwd_smem : 0;
 }
 
+// One block of kFwdWarps warps per (b, h, query tile): B * H * tiles
+// blocks. The wrapper passes the geometry (kernels/forecaster.py's
+// attention_geometry); a mismatch with this file's is refused.
 int chana_causal_attention(const void* qkv, void* out, int B, int T, int H,
-                           int HD, float scale_div, void* stream) {
-  const size_t smem = chana_causal_attention_smem(T, HD);
-  if (B <= 0 || H <= 0 || smem == 0 || smem > 227 * 1024) {
+                           int HD, int HDP, int ld, int tiles, int bytes,
+                           size_t smem, float scale_div, void* stream) {
+  chana_att::Geometry g;
+  if (B <= 0 || H <= 0 || !chana_att::geometry(T, HD, &g) ||
+      !chana_att::geometry_matches(g, HDP, ld, tiles, bytes) ||
+      smem != g.fwd_smem || smem > chana_att::kSmemLimit ||
+      (long long)B * H * tiles > 0x7fffffffLL) {
     return (int)cudaErrorInvalidValue;
   }
   if (smem > 48 * 1024) {
@@ -297,9 +379,10 @@ int chana_causal_attention(const void* qkv, void* out, int B, int T, int H,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  causal_attention_kernel<<<B * H, CHANA_ATT_WARPS * 32, smem,
+  causal_attention_kernel<<<B * H * tiles, chana_att::kFwdWarps * 32, smem,
                             (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)qkv, (__nv_bfloat16*)out, T, H, HD, scale_div);
+      (const __nv_bfloat16*)qkv, (__nv_bfloat16*)out, T, H, HD, HDP, ld,
+      tiles, bytes, scale_div);
   return (int)cudaGetLastError();
 }
 

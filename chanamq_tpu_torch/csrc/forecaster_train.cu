@@ -32,17 +32,22 @@
 // forward does and writes dq | dk | dv straight into the fused [B, T, 3D]
 // cotangent of the qkv product; GELU is one pass of 16-byte loads; the
 // update walks all parameter tensors in one launch from a table of
-// pointers passed by value, two launches a step in all. This is the first,
-// simple design: attention runs one block per (batch, head) on CUDA cores.
+// pointers passed by value, two launches a step in all.
+//
+// Attention's backward is the tensor-core design of attention_tiles.cuh:
+// all five of its products (q . k^T, dout . v^T, dlog . K, dlog^T . Q,
+// W^T . dout) on mma.sync, one block per (batch, head, 16-row tile) with
+// no float atomics, in one launch a call.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "attention_tiles.cuh"
+
 #define CHANA_LNB_WARPS 8
 #define CHANA_LNB_CHUNKS 4  // 16-byte chunks a lane holds: D <= 4 * 256
 #define CHANA_LNB_ROWS 32   // rows a block takes: 4 a warp
-#define CHANA_ATTB_WARPS 8
 #define CHANA_GELU_THREADS 256
 #define CHANA_UPD_THREADS 256
 #define CHANA_UPD_PER_THREAD 16
@@ -57,14 +62,6 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  }
-  return v;
-}
-
 __device__ __forceinline__ float2 pair_to_float2(uint32_t w) {
   __nv_bfloat162 p;
   *reinterpret_cast<uint32_t*>(&p) = w;
@@ -74,10 +71,6 @@ __device__ __forceinline__ float2 pair_to_float2(uint32_t w) {
 __device__ __forceinline__ uint32_t float2_to_pair(float a, float b) {
   __nv_bfloat162 p = __floats2bfloat162_rn(a, b);
   return *reinterpret_cast<uint32_t*>(&p);
-}
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
 }
 
 // Sum of one float a thread over the block (blockDim.x a multiple of 32,
@@ -238,134 +231,229 @@ __global__ void __launch_bounds__(CHANA_LNB_WARPS * 32) layernorm_bwd_kernel(
 //
 // qkv [B, T, 3D] and dout [B, T, D] -> dqkv [B, T, 3D], the cotangent of the
 // fused qkv product (dq | dk | dv, head h at columns h * HD of each third).
-// One block per (b, h); the head's q, k, v and dout are staged in shared
-// memory as bf16 pairs with an odd row stride. Each warp takes query rows
-// i = warp, warp + WARPS, ...; its lanes take keys j = lane, lane + 32, ...
-// <= i and recompute the forward's softmax exactly as the forward kernel
-// does (logit = float(bf16(q_i . k_j)) / sqrt(HD), float32 softmax y), then
+// For query rows i it recomputes the forward's softmax exactly as the
+// forward kernel does (logit = float(bf16(q_i . k_j)) / sqrt(HD), float32
+// softmax y over j <= i), then
 //   dW_j  = bf16(dout_i . v_j)                 (the second einsum's cotangent)
 //   u_j   = y_j * dW_j,  dl_j = u_j - y_j * sum_j u_j     (softmax's jvp rule,
 //           transposed: it differentiates through the float32 y)
 //   dlog  = bf16(dl_j / sqrt(HD))   (the cotangent of the logits' bf16 cast)
-// and keeps W = bf16(y) and dlog as [T, T] float matrices in shared memory;
-// masked entries (j > i) are never read. Then, with lanes over columns:
+// and, with W = bf16(y):
 //   dq_i = bf16(sum_j<=i dlog_ij k_j),  dk_j = bf16(sum_i>=j dlog_ij q_i),
 //   dv_j = bf16(sum_i>=j W_ij dout_i).
+//
+// One block of four warps per (b, h, tile t), no float atomics: the block
+// writes dq for query tile t and dk, dv for key tile t. It stages k and v
+// and the rows >= 16 t of q and dout (attention_tiles.cuh); each warp takes
+// query tiles i = t + warp, t + warp + 4, ... and recomputes their full
+// softmax rows on the tensor cores (q . k^T and dout . v^T, the row's max,
+// sum and sum_j u_j over lane quads). From each it keeps dlog and W of key
+// tile t as bf16 [16 x 16] tiles in shared memory, and the warp with i = t
+// the whole dlog row of tile t (all three are rounded already, so keeping
+// them in bf16 is exact). Then the block's warps split dq = dlog . K,
+// dk = dlog^T . Q and dv = W^T . dout (ldmatrix.trans for the transposed
+// operands) by 16 columns, each summing over its tiles in order.
 
-__global__ void __launch_bounds__(CHANA_ATTB_WARPS * 32)
+// For chunk ch of a query tile's row (nkt key tiles in all): y = e / sum
+// in place, e = exp(logit - max) (recomputed from q and k first when
+// `recompute`, else already in s), and dW = bf16(dout . v^T), two to a
+// word (it is rounded already, so packing it is exact), a key tile at a
+// time.
+__device__ __forceinline__ void chunk_y_dw(
+    float (&s)[chana_att::kBwdChunk][8],
+    uint32_t (&dw)[chana_att::kBwdChunk][4], const __nv_bfloat16* q_tile,
+    const __nv_bfloat16* do_tile, const __nv_bfloat16* s_k,
+    const __nv_bfloat16* s_v, int ld, int hdp, int row0, int ch, int nkt,
+    int T, float scale_div, float m0, float m1, float l0, float l1,
+    bool recompute) {
+  using namespace chana_att;
+  constexpr int CH = kBwdChunk;
+  const int key0 = ch * CH * kTile;
+  const int ckt = min(CH, nkt - ch * CH);
+  if (recompute) {
+    chunk_logits(s, q_tile, s_k, ld, hdp, row0, key0, kTile, ckt, T,
+                 scale_div);
+    chunk_exp(s, m0, m1);
+  }
+#pragma unroll
+  for (int kt = 0; kt < CH; ++kt) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) s[kt][e] /= ((e >> 1) & 1) ? l1 : l0;
+    float d[1][8] = {{0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f}};
+    if (kt < ckt) {
+      tile_products(d, do_tile, s_v + (key0 + kt * kTile) * ld, kTile, ld,
+                    hdp, 1);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      dw[kt][e] = pack_bf16(d[0][2 * e], d[0][2 * e + 1]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(chana_att::kBwdWarps * 32, 4)
     causal_attention_bwd_kernel(const __nv_bfloat16* __restrict__ qkv,
                                 const __nv_bfloat16* __restrict__ dout,
                                 __nv_bfloat16* __restrict__ dqkv, int T,
-                                int H, int HD, float scale_div) {
-  extern __shared__ uint32_t smem[];
-  const int hw = HD / 2;
-  const int ld = (hw % 2 == 0) ? hw + 1 : hw;
-  uint32_t* s_q = smem;
-  uint32_t* s_k = s_q + T * ld;
-  uint32_t* s_v = s_k + T * ld;
-  uint32_t* s_do = s_v + T * ld;
-  float* s_w = reinterpret_cast<float*>(s_do + T * ld);  // [T][T]
-  float* s_dl = s_w + T * T;                              // [T][T]
-  const int b = blockIdx.x / H;
-  const int h = blockIdx.x - b * H;
+                                int H, int HD, int HDP, int ld, int tiles,
+                                int bytes, float scale_div) {
+  using namespace chana_att;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int rows = tiles * kTile;
+  __nv_bfloat16* s_q = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* s_k = s_q + rows * ld;
+  __nv_bfloat16* s_v = s_k + rows * ld;
+  __nv_bfloat16* s_do = s_v + rows * ld;
+  __nv_bfloat16* s_dl = s_do + rows * ld;     // [rows][kTileLd]: dlog[:, t]
+  __nv_bfloat16* s_w = s_dl + rows * kTileLd;  // [rows][kTileLd]: W[:, t]
+  const int dq_ld = rows + 8;
+  __nv_bfloat16* s_dq = s_w + rows * kTileLd;  // [16][dq_ld]: dlog[t, :]
+  const int bh = blockIdx.x / tiles;
+  const int t = blockIdx.x - bh * tiles;
+  const int h = bh % H;
+  const int b = bh / H;
   const int D = H * HD;
-  const size_t row_words = (size_t)3 * D / 2;
-  const uint32_t* src =
-      reinterpret_cast<const uint32_t*>(qkv) + (size_t)b * T * row_words;
-  const uint32_t* dsrc =
-      reinterpret_cast<const uint32_t*>(dout) + (size_t)b * T * (D / 2);
-  const int per_part = T * hw;
-  for (int idx = threadIdx.x; idx < 4 * per_part; idx += blockDim.x) {
-    const int part = idx / per_part;  // 0 q, 1 k, 2 v, 3 dout
-    const int rem = idx - part * per_part;
-    const int t = rem / hw;
-    const int c = rem - t * hw;
-    smem[part * T * ld + t * ld + c] =
-        part < 3 ? src[t * row_words + (part * D + h * HD) / 2 + c]
-                 : dsrc[(size_t)t * (D / 2) + h * hw + c];
-  }
+  const size_t stride = (size_t)3 * D;
+  const __nv_bfloat16* src = qkv + (size_t)b * T * stride + h * HD;
+  const __nv_bfloat16* dsrc = dout + (size_t)b * T * D + h * HD;
+  const int r0 = t * kTile;
+  stage_rows(s_k, src + D, stride, 0, rows, T, HD, HDP, ld, bytes);
+  stage_rows(s_v, src + 2 * D, stride, 0, rows, T, HD, HDP, ld, bytes);
+  stage_rows(s_q + r0 * ld, src, stride, r0, rows - r0, T, HD, HDP, ld,
+             bytes);
+  stage_rows(s_do + r0 * ld, dsrc, D, r0, rows - r0, T, HD, HDP, ld, bytes);
+  cp_async_wait_all();
   __syncthreads();
 
   const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  for (int i = warp; i < T; i += CHANA_ATTB_WARPS) {
-    const uint32_t* q_i = s_q + i * ld;
-    const uint32_t* do_i = s_do + i * ld;
-    float* w_row = s_w + i * T;
-    float* d_row = s_dl + i * T;
-    float mx = __int_as_float(0xff800000);  // -inf
-    for (int j = lane; j <= i; j += 32) {
-      const uint32_t* k_j = s_k + j * ld;
-      float acc = 0.f;
-      for (int c = 0; c < hw; ++c) {
-        const float2 qf = pair_to_float2(q_i[c]);
-        const float2 kf = pair_to_float2(k_j[c]);
-        acc = fmaf(qf.x, kf.x, acc);
-        acc = fmaf(qf.y, kf.y, acc);
+  const int c = threadIdx.x & 3;
+  __nv_bfloat16* dst = dqkv + (size_t)b * T * stride + h * HD;
+  for (int i = t + warp; i < tiles; i += kBwdWarps) {
+    const int row0 = i * kTile;
+    const __nv_bfloat16* q_tile = s_q + row0 * ld;
+    const __nv_bfloat16* do_tile = s_do + row0 * ld;
+    const int nkt = i + 1;
+    constexpr int CH = kBwdChunk;
+    const int nchunk = (nkt + CH - 1) / CH;
+    const bool held = nchunk == 1;  // else each pass recomputes its chunks
+    float s[CH][8];      // logits, then e, then y
+    uint32_t dw[CH][4];  // dW = bf16(dout . v^T), two to a word
+    float m0 = neg_inf(), m1 = neg_inf();  // rows g and g + 8
+    for (int ch = 0; ch < nchunk; ++ch) {
+      chunk_logits(s, q_tile, s_k, ld, HDP, row0, ch * CH * kTile, kTile,
+                   min(CH, nkt - ch * CH), T, scale_div);
+      row_max(s, m0, m1);
+    }
+    m0 = quad_max(m0);
+    m1 = quad_max(m1);
+    float l0 = 0.f, l1 = 0.f;
+    for (int ch = 0; ch < nchunk; ++ch) {
+      if (!held) {
+        chunk_logits(s, q_tile, s_k, ld, HDP, row0, ch * CH * kTile, kTile,
+                     min(CH, nkt - ch * CH), T, scale_div);
       }
-      const float logit = round_bf16(acc) / scale_div;
-      w_row[j] = logit;
-      mx = fmaxf(mx, logit);
+      chunk_exp(s, m0, m1);
+      row_sum(s, l0, l1);
     }
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int j = lane; j <= i; j += 32) {
-      const float e = expf(w_row[j] - mx);
-      w_row[j] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    float su = 0.f;
-    for (int j = lane; j <= i; j += 32) {
-      const uint32_t* v_j = s_v + j * ld;
-      float acc = 0.f;
-      for (int c = 0; c < hw; ++c) {
-        const float2 df = pair_to_float2(do_i[c]);
-        const float2 vf = pair_to_float2(v_j[c]);
-        acc = fmaf(df.x, vf.x, acc);
-        acc = fmaf(df.y, vf.y, acc);
+    l0 = quad_sum(l0);
+    l1 = quad_sum(l1);
+    float su0 = 0.f, su1 = 0.f;  // sum_j y_j dW_j
+    for (int ch = 0; ch < nchunk; ++ch) {
+      chunk_y_dw(s, dw, q_tile, do_tile, s_k, s_v, ld, HDP, row0, ch, nkt, T,
+                 scale_div, m0, m1, l0, l1, !held);
+#pragma unroll
+      for (int kt = 0; kt < CH; ++kt) {
+#pragma unroll
+        for (int e = 0; e < 8; e += 2) {
+          const float2 d = unpack_bf16(dw[kt][e / 2]);
+          const float u = s[kt][e] * d.x + s[kt][e + 1] * d.y;
+          if ((e >> 1) & 1) {
+            su1 += u;
+          } else {
+            su0 += u;
+          }
+        }
       }
-      const float y = w_row[j] / sum;
-      const float dw = round_bf16(acc);
-      d_row[j] = y;
-      w_row[j] = dw;
-      su += y * dw;
     }
-    su = warp_sum(su);
-    for (int j = lane; j <= i; j += 32) {
-      const float y = d_row[j];
-      const float u = y * w_row[j];
-      d_row[j] = round_bf16((u - y * su) / scale_div);
-      w_row[j] = round_bf16(y);
+    su0 = quad_sum(su0);
+    su1 = quad_sum(su1);
+
+    // dlog of each chunk: its key tile t to shared memory with W, and the
+    // whole row when i = t
+    for (int ch = 0; ch < nchunk; ++ch) {
+      if (!held) {
+        chunk_y_dw(s, dw, q_tile, do_tile, s_k, s_v, ld, HDP, row0, ch, nkt,
+                   T, scale_div, m0, m1, l0, l1, true);
+      }
+      const int ckt = min(CH, nkt - ch * CH);
+#pragma unroll
+      for (int kt = 0; kt < CH; ++kt) {
+        const int key_tile = ch * CH + kt;
+        if (kt < ckt) {
+#pragma unroll
+          for (int e = 0; e < 8; e += 2) {
+            const int row = frag_row(e);
+            const float su = ((e >> 1) & 1) ? su1 : su0;
+            const float y0 = s[kt][e], y1 = s[kt][e + 1];
+            const float2 d = unpack_bf16(dw[kt][e / 2]);
+            // padded rows add nothing to dk and dv
+            const uint32_t dl =
+                row0 + row < T
+                    ? pack_bf16((y0 * d.x - y0 * su) / scale_div,
+                                (y1 * d.y - y1 * su) / scale_div)
+                    : 0u;
+            if (key_tile == t) {
+              const int off = (row0 + row) * kTileLd + frag_col(e);
+              *reinterpret_cast<uint32_t*>(s_dl + off) = dl;
+              *reinterpret_cast<uint32_t*>(s_w + off) =
+                  row0 + row < T ? pack_bf16(y0, y1) : 0u;
+            }
+            if (i == t) {
+              *reinterpret_cast<uint32_t*>(
+                  s_dq + row * dq_ld + key_tile * kTile + frag_col(e)) = dl;
+            }
+          }
+        }
+      }
     }
   }
   __syncthreads();
 
-  uint32_t* dst = reinterpret_cast<uint32_t*>(dqkv) + (size_t)b * T * row_words;
-  for (int r = warp; r < T; r += CHANA_ATTB_WARPS) {
-    for (int c = lane; c < hw; c += 32) {
-      float qx = 0.f, qy = 0.f;  // dq_r: keys j <= r
-      for (int j = 0; j <= r; ++j) {
-        const float d = s_dl[r * T + j];
-        const float2 kf = pair_to_float2(s_k[j * ld + c]);
-        qx = fmaf(d, kf.x, qx);
-        qy = fmaf(d, kf.y, qy);
+  // dq of query tile t (which 0: dlog . K over key tiles <= t), dk and dv
+  // of key tile t (1: dlog^T . Q, 2: W^T . dout over query tiles >= t),
+  // 16 columns an item
+  const int groups = HDP / 16;
+  for (int item = warp; item < 3 * groups; item += kBwdWarps) {
+    const int which = item / groups;
+    const int col0 = (item - which * groups) * 16;
+    float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+    const int first = which == 0 ? 0 : t;
+    const int last = which == 0 ? t : tiles - 1;
+    for (int j = first; j <= last; ++j) {
+      uint32_t a[4], bq[4];
+      if (which == 0) {
+        load_a(a, s_dq + j * kTile, dq_ld);
+        load_b_kn(bq, s_k + j * kTile * ld + col0, ld);
+      } else {
+        load_a_trans(a, (which == 1 ? s_dl : s_w) + j * kTile * kTileLd,
+                     kTileLd);
+        load_b_kn(bq, (which == 1 ? s_q : s_do) + j * kTile * ld + col0, ld);
       }
-      float kx = 0.f, ky = 0.f, vx = 0.f, vy = 0.f;  // dk_r, dv_r: i >= r
-      for (int i = r; i < T; ++i) {
-        const float d = s_dl[i * T + r];
-        const float w = s_w[i * T + r];
-        const float2 qf = pair_to_float2(s_q[i * ld + c]);
-        const float2 df = pair_to_float2(s_do[i * ld + c]);
-        kx = fmaf(d, qf.x, kx);
-        ky = fmaf(d, qf.y, ky);
-        vx = fmaf(w, df.x, vx);
-        vy = fmaf(w, df.y, vy);
+      mma_bf16(acc[0], a, bq[0], bq[1]);
+      mma_bf16(acc[1], a, bq[2], bq[3]);
+    }
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      const int col = col0 + n * 8 + 2 * c;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = r0 + frag_row(2 * half);
+        if (col < HD && row < T) {
+          *reinterpret_cast<uint32_t*>(dst + (size_t)row * stride +
+                                       which * D + col) =
+              pack_bf16(acc[n][2 * half], acc[n][2 * half + 1]);
+        }
       }
-      uint32_t* row = dst + (size_t)r * row_words + h * hw + c;
-      row[0] = float2_to_pair(qx, qy);
-      row[D / 2] = float2_to_pair(kx, ky);
-      row[D] = float2_to_pair(vx, vy);
     }
   }
 }
@@ -556,18 +644,22 @@ int chana_layernorm_bwd(const void* dy, const void* x, const void* scale,
 // Dynamic shared memory the attention backward needs for T rows of head
 // width HD (0 when the shape is refused).
 size_t chana_causal_attention_bwd_smem(int T, int HD) {
-  if (T <= 0 || HD <= 0 || HD % 2 != 0) return 0;
-  const int hw = HD / 2;
-  const int ld = (hw % 2 == 0) ? hw + 1 : hw;
-  return (size_t)(4 * T * ld) * sizeof(uint32_t) +
-         (size_t)2 * T * T * sizeof(float);
+  chana_att::Geometry g;
+  return chana_att::geometry(T, HD, &g) ? g.bwd_smem : 0;
 }
 
+// One block of kBwdWarps warps per (b, h, tile): B * H * tiles blocks. The
+// wrapper passes the geometry (kernels/forecaster.py's
+// attention_geometry); a mismatch with this file's is refused.
 int chana_causal_attention_bwd(const void* qkv, const void* dout, void* dqkv,
-                               int B, int T, int H, int HD, float scale_div,
-                               void* stream) {
-  const size_t smem = chana_causal_attention_bwd_smem(T, HD);
-  if (B <= 0 || H <= 0 || smem == 0 || smem > 227 * 1024) {
+                               int B, int T, int H, int HD, int HDP, int ld,
+                               int tiles, int bytes, size_t smem,
+                               float scale_div, void* stream) {
+  chana_att::Geometry g;
+  if (B <= 0 || H <= 0 || !chana_att::geometry(T, HD, &g) ||
+      !chana_att::geometry_matches(g, HDP, ld, tiles, bytes) ||
+      smem != g.bwd_smem || smem > chana_att::kSmemLimit ||
+      (long long)B * H * tiles > 0x7fffffffLL) {
     return (int)cudaErrorInvalidValue;
   }
   if (smem > 48 * 1024) {
@@ -576,10 +668,11 @@ int chana_causal_attention_bwd(const void* qkv, const void* dout, void* dqkv,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  causal_attention_bwd_kernel<<<B * H, CHANA_ATTB_WARPS * 32, smem,
+  causal_attention_bwd_kernel<<<B * H * tiles, chana_att::kBwdWarps * 32,
+                                smem,
                                 (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)qkv, (const __nv_bfloat16*)dout,
-      (__nv_bfloat16*)dqkv, T, H, HD, scale_div);
+      (__nv_bfloat16*)dqkv, T, H, HD, HDP, ld, tiles, bytes, scale_div);
   return (int)cudaGetLastError();
 }
 

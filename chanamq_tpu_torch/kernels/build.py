@@ -3,8 +3,9 @@ bind checked launches of their C functions.
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 on first use into ``chanamq_tpu_torch/_build/lib<name>-<hash>.so``, where
-the hash covers the source and the flags, so an edited source rebuilds and
-an unchanged one loads the library already there. The library is loaded
+the hash covers the source, the headers beside it (``csrc/*.cuh``) and the
+flags, so an edited source or header rebuilds and an unchanged one loads
+the library already there. The library is loaded
 with ``ctypes``; nothing here includes PyTorch's headers, so a build takes
 seconds.
 """
@@ -56,8 +57,11 @@ def build(name: str) -> Built:
     """Compile ``csrc/<name>.cu`` unless a library of the same source and
     flags is already in the build directory. Raises on a failed build."""
     src = os.path.join(SRC_DIR, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(SRC_DIR) if f.endswith(".cuh"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [src] + [os.path.join(SRC_DIR, h) for h in headers]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
     stem = f"lib{name}-{digest.hexdigest()[:16]}"
     lib_path = os.path.join(BUILD_DIR, stem + ".so")
     log_path = os.path.join(BUILD_DIR, stem + ".log")

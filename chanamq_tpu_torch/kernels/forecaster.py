@@ -58,8 +58,8 @@ def library() -> ctypes.CDLL:
         lib.chana_layernorm.argtypes = [_ptr] * 3 + [_int] * 2 + [
             ctypes.c_float, _ptr]
         lib.chana_layernorm.restype = _int
-        lib.chana_causal_attention.argtypes = [_ptr] * 2 + [_int] * 4 + [
-            ctypes.c_float, _ptr]
+        lib.chana_causal_attention.argtypes = [_ptr] * 2 + [_int] * 8 + [
+            ctypes.c_size_t, ctypes.c_float, _ptr]
         lib.chana_causal_attention.restype = _int
         lib.chana_causal_attention_smem.argtypes = [_int, _int]
         lib.chana_causal_attention_smem.restype = ctypes.c_size_t
@@ -133,6 +133,61 @@ layernorm.launches = 0
 
 
 # -- causal attention --------------------------------------------------------
+#
+# Both attention kernels (``csrc/attention_tiles.cuh``) cut a head into
+# 16-row tiles, the m16 of the tensor cores' mma, and run one block of four
+# warps per (batch, head, tile). ``attention_geometry`` is their launch
+# geometry, by the same rules as the C launchers, which refuse any other.
+
+ATT_TILE = 16
+ATT_WARPS = 4    # warps a block, forward and backward
+ATT_COLS = 64    # output columns the forward sums at a time
+SMEM_LIMIT = 227 * 1024  # dynamic shared memory a block can have (H100)
+
+
+class AttentionGeometry(NamedTuple):
+    tiles: int       # 16-row tiles covering T; rows past T are masked
+    hd_pad: int      # head_dim rounded up to 16 with zero columns
+    ld: int          # shared-memory row stride in bf16: hd_pad + 8, which
+                     # keeps ldmatrix free of bank conflicts (hd_pad at 16,
+                     # so the narrowest heads' longest windows fit)
+    copy_bytes: int  # cp.async width: the largest of 16, 8, 4 dividing
+                     # 2 * head_dim, so every row's copies stay aligned
+    fwd_smem: int    # the forward's row max and sum of each warp, a
+                     # float32 [16, 64 + 8] output tile, the query tile and
+                     # the k, v rows
+    bwd_smem: int    # the backward's q, k, v, dout rows, its W and dlog
+                     # [rows, 16 + 8] tiles and the [16, rows + 8] dlog rows
+                     # of its query tile
+
+    def grid(self, b: int, n_heads: int) -> int:
+        """Blocks of either kernel: one per (batch, head, tile)."""
+        return b * n_heads * self.tiles
+
+
+def attention_geometry(t: int, hd: int) -> AttentionGeometry:
+    """The attention kernels' launch geometry for windows of ``t`` rows
+    and heads of width ``hd`` (even)."""
+    if t <= 0 or hd <= 0 or hd % 2:
+        raise ValueError(f"attention: T={t}, head_dim={hd}; the kernels "
+                         "take T >= 1 and an even head_dim")
+    tiles = -(-t // ATT_TILE)
+    hd_pad = -(-hd // ATT_TILE) * ATT_TILE
+    ld = hd_pad if hd_pad == ATT_TILE else hd_pad + 8
+    rows = tiles * ATT_TILE
+    return AttentionGeometry(
+        tiles=tiles, hd_pad=hd_pad, ld=ld, copy_bytes=math.gcd(2 * hd, 16),
+        fwd_smem=4 * ATT_TILE * (2 * ATT_WARPS + ATT_COLS + 8)
+        + 2 * ld * (ATT_TILE + 2 * rows),
+        bwd_smem=2 * (4 * rows * ld + 2 * rows * (ATT_TILE + 8)
+                      + ATT_TILE * (rows + 8)))
+
+
+def _check_smem(name: str, t: int, hd: int, smem: int) -> None:
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"{name}: T={t}, head_dim={hd} needs {smem} B of "
+                         f"shared memory, over the {SMEM_LIMIT} B a block "
+                         "can have")
 
 
 def causal_attention_ref(qkv: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -165,16 +220,14 @@ def prepare_causal_attention(qkv: torch.Tensor, n_heads: int):
     out = torch.empty((b, t, n_heads * hd), dtype=_BF16, device=device)
     if b == 0 or t == 0:
         return out, None
-    lib = library()
-    smem = lib.chana_causal_attention_smem(t, hd)
-    if smem == 0 or smem > 227 * 1024:
-        raise ValueError(f"causal_attention: T={t}, head_dim={hd} does not "
-                         "fit the kernel (even head_dim, shared memory "
-                         "up to 227 KB)")
+    g = attention_geometry(t, hd)
+    _check_smem("causal_attention", t, hd, g.fwd_smem)
     _aligned("causal_attention", qkv, out)
+    lib = library()
     return out, build.launcher(
         lib, lib.chana_causal_attention, "causal_attention", device,
-        qkv.data_ptr(), out.data_ptr(), b, t, n_heads, hd, math.sqrt(hd))
+        qkv.data_ptr(), out.data_ptr(), b, t, n_heads, hd, g.hd_pad, g.ld,
+        g.tiles, g.copy_bytes, g.fwd_smem, math.sqrt(hd))
 
 
 def causal_attention(qkv: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -252,8 +305,8 @@ def train_library() -> ctypes.CDLL:
         lib.chana_layernorm_bwd.argtypes = [_ptr] * 7 + [_int] * 2 + [
             ctypes.c_float, _ptr]
         lib.chana_layernorm_bwd.restype = _int
-        lib.chana_causal_attention_bwd.argtypes = [_ptr] * 3 + [_int] * 4 + [
-            ctypes.c_float, _ptr]
+        lib.chana_causal_attention_bwd.argtypes = [_ptr] * 3 + [_int] * 8 + [
+            ctypes.c_size_t, ctypes.c_float, _ptr]
         lib.chana_causal_attention_bwd.restype = _int
         lib.chana_causal_attention_bwd_smem.argtypes = [_int, _int]
         lib.chana_causal_attention_bwd_smem.restype = ctypes.c_size_t
@@ -381,17 +434,14 @@ def prepare_causal_attention_bwd(qkv: torch.Tensor, dout: torch.Tensor,
     dqkv = torch.empty_like(qkv)
     if b == 0 or t == 0:
         return dqkv, None
-    lib = train_library()
-    smem = lib.chana_causal_attention_bwd_smem(t, hd)
-    if smem == 0 or smem > 227 * 1024:
-        raise ValueError(f"causal_attention_bwd: T={t}, head_dim={hd} does "
-                         "not fit the kernel (even head_dim, shared memory "
-                         "up to 227 KB)")
+    g = attention_geometry(t, hd)
+    _check_smem("causal_attention_bwd", t, hd, g.bwd_smem)
     _aligned("causal_attention_bwd", qkv, dout, dqkv)
+    lib = train_library()
     return dqkv, build.launcher(
         lib, lib.chana_causal_attention_bwd, "causal_attention_bwd", device,
         qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), b, t, n_heads, hd,
-        math.sqrt(hd))
+        g.hd_pad, g.ld, g.tiles, g.copy_bytes, g.bwd_smem, math.sqrt(hd))
 
 
 def causal_attention_bwd(qkv: torch.Tensor, dout: torch.Tensor,

@@ -13,7 +13,9 @@ rehearse it; any failure exits non-zero:
    plain versions;
 2. build: ``csrc/router_match.cu``, ``csrc/forecaster.cu`` and
    ``csrc/forecaster_train.cu``, one nvcc each, started together, for
-   sm_90a, with ptxas's register, shared-memory and spill report;
+   sm_90a, with ptxas's register, shared-memory and spill report and the
+   count of tensor-core instructions (HMMA/HGMMA) in each attention
+   kernel's SASS (``cuobjdump``; "not available" without it);
 3. kernels at the router's caps: both router match kernels at N=512
    rows, W=128 mask words and full token widths (topic P=S=8, headers
    R=8, H=16) against their plain PyTorch versions, word for word, at B in
@@ -84,6 +86,7 @@ import argparse
 import asyncio
 import json
 import math
+import os
 import random
 import re
 import subprocess
@@ -149,11 +152,35 @@ def phase_device() -> dict:
 
 
 SOURCES = ("router_match", "forecaster", "forecaster_train")
+# the kernels whose tensor-core instructions the build reports
+MMA_KERNELS = {"forecaster": "causal_attention",
+               "forecaster_train": "causal_attention_bwd"}
+
+
+def sass_mma_count(lib_path: str, kernel: str):
+    """HMMA and HGMMA instructions (the tensor cores' mma.sync and wgmma)
+    in ``kernel``'s SASS in a built library, by ``cuobjdump -sass`` from
+    nvcc's toolkit; the string "not available" where it has none."""
+    from chanamq_tpu_torch.kernels import build
+
+    tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    if not os.access(tool, os.X_OK):
+        return "not available"
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    count, inside = 0, False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = f"{kernel}_kernel" in line
+        elif inside and re.search(r"\bHG?MMA\b", line):
+            count += 1
+    return count
 
 
 def phase_build() -> dict:
     """Every CUDA source of the port, one nvcc each, all started together;
-    raises if any build fails."""
+    raises if any build fails. Reports ptxas's registers, shared memory
+    and spills, and the attention kernels' tensor-core instructions."""
     from concurrent.futures import ThreadPoolExecutor
 
     from chanamq_tpu_torch.kernels import build
@@ -170,6 +197,11 @@ def phase_build() -> dict:
         for ln in ptxas:
             log(f"[build] ptxas: {ln}")
         out[name] = {"seconds": b.seconds, "ptxas": ptxas}
+        if name in MMA_KERNELS:
+            kernel = MMA_KERNELS[name]
+            out[name]["hmma"] = sass_mma_count(b.path, kernel)
+            log(f"[build] sass: {kernel}_kernel has {out[name]['hmma']} "
+                "HMMA/HGMMA instructions")
     log(f"[build] {len(SOURCES)} sources in "
         f"{time.perf_counter() - t0:.2f} s (wall)")
     return out
@@ -1826,7 +1858,7 @@ def main() -> int:
     from chanamq_tpu_torch.kernels import router_match as rm
 
     dev = phase_device()
-    phase_build()
+    built = phase_build()
     device = torch.device("cuda", 0)
     caps = phase_kernels(device, args.seed)
     fc_kernels = phase_forecaster_kernels(device, args.seed)
@@ -1971,6 +2003,8 @@ def main() -> int:
                 "shape", "ms", "plain_ms", "bound_ms", "bound_by")}})
     keys = ("shape", "max_abs_err", "limit", "ms", "wrapper_ms", "plain_ms",
             "library_ms", "bound_ms", "bound_by")
+    # the attention kernels' tensor-core instructions, by kernel name
+    hmma = {kernel: built[src]["hmma"] for src, kernel in MMA_KERNELS.items()}
     for name in FORECASTER_KERNELS:
         rows = fc_kernels[name]
         main_b, other_b = FORECAST_BATCHES  # the service's batch first
@@ -1980,7 +2014,8 @@ def main() -> int:
             "replaces": replaces[name], "launches": launches[name],
             "launches_training_path": train_launches[name],
             **{k: rows[main_b][k] for k in keys},
-            f"at_b{other_b}": {k: rows[other_b][k] for k in keys}})
+            f"at_b{other_b}": {k: rows[other_b][k] for k in keys},
+            **({"hmma": hmma[name]} if name in hmma else {})})
     for name in TRAIN_KERNELS:
         rows = train_kernels[name]
         main_b, other_b = TRAIN_BATCHES  # the service's batch first
@@ -1989,7 +2024,8 @@ def main() -> int:
             "source": "chanamq_tpu_torch/csrc/forecaster_train.cu",
             "replaces": replaces[name], "launches": train_launches[name],
             **{k: rows[main_b][k] for k in keys},
-            f"at_b{other_b}": {k: rows[other_b][k] for k in keys}})
+            f"at_b{other_b}": {k: rows[other_b][k] for k in keys},
+            **({"hmma": hmma[name]} if name in hmma else {})})
     print(json.dumps({"kernels": line}))
     print(dev["smi"])
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,316 @@
+"""What surrounds the tensor-core attention kernels, on the CPU.
+
+The forward (``csrc/forecaster.cu``) and backward
+(``csrc/forecaster_train.cu``) attention kernels cut a head into 16-row
+tiles (``csrc/attention_tiles.cuh``). They run only on a card
+(``tests/test_torch_kernels_gpu.py``), so two things they rest on are
+held here:
+
+- **The launch geometry** that ``kernels/forecaster.py`` computes and
+  passes to the C launchers (which refuse any other): padded widths,
+  tile count, grid, copy width and shared memory, for every shape the
+  ``gpu`` tests run and for the flagship.
+- **A plain tile-order model** of each kernel, kept in this file: the same
+  split into 16-row query tiles and 16-key tiles, the diagonal tile masked,
+  the head width and the window zero-padded as the kernels stage them, and
+  ``W`` and ``dlog`` held in the working dtype, as the kernels hold them in
+  shared memory. Each model is held against the plain versions
+  (``causal_attention_ref``, ``causal_attention_bwd_ref``) and, as a
+  differentiable op, against ``jax.vjp`` of the JAX package's
+  ``_attention`` on the same numpy inputs.
+
+Tolerances, max abs error, those ``tests/test_torch_forecaster_train.py``
+states for attention: float32 within 1e-5 of the largest value (the same
+arithmetic, summed in another order); bfloat16 within two bf16 steps at
+the largest value (the model rounds where the reference rounds, so a sum
+taken in another order moves a value by about a step).
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+import jax
+import jax.numpy as jnp
+
+from chanamq_tpu.models import forecaster as ref
+from chanamq_tpu_torch.kernels import forecaster as fk
+from test_torch_forecaster_train import assert_close, configs, op_tol
+from test_torch_kernels_gpu import FORECASTER_SHAPES, TRAIN_SHAPES
+
+TILE = fk.ATT_TILE
+FLAGSHIP = (1, 64, 256, 4, 1024)
+# (B, T, d_model, heads): one tile; three tiles at head width 32; two tiles
+# at head width 6 (zero columns, 4-byte copies); the flagship's four tiles
+MODEL_SHAPES = [(2, 8, 32, 4), (3, 33, 64, 2), (2, 17, 12, 2),
+                (1, 64, 256, 4)]
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread: these tests run beside other files on every
+    core (see tests/test_torch_forecaster_train.py)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+# -- the launch geometry ---------------------------------------------------------
+
+
+def _old_fwd_smem(t: int, hd: int) -> int:
+    """Shared memory the first forward design (one block per (batch, head),
+    CUDA cores) took: q, k, v as bf16 pairs at an odd row stride and eight
+    warps' float rows of weights."""
+    hw = hd // 2
+    ld = hw + 1 if hw % 2 == 0 else hw
+    return 3 * t * ld * 4 + 8 * t * 4
+
+
+def _old_bwd_smem(t: int, hd: int) -> int:
+    """... and the first backward design: q, k, v, dout and two float
+    [T, T] matrices."""
+    hw = hd // 2
+    ld = hw + 1 if hw % 2 == 0 else hw
+    return 4 * t * ld * 4 + 2 * t * t * 4
+
+
+def _largest_t(smem_of, hd: int) -> int:
+    t = 1
+    while smem_of(t + 1, hd) <= fk.SMEM_LIMIT:
+        t += 1
+    return t
+
+
+# every shape the gpu tests give each kernel, and the flagship
+GEOMETRY_CASES = sorted(
+    {(s[:4], "fwd_smem") for s in FORECASTER_SHAPES + [FLAGSHIP]}
+    | {(s[:4], "bwd_smem") for s in TRAIN_SHAPES + [FLAGSHIP]})
+
+
+@pytest.mark.parametrize("shape,smem", GEOMETRY_CASES)
+def test_geometry_covers_the_shape(shape, smem):
+    b, t, d, heads = shape
+    hd = d // heads
+    g = fk.attention_geometry(t, hd)
+    assert g.hd_pad % TILE == 0 and hd <= g.hd_pad < hd + TILE
+    assert (g.tiles - 1) * TILE < t <= g.tiles * TILE
+    assert g.grid(b, heads) == b * heads * g.tiles
+    assert getattr(g, smem) <= fk.SMEM_LIMIT
+    # every row's copies aligned, at the widest width that divides it
+    assert g.copy_bytes in (4, 8, 16) and (2 * hd) % g.copy_bytes == 0
+    assert g.copy_bytes == 16 or (2 * hd) % (2 * g.copy_bytes)
+    # ldmatrix reads 16-byte rows; an odd count of 16-byte units a row puts
+    # eight rows in eight bank groups (the narrowest width stays unpadded)
+    assert (2 * g.ld) % 16 == 0 and g.ld >= g.hd_pad
+    assert g.ld == TILE or (2 * g.ld // 16) % 2 == 1
+
+
+def test_geometry_at_the_flagship():
+    """T = 64, head_dim = 64: four tiles, 16 blocks at the service's batch
+    of 1, 256 at the training batch of 16; both kernels under the 48 KB a
+    block has without opting in."""
+    g = fk.attention_geometry(64, 64)
+    assert (g.tiles, g.hd_pad, g.ld, g.copy_bytes) == (4, 64, 72, 16)
+    assert g.grid(1, 4) == 16 and g.grid(16, 4) == 256
+    assert g.fwd_smem <= 48 * 1024 and g.bwd_smem <= 48 * 1024
+
+
+@pytest.mark.parametrize("hd", [4, 6, 8, 12, 16, 32, 64, 128, 256])
+def test_geometry_keeps_the_first_designs_shapes(hd):
+    """The longest window the first designs took at each head width still
+    fits the tensor-core kernels' shared memory."""
+    for old, new in ((_old_fwd_smem, "fwd_smem"),
+                     (_old_bwd_smem, "bwd_smem")):
+        t = _largest_t(old, hd)
+        assert getattr(fk.attention_geometry(t, hd), new) <= fk.SMEM_LIMIT
+
+
+def test_geometry_refuses():
+    with pytest.raises(ValueError):
+        fk.attention_geometry(64, 7)  # odd head width
+    with pytest.raises(ValueError):
+        fk.attention_geometry(0, 64)
+    # the gpu tests' refusal: a window of 400 at head width 64 is over the
+    # backward's shared memory
+    assert fk.attention_geometry(400, 64).bwd_smem > fk.SMEM_LIMIT
+
+
+# -- the tile-order models ---------------------------------------------------------
+
+
+def _heads(z: torch.Tensor, n_heads: int, g) -> torch.Tensor:
+    """[B, T, D] -> [B, H, rows, hd_pad], zero rows past T and zero columns
+    past head_dim: the kernels' shared-memory staging."""
+    b, t, d = z.shape
+    hd = d // n_heads
+    z = z.reshape(b, t, n_heads, hd).transpose(1, 2)
+    return F.pad(z, (0, g.hd_pad - hd, 0, g.tiles * TILE - t))
+
+
+def _unheads(z: torch.Tensor, t: int, hd: int) -> torch.Tensor:
+    b, h = z.shape[:2]
+    return z[:, :, :t, :hd].transpose(1, 2).reshape(b, t, h * hd)
+
+
+def _mma(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """A tensor-core product: exact products of the inputs, summed in
+    float32."""
+    return torch.matmul(a.float(), b.float())
+
+
+def _row_softmax(q, k, i: int, t: int, hd: int, dtype) -> torch.Tensor:
+    """The float32 softmax y of query tile i's rows over the key tiles it
+    sees (keys < 16 (i + 1)): logits rounded to ``dtype`` and divided by
+    sqrt(hd), keys past the row or past T masked (the diagonal tile)."""
+    keys = (i + 1) * TILE
+    s = _mma(q[:, :, i * TILE:keys], k[:, :, :keys].transpose(-1, -2))
+    s = s.to(dtype).float() / math.sqrt(hd)
+    row = torch.arange(i * TILE, keys)[:, None]
+    key = torch.arange(keys)[None, :]
+    s = s.masked_fill((key > row) | (key >= t), float("-inf"))
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    return e / e.sum(-1, keepdim=True)
+
+
+def attention_tiles(qkv: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """The forward kernel's order: each 16-row query tile against its key
+    prefix, W = the weights in qkv's dtype, out = W . V rounded once."""
+    b, t, d3 = qkv.shape
+    hd = d3 // 3 // n_heads
+    g = fk.attention_geometry(t, hd)
+    q, k, v = (_heads(z, n_heads, g) for z in qkv.split(d3 // 3, dim=-1))
+    out = torch.zeros_like(q)
+    for i in range(g.tiles):
+        keys = (i + 1) * TILE
+        w = _row_softmax(q, k, i, t, hd, qkv.dtype).to(qkv.dtype)
+        out[:, :, i * TILE:keys] = _mma(w, v[:, :, :keys]).to(qkv.dtype)
+    return _unheads(out, t, hd)
+
+
+def attention_bwd_tiles(qkv: torch.Tensor, dout: torch.Tensor,
+                        n_heads: int) -> torch.Tensor:
+    """The backward kernel's order: a block per tile t recomputes the full
+    softmax rows of query tiles i >= t, keeps dlog and W of key tile t (and
+    the whole dlog row of tile t) in qkv's dtype, zero in padded rows, then
+    dq = dlog . K over key tiles <= t and dk = dlog^T . Q, dv = W^T . dout
+    over query tiles >= t, each rounded once."""
+    b, t, d3 = qkv.shape
+    hd = d3 // 3 // n_heads
+    dtype = qkv.dtype
+    g = fk.attention_geometry(t, hd)
+    q, k, v = (_heads(z, n_heads, g) for z in qkv.split(d3 // 3, dim=-1))
+    do = _heads(dout, n_heads, g)
+    dq, dk, dv = (torch.zeros_like(q) for _ in range(3))
+    real = (torch.arange(g.tiles * TILE) < t)[:, None]
+    for tt in range(g.tiles):
+        own = slice(tt * TILE, (tt + 1) * TILE)
+        dl_t, w_t = [], []
+        for i in range(tt, g.tiles):
+            keys = (i + 1) * TILE
+            rows = slice(i * TILE, keys)
+            y = _row_softmax(q, k, i, t, hd, dtype)
+            dw = _mma(do[:, :, rows], v[:, :, :keys].transpose(-1, -2))
+            dw = dw.to(dtype).float()
+            su = (y * dw).sum(-1, keepdim=True)
+            dlog = ((y * dw - y * su) / math.sqrt(hd)).to(dtype)
+            dlog = torch.where(real[rows], dlog, torch.zeros_like(dlog))
+            w = torch.where(real[rows], y.to(dtype), torch.zeros_like(dlog))
+            dl_t.append(dlog[..., own])
+            w_t.append(w[..., own])
+            if i == tt:
+                dq[:, :, own] = _mma(dlog, k[:, :, :keys]).to(dtype)
+        below = slice(tt * TILE, None)
+        dk[:, :, own] = _mma(torch.cat(dl_t, -2).transpose(-1, -2),
+                             q[:, :, below]).to(dtype)
+        dv[:, :, own] = _mma(torch.cat(w_t, -2).transpose(-1, -2),
+                             do[:, :, below]).to(dtype)
+    return torch.cat([_unheads(z, t, hd) for z in (dq, dk, dv)], dim=-1)
+
+
+class TileAttention(torch.autograd.Function):
+    """``attention_tiles`` whose backward is ``attention_bwd_tiles``."""
+
+    @staticmethod
+    def forward(ctx, qkv, n_heads):
+        ctx.save_for_backward(qkv)
+        ctx.n_heads = n_heads
+        return attention_tiles(qkv, n_heads)
+
+    @staticmethod
+    def backward(ctx, dout):
+        (qkv,) = ctx.saved_tensors
+        return attention_bwd_tiles(qkv, dout.contiguous(), ctx.n_heads), None
+
+
+def _inputs(b, t, d, seed):
+    rng = np.random.default_rng(seed)
+    qkv = rng.normal(size=(b, t, 3 * d)).astype(np.float32)
+    dout = rng.normal(size=(b, t, d)).astype(np.float32)
+    return qkv, dout
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("b,t,d,heads", MODEL_SHAPES)
+def test_forward_tiles_match_plain(b, t, d, heads, dtype):
+    qkv_np, _ = _inputs(b, t, d, 100 + t)
+    qkv = torch.from_numpy(qkv_np).to(DTYPES[dtype])
+    got = attention_tiles(qkv, heads)
+    want = fk.causal_attention_ref(qkv, heads)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert_close(got, want.float(), op_tol(dtype, "attention", _np(want)))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("b,t,d,heads", MODEL_SHAPES)
+def test_backward_tiles_match_plain(b, t, d, heads, dtype):
+    qkv_np, dout_np = _inputs(b, t, d, 200 + t)
+    qkv = torch.from_numpy(qkv_np).to(DTYPES[dtype])
+    dout = torch.from_numpy(dout_np).to(DTYPES[dtype])
+    got = attention_bwd_tiles(qkv, dout, heads)
+    want = fk.causal_attention_bwd_ref(qkv, dout, heads)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    for part in range(3):  # dq, dk, dv, each within its own tolerance
+        cols = slice(part * d, (part + 1) * d)
+        w = want[..., cols]
+        assert_close(got[..., cols], w.float(),
+                     op_tol(dtype, "attention", _np(w)), f"part {part}")
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().float().numpy()
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("t,d,heads", [(8, 32, 4), (17, 12, 2), (33, 64, 2)])
+def test_tiles_match_jax_vjp(t, d, heads, dtype):
+    """qkv product -> the tile-order attention -> identity proj against
+    jax.vjp of the reference's ``_attention`` with an identity ``proj``, as
+    ``test_attention_vjp_matches_jax`` holds the plain versions."""
+    jcfg, tcfg = configs(dtype, seq_len=t, d_model=d, n_heads=heads,
+                         d_ff=4 * d, n_layers=1)
+    rng = np.random.default_rng(300 + t)
+    a = rng.normal(size=(2, t, d)).astype(np.float32)
+    w = (rng.normal(size=(d, 3 * d)) / math.sqrt(d)).astype(np.float32)
+    dy = rng.normal(size=(2, t, d)).astype(np.float32)
+    eye = np.eye(d, dtype=np.float32)
+    out, vjp = jax.vjp(lambda a, w: ref._attention(a, w, eye, jcfg),
+                       jnp.asarray(a, jcfg.dtype), jnp.asarray(w))
+    want_da, want_dw = vjp(jnp.asarray(dy, jcfg.dtype))
+    ta = torch.from_numpy(a).to(tcfg.dtype).requires_grad_()
+    tw = torch.from_numpy(w).requires_grad_()
+    fused = torch.matmul(ta, tw.to(tcfg.dtype))
+    got = torch.matmul(TileAttention.apply(fused, heads),
+                       torch.from_numpy(eye).to(tcfg.dtype))
+    assert_close(got, np.asarray(out, np.float32),
+                 op_tol(dtype, "attention", np.asarray(out, np.float32)),
+                 "out")
+    da, dw = torch.autograd.grad(got, (ta, tw),
+                                 torch.from_numpy(dy).to(tcfg.dtype))
+    assert_close(da, want_da, op_tol(dtype, "attention", want_da), "da")
+    assert_close(dw, want_dw, op_tol(dtype, "attention", want_dw), "dw")

@@ -18,6 +18,12 @@ for attention: the same float32 math summed in another order), and the
 whole forward through the kernels to the forward through the plain
 versions within ``chip_smoke.FORWARD_LIMIT``.
 
+Both attention kernels are also launched twice on the same inputs and
+must give the same bits, and the launch geometry the wrappers compute
+(``kernels/forecaster.py``'s ``attention_geometry``, held on the CPU by
+``tests/test_torch_attention_tiles.py``) must equal what the C libraries
+compute.
+
 The training kernels are held to their plain versions within
 ``chip_smoke.hold_train_kernel``'s limits (the update bit for bit at the
 kernel's clip scale), and the flagship train step through the kernels to
@@ -348,10 +354,13 @@ def test_forward_refuses_reduced_precision_products(cuda):
 # (B, T, d_model, heads, d_ff): the flagship at the service's training batch
 # and __graft_entry__'s, the tests' small config, odd batch and window, a
 # head width of 6 (odd pairs a row), three heads of 8 at an odd window,
-# and a window of 100 at head width 128 (above 48 KB of shared memory)
+# a window of 100 at head width 128 (above 48 KB of shared memory), and
+# the flagship at a batch of 1, where the attention backward's split into
+# tiles carries the whole parallelism (16 blocks)
 TRAIN_SHAPES = [(16, 64, 256, 4, 1024), (32, 64, 256, 4, 1024),
                 (2, 8, 32, 4, 64), (3, 33, 64, 2, 100), (2, 17, 12, 2, 25),
-                (1, 13, 24, 3, 8), (1, 100, 128, 1, 8)]
+                (1, 13, 24, 3, 8), (1, 100, 128, 1, 8),
+                (1, 64, 256, 4, 1024)]
 
 
 @pytest.mark.parametrize("b,t,d,heads,f", TRAIN_SHAPES)
@@ -376,6 +385,40 @@ def test_train_kernels_match_plain(cuda, b, t, d, heads, f):
         torch.cuda.synchronize()
         assert counted[name].launches == before + (
             2 if name == "clip_momentum_sgd" else 1)
+
+
+# (B, T, d_model, heads): the flagship forward (the service's batch), the
+# flagship backward (the training batch), and an odd shape (head width 6,
+# two tiles, the last one ragged)
+DETERMINISM_SHAPES = [(1, 64, 256, 4), (16, 64, 256, 4), (2, 17, 12, 2)]
+
+
+@pytest.mark.parametrize("b,t,d,heads", DETERMINISM_SHAPES)
+def test_attention_kernels_are_deterministic(cuda, b, t, d, heads):
+    """Two launches of each attention kernel on the same inputs give the
+    same bits: no float atomics, every sum in a fixed order."""
+    cfg = port_fc.ForecasterConfig(seq_len=t, d_model=d, n_heads=heads,
+                                   d_ff=4 * d)
+    gen = torch.Generator().manual_seed(b * 1000 + t + 2)
+    qkv, dout, _ = chip_smoke.train_inputs(gen, cfg, b, cuda)[
+        "causal_attention_bwd"]
+    outs = [(fk.causal_attention(qkv, heads),
+             fk.causal_attention_bwd(qkv, dout, heads)) for _ in range(2)]
+    torch.cuda.synchronize()
+    for first, second in zip(*outs):
+        assert torch.equal(first, second)
+
+
+def test_attention_geometry_matches_launchers(cuda):
+    """The shared memory ``attention_geometry`` gives each kernel is what
+    its C library computes, at every shape these tests run (the launchers
+    refuse a geometry that differs from their own)."""
+    lib, tlib = fk.library(), fk.train_library()
+    for _, t, d, heads, _ in FORECASTER_SHAPES + TRAIN_SHAPES:
+        g = fk.attention_geometry(t, d // heads)
+        assert lib.chana_causal_attention_smem(t, d // heads) == g.fwd_smem
+        assert tlib.chana_causal_attention_bwd_smem(t, d // heads) == \
+            g.bwd_smem
 
 
 def test_update_kernel_without_clip(cuda):
@@ -412,10 +455,10 @@ def test_train_kernels_reject_bad_input(cuda):
     with pytest.raises(ValueError):  # dout is not [B, T, D]
         fk.causal_attention_bwd(qkv, torch.zeros(2, 64, 128, dtype=bf16,
                                                  device=cuda), 4)
-    with pytest.raises(ValueError):  # T=300 needs more shared memory
+    with pytest.raises(ValueError):  # T=400 needs more shared memory
         fk.causal_attention_bwd(
-            torch.zeros(1, 300, 768, dtype=bf16, device=cuda),
-            torch.zeros(1, 300, 256, dtype=bf16, device=cuda), 4)
+            torch.zeros(1, 400, 768, dtype=bf16, device=cuda),
+            torch.zeros(1, 400, 256, dtype=bf16, device=cuda), 4)
     p = [torch.zeros(4, device=cuda)]
     with pytest.raises(TypeError):  # float32 only
         upd.clip_momentum_sgd([p[0].double()], [p[0].double()],
