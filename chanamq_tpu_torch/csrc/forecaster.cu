@@ -21,8 +21,9 @@
 //
 // What the design does about it. Nothing is staged through device memory
 // that the reference does not also produce: layernorm keeps a row in
-// registers between its two passes (one warp per row, 8 values a lane from
-// one 16-byte load); attention reads q, k and v straight out of the fused
+// registers between its two passes (one row a warp, 8 values a lane from
+// each 16-byte load, every load issued before the first sum; see
+// layernorm_rows.cuh); attention reads q, k and v straight out of the fused
 // qkv product and writes the [B, T, D] layout the proj product takes, so
 // the reference's splits, reshapes and transposes become indexing; GELU is
 // one pass of 16-byte loads and stores. Nothing is fused across kernels.
@@ -38,18 +39,11 @@
 #include <stdint.h>
 
 #include "attention_tiles.cuh"
+#include "layernorm_rows.cuh"
 
-#define CHANA_LN_WARPS 8
-#define CHANA_LN_CHUNKS 4  // 16-byte chunks a lane holds: D <= 4 * 256
 #define CHANA_GELU_THREADS 256
 
 namespace {
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 __device__ __forceinline__ float2 pair_to_float2(uint32_t w) {
   __nv_bfloat162 p;
@@ -67,37 +61,43 @@ __device__ __forceinline__ uint32_t float2_to_pair(float a, float b) {
 // out[r, :] = bf16((x - mean) * rsqrt(var + eps) * scale), float32
 // statistics over the row: the mean, then the mean of squared deviations
 // from it (two passes over the values held in registers, as the reference
-// computes them; not E[x^2] - mean^2). Scale only, no bias. One warp per
-// row; lane l holds the 8 values at columns 8 * (32 * c + l).
+// computes them; not E[x^2] - mean^2). Scale only, no bias. The geometry of
+// layernorm_rows.cuh: one row a warp, lane l the 8 values at columns
+// 8 * (32 * c + l); every load (the row and the scale) is issued before the
+// first sum.
 
-__global__ void __launch_bounds__(CHANA_LN_WARPS * 32) layernorm_kernel(
+template <int CHUNKS>
+__global__ void __launch_bounds__(chana_ln::kThreads) layernorm_kernel(
     const __nv_bfloat16* __restrict__ x, const float* __restrict__ scale,
     __nv_bfloat16* __restrict__ out, int R, int D, float eps) {
   const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * CHANA_LN_WARPS + (threadIdx.x >> 5);
+  const int row = blockIdx.x * chana_ln::kWarps + (threadIdx.x >> 5);
   if (row >= R) return;  // whole warps leave together
-  const __nv_bfloat16* xr = x + (size_t)row * D;
-  float v[CHANA_LN_CHUNKS][8];
-  float sum = 0.f;
+  float sc[CHUNKS][8];
+  uint4 raw[CHUNKS];
 #pragma unroll
-  for (int c = 0; c < CHANA_LN_CHUNKS; ++c) {
+  for (int c = 0; c < CHUNKS; ++c) {
     const int col = (c * 32 + lane) * 8;
+    raw[c] = make_uint4(0u, 0u, 0u, 0u);
     if (col < D) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(xr + col);
-      const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const float2 f = pair_to_float2(w[k]);
-        v[c][2 * k] = f.x;
-        v[c][2 * k + 1] = f.y;
-        sum += f.x + f.y;
-      }
+      chana_ln::load_scale8(scale, col, sc[c]);
+      raw[c] = *reinterpret_cast<const uint4*>(x + (size_t)row * D + col);
     }
   }
-  const float mu = warp_sum(sum) / (float)D;
+  float v[CHUNKS][8];
+  float sum = 0.f;
+#pragma unroll
+  for (int c = 0; c < CHUNKS; ++c) {
+    chana_ln::unpack8(raw[c], v[c]);
+    if ((c * 32 + lane) * 8 < D) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) sum += v[c][2 * k] + v[c][2 * k + 1];
+    }
+  }
+  const float mu = chana_ln::warp_sum(sum) / (float)D;
   float sq = 0.f;
 #pragma unroll
-  for (int c = 0; c < CHANA_LN_CHUNKS; ++c) {
+  for (int c = 0; c < CHUNKS; ++c) {
     if ((c * 32 + lane) * 8 < D) {
 #pragma unroll
       for (int k = 0; k < 8; ++k) {
@@ -106,24 +106,37 @@ __global__ void __launch_bounds__(CHANA_LN_WARPS * 32) layernorm_kernel(
       }
     }
   }
-  const float rstd = rsqrtf(warp_sum(sq) / (float)D + eps);
+  const float rstd = rsqrtf(chana_ln::warp_sum(sq) / (float)D + eps);
   __nv_bfloat16* orow = out + (size_t)row * D;
 #pragma unroll
-  for (int c = 0; c < CHANA_LN_CHUNKS; ++c) {
+  for (int c = 0; c < CHUNKS; ++c) {
     const int col = (c * 32 + lane) * 8;
     if (col < D) {
-      uint32_t w[4];
+      float o[8];
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        w[k] = float2_to_pair((v[c][2 * k] - mu) * rstd * scale[col + 2 * k],
-                              (v[c][2 * k + 1] - mu) * rstd *
-                                  scale[col + 2 * k + 1]);
-      }
-      *reinterpret_cast<uint4*>(orow + col) = make_uint4(w[0], w[1], w[2],
-                                                         w[3]);
+      for (int k = 0; k < 8; ++k) o[k] = (v[c][k] - mu) * rstd * sc[c][k];
+      *reinterpret_cast<uint4*>(orow + col) = chana_ln::pack8(o);
     }
   }
 }
+
+using LayerNormFn = void (*)(const __nv_bfloat16*, const float*,
+                             __nv_bfloat16*, int, int, float);
+
+// The instance for a geometry's chunks (1-4).
+LayerNormFn layernorm_fn(int chunks) {
+  switch (chunks) {
+    case 1: return layernorm_kernel<1>;
+    case 2: return layernorm_kernel<2>;
+    case 3: return layernorm_kernel<3>;
+    case 4: return layernorm_kernel<4>;
+    default: return nullptr;
+  }
+}
+
+// An empty kernel: what a launch costs the card with no work in it, the
+// floor under the time of every kernel here.
+__global__ void empty_kernel() {}
 
 // -- causal attention -------------------------------------------------------
 //
@@ -341,15 +354,35 @@ extern "C" {
 // (0 = launched). The Python wrapper checks dtypes, shapes, contiguity and
 // 16-byte alignment; the checks here refuse what the kernels cannot take.
 
+// The layernorm geometry for R rows of width D (layernorm_rows.cuh) as
+// five ints; 0 when the shape is refused.
+int chana_layernorm_geometry(int R, int D, int* out) {
+  return chana_ln::geometry_ints(R, D, out);
+}
+
+// blocks of kWarps warps, one row a warp. The wrapper passes the
+// geometry's blocks (kernels/forecaster.py's layernorm_geometry); a
+// mismatch with this file's is refused.
 int chana_layernorm(const void* x, const void* scale, void* out, int R,
-                    int D, float eps, void* stream) {
-  if (R <= 0 || D <= 0 || D % 8 != 0 || D > CHANA_LN_CHUNKS * 256) {
+                    int D, float eps, int blocks, void* stream) {
+  chana_ln::Geometry g;
+  if (!chana_ln::geometry(R, D, &g) || blocks != g.blocks) {
     return (int)cudaErrorInvalidValue;
   }
-  const int blocks = (R + CHANA_LN_WARPS - 1) / CHANA_LN_WARPS;
-  layernorm_kernel<<<blocks, CHANA_LN_WARPS * 32, 0, (cudaStream_t)stream>>>(
+  const LayerNormFn fn = layernorm_fn(g.chunks);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  fn<<<g.blocks, chana_ln::kThreads, 0, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)x, (const float*)scale, (__nv_bfloat16*)out, R, D,
       eps);
+  return (int)cudaGetLastError();
+}
+
+// blocks empty blocks of threads threads.
+int chana_empty(int blocks, int threads, void* stream) {
+  if (blocks <= 0 || threads <= 0 || threads > 1024) {
+    return (int)cudaErrorInvalidValue;
+  }
+  empty_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }
 

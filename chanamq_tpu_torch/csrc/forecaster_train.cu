@@ -26,8 +26,10 @@
 // that the reference does not also produce, and every cross-block sum is
 // deterministic (per-block partials, then the last block to finish sums
 // them in a fixed order; no float atomics), so a run repeats bit for bit
-// and each kernel can be held against its plain version. Layernorm keeps a
-// row in registers and recomputes its statistics from x; attention
+// and each kernel can be held against its plain version. Layernorm keeps
+// its rows in registers and recomputes their statistics from x, and its
+// dscale partials meet through a thread-block cluster's distributed
+// shared memory before the last block adds one row a cluster; attention
 // recomputes the softmax from q and k exactly as csrc/forecaster.cu's
 // forward does and writes dq | dk | dv straight into the fused [B, T, 3D]
 // cotangent of the qkv product; GELU is one pass of 16-byte loads; the
@@ -39,15 +41,16 @@
 // W^T . dout) on mma.sync, one block per (batch, head, 16-row tile) with
 // no float atomics, in one launch a call.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "attention_tiles.cuh"
+#include "layernorm_rows.cuh"
 
-#define CHANA_LNB_WARPS 8
-#define CHANA_LNB_CHUNKS 4  // 16-byte chunks a lane holds: D <= 4 * 256
-#define CHANA_LNB_ROWS 32   // rows a block takes: 4 a warp
+namespace cg = cooperative_groups;
+
 #define CHANA_GELU_THREADS 256
 #define CHANA_UPD_THREADS 256
 #define CHANA_UPD_PER_THREAD 16
@@ -101,6 +104,63 @@ __device__ bool last_block(unsigned int* counter) {
   return is_last;
 }
 
+// Shared-memory address of p, for the PTX below.
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// The cluster barrier in two halves: every thread arrives early (relaxed),
+// and waits (acquire) only where it needs its peers.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;" ::: "memory");
+}
+
+// One arrival, with release semantics at cluster scope, on the mbarrier at
+// shared-memory address addr of the cluster's block rank.
+__device__ __forceinline__ void mbar_arrive_remote(uint32_t addr,
+                                                   uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(remote) : "r"(addr), "r"(rank));
+  asm volatile(
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];"
+      :: "r"(remote) : "memory");
+}
+
+// Wait (acquire, cluster scope) until the phase of parity `parity` of the
+// mbarrier at shared-memory address addr has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t addr, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\nselp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// True in the last of n blocks to call it. One thread adds to the counter
+// with an acquire-release atomic after a block barrier, which orders the
+// block's writes before it (release) and the other blocks' before the last
+// block's reads (acquire) without a fence in every thread.
+__device__ bool last_of(unsigned int* counter, unsigned int n) {
+  __shared__ bool is_last;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned int old;
+    asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;"
+                 : "=r"(old) : "l"(counter) : "memory");
+    is_last = old == n - 1;
+  }
+  __syncthreads();
+  return is_last;
+}
+
 // -- layernorm backward -----------------------------------------------------
 //
 // y = bf16(xhat * scale), xhat = (x - mean) * rsqrt(var + eps), float32
@@ -108,122 +168,234 @@ __device__ bool last_block(unsigned int* counter) {
 // scale (dy read as float32, the cotangent of the forward's cast):
 //   dx     = bf16(rstd * (g - mean(g) - xhat * mean(g * xhat)))
 //   dscale = sum over rows of dy * xhat                     (float32)
-// One warp a row, lane l holding the 8 values at columns 8 * (32 * c + l);
-// each lane keeps its columns' dscale sums over the block's rows, the warps'
-// sums meet in shared memory, each block writes one partial row, and the
-// last block sums the partial rows in block order.
+// The geometry of layernorm_rows.cuh: one row a warp, lane l the 8 values
+// at columns 8 * (32 * c + l). Every load of the warp (x, dy and the
+// scale, 16 bytes each) is issued before the first sum; mean(g) and
+// mean(g * xhat) are summed side by side.
+//
+// dscale, in a fixed order and without float atomics: each lane's
+// dy * xhat meet in shared memory and are added in warp order; each block
+// stores its row into the shared memory of its cluster's rank 0
+// (distributed shared memory) and arrives on rank 0's mbarrier, and only
+// rank 0 waits: it adds the rows in rank order and writes one partial row
+// (or, with a single cluster, dscale itself); the last rank 0 to finish
+// adds the clusters' rows: thread groups ("phases") take every phases-th
+// row in order with independent loads, and their sums are added in phase
+// order.
 
-__global__ void __launch_bounds__(CHANA_LNB_WARPS * 32) layernorm_bwd_kernel(
+template <int CHUNKS>
+__global__ void __launch_bounds__(chana_ln::kThreads) layernorm_bwd_kernel(
     const __nv_bfloat16* __restrict__ dy, const __nv_bfloat16* __restrict__ x,
     const float* __restrict__ scale, __nv_bfloat16* __restrict__ dx,
     float* __restrict__ partial, float* __restrict__ dscale,
     unsigned int* __restrict__ counter, int R, int D, float eps) {
-  __shared__ float s_ds[CHANA_LNB_WARPS][CHANA_LNB_CHUNKS * 256];
+  // the warps' dscale rows [kWarps][D], then (read in rank 0 only) the
+  // cluster's block rows [cluster][D]
+  extern __shared__ __align__(16) float s_ds[];
+  __shared__ float4 s_phase[chana_ln::kThreads];
+  __shared__ __align__(8) unsigned long long s_bar;  // one arrival a block
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  float ds[CHANA_LNB_CHUNKS][8];
+  const int row = blockIdx.x * chana_ln::kWarps + warp;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int csize = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  if (rank == 0 && threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+                 :: "r"(smem_addr(&s_bar)), "r"(csize));
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  cluster_arrive_relaxed();  // waited for after the rows
+  float sc[CHUNKS][8];
+  uint4 rx[CHUNKS], rd[CHUNKS];
 #pragma unroll
-  for (int c = 0; c < CHANA_LNB_CHUNKS; ++c) {
+  for (int c = 0; c < CHUNKS; ++c) {
+    const int col = (c * 32 + lane) * 8;
+    rx[c] = rd[c] = make_uint4(0u, 0u, 0u, 0u);  // rows past R: zero
+    if (col < D) {
+      chana_ln::load_scale8(scale, col, sc[c]);
+      if (row < R) {
+        const size_t off = (size_t)row * D + col;
+        rx[c] = *reinterpret_cast<const uint4*>(x + off);
+        rd[c] = *reinterpret_cast<const uint4*>(dy + off);
+      }
+    }
+  }
+  // x stays packed (bf16 pairs) in registers and is unpacked where it is
+  // used, which keeps the widest rows (4 chunks) from spilling
+  float sum = 0.f;
+#pragma unroll
+  for (int c = 0; c < CHUNKS; ++c) {
+    if ((c * 32 + lane) * 8 < D) {
+      float xv[8];
+      chana_ln::unpack8(rx[c], xv);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) sum += xv[2 * k] + xv[2 * k + 1];
+    }
+  }
+  const float mu = chana_ln::warp_sum(sum) / (float)D;
+  float sq = 0.f;
+#pragma unroll
+  for (int c = 0; c < CHUNKS; ++c) {
+    if ((c * 32 + lane) * 8 < D) {
+      float xv[8];
+      chana_ln::unpack8(rx[c], xv);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const float d = xv[k] - mu;
+        sq += d * d;
+      }
+    }
+  }
+  const float rstd = rsqrtf(chana_ln::warp_sum(sq) / (float)D + eps);
+  float sgs[2] = {0.f, 0.f};  // the row's sum of g, and of g * xhat
+  float ds[CHUNKS][8];
+#pragma unroll
+  for (int c = 0; c < CHUNKS; ++c) {
 #pragma unroll
     for (int k = 0; k < 8; ++k) ds[c][k] = 0.f;
-  }
-  const int row0 = blockIdx.x * CHANA_LNB_ROWS;
-  for (int row = row0 + warp; row < min(row0 + CHANA_LNB_ROWS, R);
-       row += CHANA_LNB_WARPS) {
-    const size_t off = (size_t)row * D;
-    float xv[CHANA_LNB_CHUNKS][8], gv[CHANA_LNB_CHUNKS][8];
-    float sum = 0.f;
+    if ((c * 32 + lane) * 8 < D) {
+      float xv[8], dv[8];
+      chana_ln::unpack8(rx[c], xv);
+      chana_ln::unpack8(rd[c], dv);
 #pragma unroll
-    for (int c = 0; c < CHANA_LNB_CHUNKS; ++c) {
-      const int col = (c * 32 + lane) * 8;
-      if (col < D) {
-        const uint4 rx = *reinterpret_cast<const uint4*>(x + off + col);
-        const uint4 rd = *reinterpret_cast<const uint4*>(dy + off + col);
-        const uint32_t wx[4] = {rx.x, rx.y, rx.z, rx.w};
-        const uint32_t wd[4] = {rd.x, rd.y, rd.z, rd.w};
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const float2 fx = pair_to_float2(wx[k]);
-          const float2 fd = pair_to_float2(wd[k]);
-          xv[c][2 * k] = fx.x;
-          xv[c][2 * k + 1] = fx.y;
-          gv[c][2 * k] = fd.x;  // dy for now; times scale below
-          gv[c][2 * k + 1] = fd.y;
-          sum += fx.x + fx.y;
-        }
-      }
-    }
-    const float mu = warp_sum(sum) / (float)D;
-    float sq = 0.f;
-#pragma unroll
-    for (int c = 0; c < CHANA_LNB_CHUNKS; ++c) {
-      if ((c * 32 + lane) * 8 < D) {
-#pragma unroll
-        for (int k = 0; k < 8; ++k) {
-          const float d = xv[c][k] - mu;
-          sq += d * d;
-        }
-      }
-    }
-    const float rstd = rsqrtf(warp_sum(sq) / (float)D + eps);
-    float sg = 0.f, sgx = 0.f;
-#pragma unroll
-    for (int c = 0; c < CHANA_LNB_CHUNKS; ++c) {
-      const int col = (c * 32 + lane) * 8;
-      if (col < D) {
-#pragma unroll
-        for (int k = 0; k < 8; ++k) {
-          const float xh = (xv[c][k] - mu) * rstd;
-          ds[c][k] += gv[c][k] * xh;
-          const float g = gv[c][k] * scale[col + k];
-          xv[c][k] = xh;
-          gv[c][k] = g;
-          sg += g;
-          sgx += g * xh;
-        }
-      }
-    }
-    const float mg = warp_sum(sg) / (float)D;
-    const float mgx = warp_sum(sgx) / (float)D;
-#pragma unroll
-    for (int c = 0; c < CHANA_LNB_CHUNKS; ++c) {
-      const int col = (c * 32 + lane) * 8;
-      if (col < D) {
-        uint32_t w[4];
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          w[k] = float2_to_pair(
-              rstd * (gv[c][2 * k] - mg - xv[c][2 * k] * mgx),
-              rstd * (gv[c][2 * k + 1] - mg - xv[c][2 * k + 1] * mgx));
-        }
-        *reinterpret_cast<uint4*>(dx + off + col) =
-            make_uint4(w[0], w[1], w[2], w[3]);
+      for (int k = 0; k < 8; ++k) {
+        const float xh = (xv[k] - mu) * rstd;
+        ds[c][k] = dv[k] * xh;
+        const float g = dv[k] * sc[c][k];
+        sgs[0] += g;
+        sgs[1] += g * xh;
       }
     }
   }
+  chana_ln::warp_sums(sgs);
+  if (row < R) {
+    const float mg = sgs[0] / (float)D;
+    const float mgx = sgs[1] / (float)D;
 #pragma unroll
-  for (int c = 0; c < CHANA_LNB_CHUNKS; ++c) {
+    for (int c = 0; c < CHUNKS; ++c) {
+      const int col = (c * 32 + lane) * 8;
+      if (col < D) {
+        float xv[8], dv[8], o[8];
+        chana_ln::unpack8(rx[c], xv);
+        chana_ln::unpack8(rd[c], dv);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const float xh = (xv[k] - mu) * rstd;
+          const float g = dv[k] * sc[c][k];
+          o[k] = rstd * (g - mg - xh * mgx);
+        }
+        *reinterpret_cast<uint4*>(dx + (size_t)row * D + col) =
+            chana_ln::pack8(o);
+      }
+    }
+  }
+
+  // the block's dscale row: the warps' rows, added in warp order
+#pragma unroll
+  for (int c = 0; c < CHUNKS; ++c) {
     const int col = (c * 32 + lane) * 8;
     if (col < D) {
-#pragma unroll
-      for (int k = 0; k < 8; ++k) s_ds[warp][col + k] = ds[c][k];
+      float4* dst = reinterpret_cast<float4*>(s_ds + warp * D + col);
+      dst[0] = make_float4(ds[c][0], ds[c][1], ds[c][2], ds[c][3]);
+      dst[1] = make_float4(ds[c][4], ds[c][5], ds[c][6], ds[c][7]);
     }
   }
   __syncthreads();
-  for (int col = threadIdx.x; col < D; col += blockDim.x) {
+  // the block's row, added in warp order, goes straight into rank 0's
+  // shared memory (row `rank` of its cluster rows); rank 0 waits for one
+  // arrival a block on its mbarrier, and the other blocks are done
+  cluster_wait();  // rank 0's mbarrier is initialised, every block started
+  float* const cluster_rows = s_ds + chana_ln::kWarps * D;
+  float* const mine = cluster.map_shared_rank(cluster_rows, 0) + rank * D;
+  for (int col = threadIdx.x; col < D; col += chana_ln::kThreads) {
     float s = 0.f;
-    for (int w = 0; w < CHANA_LNB_WARPS; ++w) s += s_ds[w][col];
-    partial[(size_t)blockIdx.x * D + col] = s;
+#pragma unroll
+    for (int w = 0; w < chana_ln::kWarps; ++w) s += s_ds[w * D + col];
+    mine[col] = s;
   }
-  if (last_block(counter)) {
-    for (int col = threadIdx.x; col < D; col += blockDim.x) {
-      float s = 0.f;
-      for (unsigned b = 0; b < gridDim.x; ++b) {
-        s += __ldcg(partial + (size_t)b * D + col);
+  __syncthreads();
+  if (threadIdx.x == 0) mbar_arrive_remote(smem_addr(&s_bar), 0);
+  if (rank != 0) return;
+  mbar_wait(smem_addr(&s_bar), 0);
+
+  // rank 0: the cluster's row, its blocks' rows added in rank order, to
+  // dscale itself with one cluster, else to the cluster's partial row
+  const int n_clusters = (int)gridDim.x / csize;
+  float* const row_out =
+      n_clusters == 1 ? dscale : partial + (size_t)(blockIdx.x / csize) * D;
+  for (int col = threadIdx.x; col < D; col += chana_ln::kThreads) {
+    float s = 0.f;
+    for (int b = 0; b < csize; ++b) s += cluster_rows[b * D + col];
+    row_out[col] = s;
+  }
+  if (n_clusters == 1 || !last_of(counter, (unsigned)n_clusters)) return;
+
+  // the last rank 0 to finish: the clusters' rows, in float4 column
+  // groups; phase p adds rows p, p + phases, ... and the phases are added
+  // in order
+  const int groups = D / 4;
+  const int phases = max(1, chana_ln::kThreads / groups);
+  const int p = threadIdx.x / groups;
+  if (p < phases) {
+    for (int gcol = threadIdx.x % groups; gcol < groups;
+         gcol += chana_ln::kThreads) {
+      const float4* src = reinterpret_cast<const float4*>(partial) + gcol;
+      float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int r0 = p; r0 < n_clusters; r0 += 8 * phases) {
+        float4 v[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {  // independent loads first
+          const int r = r0 + j * phases;
+          v[j] = r < n_clusters ? __ldcg(src + (size_t)r * groups)
+                                : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if (r0 + j * phases < n_clusters) {
+            s.x += v[j].x;
+            s.y += v[j].y;
+            s.z += v[j].z;
+            s.w += v[j].w;
+          }
+        }
       }
-      dscale[col] = s;
+      if (phases == 1) {
+        reinterpret_cast<float4*>(dscale)[gcol] = s;
+      } else {
+        s_phase[p * groups + gcol] = s;
+      }
     }
-    if (threadIdx.x == 0) *counter = 0u;  // ready for the next launch
+  }
+  if (phases > 1) {
+    __syncthreads();
+    if ((int)threadIdx.x < groups) {
+      float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int q = 0; q < phases; ++q) {
+        const float4 v = s_phase[q * groups + threadIdx.x];
+        s.x += v.x;
+        s.y += v.y;
+        s.z += v.z;
+        s.w += v.w;
+      }
+      reinterpret_cast<float4*>(dscale)[threadIdx.x] = s;
+    }
+  }
+  if (threadIdx.x == 0) *counter = 0u;  // ready for the next launch
+}
+
+using LayerNormBwdFn = void (*)(const __nv_bfloat16*, const __nv_bfloat16*,
+                                const float*, __nv_bfloat16*, float*, float*,
+                                unsigned int*, int, int, float);
+
+// The instance for a geometry's chunks (1-4).
+LayerNormBwdFn layernorm_bwd_fn(int chunks) {
+  switch (chunks) {
+    case 1: return layernorm_bwd_kernel<1>;
+    case 2: return layernorm_bwd_kernel<2>;
+    case 3: return layernorm_bwd_kernel<3>;
+    case 4: return layernorm_bwd_kernel<4>;
+    default: return nullptr;
   }
 }
 
@@ -619,25 +791,53 @@ extern "C" {
 // Each launcher runs on the caller's stream and returns cudaGetLastError()
 // (0 = launched). The Python wrapper checks dtypes, shapes, contiguity and
 // 16-byte alignment, and allocates the outputs and the scratch (partial
-// sums and a zeroed counter); the checks here refuse what the kernels
-// cannot take.
+// sums and a zeroed counter, which the kernels leave zero); the checks
+// here refuse what the kernels cannot take.
 
-// Partial dscale rows the layernorm backward needs for R rows.
-int chana_layernorm_bwd_blocks(int R) {
-  return R <= 0 ? 0 : (R + CHANA_LNB_ROWS - 1) / CHANA_LNB_ROWS;
+// The layernorm geometry for R rows of width D (layernorm_rows.cuh) as
+// five ints; 0 when the shape is refused.
+int chana_layernorm_geometry(int R, int D, int* out) {
+  return chana_ln::geometry_ints(R, D, out);
 }
 
+// grid blocks of kWarps warps in clusters of cluster blocks, one row a
+// warp. The wrapper passes the geometry (kernels/forecaster.py's
+// layernorm_geometry); a mismatch with this file's is refused. partial
+// holds a row of D floats for each cluster (unused with one cluster);
+// counter is zero before the launch and is left zero after it.
 int chana_layernorm_bwd(const void* dy, const void* x, const void* scale,
                         void* dx, void* partial, void* dscale, void* counter,
-                        int R, int D, float eps, void* stream) {
-  if (R <= 0 || D <= 0 || D % 8 != 0 || D > CHANA_LNB_CHUNKS * 256) {
+                        int R, int D, float eps, int blocks, int cluster,
+                        int grid, int smem, void* stream) {
+  chana_ln::Geometry g;
+  if (!chana_ln::geometry(R, D, &g) || blocks != g.blocks ||
+      cluster != g.cluster || grid != g.grid || smem != g.smem) {
     return (int)cudaErrorInvalidValue;
   }
-  layernorm_bwd_kernel<<<chana_layernorm_bwd_blocks(R), CHANA_LNB_WARPS * 32,
-                         0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)dy, (const __nv_bfloat16*)x, (const float*)scale,
-      (__nv_bfloat16*)dx, (float*)partial, (float*)dscale,
-      (unsigned int*)counter, R, D, eps);
+  const LayerNormBwdFn fn = layernorm_bwd_fn(g.chunks);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  if (g.smem > chana_ln::kSmemNoOptIn) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, g.smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)g.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)g.grid);
+  cfg.blockDim = dim3(chana_ln::kThreads);
+  cfg.dynamicSmemBytes = (size_t)g.smem;
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, fn, (const __nv_bfloat16*)dy, (const __nv_bfloat16*)x,
+      (const float*)scale, (__nv_bfloat16*)dx, (float*)partial,
+      (float*)dscale, (unsigned int*)counter, R, D, eps);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

@@ -55,9 +55,13 @@ def library() -> ctypes.CDLL:
     """The built ``csrc/forecaster.cu`` with its C signatures declared."""
     lib, _ = build.load("forecaster")
     if not getattr(lib, "_chana_typed", False):
+        lib.chana_layernorm_geometry.argtypes = [_int, _int, _ptr]
+        lib.chana_layernorm_geometry.restype = _int
         lib.chana_layernorm.argtypes = [_ptr] * 3 + [_int] * 2 + [
-            ctypes.c_float, _ptr]
+            ctypes.c_float, _int, _ptr]
         lib.chana_layernorm.restype = _int
+        lib.chana_empty.argtypes = [_int, _int, _ptr]
+        lib.chana_empty.restype = _int
         lib.chana_causal_attention.argtypes = [_ptr] * 2 + [_int] * 8 + [
             ctypes.c_size_t, ctypes.c_float, _ptr]
         lib.chana_causal_attention.restype = _int
@@ -85,6 +89,55 @@ def _aligned(name: str, *tensors: torch.Tensor) -> None:
 
 
 # -- layernorm ---------------------------------------------------------------
+#
+# Both layernorm kernels (``csrc/layernorm_rows.cuh``) give a warp one row
+# and lane l the 8 values at columns 8 * (32 c + l) of it; the backward's
+# blocks meet in clusters to add their dscale rows. ``layernorm_geometry``
+# is their launch geometry, by the same rules as the C launchers, which
+# refuse any other.
+
+LN_WARPS = 8             # warps a block, both kernels: one row each
+LN_MAX_CHUNKS = 4        # 16-byte chunks a lane holds a row: D <= 1024
+LN_MAX_CLUSTER = 8       # the portable thread-block cluster size
+
+
+class LayerNormGeometry(NamedTuple):
+    chunks: int    # ceil(D / 256): 16-byte chunks a lane holds a row
+    blocks: int    # blocks that hold rows (the forward's grid):
+                   # ceil(rows / LN_WARPS)
+    cluster: int   # the backward's blocks a cluster: the largest power of
+                   # two up to 8 not over ``blocks``
+    grid: int      # the backward's grid: ``blocks`` rounded up to whole
+                   # clusters (the blocks past the rows add zero)
+    bwd_smem: int  # the backward's dynamic shared memory: a float row of D
+                   # a warp and one a block of its cluster
+
+    @property
+    def clusters(self) -> int:
+        """The backward's clusters: partial dscale rows (none with one)."""
+        return self.grid // self.cluster
+
+    def row(self, block: int, warp: int) -> int:
+        """The row warp ``warp`` of block ``block`` takes (none when it is
+        past the last)."""
+        return block * LN_WARPS + warp
+
+
+def layernorm_geometry(rows: int, d: int) -> LayerNormGeometry:
+    """The layernorm kernels' launch geometry for ``rows`` rows of width
+    ``d`` (a multiple of 8 up to 1024)."""
+    if rows <= 0 or d % 8 or not 0 < d <= 256 * LN_MAX_CHUNKS:
+        raise ValueError(f"layernorm: {rows} rows of width {d}; the kernels "
+                         "take a width that is a multiple of 8 up to 1024 "
+                         "and at least one row")
+    blocks = -(-rows // LN_WARPS)
+    cluster = LN_MAX_CLUSTER
+    while cluster > blocks:
+        cluster //= 2
+    return LayerNormGeometry(
+        chunks=-(-d // 256), blocks=blocks, cluster=cluster,
+        grid=-(-blocks // cluster) * cluster,
+        bwd_smem=4 * (LN_WARPS + cluster) * d)
 
 
 def layernorm_ref(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -95,26 +148,32 @@ def layernorm_ref(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return ((x32 - mu) * torch.rsqrt(var + EPS) * scale).to(x.dtype)
 
 
+def _layernorm_width(name: str, x: torch.Tensor) -> int:
+    d = x.shape[-1] if x.dim() else 0
+    if d % 8 or not 0 < d <= 256 * LN_MAX_CHUNKS:
+        raise ValueError(f"{name}: width {d}; the kernel takes a multiple "
+                         "of 8 up to 1024")
+    return d
+
+
 def prepare_layernorm(x: torch.Tensor, scale: torch.Tensor):
     """Check the layernorm kernel's CUDA inputs and bind its launch:
     ``(out, launch)``; ``launch`` is None when there is no row."""
     device = _cuda_device("layernorm", x)
     build.check("x", x, _BF16, x.dim(), device)
     build.check("scale", scale, _F32, 1, device)
-    d = x.shape[-1] if x.dim() else 0
+    d = _layernorm_width("layernorm", x)
     build.check_shape("scale", scale, (d,))
-    if d % 8 or not 0 < d <= 1024:
-        raise ValueError(f"layernorm: width {d}; the kernel takes a "
-                         "multiple of 8 up to 1024")
     out = torch.empty_like(x)
     rows = x.numel() // d
     if rows == 0:
         return out, None
-    _aligned("layernorm", x, out)
+    _aligned("layernorm", x, scale, out)
+    g = layernorm_geometry(rows, d)
     lib = library()
     return out, build.launcher(
         lib, lib.chana_layernorm, "layernorm", device, x.data_ptr(),
-        scale.data_ptr(), out.data_ptr(), rows, d, EPS)
+        scale.data_ptr(), out.data_ptr(), rows, d, EPS, g.blocks)
 
 
 def layernorm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -300,10 +359,10 @@ def train_library() -> ctypes.CDLL:
     """The built ``csrc/forecaster_train.cu``'s backward launchers, typed."""
     lib, _ = build.load("forecaster_train")
     if not getattr(lib, "_chana_bwd_typed", False):
-        lib.chana_layernorm_bwd_blocks.argtypes = [_int]
-        lib.chana_layernorm_bwd_blocks.restype = _int
+        lib.chana_layernorm_geometry.argtypes = [_int, _int, _ptr]
+        lib.chana_layernorm_geometry.restype = _int
         lib.chana_layernorm_bwd.argtypes = [_ptr] * 7 + [_int] * 2 + [
-            ctypes.c_float, _ptr]
+            ctypes.c_float] + [_int] * 4 + [_ptr]
         lib.chana_layernorm_bwd.restype = _int
         lib.chana_causal_attention_bwd.argtypes = [_ptr] * 3 + [_int] * 8 + [
             ctypes.c_size_t, ctypes.c_float, _ptr]
@@ -336,43 +395,66 @@ def layernorm_bwd_ref(dy: torch.Tensor, x: torch.Tensor,
     return dx.to(x.dtype), dscale
 
 
+# the layernorm backward's scratch for each (device, stream): a counter the
+# kernel leaves zero and partial dscale rows, grown to the most clusters seen
+_LN_SCRATCH: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _layernorm_bwd_scratch(device: torch.device, floats: int) -> tuple:
+    """``(partial, counter)`` for a launch on ``device``'s current stream,
+    with room for ``floats`` partial sums. One counter serves every launch
+    on a stream: it is zero before the first (``torch.zeros``), each launch
+    leaves it zero (its last block resets it), and launches on one stream
+    run one after another, so none sees another's count or partials."""
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    got = _LN_SCRATCH.get(key)
+    if got is None or got[0].numel() < floats:
+        counter = got[1] if got is not None else torch.zeros(
+            1, dtype=torch.int32, device=device)
+        partial = torch.empty(max(floats, 1), dtype=_F32, device=device)
+        got = _LN_SCRATCH[key] = (partial, counter)
+    return got
+
+
 def prepare_layernorm_bwd(dy: torch.Tensor, x: torch.Tensor,
                           scale: torch.Tensor):
     """Check the layernorm backward kernel's CUDA inputs and bind its
     launch: ``((dx, dscale), launch)``; ``launch`` is None when there is no
-    row (dscale is then 0)."""
+    row (dscale is then 0). The launch takes its stream's scratch
+    (``_layernorm_bwd_scratch``) and allocates nothing else."""
     device = _cuda_device("layernorm_bwd", x)
     build.check("x", x, _BF16, x.dim(), device)
     build.check("dy", dy, _BF16, x.dim(), device)
     build.check_shape("dy", dy, tuple(x.shape))
     build.check("scale", scale, _F32, 1, device)
-    d = x.shape[-1] if x.dim() else 0
+    d = _layernorm_width("layernorm_bwd", x)
     build.check_shape("scale", scale, (d,))
-    if d % 8 or not 0 < d <= 1024:
-        raise ValueError(f"layernorm_bwd: width {d}; the kernel takes a "
-                         "multiple of 8 up to 1024")
     dx = torch.empty_like(x)
     rows = x.numel() // d
     if rows == 0:
         return (dx, torch.zeros(d, dtype=_F32, device=device)), None
-    _aligned("layernorm_bwd", dy, x, dx)
-    lib = train_library()
     dscale = torch.empty(d, dtype=_F32, device=device)
-    partial = torch.empty((lib.chana_layernorm_bwd_blocks(rows), d),
-                          dtype=_F32, device=device)
-    counter = torch.zeros(1, dtype=torch.int32, device=device)
-    return (dx, dscale), build.launcher(
+    _aligned("layernorm_bwd", dy, x, scale, dx, dscale)
+    g = layernorm_geometry(rows, d)
+    partial, counter = _layernorm_bwd_scratch(device, g.clusters * d)
+    lib = train_library()
+    launch = build.launcher(
         lib, lib.chana_layernorm_bwd, "layernorm_bwd", device,
         dy.data_ptr(), x.data_ptr(), scale.data_ptr(), dx.data_ptr(),
         partial.data_ptr(), dscale.data_ptr(), counter.data_ptr(), rows, d,
-        EPS)
+        EPS, g.blocks, g.cluster, g.grid, g.bwd_smem)
+    launch.scratch = (partial, counter)  # alive while the launch is
+    return (dx, dscale), launch
 
 
 def layernorm_bwd(dy: torch.Tensor, x: torch.Tensor,
                   scale: torch.Tensor) -> tuple:
     """Backward of ``layernorm``: ``(dx, dscale)`` for the cotangent ``dy``
     (bf16 on a card, ``x``'s shape); ``dscale`` is summed over every row in
-    a fixed order."""
+    a fixed order. On a card: one launch a call and no other (the kernel's
+    counter and partial rows are kept for the stream and reused, which is
+    safe because the kernel leaves the counter zero and launches on one
+    stream do not overlap)."""
     if x.device.type == "cpu":
         return layernorm_bwd_ref(dy, x, scale)
     out, launch = prepare_layernorm_bwd(dy, x, scale)

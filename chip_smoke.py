@@ -22,10 +22,12 @@ rehearse it; any failure exits non-zero:
    {16, 256, 1024}, with device times and the bound for those inputs;
 4. forecaster kernels at the flagship width (``ForecasterConfig()``: T=64,
    d_model 256, 4 heads of 64, d_ff 1024) at B in {1, 32} (the service's
-   one window; ``__graft_entry__``'s batch): layernorm, causal attention
-   and tanh-GELU against their plain versions in bf16, each within its
-   stated limit, with device times, the bound, and one PyTorch library
-   call as a yardstick;
+   one window; ``__graft_entry__``'s batch), layernorm also at B = 16 (the
+   training batch): layernorm, causal attention and tanh-GELU against
+   their plain versions in bf16, each within its stated limit, with device
+   times, the bound, and one PyTorch library call as a yardstick; then the
+   floor under those times, an empty kernel launched and timed the same
+   way (``[floor]``);
 5. forward at full width: ``ForecasterConfig()`` at B in {1, 32}, the
    kernel path against the plain path, with host-clock and CUDA-event ms,
    under the reference's product precision (``set_matmul_precision``:
@@ -122,6 +124,9 @@ F32_FLOPS_PER_S = 67e12
 BF16_TC_FLOPS_PER_S = 989e12
 # the service forwards one window; __graft_entry__.entry() a batch of 32
 FORECAST_BATCHES = (1, 32)
+# the forward layernorm also runs in every train step, at the service's
+# training batch of 16
+LAYERNORM_BATCHES = (1, 16, 32)
 # the limit the tests hold the port's forward to against the JAX forward
 # in bf16 (measured 0.031 there): the two paths differ only in the order
 # of float32 sums, so bf16 roundings that land on the other side of a
@@ -1029,18 +1034,22 @@ FORECASTER_KERNELS = ("layernorm", "causal_attention", "gelu_tanh")
 
 def phase_forecaster_kernels(device: torch.device, seed: int, cfg=None,
                              batches=FORECAST_BATCHES,
+                             layernorm_batches=(),
                              iters: int = 100) -> dict:
     """The three forecaster kernels against their plain versions at the
-    shapes ``forward`` gives them at each batch. Returns {kernel name:
-    {B: row}} and raises on an error over its limit."""
+    shapes ``forward`` gives them at each batch, layernorm also at the
+    batches of ``layernorm_batches`` (after the others, so the inputs of
+    ``batches`` stay the same). Returns {kernel name: {B: row}} and raises
+    on an error over its limit."""
     from chanamq_tpu_torch.models.forecaster import ForecasterConfig
 
     cfg = cfg or ForecasterConfig()
     gen = torch.Generator().manual_seed(seed)
     out: dict = {name: {} for name in FORECASTER_KERNELS}
-    for b in batches:
+    extra = [b for b in layernorm_batches if b not in batches]
+    for b in tuple(batches) + tuple(extra):
         inputs = forecaster_inputs(gen, cfg, b, device)
-        for name in FORECASTER_KERNELS:
+        for name in FORECASTER_KERNELS if b in batches else ("layernorm",):
             row = out[name][b] = hold_forecaster(name, inputs[name],
                                                  iters=iters)
             nan = float("nan")
@@ -1052,6 +1061,30 @@ def phase_forecaster_kernels(device: torch.device, seed: int, cfg=None,
                 f"{row.get('library_ms', nan) * 1e3:.3f} us, bound "
                 f"{row['bound_ms'] * 1e3:.4f} us ({row['bound_by']}: "
                 f"{row['ops']} ops, {row['bytes']} B)")
+    return out
+
+
+def phase_floor(device: torch.device, iters: int = 100) -> dict:
+    """The floor under every kernel time above: ``_time_ms`` over launches
+    of an empty kernel (``csrc/forecaster.cu``'s ``chana_empty``), through
+    the same ctypes launch, as one block of 32 threads and as the
+    layernorm backward's grid at the training batch."""
+    from chanamq_tpu_torch.kernels import build
+    from chanamq_tpu_torch.kernels import forecaster as fk
+
+    lib = fk.library()
+    grid = fk.layernorm_geometry(16 * 64, 256).grid
+    out = {}
+    for key, blocks, threads in (("one_block", 1, 32),
+                                 ("ln_grid", grid, 32 * fk.LN_WARPS)):
+        launch = build.launcher(lib, lib.chana_empty, "empty", device,
+                                blocks, threads)
+        out[key] = {"blocks": blocks, "threads": threads,
+                    "ms": _time_ms(launch, iters, device_only=True)}
+    log(f"[floor] an empty launch, timed as the kernels are: "
+        f"{out['one_block']['ms'] * 1e3:.3f} us at 1 block of 32 threads, "
+        f"{out['ln_grid']['ms'] * 1e3:.3f} us at {grid} blocks of "
+        f"{32 * fk.LN_WARPS}")
     return out
 
 
@@ -1088,6 +1121,7 @@ def device_split(fn, names) -> dict:
         torch.cuda.synchronize()
     out = {k: {"launches": 0, "us": 0.0}
            for k in ("products", "port_kernels", "other")}
+    out["other"]["fills"] = 0  # of them torch's fills (zeros, zero_)
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
@@ -1099,6 +1133,7 @@ def device_split(fn, names) -> dict:
             kind = "products"
         else:
             kind = "other"
+            out[kind]["fills"] += "fill" in low
         out[kind]["launches"] += 1
         out[kind]["us"] += e.time_range.elapsed_us()
     return out
@@ -1861,7 +1896,9 @@ def main() -> int:
     built = phase_build()
     device = torch.device("cuda", 0)
     caps = phase_kernels(device, args.seed)
-    fc_kernels = phase_forecaster_kernels(device, args.seed)
+    fc_kernels = phase_forecaster_kernels(
+        device, args.seed, layernorm_batches=LAYERNORM_BATCHES)
+    floor = phase_floor(device)
     phase_forward(device, args.seed)
     train_kernels = phase_train_kernels(device, args.seed)
     train = phase_train(device, args.seed)
@@ -2005,17 +2042,21 @@ def main() -> int:
             "library_ms", "bound_ms", "bound_by")
     # the attention kernels' tensor-core instructions, by kernel name
     hmma = {kernel: built[src]["hmma"] for src, kernel in MMA_KERNELS.items()}
+    # the empty launch's time beside each layernorm kernel's
+    floor_ms = {"floor_ms": floor["one_block"]["ms"]}
     for name in FORECASTER_KERNELS:
         rows = fc_kernels[name]
-        main_b, other_b = FORECAST_BATCHES  # the service's batch first
+        main_b = FORECAST_BATCHES[0]  # the service's batch first
         line.append({
             "name": name, "route": "cuda",
             "source": "chanamq_tpu_torch/csrc/forecaster.cu",
             "replaces": replaces[name], "launches": launches[name],
             "launches_training_path": train_launches[name],
             **{k: rows[main_b][k] for k in keys},
-            f"at_b{other_b}": {k: rows[other_b][k] for k in keys},
-            **({"hmma": hmma[name]} if name in hmma else {})})
+            **{f"at_b{b}": {k: rows[b][k] for k in keys}
+               for b in rows if b != main_b},
+            **({"hmma": hmma[name]} if name in hmma else {}),
+            **(floor_ms if name == "layernorm" else {})})
     for name in TRAIN_KERNELS:
         rows = train_kernels[name]
         main_b, other_b = TRAIN_BATCHES  # the service's batch first
@@ -2025,7 +2066,8 @@ def main() -> int:
             "replaces": replaces[name], "launches": train_launches[name],
             **{k: rows[main_b][k] for k in keys},
             f"at_b{other_b}": {k: rows[other_b][k] for k in keys},
-            **({"hmma": hmma[name]} if name in hmma else {})})
+            **({"hmma": hmma[name]} if name in hmma else {}),
+            **(floor_ms if name == "layernorm_bwd" else {})})
     print(json.dumps({"kernels": line}))
     print(dev["smi"])
     print(json.dumps({"ok": True, "device": {

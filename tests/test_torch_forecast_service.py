@@ -373,6 +373,23 @@ def test_chip_smoke_forecaster_kernel_phase_rehearsal():
             assert "ms" not in row  # times come from a card only
 
 
+def test_chip_smoke_layernorm_extra_batches_rehearsal():
+    """The forecaster kernel phase with layernorm also at the training
+    batch: layernorm rows at every batch, the other kernels' at the
+    forward's batches only, whose inputs the extra batch does not move."""
+    cfg = port_fc.ForecasterConfig(seq_len=8, **TINY_MODEL)
+    cpu = torch.device("cpu")
+    res = chip_smoke.phase_forecaster_kernels(cpu, 0, cfg, batches=(1, 3),
+                                              layernorm_batches=(1, 2, 3))
+    plain = chip_smoke.phase_forecaster_kernels(cpu, 0, cfg, batches=(1, 3))
+    assert set(res["layernorm"]) == {1, 2, 3}
+    assert set(res["causal_attention"]) == set(res["gelu_tanh"]) == {1, 3}
+    for name, rows in plain.items():
+        for b, row in rows.items():
+            assert res[name][b] == row
+    assert chip_smoke.LAYERNORM_BATCHES == (1, 16, 32)
+
+
 def test_chip_smoke_forecaster_work_counts_by_hand():
     """The bytes and operations behind the forecaster bounds, by hand."""
     bf = torch.bfloat16

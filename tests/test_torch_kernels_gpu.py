@@ -18,11 +18,15 @@ for attention: the same float32 math summed in another order), and the
 whole forward through the kernels to the forward through the plain
 versions within ``chip_smoke.FORWARD_LIMIT``.
 
-Both attention kernels are also launched twice on the same inputs and
-must give the same bits, and the launch geometry the wrappers compute
-(``kernels/forecaster.py``'s ``attention_geometry``, held on the CPU by
-``tests/test_torch_attention_tiles.py``) must equal what the C libraries
-compute.
+Both attention kernels and the layernorm backward are also launched twice
+on the same inputs and must give the same bits, and the launch geometry the
+wrappers compute (``kernels/forecaster.py``'s ``attention_geometry`` and
+``layernorm_geometry``, held on the CPU by
+``tests/test_torch_attention_tiles.py`` and
+``tests/test_torch_layernorm_rows.py``) must equal what the C libraries
+compute. Both layernorm kernels are also held at every row geometry (one
+row to a ragged 2,049, widths 8 to 1,024), and the layernorm backward's
+kept counter over 100 calls.
 
 The training kernels are held to their plain versions within
 ``chip_smoke.hold_train_kernel``'s limits (the update bit for bit at the
@@ -419,6 +423,143 @@ def test_attention_geometry_matches_launchers(cuda):
         assert lib.chana_causal_attention_smem(t, d // heads) == g.fwd_smem
         assert tlib.chana_causal_attention_bwd_smem(t, d // heads) == \
             g.bwd_smem
+
+
+# (rows, width) for the layernorm kernels: one row and 7 rows (a single
+# block), the service's forecast (B = 1: 8 blocks, one cluster), 130 rows
+# (17 blocks, three clusters, the grid padded to 24), the training batch
+# (B = 16: 128 blocks, 16 clusters), a ragged 2,049 rows (257 blocks
+# padded to 264), many blocks (4,500 rows at a width of 512: 563 blocks;
+# 16,384 rows: 2,048 blocks), the narrowest width at one and many rows,
+# and the widest (64 KB of shared memory in the backward) at one, a few
+# and a ragged 2,049 rows
+LAYERNORM_SHAPES = [(1, 256), (7, 256), (64, 256), (130, 256), (1024, 256),
+                    (2049, 256), (4500, 512), (16384, 256), (1, 8),
+                    (1024, 8), (1, 1024), (130, 1024), (2049, 1024)]
+
+
+def _layernorm_inputs(rows: int, d: int, device, seed: int) -> tuple:
+    """(dy, x, scale) as ``chip_smoke.train_inputs`` makes them: x offset so
+    the mean matters, a scale near 1."""
+    gen = torch.Generator().manual_seed(seed)
+    dy = torch.randn(rows, d, generator=gen).to(torch.bfloat16).to(device)
+    x = (torch.randn(rows, d, generator=gen) * 2 + 0.5).to(
+        torch.bfloat16).to(device)
+    return dy, x, (1 + 0.1 * torch.randn(d, generator=gen)).to(device)
+
+
+def _dscale_limit(dy: torch.Tensor, x: torch.Tensor) -> float:
+    """The float32 error of dscale's sum over its rows
+    (``chip_smoke.hold_train_kernel``'s rows * 2^-24 of the largest
+    column's sum of |dy * xhat|) and of each term's xhat (4 * 2^-24 of it:
+    a sum of one row has no rounding of its own, but the kernel's rsqrtf
+    and statistics put a few ulp in xhat)."""
+    x32 = x.float()
+    xhat = (x32 - x32.mean(-1, keepdim=True)) * torch.rsqrt(
+        x32.var(-1, unbiased=False, keepdim=True) + fk.EPS)
+    terms = (dy.float() * xhat).abs().sum(0)
+    return (x.shape[0] + 4) * 2.0 ** -24 * float(terms.max())
+
+
+@pytest.mark.parametrize("rows,d", LAYERNORM_SHAPES)
+def test_layernorm_kernels_at_odd_rows(cuda, rows, d):
+    """Both layernorm kernels against their plain versions at every
+    geometry: y and dx within one bf16 step at the largest output, dscale
+    within ``_dscale_limit``; one launch each."""
+    dy, x, scale = _layernorm_inputs(rows, d, cuda, rows * 10 + d)
+    before = (fk.layernorm.launches, fk.layernorm_bwd.launches)
+    y = fk.layernorm(x, scale)
+    dx, ds = fk.layernorm_bwd(dy, x, scale)
+    torch.cuda.synchronize()
+    assert (fk.layernorm.launches, fk.layernorm_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    want_y = fk.layernorm_ref(x, scale)
+    want_dx, want_ds = fk.layernorm_bwd_ref(dy, x, scale)
+    for got, want in ((y, want_y), (dx, want_dx)):
+        assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= chip_smoke.bf16_ulp(float(want.float().abs().max()))
+    assert float((ds - want_ds).abs().max()) <= _dscale_limit(dy, x)
+
+
+@pytest.mark.parametrize("rows,d", [(1024, 256), (2049, 256), (2049, 1024),
+                                    (7, 256), (16384, 256)])
+def test_layernorm_bwd_is_deterministic(cuda, rows, d):
+    """Two launches of the layernorm backward on the same inputs give the
+    same dx and dscale bits: no float atomics, every sum in a fixed order
+    (the clusters' and the last block's included)."""
+    dy, x, scale = _layernorm_inputs(rows, d, cuda, rows + d + 3)
+    first = fk.layernorm_bwd(dy, x, scale)
+    second = fk.layernorm_bwd(dy, x, scale)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_layernorm_geometry_matches_launchers(cuda):
+    """Both libraries compute the geometry ``layernorm_geometry`` gives at
+    every shape these tests run, refuse the widths it refuses, and each
+    launcher refuses a geometry other than its own."""
+    import ctypes
+
+    libs = (fk.library(), fk.train_library())
+    out = (ctypes.c_int * 5)()
+    for rows, d in LAYERNORM_SHAPES + [(2048, 256)]:
+        g = fk.layernorm_geometry(rows, d)
+        for lib in libs:
+            assert lib.chana_layernorm_geometry(rows, d, out) == 1
+            assert tuple(out) == tuple(g)
+    for lib in libs:
+        assert lib.chana_layernorm_geometry(64, 12, out) == 0
+        assert lib.chana_layernorm_geometry(64, 1032, out) == 0
+    dy, x, scale = _layernorm_inputs(1024, 256, cuda, 4)
+    g = fk.layernorm_geometry(1024, 256)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    y = torch.empty_like(x)
+    lib, tlib = libs
+    invalid = 1  # cudaErrorInvalidValue
+    assert lib.chana_layernorm(x.data_ptr(), scale.data_ptr(), y.data_ptr(),
+                               1024, 256, fk.EPS, g.blocks + 1,
+                               stream) == invalid
+    partial = torch.zeros(g.clusters * 256, device=cuda)
+    counter = torch.zeros(1, dtype=torch.int32, device=cuda)
+    ds = torch.empty(256, device=cuda)
+    for bad in ((g.blocks, 1, g.grid, g.bwd_smem),
+                (g.blocks, g.cluster, g.grid + 8, g.bwd_smem),
+                (g.blocks, g.cluster, g.grid, g.bwd_smem + 4)):
+        assert tlib.chana_layernorm_bwd(
+            dy.data_ptr(), x.data_ptr(), scale.data_ptr(), y.data_ptr(),
+            partial.data_ptr(), ds.data_ptr(), counter.data_ptr(), 1024, 256,
+            fk.EPS, *bad, stream) == invalid
+
+
+def test_layernorm_bwd_reuses_its_scratch(cuda):
+    """100 calls at the training batch's 1,024 rows and at 2,049 rows, each
+    dscale right, through one counter that every launch leaves zero; a
+    call launches the kernel and nothing else (``torch.profiler``)."""
+    calls = []
+    for i in range(100):
+        rows = 1024 if i % 2 == 0 else 2049
+        dy, x, scale = _layernorm_inputs(rows, 256, cuda, 100 + i)
+        dx, ds = fk.layernorm_bwd(dy, x, scale)
+        calls.append((dy, x, scale, ds))
+    torch.cuda.synchronize()
+    for dy, x, scale, ds in calls:
+        _, want = fk.layernorm_bwd_ref(dy, x, scale)
+        assert float((ds - want).abs().max()) <= _dscale_limit(dy, x)
+    key = (cuda.index, torch.cuda.current_stream(cuda).cuda_stream)
+    partial, counter = fk._LN_SCRATCH[key]
+    assert int(counter.item()) == 0
+    assert partial.numel() >= fk.layernorm_geometry(2049, 256).clusters * 256
+    dy, x, scale, _ = calls[0]
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fk.layernorm_bwd(dy, x, scale)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 1 and "layernorm_bwd_kernel" in names[0], names
+    assert fk._LN_SCRATCH[key][1] is counter
 
 
 def test_update_kernel_without_clip(cuda):
