@@ -19,34 +19,46 @@
 // no trip through shared memory, and a row's max or sum over a tile is a
 // lane's own values and two __shfl_xor_sync steps over its quad.
 //
-// A warp holds the logits of one 16-row query tile against a chunk of key
-// tiles in registers: two in the forward, whose four warps share a row's
-// key tiles (128 keys a block), four in the backward (64 keys a warp). A
-// longer row is taken chunk by chunk, each recomputed from shared memory
-// in every pass over the row: the softmax needs the row's max before its
-// exponentials and their sum before its weights, and a recomputed chunk
-// gives the same bits.
+// Any window: no kernel holds a whole head. A block keeps its own 16-row
+// tiles and streams the other side's tiles (the keys and values of a
+// query tile's prefix, or the queries and douts below a key tile) through
+// a ring of two slots of `stage` tiles each, filled with cp.async while
+// the slot before is in use (for_each_slot). Shared memory is then fixed
+// by the head width alone, whatever T is. A slot holds one tile a warp
+// (kWarps) while that fits, so a window of 64 (the flagship's) fits one
+// slot: such a block stages its tiles once, as a block that held the
+// whole prefix did. Heads too wide for that take slots of two tiles, or
+// one (Geometry::stage), and leave warps idle. A window of one tile
+// streams nothing: heads too wide even for slots of one tile run there
+// with a ring of one slot (Geometry::slots), which the backward lays over
+// its own tiles.
 //
-// mma.sync, not wgmma: the tiles are 16 x 64 per warp at the forecaster's
+// A warp holds the logits of one 16 x 16 tile in registers. The softmax
+// needs a row's max before its exponentials and their sum before its
+// weights, so a streamed row is taken in passes, each recomputing its
+// tiles' logits from shared memory; a recomputed tile gives the same bits.
+// Warp w takes key tiles w, w + 4, ... of a row in order (slot_tile), in
+// every pass and whatever the ring's size, so the sums run in the same
+// order as when the prefix was held whole.
+//
+// mma.sync, not wgmma: the tiles are 16 x 16 per warp at the forecaster's
 // T = 64, head_dim = 64, far under the 64 x N x 16 warpgroup tile's best
-// use, and both kernels are bound by launch latency and parallelism (more
+// use, and the kernels are bound by launch latency and parallelism (more
 // than 20x from either roof), not by the tensor cores' rate.
 
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace chana_att {
 
 constexpr int kTile = 16;      // rows of a query tile, keys of a key tile
-constexpr int kFwdChunk = 2;   // key tiles whose logits a forward warp holds
-constexpr int kBwdChunk = 4;   // ... and a backward warp
-constexpr int kColChunk = 64;  // output columns a warp accumulates at once
+constexpr int kWarps = 4;      // warps a block
+constexpr int kColChunk = 64;  // output columns summed at once
 constexpr int kTileLd = kTile + 8;  // stride of a [rows][16] bf16 buffer
 constexpr int kOutLd = kColChunk + 8;  // stride of a float [16][64] buffer
-constexpr int kFwdWarps = 4;  // the forward's warps a query tile
-constexpr int kBwdWarps = 4;  // the backward's warps a tile
 
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
 
@@ -75,6 +87,28 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
+// A float32 divisor. x / d is correctly rounded either way; when d is a
+// power of two (sqrt(head_dim) at head widths 16, 64 and 256) it is the
+// multiply by 1/d, exactly, and a zero dividend is returned as it is (its
+// quotient), so the causal mask's zeros never take the division's slow
+// path.
+struct Divisor {
+  float d, inv;  // inv: 1 / d when that is exact, else 0
+};
+
+__device__ __forceinline__ Divisor divisor(float d) {
+  return {d, (__float_as_uint(d) & 0x007fffffu) == 0u ? 1.0f / d : 0.0f};
+}
+
+__device__ __forceinline__ float divide(float x, const Divisor& q) {
+  if (q.inv != 0.0f) return x * q.inv;
+  return x == 0.0f ? x : x / q.d;
+}
+
+__device__ __forceinline__ float divide(float x, float d) {
+  return x == 0.0f ? x : x / d;
+}
+
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -97,32 +131,45 @@ __device__ __forceinline__ void cp_async(void* dst, const void* src,
   }
 }
 
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-// Rows [r0, r0 + n) of one head's slice (hd bf16 at src + row * stride)
-// into dst[n][ld]: copies of `bytes` (16, 8 or 4, a divisor of 2 * hd) for
-// rows < T and columns < hd, zeros up to column hdp and in rows >= T. Every
-// thread of the block takes part; the caller waits and synchronizes.
+// Wait until at most N of this thread's committed copy groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// One head's slice of a [B, T, *] bf16 tensor as the kernels stage it: hd
+// values a row at src + row * stride, zero-padded to hdp columns and to
+// whole tiles, rows ld apart in shared memory, copied `bytes` at a time
+// (16, 8 or 4, a divisor of 2 * hd).
+struct Head {
+  size_t stride;
+  int T, hd, hdp, ld, bytes;
+};
+
+// Rows [r0, r0 + n) of a head's slice at src into dst[n][ld]: copies for
+// rows < T and columns < hd, zeros up to column hdp and in rows >= T.
+// Every thread of the block takes part; the caller commits, waits and
+// synchronizes.
 __device__ __forceinline__ void stage_rows(__nv_bfloat16* dst,
                                            const __nv_bfloat16* src,
-                                           size_t stride, int r0, int n,
-                                           int T, int hd, int hdp, int ld,
-                                           int bytes) {
-  const int per_row = hdp * 2 / bytes;
-  const int step = bytes / 2;
+                                           const Head& h, int r0, int n) {
+  const int per_row = h.hdp * 2 / h.bytes;
+  const int step = h.bytes / 2;
   // (row, chunk) of this thread's copy, advanced without a divide a copy
   int r = threadIdx.x / per_row, k = threadIdx.x - r * per_row;
   const int dr = blockDim.x / per_row, dk = blockDim.x - dr * per_row;
   for (int idx = threadIdx.x; idx < n * per_row; idx += blockDim.x) {
     const int col = k * step;
-    __nv_bfloat16* d = dst + r * ld + col;
-    if (r0 + r < T && col < hd) {
-      cp_async(d, src + (size_t)(r0 + r) * stride + col, bytes);
-    } else if (bytes == 16) {
+    __nv_bfloat16* d = dst + r * h.ld + col;
+    if (r0 + r < h.T && col < h.hd) {
+      cp_async(d, src + (size_t)(r0 + r) * h.stride + col, h.bytes);
+    } else if (h.bytes == 16) {
       *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
-    } else if (bytes == 8) {
+    } else if (h.bytes == 8) {
       *reinterpret_cast<uint2*>(d) = make_uint2(0u, 0u);
     } else {
       *reinterpret_cast<uint32_t*>(d) = 0u;
@@ -134,6 +181,62 @@ __device__ __forceinline__ void stage_rows(__nv_bfloat16* dst,
       ++r;
     }
   }
+}
+
+// Tiles [tile0, tile0 + ntiles) of one head slice (src_a, laid out as ha)
+// and, unless src_b is null, of a second one at the same rows (src_b, as
+// hb; the same shared-memory layout), through the two slots
+// of ring_a and ring_b (each slot `stage` tiles of ld columns): fn(slot_a,
+// slot_b, first tile, tiles in the slot) for each slot's worth in order,
+// called by every thread of the block between two barriers. The next
+// slot's copies are in flight while fn runs. With `staged` the tiles (at
+// most `stage`) are in slot 0 already, waited for and visible, and fn runs
+// once with no copy.
+template <class Fn>
+__device__ __forceinline__ void for_each_slot(
+    __nv_bfloat16* ring_a, __nv_bfloat16* ring_b,
+    const __nv_bfloat16* src_a, const __nv_bfloat16* src_b, const Head& ha,
+    const Head& hb, int stage, int tile0, int ntiles, bool staged,
+    Fn&& fn) {
+  if (staged) {
+    fn(ring_a, ring_b, tile0, ntiles);
+    __syncthreads();
+    return;
+  }
+  const int slot = stage * kTile * ha.ld;
+  const int nslots = (ntiles + stage - 1) / stage;
+  auto issue = [&](int s) {
+    const int n = min(stage, ntiles - s * stage) * kTile;
+    const int r0 = (tile0 + s * stage) * kTile;
+    stage_rows(ring_a + (s & 1) * slot, src_a, ha, r0, n);
+    if (src_b != nullptr) {
+      stage_rows(ring_b + (s & 1) * slot, src_b, hb, r0, n);
+    }
+    cp_async_commit();
+  };
+  issue(0);
+  for (int s = 0; s < nslots; ++s) {
+    if (s + 1 < nslots) {
+      issue(s + 1);  // into the slot the last fn is done with
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    fn(ring_a + (s & 1) * slot, ring_b + (s & 1) * slot,
+       tile0 + s * stage, min(stage, ntiles - s * stage));
+    __syncthreads();
+  }
+}
+
+// The place in a slot of the key tile warp `warp` takes (tiles j with
+// j % kWarps == warp), in a slot whose first tile is j0 and which holds n
+// tiles; -1 when the slot has none of its tiles. A slot's first tile is a
+// multiple of its size (1, 2 or kWarps), so a slot of kWarps tiles gives
+// every warp its own place.
+__device__ __forceinline__ int slot_tile(int warp, int j0, int n) {
+  const int i = (warp - j0) & (kWarps - 1);
+  return i < n ? i : -1;
 }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
@@ -212,115 +315,112 @@ __device__ __forceinline__ int frag_col(int e) {
   return (e >> 2) * 8 + 2 * (threadIdx.x & 3) + (e & 1);
 }
 
-// s[kt] = a_rows (16 x hdp) . b_rows[kt * kt_rows ..]^T (16 x hdp each)
-// for kt < nkt, float32: q . k^T when a_rows is a query tile and b_rows
-// the keys, dout . v^T when they are dout and V. Tiles kt >= nkt are zero.
-template <int CH>
-__device__ __forceinline__ void tile_products(float (&s)[CH][8],
-                                              const __nv_bfloat16* a_rows,
-                                              const __nv_bfloat16* b_rows,
-                                              int kt_rows, int ld, int hdp,
-                                              int nkt) {
+// s = a_rows (16 x hdp) . b_rows^T (16 x hdp), float32, as two n8 C
+// fragments (s[0..3] columns 0-7, s[4..7] columns 8-15): q . k^T when
+// a_rows is a query tile and b_rows a key tile, dout . v^T for dout and V.
+__device__ __forceinline__ void tile_product(float (&s)[8],
+                                             const __nv_bfloat16* a_rows,
+                                             const __nv_bfloat16* b_rows,
+                                             int ld, int hdp) {
 #pragma unroll
-  for (int kt = 0; kt < CH; ++kt) {
-#pragma unroll
-    for (int e = 0; e < 8; ++e) s[kt][e] = 0.f;
-  }
+  for (int e = 0; e < 8; ++e) s[e] = 0.f;
   for (int kk = 0; kk < hdp; kk += 16) {
-    uint32_t a[4];
+    uint32_t a[4], b[4];
     load_a(a, a_rows + kk, ld);
-#pragma unroll
-    for (int kt = 0; kt < CH; ++kt) {
-      if (kt < nkt) {
-        uint32_t b[4];
-        load_b_nk(b, b_rows + kt * kt_rows * ld + kk, ld);
-        mma_bf16(&s[kt][0], a, b[0], b[1]);
-        mma_bf16(&s[kt][4], a, b[2], b[3]);
-      }
-    }
+    load_b_nk(b, b_rows + kk, ld);
+    mma_bf16(&s[0], a, b[0], b[1]);
+    mma_bf16(&s[4], a, b[2], b[3]);
   }
 }
 
-// The logits of query rows row0.. against a chunk's key tiles, tile kt at
-// keys key0 + kt * kt_keys ..: float(bf16(q . k)) / scale_div (the
-// reference's bf16 einsum, then its float32 divide) where key <= row and
-// key < T, -inf elsewhere (exp gives 0 there, as the reference's -1e30
-// does; every row keeps its first key, so its max is finite). Only a tile
-// that reaches past the tile's first row or past T is masked key by key.
-template <int CH>
-__device__ __forceinline__ void chunk_logits(float (&s)[CH][8],
-                                             const __nv_bfloat16* q_tile,
-                                             const __nv_bfloat16* sK, int ld,
-                                             int hdp, int row0, int key0,
-                                             int kt_keys, int nkt, int T,
-                                             float scale_div) {
-  tile_products(s, q_tile, sK + key0 * ld, kt_keys, ld, hdp, nkt);
+// The logits of query rows row0.. against keys key0..: float(bf16(q . k))
+// / scale_div (the reference's bf16 einsum, then its float32 divide) where
+// key <= row and key < T, -inf elsewhere (exp gives 0 there, as the
+// reference's -1e30 does; every row keeps its first key, so its max is
+// finite). Only a tile that reaches past its first row or past T is
+// masked key by key.
+__device__ __forceinline__ void tile_logits(float (&s)[8],
+                                            const __nv_bfloat16* q_rows,
+                                            const __nv_bfloat16* k_rows,
+                                            int ld, int hdp, int row0,
+                                            int key0, int T,
+                                            const Divisor& scale) {
+  tile_product(s, q_rows, k_rows, ld, hdp);
+  if (key0 + kTile - 1 <= row0 && key0 + kTile <= T) {
 #pragma unroll
-  for (int kt = 0; kt < CH; ++kt) {
-    const int first = key0 + kt * kt_keys;  // the tile's first key
-    if (kt < nkt && first + kTile - 1 <= row0 && first + kTile <= T) {
+    for (int e = 0; e < 8; ++e) s[e] = divide(round_bf16(s[e]), scale);
+  } else {
 #pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        s[kt][e] = round_bf16(s[kt][e]) / scale_div;
-      }
-    } else {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const int key = first + frag_col(e);
-        s[kt][e] = (kt < nkt && key <= row0 + frag_row(e) && key < T)
-                       ? round_bf16(s[kt][e]) / scale_div
-                       : neg_inf();
-      }
+    for (int e = 0; e < 8; ++e) {
+      const int key = key0 + frag_col(e);
+      s[e] = (key <= row0 + frag_row(e) && key < T)
+                 ? divide(round_bf16(s[e]), scale)
+                 : neg_inf();
     }
   }
 }
 
 // s = exp(s - max of its row).
-template <int CH>
-__device__ __forceinline__ void chunk_exp(float (&s)[CH][8], float m0,
-                                          float m1) {
+__device__ __forceinline__ void tile_exp(float (&s)[8], float m0, float m1) {
 #pragma unroll
-  for (int kt = 0; kt < CH; ++kt) {
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      s[kt][e] = expf(s[kt][e] - (((e >> 1) & 1) ? m1 : m0));
-    }
-  }
+  for (int e = 0; e < 8; ++e) s[e] = expf(s[e] - (((e >> 1) & 1) ? m1 : m0));
 }
 
 // Each row's max (m0: row g, m1: row g + 8) and sum of a lane's values.
-template <int CH>
-__device__ __forceinline__ void row_max(const float (&s)[CH][8], float& m0,
-                                        float& m1) {
-#pragma unroll
-  for (int kt = 0; kt < CH; ++kt) {
-    m0 = fmaxf(m0, fmaxf(fmaxf(s[kt][0], s[kt][1]), fmaxf(s[kt][4], s[kt][5])));
-    m1 = fmaxf(m1, fmaxf(fmaxf(s[kt][2], s[kt][3]), fmaxf(s[kt][6], s[kt][7])));
-  }
+__device__ __forceinline__ void tile_max(const float (&s)[8], float& m0,
+                                         float& m1) {
+  m0 = fmaxf(m0, fmaxf(fmaxf(s[0], s[1]), fmaxf(s[4], s[5])));
+  m1 = fmaxf(m1, fmaxf(fmaxf(s[2], s[3]), fmaxf(s[6], s[7])));
 }
 
-template <int CH>
-__device__ __forceinline__ void row_sum(const float (&s)[CH][8], float& l0,
-                                        float& l1) {
-#pragma unroll
-  for (int kt = 0; kt < CH; ++kt) {
-    l0 += (s[kt][0] + s[kt][1]) + (s[kt][4] + s[kt][5]);
-    l1 += (s[kt][2] + s[kt][3]) + (s[kt][6] + s[kt][7]);
+__device__ __forceinline__ void tile_sum(const float (&s)[8], float& l0,
+                                         float& l1) {
+  l0 += (s[0] + s[1]) + (s[4] + s[5]);
+  l1 += (s[2] + s[3]) + (s[6] + s[7]);
+}
+
+// A value of each of a tile's 16 rows, one a warp, combined over the
+// block's warps in warp order through part[kWarps][16] (lanes of quad
+// lane 0 write). Every thread returns the combined values of its rows g
+// and g + 8; the barrier inside makes part reusable after the next one.
+template <class Op>
+__device__ __forceinline__ void combine_rows(float* part, float& v0,
+                                             float& v1, Op op) {
+  const int warp = threadIdx.x >> 5;
+  const int g = (threadIdx.x & 31) >> 2;
+  if ((threadIdx.x & 3) == 0) {
+    part[warp * kTile + g] = v0;
+    part[warp * kTile + g + 8] = v1;
+  }
+  __syncthreads();
+  v0 = part[g];
+  v1 = part[g + 8];
+  for (int w = 1; w < kWarps; ++w) {
+    v0 = op(v0, part[w * kTile + g]);
+    v1 = op(v1, part[w * kTile + g + 8]);
   }
 }
 
 // Launch geometry for T rows of head width HD (false when the shape is
-// refused: HD odd). kernels/forecaster.py's attention_geometry computes
-// the same from the same rules; the launchers refuse a mismatch.
+// refused: HD odd, or too wide for a slot of one tile). kernels/
+// forecaster.py's attention_geometry computes the same from the same
+// rules; the launchers refuse a mismatch. Shared memory depends on the
+// head width alone.
 struct Geometry {
-  int hdp;          // HD rounded up to 16 (zero columns)
-  int ld;           // shared-memory row stride, bf16
-  int tiles;        // 16-row tiles covering T (the rows past T masked)
-  int bytes;        // cp.async width: the largest of 16, 8, 4 dividing 2 HD
-  size_t fwd_smem;  // the forward's row statistics, output tile, q tile,
-                    // k and v rows
-  size_t bwd_smem;  // the backward's q, k, v, dout rows, W and dlog tiles
-                    // and the dlog rows of its query tile
+  int hdp;            // HD rounded up to 16 (zero columns)
+  int ld;             // shared-memory row stride, bf16
+  int tiles;          // 16-row tiles covering T (the rows past T masked)
+  int bytes;          // cp.async width: the largest of 16, 8, 4 dividing 2 HD
+  int stage;          // tiles a ring slot holds: kWarps, 2 or 1, the most
+                      // whose shared memory fits
+  int slots;          // slots a ring has: 2, or 1 in a window of one tile
+                      // whose head is too wide for two
+  size_t fwd_smem;    // the forward's row statistics of each warp, output
+                      // tile, q tile and the k and v rings
+  size_t stats_smem;  // the backward's row pass: a statistic of each
+                      // warp, q and dout tiles, the k and v rings
+  size_t bwd_smem;    // the backward's own four tiles, two rings and
+                      // the dlog and W tiles of a slot for each half
 };
 
 constexpr size_t kSmemLimit = 227 * 1024;
@@ -331,19 +431,55 @@ inline bool geometry(int T, int HD, Geometry* g) {
   g->ld = g->hdp == kTile ? kTile : g->hdp + 8;
   g->tiles = (T + kTile - 1) / kTile;
   g->bytes = (2 * HD) % 16 == 0 ? 16 : (2 * HD) % 8 == 0 ? 8 : 4;
-  const size_t rows = (size_t)g->tiles * kTile;
-  g->fwd_smem = sizeof(float) * kTile * (2 * kFwdWarps + kOutLd) +
-                sizeof(__nv_bfloat16) * g->ld * (kTile + 2 * rows);
-  g->bwd_smem = sizeof(__nv_bfloat16) * (4 * rows * g->ld +
-                                         2 * rows * kTileLd +
-                                         kTile * (rows + 8));
-  return true;
+  for (int stage = kWarps; stage >= 1; stage /= 2) {
+    // the one-slot ring only where it is needed: one tile, slots of one
+    for (int slots = 2; slots >= (stage == 1 && g->tiles == 1 ? 1 : 2);
+         --slots) {
+      const size_t ring = (size_t)slots * stage * kTile * g->ld;
+      g->stage = stage;
+      g->slots = slots;
+      g->fwd_smem = sizeof(float) * kTile * (2 * kWarps + kOutLd) +
+                    sizeof(__nv_bfloat16) * (kTile * g->ld + 2 * ring);
+      g->stats_smem = sizeof(float) * kTile * kWarps +
+                      sizeof(__nv_bfloat16) * (2 * kTile * g->ld + 2 * ring);
+      // one slot: the backward's rings are its own four tiles
+      g->bwd_smem = sizeof(__nv_bfloat16) *
+                    (4 * kTile * g->ld + (slots == 2 ? 2 * ring : 0) +
+                     3 * stage * kTile * kTileLd);
+      if (g->fwd_smem <= kSmemLimit && g->stats_smem <= kSmemLimit &&
+          g->bwd_smem <= kSmemLimit) {
+        return true;
+      }
+    }
+  }
+  return false;
+}
+
+// Opts `kernel` into `smem` bytes of dynamic shared memory (past the
+// 48 KB a block has without it) on the current device, once: `allowed`
+// keeps, for each device, the most it was opted into there, so launches at
+// a width already seen make no attribute call.
+constexpr int kMaxDevices = 64;
+
+inline cudaError_t allow_smem(const void* kernel, size_t smem,
+                              size_t (&allowed)[kMaxDevices]) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const bool kept = dev >= 0 && dev < kMaxDevices;
+  if (kept && smem <= allowed[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess && kept) allowed[dev] = smem;
+  return err;
 }
 
 // True when the launch parameters a wrapper passed are the geometry's.
 inline bool geometry_matches(const Geometry& g, int hdp, int ld, int tiles,
-                             int bytes) {
-  return hdp == g.hdp && ld == g.ld && tiles == g.tiles && bytes == g.bytes;
+                             int bytes, int stage, int slots) {
+  return hdp == g.hdp && ld == g.ld && tiles == g.tiles &&
+         bytes == g.bytes && stage == g.stage && slots == g.slots;
 }
 
 }  // namespace chana_att

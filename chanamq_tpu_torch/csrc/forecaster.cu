@@ -32,7 +32,8 @@
 // products (q . k^T and W . V) on mma.sync, its softmax on the accumulator
 // fragments in registers, one block of four warps per (batch, head, 16-row
 // query tile), so that the service's batch of 1 runs on 16 blocks at
-// T = 64, in one launch a call.
+// T = 64, in one launch a call; key and value tiles stream through a ring
+// in shared memory, so any window fits.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -141,103 +142,110 @@ __global__ void empty_kernel() {}
 // -- causal attention -------------------------------------------------------
 //
 // qkv [B, T, 3D] (q | k | v, head h at columns h * HD of each third) ->
-// out [B, T, D], head h at columns h * HD. One block of kFwdWarps (4) warps
+// out [B, T, D], head h at columns h * HD. One block of kWarps (4) warps
 // per (b, h, 16-row query tile), the longest rows first. The block stages
-// its query tile and the key prefix the tile sees (keys < 16 (tile + 1))
-// of k and v with cp.async (attention_tiles.cuh); warp w takes key tiles
-// w, w + 4, ... of the prefix and, on the tensor cores, forms
+// its query tile and streams the key tiles the tile sees (keys < 16 (tile
+// + 1)) of k, and in the last pass of v, through the ring of
+// attention_tiles.cuh, `stage` tiles a slot: warp w takes key tiles w,
+// w + 4, ... and, on the tensor cores, forms
 //   logit = float(bf16(q_i . k_j)) / sqrt(HD)       (the einsum's bf16 out)
 // for j <= i in registers. The float32 two-pass softmax runs on those
-// accumulator fragments: each warp's row max and row sum over its lane
-// quads, then over the warps through shared memory in warp order (keys
-// past the query get exp(-inf) = 0, as the reference's -1e30 does, which
-// is exact). W = bf16(e / sum) is repacked in registers as the A fragment
-// of W . V; each warp's float32 partial of sum_j W_ij v_j is added into
-// one shared buffer in warp order, and out = bf16 of the total, 64 columns
-// at a time.
+// accumulator fragments in three passes over the keys: each warp's row max
+// over its lane quads, then over the warps in warp order; the exponentials'
+// row sums the same way (keys past the query get exp(-inf) = 0, as the
+// reference's -1e30 does, which is exact); then W = bf16(e / sum),
+// repacked in registers as the A fragment of W . V. Each warp's float32
+// partial of sum_j W_ij v_j is added into one shared buffer in warp order,
+// and out = bf16 of the total, 64 columns at a time. A prefix of at most
+// a slot (every tile at T <= 64 at head widths up to 336) is staged once
+// and its logits held through the passes; a longer one is streamed again
+// in every pass (and for every 64 output columns), its logits recomputed.
+// Given `stats` (training), the block also writes each row's max and sum
+// of exponentials, float32, into its first two planes ([3][B H rows]):
+// the backward's row pass reads them instead of recomputing them.
 
-__global__ void __launch_bounds__(chana_att::kFwdWarps * 32, 4)
+__global__ void __launch_bounds__(chana_att::kWarps * 32, 4)
     causal_attention_kernel(const __nv_bfloat16* __restrict__ qkv,
-                            __nv_bfloat16* __restrict__ out, int T, int H,
-                            int HD, int HDP, int ld, int tiles, int bytes,
-                            float scale_div) {
+                            __nv_bfloat16* __restrict__ out,
+                            float* __restrict__ stats, int T, int H, int HD,
+                            int HDP, int ld, int tiles, int bytes, int stage,
+                            int slots, float scale_div) {
   using namespace chana_att;
-  constexpr int W = kFwdWarps;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* s_part = reinterpret_cast<float*>(smem_raw);  // [2][W][16]
-  float* s_o = s_part + 2 * W * kTile;                // [16][kOutLd]
+  float* s_max = reinterpret_cast<float*>(smem_raw);  // [kWarps][16]
+  float* s_sum = s_max + kWarps * kTile;              // [kWarps][16]
+  float* s_o = s_sum + kWarps * kTile;                // [16][kOutLd]
   __nv_bfloat16* s_q = reinterpret_cast<__nv_bfloat16*>(s_o + kTile * kOutLd);
-  __nv_bfloat16* s_k = s_q + kTile * ld;
-  __nv_bfloat16* s_v = s_k + tiles * kTile * ld;
+  const int slot = stage * kTile * ld;
+  __nv_bfloat16* ring_k = s_q + kTile * ld;  // [slots][stage * 16][ld]
+  __nv_bfloat16* ring_v = ring_k + slots * slot;
   const int bh = blockIdx.x / tiles;
   const int tile = tiles - 1 - (blockIdx.x - bh * tiles);
   const int h = bh % H;
   const int b = bh / H;
   const int D = H * HD;
-  const size_t stride = (size_t)3 * D;
-  const __nv_bfloat16* src = qkv + (size_t)b * T * stride + h * HD;
+  const Head head{(size_t)3 * D, T, HD, HDP, ld, bytes};
+  const __nv_bfloat16* src = qkv + (size_t)b * T * head.stride + h * HD;
   const int row0 = tile * kTile;
   const int nkt = tile + 1;  // key tiles the query tile sees
-  stage_rows(s_q, src, stride, row0, kTile, T, HD, HDP, ld, bytes);
-  stage_rows(s_k, src + D, stride, 0, nkt * kTile, T, HD, HDP, ld, bytes);
-  stage_rows(s_v, src + 2 * D, stride, 0, nkt * kTile, T, HD, HDP, ld,
-             bytes);
-  cp_async_wait_all();
+  const bool staged = nkt <= stage;  // the whole prefix in one slot
+  const Divisor scale = divisor(scale_div);
+  stage_rows(s_q, src, head, row0, kTile);
+  if (staged) {
+    stage_rows(ring_k, src + D, head, 0, nkt * kTile);
+    stage_rows(ring_v, src + 2 * D, head, 0, nkt * kTile);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
   __syncthreads();
 
   const int warp = threadIdx.x >> 5;
   const int g = (threadIdx.x & 31) >> 2;
   const int c = threadIdx.x & 3;
-  const int active = min(W, nkt);                        // warps with keys
-  const int mine = warp < nkt ? (nkt - warp + W - 1) / W : 0;
-  constexpr int CH = kFwdChunk;
-  const int nchunk = (mine + CH - 1) / CH;
-  const bool held = nchunk <= 1;  // else each pass recomputes its chunks
-  // chunk ch holds this warp's key tiles warp + W (CH ch + kt)
-  auto key0 = [&](int ch) { return (warp + W * CH * ch) * kTile; };
-  auto ckt = [&](int ch) { return min(CH, mine - ch * CH); };
-  float s[CH][8];
+  float s[8];  // this warp's key tile of a slot: logits, then e
+  auto logits = [&](const __nv_bfloat16* k_slot, int j0, int i) {
+    tile_logits(s, s_q, k_slot + i * kTile * ld, ld, HDP, row0,
+                (j0 + i) * kTile, T, scale);
+  };
   float m0 = neg_inf(), m1 = neg_inf();  // rows g and g + 8
-  for (int ch = 0; ch < nchunk; ++ch) {
-    chunk_logits(s, s_q, s_k, ld, HDP, row0, key0(ch), W * kTile, ckt(ch), T,
-                 scale_div);
-    row_max(s, m0, m1);
-  }
+  for_each_slot(ring_k, ring_v, src + D, nullptr, head, head, stage, 0,
+                nkt, staged,
+                [&](const __nv_bfloat16* k_slot, const __nv_bfloat16*,
+                    int j0, int n) {
+                  const int i = slot_tile(warp, j0, n);
+                  if (i >= 0) {
+                    logits(k_slot, j0, i);
+                    tile_max(s, m0, m1);
+                  }
+                });
   m0 = quad_max(m0);
   m1 = quad_max(m1);
-  if (c == 0) {
-    s_part[warp * kTile + g] = m0;
-    s_part[warp * kTile + g + 8] = m1;
-  }
-  __syncthreads();
-  for (int w = 0; w < W; ++w) {
-    m0 = fmaxf(m0, s_part[w * kTile + g]);
-    m1 = fmaxf(m1, s_part[w * kTile + g + 8]);
-  }
+  combine_rows(s_max, m0, m1, [](float x, float y) { return fmaxf(x, y); });
   float l0 = 0.f, l1 = 0.f;
-  for (int ch = 0; ch < nchunk; ++ch) {
-    if (!held) {
-      chunk_logits(s, s_q, s_k, ld, HDP, row0, key0(ch), W * kTile, ckt(ch),
-                   T, scale_div);
-    }
-    chunk_exp(s, m0, m1);
-    row_sum(s, l0, l1);
-  }
+  for_each_slot(ring_k, ring_v, src + D, nullptr, head, head, stage, 0,
+                nkt, staged,
+                [&](const __nv_bfloat16* k_slot, const __nv_bfloat16*,
+                    int j0, int n) {
+                  const int i = slot_tile(warp, j0, n);
+                  if (i >= 0) {
+                    if (!staged) logits(k_slot, j0, i);
+                    tile_exp(s, m0, m1);
+                    tile_sum(s, l0, l1);
+                  }
+                });
   l0 = quad_sum(l0);
   l1 = quad_sum(l1);
-  float* s_sum = s_part + W * kTile;
-  if (c == 0) {
-    s_sum[warp * kTile + g] = l0;
-    s_sum[warp * kTile + g + 8] = l1;
-  }
-  __syncthreads();
-  l0 = 0.f;
-  l1 = 0.f;
-  for (int w = 0; w < W; ++w) {
-    l0 += s_sum[w * kTile + g];
-    l1 += s_sum[w * kTile + g + 8];
+  combine_rows(s_sum, l0, l1, [](float x, float y) { return x + y; });
+  if (stats != nullptr && threadIdx.x < 32 && c == 0) {
+    const size_t plane = (size_t)gridDim.x * kTile;  // B H rows
+    float* row = stats + (size_t)bh * tiles * kTile + row0;
+    row[g] = m0;
+    row[g + 8] = m1;
+    row[plane + g] = l0;
+    row[plane + g + 8] = l1;
   }
 
+  const int active = min(kWarps, nkt);  // warps with keys
   __nv_bfloat16* dst = out + (size_t)b * T * D + h * HD;
   for (int col0 = 0; col0 < HDP; col0 += kColChunk) {
     float o[kColChunk / 8][4];
@@ -246,24 +254,25 @@ __global__ void __launch_bounds__(chana_att::kFwdWarps * 32, 4)
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
     }
-    for (int ch = 0; ch < nchunk; ++ch) {
-      if (!held) {
-        chunk_logits(s, s_q, s_k, ld, HDP, row0, key0(ch), W * kTile,
-                     ckt(ch), T, scale_div);
-        chunk_exp(s, m0, m1);
-      }
-#pragma unroll
-      for (int kt = 0; kt < CH; ++kt) {
-        if (kt < ckt(ch)) {
+    for_each_slot(
+        ring_k, ring_v, src + D, src + 2 * D, head, head, stage, 0, nkt,
+        staged,
+        [&](const __nv_bfloat16* k_slot, const __nv_bfloat16* v_slot,
+            int j0, int n) {
+          const int i = slot_tile(warp, j0, n);
+          if (i < 0) return;
+          if (!staged) {
+            logits(k_slot, j0, i);
+            tile_exp(s, m0, m1);
+          }
           float w[8];
 #pragma unroll
           for (int e = 0; e < 8; ++e) {
-            w[e] = s[kt][e] / (((e >> 1) & 1) ? l1 : l0);
+            w[e] = divide(s[e], ((e >> 1) & 1) ? l1 : l0);
           }
           uint32_t a[4];
           pack_a(a, w);
-          const __nv_bfloat16* v_tile =
-              s_v + (key0(ch) + kt * W * kTile) * ld + col0;
+          const __nv_bfloat16* v_tile = v_slot + i * kTile * ld + col0;
 #pragma unroll
           for (int p = 0; p < kColChunk / 16; ++p) {
             if (col0 + p * 16 < HDP) {
@@ -273,9 +282,7 @@ __global__ void __launch_bounds__(chana_att::kFwdWarps * 32, 4)
               mma_bf16(o[2 * p + 1], a, bv[2], bv[3]);
             }
           }
-        }
-      }
-    }
+        });
     // the warps' partials, added in warp order
     for (int w = 0; w < active; ++w) {
       if (warp == w) {
@@ -297,7 +304,7 @@ __global__ void __launch_bounds__(chana_att::kFwdWarps * 32, 4)
       __syncthreads();
     }
     for (int idx = threadIdx.x; idx < kTile * kColChunk / 2;
-         idx += W * 32) {
+         idx += kWarps * 32) {
       const int row = idx / (kColChunk / 2);
       const int col = 2 * (idx - row * (kColChunk / 2));
       if (row0 + row < T && col0 + col < HD) {
@@ -393,29 +400,30 @@ size_t chana_causal_attention_smem(int T, int HD) {
   return chana_att::geometry(T, HD, &g) ? g.fwd_smem : 0;
 }
 
-// One block of kFwdWarps warps per (b, h, query tile): B * H * tiles
+// One block of kWarps warps per (b, h, query tile): B * H * tiles
 // blocks. The wrapper passes the geometry (kernels/forecaster.py's
-// attention_geometry); a mismatch with this file's is refused.
-int chana_causal_attention(const void* qkv, void* out, int B, int T, int H,
-                           int HD, int HDP, int ld, int tiles, int bytes,
-                           size_t smem, float scale_div, void* stream) {
+// attention_geometry); a mismatch with this file's is refused. `stats`
+// (float32 [3][B * H * tiles * 16], or null) receives each row's max and
+// sum of exponentials in its first two planes, for the backward.
+int chana_causal_attention(const void* qkv, void* out, void* stats, int B,
+                           int T, int H, int HD, int HDP, int ld, int tiles,
+                           int bytes, int stage, int slots, size_t smem,
+                           float scale_div, void* stream) {
   chana_att::Geometry g;
   if (B <= 0 || H <= 0 || !chana_att::geometry(T, HD, &g) ||
-      !chana_att::geometry_matches(g, HDP, ld, tiles, bytes) ||
+      !chana_att::geometry_matches(g, HDP, ld, tiles, bytes, stage, slots) ||
       smem != g.fwd_smem || smem > chana_att::kSmemLimit ||
       (long long)B * H * tiles > 0x7fffffffLL) {
     return (int)cudaErrorInvalidValue;
   }
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        causal_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  causal_attention_kernel<<<B * H * tiles, chana_att::kFwdWarps * 32, smem,
+  static size_t allowed[chana_att::kMaxDevices] = {};
+  const cudaError_t err = chana_att::allow_smem(
+      (const void*)causal_attention_kernel, smem, allowed);
+  if (err != cudaSuccess) return (int)err;
+  causal_attention_kernel<<<B * H * tiles, chana_att::kWarps * 32, smem,
                             (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)qkv, (__nv_bfloat16*)out, T, H, HD, HDP, ld,
-      tiles, bytes, scale_div);
+      (const __nv_bfloat16*)qkv, (__nv_bfloat16*)out, (float*)stats, T, H,
+      HD, HDP, ld, tiles, bytes, stage, slots, scale_div);
   return (int)cudaGetLastError();
 }
 

@@ -39,7 +39,9 @@
 // Attention's backward is the tensor-core design of attention_tiles.cuh:
 // all five of its products (q . k^T, dout . v^T, dlog . K, dlog^T . Q,
 // W^T . dout) on mma.sync, one block per (batch, head, 16-row tile) with
-// no float atomics, in one launch a call.
+// no float atomics, in two launches a call (a row pass for the softmax
+// statistics, then the gradients), streaming tiles through a ring in
+// shared memory so that any window fits.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -403,9 +405,8 @@ LayerNormBwdFn layernorm_bwd_fn(int chunks) {
 //
 // qkv [B, T, 3D] and dout [B, T, D] -> dqkv [B, T, 3D], the cotangent of the
 // fused qkv product (dq | dk | dv, head h at columns h * HD of each third).
-// For query rows i it recomputes the forward's softmax exactly as the
-// forward kernel does (logit = float(bf16(q_i . k_j)) / sqrt(HD), float32
-// softmax y over j <= i), then
+// For query rows i it recomputes the forward's softmax (logit =
+// float(bf16(q_i . k_j)) / sqrt(HD), float32 softmax y over j <= i), then
 //   dW_j  = bf16(dout_i . v_j)                 (the second einsum's cotangent)
 //   u_j   = y_j * dW_j,  dl_j = u_j - y_j * sum_j u_j     (softmax's jvp rule,
 //           transposed: it differentiates through the float32 y)
@@ -414,219 +415,377 @@ LayerNormBwdFn layernorm_bwd_fn(int chunks) {
 //   dq_i = bf16(sum_j<=i dlog_ij k_j),  dk_j = bf16(sum_i>=j dlog_ij q_i),
 //   dv_j = bf16(sum_i>=j W_ij dout_i).
 //
-// One block of four warps per (b, h, tile t), no float atomics: the block
-// writes dq for query tile t and dk, dv for key tile t. It stages k and v
-// and the rows >= 16 t of q and dout (attention_tiles.cuh); each warp takes
-// query tiles i = t + warp, t + warp + 4, ... and recomputes their full
-// softmax rows on the tensor cores (q . k^T and dout . v^T, the row's max,
-// sum and sum_j u_j over lane quads). From each it keeps dlog and W of key
-// tile t as bf16 [16 x 16] tiles in shared memory, and the warp with i = t
-// the whole dlog row of tile t (all three are rounded already, so keeping
-// them in bf16 is exact). Then the block's warps split dq = dlog . K,
-// dk = dlog^T . Q and dv = W^T . dout (ldmatrix.trans for the transposed
-// operands) by 16 columns, each summing over its tiles in order.
+// Two launches a call, no float atomics, O(T^2 HD) work in all:
+// - the row pass (causal_attention_bwd_stats_kernel) takes each row's max
+//   and sum of exponentials from the forward (csrc/forecaster.cu's
+//   causal_attention_kernel writes them, in the first two planes of
+//   `stats` [3][B H rows], when it runs for training), and makes the one
+//   statistic the forward cannot: one block of four warps per (b, h,
+//   query tile) streams the tile's key prefix (k and v) through the ring
+//   once and writes each row's sum_j u_j, float32, summed in the forward's
+//   order, into the third plane;
+// - the main kernel (causal_attention_bwd_kernel), one block of eight (or
+//   four) warps per (b, h, tile t), rebuilds any 16 x 16 tile of y, dlog
+//   and W from those statistics alone. Warps 0-3 make dk and dv of key
+//   tile t: they keep k_t and v_t and stream the query tiles i >= t (q
+//   and dout) through the ring; warps 4-7 make dq of query tile t: they
+//   keep q_t and dout_t and stream the key tiles j <= t (k and v). With
+//   four warps, each warp takes part in both. A half's warp w
+//   builds the dlog (and W) tile of the slot's tile w into shared memory as
+//   bf16 (rounded already, so exact); then it adds every tile of the slot,
+//   in order, into its 16 output columns (ldmatrix.trans for the
+//   transposed operands), 64 columns a pass over the stream. Where both
+//   streams fit one slot each (every block at T <= 64), everything is
+//   staged at once and all tiles of both halves are built before one
+//   barrier; else the halves stream one after the other.
 
-// For chunk ch of a query tile's row (nkt key tiles in all): y = e / sum
-// in place, e = exp(logit - max) (recomputed from q and k first when
-// `recompute`, else already in s), and dW = bf16(dout . v^T), two to a
-// word (it is rounded already, so packing it is exact), a key tile at a
-// time.
-__device__ __forceinline__ void chunk_y_dw(
-    float (&s)[chana_att::kBwdChunk][8],
-    uint32_t (&dw)[chana_att::kBwdChunk][4], const __nv_bfloat16* q_tile,
-    const __nv_bfloat16* do_tile, const __nv_bfloat16* s_k,
-    const __nv_bfloat16* s_v, int ld, int hdp, int row0, int ch, int nkt,
-    int T, float scale_div, float m0, float m1, float l0, float l1,
-    bool recompute) {
+// A 16 x 16 tile's y = e / sum, in place of its e = exp(logit - max) in s,
+// and its dW = bf16(dout . v^T), two to a word (it is rounded already, so
+// packing it is exact).
+__device__ __forceinline__ void tile_y_dw(float (&s)[8], uint32_t (&dw)[4],
+                                          const __nv_bfloat16* do_rows,
+                                          const __nv_bfloat16* v_rows,
+                                          int ld, int hdp, float l0,
+                                          float l1) {
   using namespace chana_att;
-  constexpr int CH = kBwdChunk;
-  const int key0 = ch * CH * kTile;
-  const int ckt = min(CH, nkt - ch * CH);
-  if (recompute) {
-    chunk_logits(s, q_tile, s_k, ld, hdp, row0, key0, kTile, ckt, T,
-                 scale_div);
-    chunk_exp(s, m0, m1);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) s[e] = divide(s[e], ((e >> 1) & 1) ? l1 : l0);
+  float d[8];
+  tile_product(d, do_rows, v_rows, ld, hdp);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) dw[e] = pack_bf16(d[2 * e], d[2 * e + 1]);
+}
+
+__global__ void __launch_bounds__(chana_att::kWarps * 32, 4)
+    causal_attention_bwd_stats_kernel(const __nv_bfloat16* __restrict__ qkv,
+                                      const __nv_bfloat16* __restrict__ dout,
+                                      float* __restrict__ stats, int T,
+                                      int H, int HD, int HDP, int ld,
+                                      int tiles, int bytes, int stage,
+                                      int slots, float scale_div) {
+  using namespace chana_att;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* s_su = reinterpret_cast<float*>(smem_raw);  // [kWarps][16]
+  __nv_bfloat16* s_q =
+      reinterpret_cast<__nv_bfloat16*>(s_su + kWarps * kTile);
+  __nv_bfloat16* s_do = s_q + kTile * ld;
+  const int slot = stage * kTile * ld;
+  __nv_bfloat16* ring_k = s_do + kTile * ld;  // [slots][stage * 16][ld]
+  __nv_bfloat16* ring_v = ring_k + slots * slot;
+  const int bh = blockIdx.x / tiles;
+  const int tile = tiles - 1 - (blockIdx.x - bh * tiles);
+  const int h = bh % H;
+  const int b = bh / H;
+  const int D = H * HD;
+  const Head head{(size_t)3 * D, T, HD, HDP, ld, bytes};
+  Head dhead = head;
+  dhead.stride = D;
+  const __nv_bfloat16* src = qkv + (size_t)b * T * head.stride + h * HD;
+  const int row0 = tile * kTile;
+  const int nkt = tile + 1;
+  const bool staged = nkt <= stage;
+  const Divisor scale = divisor(scale_div);
+  stage_rows(s_q, src, head, row0, kTile);
+  stage_rows(s_do, dout + (size_t)b * T * D + h * HD, dhead, row0, kTile);
+  if (staged) {
+    stage_rows(ring_k, src + D, head, 0, nkt * kTile);
+    stage_rows(ring_v, src + 2 * D, head, 0, nkt * kTile);
   }
+  cp_async_commit();
+  // the forward's max and sum of this lane's rows g and g + 8
+  const size_t plane = (size_t)gridDim.x * kTile;  // B H rows
+  const int g = (threadIdx.x & 31) >> 2;
+  float* row = stats + (size_t)bh * tiles * kTile + row0;
+  const float m0 = row[g], m1 = row[g + 8];
+  const float l0 = row[plane + g], l1 = row[plane + g + 8];
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5;
+  float su0 = 0.f, su1 = 0.f;  // sum_j y_j dW_j
+  for_each_slot(ring_k, ring_v, src + D, src + 2 * D, head, head, stage, 0,
+                nkt, staged,
+                [&](const __nv_bfloat16* k_slot,
+                    const __nv_bfloat16* v_slot, int j0, int n) {
+                  const int i = slot_tile(warp, j0, n);
+                  if (i < 0) return;
+                  float s[8];
+                  tile_logits(s, s_q, k_slot + i * kTile * ld, ld, HDP,
+                              row0, (j0 + i) * kTile, T, scale);
+                  tile_exp(s, m0, m1);
+                  uint32_t dw[4];
+                  tile_y_dw(s, dw, s_do, v_slot + i * kTile * ld, ld, HDP,
+                            l0, l1);
 #pragma unroll
-  for (int kt = 0; kt < CH; ++kt) {
-#pragma unroll
-    for (int e = 0; e < 8; ++e) s[kt][e] /= ((e >> 1) & 1) ? l1 : l0;
-    float d[1][8] = {{0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f}};
-    if (kt < ckt) {
-      tile_products(d, do_tile, s_v + (key0 + kt * kTile) * ld, kTile, ld,
-                    hdp, 1);
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      dw[kt][e] = pack_bf16(d[0][2 * e], d[0][2 * e + 1]);
-    }
+                  for (int e = 0; e < 8; e += 2) {
+                    const float2 d = unpack_bf16(dw[e / 2]);
+                    const float u = s[e] * d.x + s[e + 1] * d.y;
+                    if ((e >> 1) & 1) {
+                      su1 += u;
+                    } else {
+                      su0 += u;
+                    }
+                  }
+                });
+  su0 = quad_sum(su0);
+  su1 = quad_sum(su1);
+  combine_rows(s_su, su0, su1, [](float x, float y) { return x + y; });
+  if (threadIdx.x < 32 && (threadIdx.x & 3) == 0) {
+    row[2 * plane + g] = su0;
+    row[2 * plane + g + 8] = su1;
   }
 }
 
-__global__ void __launch_bounds__(chana_att::kBwdWarps * 32, 4)
+// One lane's rows' statistics from the row pass: rows g and g + 8 of a
+// tile.
+struct RowStats {
+  float m0, m1, l0, l1, su0, su1;
+};
+
+template <int NW>
+__global__ void __launch_bounds__(NW * 32, NW == 4 ? 4 : 2)
     causal_attention_bwd_kernel(const __nv_bfloat16* __restrict__ qkv,
                                 const __nv_bfloat16* __restrict__ dout,
+                                const float* __restrict__ stats,
                                 __nv_bfloat16* __restrict__ dqkv, int T,
                                 int H, int HD, int HDP, int ld, int tiles,
-                                int bytes, float scale_div) {
+                                int bytes, int stage, int slots,
+                                float scale_div) {
   using namespace chana_att;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int rows = tiles * kTile;
-  __nv_bfloat16* s_q = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* s_k = s_q + rows * ld;
-  __nv_bfloat16* s_v = s_k + rows * ld;
-  __nv_bfloat16* s_do = s_v + rows * ld;
-  __nv_bfloat16* s_dl = s_do + rows * ld;     // [rows][kTileLd]: dlog[:, t]
-  __nv_bfloat16* s_w = s_dl + rows * kTileLd;  // [rows][kTileLd]: W[:, t]
-  const int dq_ld = rows + 8;
-  __nv_bfloat16* s_dq = s_w + rows * kTileLd;  // [16][dq_ld]: dlog[t, :]
+  const int slot = stage * kTile * ld;
+  // tile t's own rows of q, k, dout and v, [16][ld] each
+  __nv_bfloat16* s_qt = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* s_kt = s_qt + kTile * ld;
+  __nv_bfloat16* s_dot = s_kt + kTile * ld;
+  __nv_bfloat16* s_vt = s_dot + kTile * ld;
+  // the rings, [2][stage * 16][ld] each, after them; with one slot (a
+  // window of one tile, slots of one tile) the own tiles are the rings'
+  // two slots, since the streams hold just tile t: q_t and k_t are ring_a,
+  // dout_t and v_t ring_b
+  const bool own_ring = slots == 1;
+  __nv_bfloat16* ring_a = own_ring ? s_qt : s_vt + kTile * ld;
+  __nv_bfloat16* ring_b = own_ring ? s_dot : ring_a + 2 * slot;
+  // [stage][16][kTileLd] each: dlog and W tiles of the dk, dv half, dlog
+  // tiles of the dq half
+  __nv_bfloat16* s_dl = own_ring ? s_vt + kTile * ld : ring_b + 2 * slot;
+  __nv_bfloat16* s_w = s_dl + stage * kTile * kTileLd;
+  __nv_bfloat16* s_dlq = s_w + stage * kTile * kTileLd;
   const int bh = blockIdx.x / tiles;
   const int t = blockIdx.x - bh * tiles;
   const int h = bh % H;
   const int b = bh / H;
   const int D = H * HD;
-  const size_t stride = (size_t)3 * D;
-  const __nv_bfloat16* src = qkv + (size_t)b * T * stride + h * HD;
+  const Head head{(size_t)3 * D, T, HD, HDP, ld, bytes};
+  Head dhead = head;
+  dhead.stride = D;
+  const __nv_bfloat16* src = qkv + (size_t)b * T * head.stride + h * HD;
   const __nv_bfloat16* dsrc = dout + (size_t)b * T * D + h * HD;
+  __nv_bfloat16* dst = dqkv + (size_t)b * T * head.stride + h * HD;
+  const size_t plane = (size_t)gridDim.x * kTile;
+  const float* st = stats + (size_t)bh * tiles * kTile;  // m | l | su rows
   const int r0 = t * kTile;
-  stage_rows(s_k, src + D, stride, 0, rows, T, HD, HDP, ld, bytes);
-  stage_rows(s_v, src + 2 * D, stride, 0, rows, T, HD, HDP, ld, bytes);
-  stage_rows(s_q + r0 * ld, src, stride, r0, rows - r0, T, HD, HDP, ld,
-             bytes);
-  stage_rows(s_do + r0 * ld, dsrc, D, r0, rows - r0, T, HD, HDP, ld, bytes);
-  cp_async_wait_all();
-  __syncthreads();
-
+  // with eight warps, warps 0-3 take the dk, dv half and warps 4-7 the dq
+  // half; with four, every warp takes both. lw is a warp's place in a half
+  // (its tile of a slot, its 16 columns of 64).
+  static_assert(NW == kWarps || NW == 2 * kWarps, "four or eight warps");
   const int warp = threadIdx.x >> 5;
+  const bool kv_half = NW == kWarps || warp < kWarps;
+  const bool q_half = NW == kWarps || warp >= kWarps;
+  const int lw = warp % kWarps;
+  const int g = (threadIdx.x & 31) >> 2;
   const int c = threadIdx.x & 3;
-  __nv_bfloat16* dst = dqkv + (size_t)b * T * stride + h * HD;
-  for (int i = t + warp; i < tiles; i += kBwdWarps) {
-    const int row0 = i * kTile;
-    const __nv_bfloat16* q_tile = s_q + row0 * ld;
-    const __nv_bfloat16* do_tile = s_do + row0 * ld;
-    const int nkt = i + 1;
-    constexpr int CH = kBwdChunk;
-    const int nchunk = (nkt + CH - 1) / CH;
-    const bool held = nchunk == 1;  // else each pass recomputes its chunks
-    float s[CH][8];      // logits, then e, then y
-    uint32_t dw[CH][4];  // dW = bf16(dout . v^T), two to a word
-    float m0 = neg_inf(), m1 = neg_inf();  // rows g and g + 8
-    for (int ch = 0; ch < nchunk; ++ch) {
-      chunk_logits(s, q_tile, s_k, ld, HDP, row0, ch * CH * kTile, kTile,
-                   min(CH, nkt - ch * CH), T, scale_div);
-      row_max(s, m0, m1);
-    }
-    m0 = quad_max(m0);
-    m1 = quad_max(m1);
-    float l0 = 0.f, l1 = 0.f;
-    for (int ch = 0; ch < nchunk; ++ch) {
-      if (!held) {
-        chunk_logits(s, q_tile, s_k, ld, HDP, row0, ch * CH * kTile, kTile,
-                     min(CH, nkt - ch * CH), T, scale_div);
-      }
-      chunk_exp(s, m0, m1);
-      row_sum(s, l0, l1);
-    }
-    l0 = quad_sum(l0);
-    l1 = quad_sum(l1);
-    float su0 = 0.f, su1 = 0.f;  // sum_j y_j dW_j
-    for (int ch = 0; ch < nchunk; ++ch) {
-      chunk_y_dw(s, dw, q_tile, do_tile, s_k, s_v, ld, HDP, row0, ch, nkt, T,
-                 scale_div, m0, m1, l0, l1, !held);
-#pragma unroll
-      for (int kt = 0; kt < CH; ++kt) {
-#pragma unroll
-        for (int e = 0; e < 8; e += 2) {
-          const float2 d = unpack_bf16(dw[kt][e / 2]);
-          const float u = s[kt][e] * d.x + s[kt][e + 1] * d.y;
-          if ((e >> 1) & 1) {
-            su1 += u;
-          } else {
-            su0 += u;
-          }
-        }
-      }
-    }
-    su0 = quad_sum(su0);
-    su1 = quad_sum(su1);
+  const Divisor scale = divisor(scale_div);
+  auto row_stats = [&](int row0) {
+    return RowStats{st[row0 + g], st[row0 + g + 8], st[plane + row0 + g],
+                    st[plane + row0 + g + 8], st[2 * plane + row0 + g],
+                    st[2 * plane + row0 + g + 8]};
+  };
 
-    // dlog of each chunk: its key tile t to shared memory with W, and the
-    // whole row when i = t
-    for (int ch = 0; ch < nchunk; ++ch) {
-      if (!held) {
-        chunk_y_dw(s, dw, q_tile, do_tile, s_k, s_v, ld, HDP, row0, ch, nkt,
-                   T, scale_div, m0, m1, l0, l1, true);
-      }
-      const int ckt = min(CH, nkt - ch * CH);
+  // dlog (and W) of the tile of query rows row0.. and keys key0..: logits
+  // of q_rows . k_rows^T, dW of do_rows . v_rows^T, the rows' statistics
+  // from the row pass; zero in rows past T (they add nothing to dk, dv)
+  auto build = [&](const __nv_bfloat16* q_rows, const __nv_bfloat16* k_rows,
+                   const __nv_bfloat16* do_rows, const __nv_bfloat16* v_rows,
+                   int row0, int key0, const RowStats& rs,
+                   __nv_bfloat16* dl_tile, __nv_bfloat16* w_tile) {
+    float s[8];
+    uint32_t dw[4];
+    tile_logits(s, q_rows, k_rows, ld, HDP, row0, key0, T, scale);
+    tile_exp(s, rs.m0, rs.m1);
+    tile_y_dw(s, dw, do_rows, v_rows, ld, HDP, rs.l0, rs.l1);
 #pragma unroll
-      for (int kt = 0; kt < CH; ++kt) {
-        const int key_tile = ch * CH + kt;
-        if (kt < ckt) {
-#pragma unroll
-          for (int e = 0; e < 8; e += 2) {
-            const int row = frag_row(e);
-            const float su = ((e >> 1) & 1) ? su1 : su0;
-            const float y0 = s[kt][e], y1 = s[kt][e + 1];
-            const float2 d = unpack_bf16(dw[kt][e / 2]);
-            // padded rows add nothing to dk and dv
-            const uint32_t dl =
-                row0 + row < T
-                    ? pack_bf16((y0 * d.x - y0 * su) / scale_div,
-                                (y1 * d.y - y1 * su) / scale_div)
-                    : 0u;
-            if (key_tile == t) {
-              const int off = (row0 + row) * kTileLd + frag_col(e);
-              *reinterpret_cast<uint32_t*>(s_dl + off) = dl;
-              *reinterpret_cast<uint32_t*>(s_w + off) =
-                  row0 + row < T ? pack_bf16(y0, y1) : 0u;
-            }
-            if (i == t) {
-              *reinterpret_cast<uint32_t*>(
-                  s_dq + row * dq_ld + key_tile * kTile + frag_col(e)) = dl;
-            }
-          }
-        }
+    for (int e = 0; e < 8; e += 2) {
+      const int row = frag_row(e);
+      const bool real = row0 + row < T;
+      const float su = ((e >> 1) & 1) ? rs.su1 : rs.su0;
+      const float y0 = s[e], y1 = s[e + 1];
+      const float2 d = unpack_bf16(dw[e / 2]);
+      const int off = row * kTileLd + frag_col(e);
+      *reinterpret_cast<uint32_t*>(dl_tile + off) =
+          real ? pack_bf16(divide(y0 * d.x - y0 * su, scale),
+                           divide(y1 * d.y - y1 * su, scale))
+               : 0u;
+      if (w_tile != nullptr) {
+        *reinterpret_cast<uint32_t*>(w_tile + off) =
+            real ? pack_bf16(y0, y1) : 0u;
       }
     }
-  }
-  __syncthreads();
-
-  // dq of query tile t (which 0: dlog . K over key tiles <= t), dk and dv
-  // of key tile t (1: dlog^T . Q, 2: W^T . dout over query tiles >= t),
-  // 16 columns an item
-  const int groups = HDP / 16;
-  for (int item = warp; item < 3 * groups; item += kBwdWarps) {
-    const int which = item / groups;
-    const int col0 = (item - which * groups) * 16;
-    float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-    const int first = which == 0 ? 0 : t;
-    const int last = which == 0 ? t : tiles - 1;
-    for (int j = first; j <= last; ++j) {
-      uint32_t a[4], bq[4];
-      if (which == 0) {
-        load_a(a, s_dq + j * kTile, dq_ld);
-        load_b_kn(bq, s_k + j * kTile * ld + col0, ld);
-      } else {
-        load_a_trans(a, (which == 1 ? s_dl : s_w) + j * kTile * kTileLd,
-                     kTileLd);
-        load_b_kn(bq, (which == 1 ? s_q : s_do) + j * kTile * ld + col0, ld);
-      }
-      mma_bf16(acc[0], a, bq[0], bq[1]);
-      mma_bf16(acc[1], a, bq[2], bq[3]);
-    }
+  };
+  // 16 output columns of tile t (rows r0..), which = 0 / 1 / 2 for dq /
+  // dk / dv, from a warp's two n8 accumulators
+  auto store = [&](const float (&acc)[2][4], int which, int col0) {
 #pragma unroll
     for (int n = 0; n < 2; ++n) {
       const int col = col0 + n * 8 + 2 * c;
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
-        const int row = r0 + frag_row(2 * half);
+        const int row = r0 + g + 8 * half;
         if (col < HD && row < T) {
-          *reinterpret_cast<uint32_t*>(dst + (size_t)row * stride +
+          *reinterpret_cast<uint32_t*>(dst + (size_t)row * head.stride +
                                        which * D + col) =
               pack_bf16(acc[n][2 * half], acc[n][2 * half + 1]);
         }
       }
     }
+  };
+
+  // the steps of both halves, a slot's worth of tiles at a time:
+  // dk and dv of key tile t from query tiles i0.. (q, dout in the slot;
+  // k_t, v_t kept), dq of query tile t from key tiles j0.. (k, v in the
+  // slot; q_t, dout_t kept). A half's warp lw builds the dlog (and W) tile
+  // of the slot's tile lw, then, after a barrier, adds every tile of the
+  // slot in order into its 16 output columns.
+  auto build_kv = [&](const __nv_bfloat16* q_slot,
+                      const __nv_bfloat16* do_slot, int i0, int n,
+                      const RowStats* pre) {
+    if (kv_half && lw < n) {
+      const int row0 = (i0 + lw) * kTile;
+      build(q_slot + lw * kTile * ld, s_kt, do_slot + lw * kTile * ld, s_vt,
+            row0, r0, pre != nullptr ? *pre : row_stats(row0),
+            s_dl + lw * kTile * kTileLd, s_w + lw * kTile * kTileLd);
+    }
+  };
+  auto add_kv = [&](const __nv_bfloat16* q_slot,
+                    const __nv_bfloat16* do_slot, int n, int cols,
+                    float (&dk)[2][4], float (&dv)[2][4]) {
+    for (int j = 0; j < n; ++j) {
+      uint32_t a[4], bq[4];
+      load_a_trans(a, s_dl + j * kTile * kTileLd, kTileLd);
+      load_b_kn(bq, q_slot + j * kTile * ld + cols, ld);
+      mma_bf16(dk[0], a, bq[0], bq[1]);
+      mma_bf16(dk[1], a, bq[2], bq[3]);
+      load_a_trans(a, s_w + j * kTile * kTileLd, kTileLd);
+      load_b_kn(bq, do_slot + j * kTile * ld + cols, ld);
+      mma_bf16(dv[0], a, bq[0], bq[1]);
+      mma_bf16(dv[1], a, bq[2], bq[3]);
+    }
+  };
+  auto build_q = [&](const __nv_bfloat16* k_slot,
+                     const __nv_bfloat16* v_slot, int j0, int n,
+                     const RowStats& own) {
+    if (q_half && lw < n) {
+      build(s_qt, k_slot + lw * kTile * ld, s_dot, v_slot + lw * kTile * ld,
+            r0, (j0 + lw) * kTile, own, s_dlq + lw * kTile * kTileLd,
+            nullptr);
+    }
+  };
+  auto add_q = [&](const __nv_bfloat16* k_slot, int n, int cols,
+                   float (&dq)[2][4]) {
+    for (int j = 0; j < n; ++j) {
+      uint32_t a[4], bk[4];
+      load_a(a, s_dlq + j * kTile * kTileLd, kTileLd);
+      load_b_kn(bk, k_slot + j * kTile * ld + cols, ld);
+      mma_bf16(dq[0], a, bk[0], bk[1]);
+      mma_bf16(dq[1], a, bk[2], bk[3]);
+    }
+  };
+
+  // The block's own tiles, and whatever of the two streams fits in one
+  // slot, staged at once: the query tiles i >= t (q, dout) in slot 0, and
+  // the key tiles j <= t (k, v) in slot 1 when both fit. The rows'
+  // statistics that are known now load meanwhile.
+  const int nq = tiles - t;  // query tiles i >= t
+  const int nk = t + 1;      // key tiles j <= t
+  const bool kv_staged = nq <= stage;
+  const bool both = kv_staged && nk <= stage;
+  stage_rows(s_kt, src + D, head, r0, kTile);
+  stage_rows(s_vt, src + 2 * D, head, r0, kTile);
+  stage_rows(s_qt, src, head, r0, kTile);
+  stage_rows(s_dot, dsrc, dhead, r0, kTile);
+  if (kv_staged && !own_ring) {
+    stage_rows(ring_a, src, head, r0, nq * kTile);
+    stage_rows(ring_b, dsrc, dhead, r0, nq * kTile);
+  }
+  if (both && !own_ring) {
+    stage_rows(ring_a + slot, src + D, head, 0, nk * kTile);
+    stage_rows(ring_b + slot, src + 2 * D, head, 0, nk * kTile);
+  }
+  cp_async_commit();
+  const RowStats own = row_stats(r0);
+  RowStats kv_rows{};
+  if (kv_staged && kv_half && lw < nq) kv_rows = row_stats(r0 + lw * kTile);
+  cp_async_wait<0>();
+  __syncthreads();
+
+  if (both) {
+    // every tile of both halves is staged (a window of 64 always is): the
+    // two halves build their tiles side by side, then add them, 64
+    // columns at a time
+    build_kv(ring_a, ring_b, t, nq, &kv_rows);
+    build_q(ring_a + slot, ring_b + slot, 0, nk, own);
+    __syncthreads();
+    for (int col0 = 0; col0 < HDP; col0 += kColChunk) {
+      const int cols = col0 + lw * 16;  // this warp's 16 columns
+      if (cols >= HDP) continue;
+      if (kv_half) {
+        float dk[2][4] = {}, dv[2][4] = {};
+        add_kv(ring_a, ring_b, nq, cols, dk, dv);
+        store(dk, 1, cols);
+        store(dv, 2, cols);
+      }
+      if (q_half) {
+        float dq[2][4] = {};
+        add_q(ring_a + slot, nk, cols, dq);
+        store(dq, 0, cols);
+      }
+    }
+    return;
+  }
+  // else each half streams its slots in turn (the dk, dv half from slot 0
+  // when its tiles fit there), rebuilding its tiles for every 64 columns;
+  // the other half's warps help stage and wait at the barriers
+  for (int col0 = 0; col0 < HDP; col0 += kColChunk) {
+    const int cols = col0 + lw * 16;
+    float dk[2][4] = {}, dv[2][4] = {};
+    for_each_slot(ring_a, ring_b, src, dsrc, head, dhead, stage, t, nq,
+                  kv_staged,
+                  [&](const __nv_bfloat16* q_slot,
+                      const __nv_bfloat16* do_slot, int i0, int n) {
+                    build_kv(q_slot, do_slot, i0, n,
+                             kv_staged ? &kv_rows : nullptr);
+                    __syncthreads();
+                    if (kv_half && cols < HDP) {
+                      add_kv(q_slot, do_slot, n, cols, dk, dv);
+                    }
+                  });
+    if (kv_half && cols < HDP) {
+      store(dk, 1, cols);
+      store(dv, 2, cols);
+    }
+  }
+  for (int col0 = 0; col0 < HDP; col0 += kColChunk) {
+    const int cols = col0 + lw * 16;
+    float dq[2][4] = {};
+    for_each_slot(ring_a, ring_b, src + D, src + 2 * D, head, head, stage, 0,
+                  nk, false,
+                  [&](const __nv_bfloat16* k_slot,
+                      const __nv_bfloat16* v_slot, int j0, int n) {
+                    build_q(k_slot, v_slot, j0, n, own);
+                    __syncthreads();
+                    if (q_half && cols < HDP) add_q(k_slot, n, cols, dq);
+                  });
+    if (q_half && cols < HDP) store(dq, 0, cols);
   }
 }
 
@@ -841,38 +1000,86 @@ int chana_layernorm_bwd(const void* dy, const void* x, const void* scale,
   return (int)cudaGetLastError();
 }
 
-// Dynamic shared memory the attention backward needs for T rows of head
-// width HD (0 when the shape is refused).
+// Dynamic shared memory the attention backward's main kernel needs for T
+// rows of head width HD (0 when the shape is refused).
 size_t chana_causal_attention_bwd_smem(int T, int HD) {
   chana_att::Geometry g;
   return chana_att::geometry(T, HD, &g) ? g.bwd_smem : 0;
 }
 
-// One block of kBwdWarps warps per (b, h, tile): B * H * tiles blocks. The
-// wrapper passes the geometry (kernels/forecaster.py's
-// attention_geometry); a mismatch with this file's is refused.
-int chana_causal_attention_bwd(const void* qkv, const void* dout, void* dqkv,
-                               int B, int T, int H, int HD, int HDP, int ld,
-                               int tiles, int bytes, size_t smem,
-                               float scale_div, void* stream) {
+// ... and its row pass.
+size_t chana_causal_attention_bwd_stats_smem(int T, int HD) {
   chana_att::Geometry g;
-  if (B <= 0 || H <= 0 || !chana_att::geometry(T, HD, &g) ||
-      !chana_att::geometry_matches(g, HDP, ld, tiles, bytes) ||
-      smem != g.bwd_smem || smem > chana_att::kSmemLimit ||
-      (long long)B * H * tiles > 0x7fffffffLL) {
+  return chana_att::geometry(T, HD, &g) ? g.stats_smem : 0;
+}
+
+// The backward is two launches of B * H * tiles blocks of kWarps warps:
+// the row pass (chana_causal_attention_bwd_stats), which reads each row's
+// max and sum from `stats` (float32 [3][B * H * tiles * 16], the first
+// two planes written by the forward, chana_causal_attention, for this
+// qkv) and writes its sum_j u_j into the third, then the main kernel
+// (chana_causal_attention_bwd), which reads all three. The wrapper passes
+// the geometry (kernels/forecaster.py's attention_geometry); a mismatch
+// with this file's is refused.
+static bool bwd_geometry_ok(int B, int T, int H, int HD, int HDP, int ld,
+                            int tiles, int bytes, int stage, int slots,
+                            size_t smem, bool stats_pass) {
+  chana_att::Geometry g;
+  return B > 0 && H > 0 && chana_att::geometry(T, HD, &g) &&
+         chana_att::geometry_matches(g, HDP, ld, tiles, bytes, stage,
+                                     slots) &&
+         smem == (stats_pass ? g.stats_smem : g.bwd_smem) &&
+         smem <= chana_att::kSmemLimit &&
+         (long long)B * H * tiles * chana_att::kTile <= 0x7fffffffLL;
+}
+
+int chana_causal_attention_bwd_stats(const void* qkv, const void* dout,
+                                     void* stats, int B, int T, int H,
+                                     int HD, int HDP, int ld, int tiles,
+                                     int bytes, int stage, int slots,
+                                     size_t smem, float scale_div,
+                                     void* stream) {
+  if (!bwd_geometry_ok(B, T, H, HD, HDP, ld, tiles, bytes, stage, slots,
+                       smem, true)) {
     return (int)cudaErrorInvalidValue;
   }
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        causal_attention_bwd_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
+  static size_t allowed[chana_att::kMaxDevices] = {};
+  const cudaError_t err = chana_att::allow_smem(
+      (const void*)causal_attention_bwd_stats_kernel, smem, allowed);
+  if (err != cudaSuccess) return (int)err;
+  causal_attention_bwd_stats_kernel<<<B * H * tiles, chana_att::kWarps * 32,
+                                      smem, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)qkv, (const __nv_bfloat16*)dout, (float*)stats,
+      T, H, HD, HDP, ld, tiles, bytes, stage, slots, scale_div);
+  return (int)cudaGetLastError();
+}
+
+// warps: 8 (each half of the kernel on its own four warps; two blocks an
+// SM) or 4 (every warp on both halves; four blocks an SM). The wrapper
+// takes 8 when the grid fits two blocks an SM at once.
+int chana_causal_attention_bwd(const void* qkv, const void* dout,
+                               const void* stats, void* dqkv, int B, int T,
+                               int H, int HD, int HDP, int ld, int tiles,
+                               int bytes, int stage, int slots, size_t smem,
+                               int warps, float scale_div, void* stream) {
+  if (!bwd_geometry_ok(B, T, H, HD, HDP, ld, tiles, bytes, stage, slots,
+                       smem, false)) {
+    return (int)cudaErrorInvalidValue;
   }
-  causal_attention_bwd_kernel<<<B * H * tiles, chana_att::kBwdWarps * 32,
-                                smem,
-                                (cudaStream_t)stream>>>(
+  if (warps != chana_att::kWarps && warps != 2 * chana_att::kWarps) {
+    return (int)cudaErrorInvalidValue;
+  }
+  static size_t allowed[2][chana_att::kMaxDevices] = {};
+  const auto kernel = warps == chana_att::kWarps
+                          ? causal_attention_bwd_kernel<chana_att::kWarps>
+                          : causal_attention_bwd_kernel<2 * chana_att::kWarps>;
+  const cudaError_t err = chana_att::allow_smem(
+      (const void*)kernel, smem, allowed[warps == chana_att::kWarps ? 0 : 1]);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<B * H * tiles, warps * 32, smem, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)qkv, (const __nv_bfloat16*)dout,
-      (__nv_bfloat16*)dqkv, T, H, HD, HDP, ld, tiles, bytes, scale_div);
+      (const float*)stats, (__nv_bfloat16*)dqkv, T, H, HD, HDP, ld, tiles,
+      bytes, stage, slots, scale_div);
   return (int)cudaGetLastError();
 }
 

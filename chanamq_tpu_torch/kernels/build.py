@@ -116,17 +116,32 @@ def check_shape(name: str, t: torch.Tensor, shape: tuple) -> None:
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
 
 
+# the current stream's handle as an int, without making a Stream object
+# (what torch's own generated launchers call); the public API where a
+# build lacks it
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 def launcher(lib: ctypes.CDLL, fn, name: str, device: torch.device, *args):
     """A zero-argument launch of ``fn(*args)`` on ``device``'s current
     stream that raises if the launch fails (``fn`` returns
     ``cudaGetLastError()``; ``lib.chana_cuda_error_string`` names it). The
-    arguments are bound once, so a caller can time repeated launches
-    without the wrapper's checks."""
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
+    arguments are bound once, converted to ``fn``'s declared C types
+    (``argtypes``, the stream last), so a launch converts nothing and a
+    caller can time repeated launches without the wrapper's checks."""
+    stream = _raw_stream(device.index) if _raw_stream is not None \
+        else torch.cuda.current_stream(device).cuda_stream
+    args = (*args, stream)
+    if len(fn.argtypes) != len(args):
+        raise TypeError(f"{name}: {len(args)} arguments for a C function "
+                        f"of {len(fn.argtypes)}")
+    # Python numbers and None become C values now; ctypes objects (the
+    # update's pointer tables) pass as they are
+    bound = tuple(t(a) if a is None or isinstance(a, (int, float)) else a
+                  for t, a in zip(fn.argtypes, args))
 
     def launch() -> None:
-        code = fn(*args, stream)
+        code = fn(*bound)
         if code != 0:
             msg = lib.chana_cuda_error_string(code).decode()
             raise RuntimeError(f"{name} kernel launch failed: {msg} ({code})")

@@ -34,6 +34,7 @@ so a caller can run the same forward or train step through either.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Callable, NamedTuple
 
@@ -62,7 +63,7 @@ def library() -> ctypes.CDLL:
         lib.chana_layernorm.restype = _int
         lib.chana_empty.argtypes = [_int, _int, _ptr]
         lib.chana_empty.restype = _int
-        lib.chana_causal_attention.argtypes = [_ptr] * 2 + [_int] * 8 + [
+        lib.chana_causal_attention.argtypes = [_ptr] * 3 + [_int] * 10 + [
             ctypes.c_size_t, ctypes.c_float, _ptr]
         lib.chana_causal_attention.restype = _int
         lib.chana_causal_attention_smem.argtypes = [_int, _int]
@@ -195,12 +196,22 @@ layernorm.launches = 0
 #
 # Both attention kernels (``csrc/attention_tiles.cuh``) cut a head into
 # 16-row tiles, the m16 of the tensor cores' mma, and run one block of four
-# warps per (batch, head, tile). ``attention_geometry`` is their launch
-# geometry, by the same rules as the C launchers, which refuse any other.
+# warps per (batch, head, tile); each keeps its own tiles in shared memory
+# and streams the others through a ring of two slots of four tiles (two or
+# one for the widest heads), so its shared memory depends on the head
+# width alone. ``attention_geometry`` is their launch geometry, by the same
+# rules as the C launchers, which refuse any other. In training the
+# forward also keeps each row's max and sum of exponentials
+# (``causal_attention_with_stats``), and the backward's row pass reads them.
 
 ATT_TILE = 16
-ATT_WARPS = 4    # warps a block, forward and backward
-ATT_COLS = 64    # output columns the forward sums at a time
+ATT_WARPS = 4    # warps a block of the forward and the backward's row
+                 # pass; its main kernel has two sets of four
+ATT_STAGES = (ATT_WARPS, 2, 1)  # tiles a ring slot may hold, the most first
+ATT_COLS = 64    # output columns summed at a time
+ATT_STATS = 3    # float32 statistics a row: max, sum (the forward's) and
+                 # sum of y dW (the backward's row pass)
+ATT_BWD_LAUNCHES = 2  # the backward's row pass, then its main kernel
 SMEM_LIMIT = 227 * 1024  # dynamic shared memory a block can have (H100)
 
 
@@ -209,44 +220,73 @@ class AttentionGeometry(NamedTuple):
     hd_pad: int      # head_dim rounded up to 16 with zero columns
     ld: int          # shared-memory row stride in bf16: hd_pad + 8, which
                      # keeps ldmatrix free of bank conflicts (hd_pad at 16,
-                     # so the narrowest heads' longest windows fit)
+                     # where the rows stay unpadded)
     copy_bytes: int  # cp.async width: the largest of 16, 8, 4 dividing
                      # 2 * head_dim, so every row's copies stay aligned
+    stage: int       # tiles a ring slot holds: four (one a warp), or two or
+                     # one where four do not fit
+    slots: int       # slots a ring has: two, or one in a window of one
+                     # tile whose head is too wide for two (the backward's
+                     # rings are then its own tiles)
     fwd_smem: int    # the forward's row max and sum of each warp, a
                      # float32 [16, 64 + 8] output tile, the query tile and
-                     # the k, v rows
-    bwd_smem: int    # the backward's q, k, v, dout rows, its W and dlog
-                     # [rows, 16 + 8] tiles and the [16, rows + 8] dlog rows
-                     # of its query tile
+                     # the k and v rings
+    stats_smem: int  # the backward's row pass: sum of y dW of each warp,
+                     # the q and dout tiles, the k and v rings
+    bwd_smem: int    # the backward's own four tiles (k, v, q, dout of its
+                     # tile), two rings, and the dlog and W [16, 16 + 8]
+                     # tiles of a slot (dlog alone for the dq half)
 
     def grid(self, b: int, n_heads: int) -> int:
-        """Blocks of either kernel: one per (batch, head, tile)."""
+        """Blocks of any of the kernels: one per (batch, head, tile)."""
         return b * n_heads * self.tiles
 
 
 def attention_geometry(t: int, hd: int) -> AttentionGeometry:
     """The attention kernels' launch geometry for windows of ``t`` rows
-    and heads of width ``hd`` (even)."""
+    and heads of width ``hd`` (even, and narrow enough that a block's
+    tiles fit its shared memory: slots of four tiles up to 336, of two up
+    to 576, of one up to 880 at any window; up to 1,776 in a window of one
+    tile, 16 rows, with a ring of one slot)."""
     if t <= 0 or hd <= 0 or hd % 2:
         raise ValueError(f"attention: T={t}, head_dim={hd}; the kernels "
                          "take T >= 1 and an even head_dim")
-    tiles = -(-t // ATT_TILE)
     hd_pad = -(-hd // ATT_TILE) * ATT_TILE
     ld = hd_pad if hd_pad == ATT_TILE else hd_pad + 8
-    rows = tiles * ATT_TILE
-    return AttentionGeometry(
-        tiles=tiles, hd_pad=hd_pad, ld=ld, copy_bytes=math.gcd(2 * hd, 16),
-        fwd_smem=4 * ATT_TILE * (2 * ATT_WARPS + ATT_COLS + 8)
-        + 2 * ld * (ATT_TILE + 2 * rows),
-        bwd_smem=2 * (4 * rows * ld + 2 * rows * (ATT_TILE + 8)
-                      + ATT_TILE * (rows + 8)))
+    tiles = -(-t // ATT_TILE)
+    for stage in ATT_STAGES:
+        # a ring of one slot only where it is needed: one tile, slots of one
+        for slots in (2, 1) if stage == 1 and tiles == 1 else (2,):
+            ring = slots * stage * ATT_TILE * ld  # bf16 of a ring
+            g = AttentionGeometry(
+                tiles=tiles, hd_pad=hd_pad, ld=ld,
+                copy_bytes=math.gcd(2 * hd, 16), stage=stage, slots=slots,
+                fwd_smem=4 * ATT_TILE * (2 * ATT_WARPS + ATT_COLS + 8)
+                + 2 * (ATT_TILE * ld + 2 * ring),
+                stats_smem=4 * ATT_TILE * ATT_WARPS
+                + 2 * (2 * ATT_TILE * ld + 2 * ring),
+                bwd_smem=2 * (4 * ATT_TILE * ld
+                              + (2 * ring if slots == 2 else 0)
+                              + 3 * stage * ATT_TILE * (ATT_TILE + 8)))
+            smem = max(g.fwd_smem, g.stats_smem, g.bwd_smem)
+            if smem <= SMEM_LIMIT:
+                return g
+    raise ValueError(f"attention: T={t}, head_dim={hd} needs {smem} B of "
+                     f"shared memory with slots of one tile, over the "
+                     f"{SMEM_LIMIT} B a block can have")
 
 
-def _check_smem(name: str, t: int, hd: int, smem: int) -> None:
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"{name}: T={t}, head_dim={hd} needs {smem} B of "
-                         f"shared memory, over the {SMEM_LIMIT} B a block "
-                         "can have")
+def attention_bwd_warps(blocks: int, sms: int) -> int:
+    """Warps a block of the backward's main kernel: eight (its two halves
+    side by side, two blocks an SM) while the grid fits the card at two
+    blocks an SM, else four (one warp does both halves; four blocks an
+    SM, so a larger grid takes fewer waves)."""
+    return 2 * ATT_WARPS if blocks <= 2 * sms else ATT_WARPS
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def causal_attention_ref(qkv: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -266,27 +306,44 @@ def causal_attention_ref(qkv: torch.Tensor, n_heads: int) -> torch.Tensor:
     return out.transpose(1, 2).reshape(b, t, d)
 
 
-def prepare_causal_attention(qkv: torch.Tensor, n_heads: int):
-    """Check the attention kernel's CUDA input and bind its launch:
-    ``(out, launch)``; ``launch`` is None for an empty batch."""
-    device = _cuda_device("causal_attention", qkv)
-    build.check("qkv", qkv, _BF16, 3, device)
+def _attention_dims(name: str, qkv: torch.Tensor, n_heads: int) -> tuple:
+    """``(b, t, hd)`` of a fused ``qkv [B, T, 3 * n_heads * hd]``."""
     b, t, d3 = qkv.shape
     if n_heads <= 0 or d3 % (3 * n_heads):
-        raise ValueError(f"causal_attention: qkv shape {tuple(qkv.shape)} "
-                         f"is not [B, T, 3 * {n_heads} * head_dim]")
-    hd = d3 // 3 // n_heads
+        raise ValueError(f"{name}: qkv shape {tuple(qkv.shape)} is not "
+                         f"[B, T, 3 * {n_heads} * head_dim]")
+    return b, t, d3 // 3 // n_heads
+
+
+def prepare_causal_attention(qkv: torch.Tensor, n_heads: int, *,
+                             keep_stats: bool = False):
+    """Check the attention kernel's CUDA input and bind its launch:
+    ``(out, launch)``; ``launch`` is None for an empty batch. With
+    ``keep_stats``, ``(out, stats)`` in place of ``out``: the launch also
+    writes each row's max and sum of exponentials into ``stats`` (float32,
+    ``ATT_STATS`` planes of B * H * tiles * 16 rows; the backward's row
+    pass fills the third)."""
+    device = _cuda_device("causal_attention", qkv)
+    build.check("qkv", qkv, _BF16, 3, device)
+    b, t, hd = _attention_dims("causal_attention", qkv, n_heads)
     out = torch.empty((b, t, n_heads * hd), dtype=_BF16, device=device)
-    if b == 0 or t == 0:
-        return out, None
-    g = attention_geometry(t, hd)
-    _check_smem("causal_attention", t, hd, g.fwd_smem)
+    rows = 0
+    if b and t:
+        g = attention_geometry(t, hd)
+        rows = g.grid(b, n_heads) * ATT_TILE
+    stats = torch.empty(ATT_STATS * rows, dtype=_F32,
+                        device=device) if keep_stats else None
+    outs = (out, stats) if keep_stats else out
+    if rows == 0:
+        return outs, None
     _aligned("causal_attention", qkv, out)
     lib = library()
-    return out, build.launcher(
+    return outs, build.launcher(
         lib, lib.chana_causal_attention, "causal_attention", device,
-        qkv.data_ptr(), out.data_ptr(), b, t, n_heads, hd, g.hd_pad, g.ld,
-        g.tiles, g.copy_bytes, g.fwd_smem, math.sqrt(hd))
+        qkv.data_ptr(), out.data_ptr(),
+        stats.data_ptr() if keep_stats else None, b, t, n_heads, hd,
+        g.hd_pad, g.ld, g.tiles, g.copy_bytes, g.stage, g.slots, g.fwd_smem,
+        math.sqrt(hd))
 
 
 def causal_attention(qkv: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -303,6 +360,21 @@ def causal_attention(qkv: torch.Tensor, n_heads: int) -> torch.Tensor:
 
 
 causal_attention.launches = 0
+
+
+def causal_attention_with_stats(qkv: torch.Tensor, n_heads: int) -> tuple:
+    """``causal_attention`` for training: ``(out, stats)``, where
+    ``stats`` holds each row's softmax max and sum for
+    ``causal_attention_bwd`` (None on the CPU, whose backward recomputes
+    them). One launch of the forward kernel, counted as its launches."""
+    if qkv.device.type == "cpu":
+        return causal_attention_ref(qkv, n_heads), None
+    (out, stats), launch = prepare_causal_attention(qkv, n_heads,
+                                                    keep_stats=True)
+    if launch is not None:
+        launch()
+        causal_attention.launches += 1
+    return out, stats
 
 
 # -- tanh-GELU ---------------------------------------------------------------
@@ -364,11 +436,17 @@ def train_library() -> ctypes.CDLL:
         lib.chana_layernorm_bwd.argtypes = [_ptr] * 7 + [_int] * 2 + [
             ctypes.c_float] + [_int] * 4 + [_ptr]
         lib.chana_layernorm_bwd.restype = _int
-        lib.chana_causal_attention_bwd.argtypes = [_ptr] * 3 + [_int] * 8 + [
-            ctypes.c_size_t, ctypes.c_float, _ptr]
+        dims = [_int] * 10 + [ctypes.c_size_t]
+        lib.chana_causal_attention_bwd_stats.argtypes = [_ptr] * 3 + dims + [
+            ctypes.c_float, _ptr]
+        lib.chana_causal_attention_bwd_stats.restype = _int
+        lib.chana_causal_attention_bwd.argtypes = [_ptr] * 4 + dims + [
+            _int, ctypes.c_float, _ptr]
         lib.chana_causal_attention_bwd.restype = _int
-        lib.chana_causal_attention_bwd_smem.argtypes = [_int, _int]
-        lib.chana_causal_attention_bwd_smem.restype = ctypes.c_size_t
+        for smem in (lib.chana_causal_attention_bwd_smem,
+                     lib.chana_causal_attention_bwd_stats_smem):
+            smem.argtypes = [_int, _int]
+            smem.restype = ctypes.c_size_t
         lib.chana_gelu_tanh_bwd.argtypes = [_ptr] * 3 + [ctypes.c_int64, _ptr]
         lib.chana_gelu_tanh_bwd.restype = _int
         lib.chana_cuda_error_string.argtypes = [_int]
@@ -473,10 +551,12 @@ def _heads(z: torch.Tensor, n_heads: int) -> torch.Tensor:
 
 
 def causal_attention_bwd_ref(qkv: torch.Tensor, dout: torch.Tensor,
-                             n_heads: int) -> torch.Tensor:
+                             n_heads: int, stats=None) -> torch.Tensor:
     """Plain PyTorch version of the attention backward kernel (any
     device): the cotangent of the fused ``qkv`` product for the cotangent
-    ``dout [B, T, D]`` of ``causal_attention(qkv, n_heads)``."""
+    ``dout [B, T, D]`` of ``causal_attention(qkv, n_heads)``. It takes the
+    kernel's arguments but recomputes the row statistics (``stats`` is
+    not read)."""
     b, t, d3 = qkv.shape
     d = d3 // 3
     hd = d // n_heads
@@ -500,42 +580,65 @@ def causal_attention_bwd_ref(qkv: torch.Tensor, dout: torch.Tensor,
 
 
 def prepare_causal_attention_bwd(qkv: torch.Tensor, dout: torch.Tensor,
-                                 n_heads: int):
-    """Check the attention backward kernel's CUDA inputs and bind its
-    launch: ``(dqkv, launch)``; ``launch`` is None for an empty batch."""
+                                 n_heads: int, stats=None, *,
+                                 warps: int | None = None):
+    """Check the attention backward kernels' CUDA inputs and bind their
+    launch: ``(dqkv, launch)``; ``launch()`` runs the row pass and the
+    main kernel (``ATT_BWD_LAUNCHES`` launches), and is None for an empty
+    batch. ``stats`` is what ``causal_attention_with_stats`` returned for
+    this ``qkv``: the row pass reads its max and sum and writes the third
+    plane. ``warps`` (4 or 8) overrides ``attention_bwd_warps``."""
     device = _cuda_device("causal_attention_bwd", qkv)
     build.check("qkv", qkv, _BF16, 3, device)
-    b, t, d3 = qkv.shape
-    if n_heads <= 0 or d3 % (3 * n_heads):
-        raise ValueError(f"causal_attention_bwd: qkv shape "
-                         f"{tuple(qkv.shape)} is not [B, T, 3 * {n_heads} "
-                         "* head_dim]")
+    b, t, hd = _attention_dims("causal_attention_bwd", qkv, n_heads)
     build.check("dout", dout, _BF16, 3, device)
-    build.check_shape("dout", dout, (b, t, d3 // 3))
-    hd = d3 // 3 // n_heads
+    build.check_shape("dout", dout, (b, t, n_heads * hd))
     dqkv = torch.empty_like(qkv)
     if b == 0 or t == 0:
         return dqkv, None
     g = attention_geometry(t, hd)
-    _check_smem("causal_attention_bwd", t, hd, g.bwd_smem)
+    if stats is None:
+        raise ValueError("causal_attention_bwd: no row statistics; run the "
+                         "forward with causal_attention_with_stats")
+    build.check("stats", stats, _F32, 1, device)
+    build.check_shape("stats", stats,
+                      (ATT_STATS * g.grid(b, n_heads) * ATT_TILE,))
     _aligned("causal_attention_bwd", qkv, dout, dqkv)
     lib = train_library()
-    return dqkv, build.launcher(
+    dims = (b, t, n_heads, hd, g.hd_pad, g.ld, g.tiles, g.copy_bytes,
+            g.stage, g.slots)
+    row_pass = build.launcher(
+        lib, lib.chana_causal_attention_bwd_stats, "causal_attention_bwd",
+        device, qkv.data_ptr(), dout.data_ptr(), stats.data_ptr(), *dims,
+        g.stats_smem, math.sqrt(hd))
+    main = build.launcher(
         lib, lib.chana_causal_attention_bwd, "causal_attention_bwd", device,
-        qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), b, t, n_heads, hd,
-        g.hd_pad, g.ld, g.tiles, g.copy_bytes, g.bwd_smem, math.sqrt(hd))
+        qkv.data_ptr(), dout.data_ptr(), stats.data_ptr(), dqkv.data_ptr(),
+        *dims, g.bwd_smem,
+        warps or attention_bwd_warps(g.grid(b, n_heads), _sm_count(device)),
+        math.sqrt(hd))
+
+    def launch() -> None:
+        row_pass()
+        main()
+
+    launch.parts = (row_pass, main)  # each alone, for timing
+    return dqkv, launch
 
 
 def causal_attention_bwd(qkv: torch.Tensor, dout: torch.Tensor,
-                         n_heads: int) -> torch.Tensor:
+                         n_heads: int, stats=None) -> torch.Tensor:
     """Backward of ``causal_attention``: dq | dk | dv in the fused ``[B, T,
-    3D]`` layout of ``qkv``, the cotangent of the qkv product."""
+    3D]`` layout of ``qkv``, the cotangent of the qkv product. ``stats``
+    is the second output of ``causal_attention_with_stats(qkv, n_heads)``
+    (None on the CPU). On a card: two launches a call, the row pass and
+    the main kernel."""
     if qkv.device.type == "cpu":
         return causal_attention_bwd_ref(qkv, dout, n_heads)
-    dqkv, launch = prepare_causal_attention_bwd(qkv, dout, n_heads)
+    dqkv, launch = prepare_causal_attention_bwd(qkv, dout, n_heads, stats)
     if launch is not None:
         launch()
-        causal_attention_bwd.launches += 1
+        causal_attention_bwd.launches += ATT_BWD_LAUNCHES
     return dqkv
 
 
@@ -602,18 +705,25 @@ class LayerNorm(torch.autograd.Function):
 
 
 class CausalAttention(torch.autograd.Function):
-    """``causal_attention`` whose backward is ``causal_attention_bwd``."""
+    """``causal_attention`` whose backward is ``causal_attention_bwd``,
+    from the row statistics the forward kept (only when ``qkv`` needs a
+    gradient: a forecast keeps none)."""
 
     @staticmethod
     def forward(ctx, qkv, n_heads):
+        if ctx.needs_input_grad[0]:
+            out, ctx.stats = causal_attention_with_stats(qkv, n_heads)
+        else:
+            out, ctx.stats = causal_attention(qkv, n_heads), None
         ctx.save_for_backward(qkv)
         ctx.n_heads = n_heads
-        return causal_attention(qkv, n_heads)
+        return out
 
     @staticmethod
     def backward(ctx, dout):
         (qkv,) = ctx.saved_tensors
-        return causal_attention_bwd(qkv, dout.contiguous(), ctx.n_heads), None
+        return causal_attention_bwd(qkv, dout.contiguous(), ctx.n_heads,
+                                    ctx.stats), None
 
 
 class GeluTanh(torch.autograd.Function):

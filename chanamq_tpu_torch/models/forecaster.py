@@ -23,12 +23,13 @@ kernels too, ``kernels.KERNELS``), then the global-norm clip, momentum and
 SGD update as two kernel launches (``kernels/update.py``), in place.
 
 Parameters are the reference's flat ``{name: tensor}`` set, float32, in its
-``[in, out]`` layout and under its names, so ``params_from_numpy`` carries
-the JAX package's parameters (and its momentum tree) across. The reference
-casts each weight matrix to ``cfg.dtype`` on every call
-(forecaster.py:106-117); ``cast_weights`` does that once per parameter set
-for a caller that forwards many times between updates, and the train step
-casts inside its autograd graph on every step.
+``[in, out]`` layout and under its names. ``init_params`` draws the
+reference's numbers from the same key (``prng``, numpy's threefry), and
+``params_from_numpy`` carries any other JAX parameters (and a momentum
+tree) across. The reference casts each weight matrix to ``cfg.dtype`` on
+every call (forecaster.py:106-117); ``cast_weights`` does that once per
+parameter set for a caller that forwards many times between updates, and
+the train step casts inside its autograd graph on every step.
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ import numpy as np
 import torch
 
 from ..kernels import forecaster as kernels
+from . import prng
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,25 +85,26 @@ def param_shapes(cfg: ForecasterConfig) -> dict[str, tuple]:
     return shapes
 
 
-def init_params(generator: torch.Generator, cfg: ForecasterConfig,
-                device="cuda") -> Params:
-    """Flat ``{name: float32 tensor}`` parameters, drawn on the CPU from
-    ``generator`` (so the numbers do not depend on the device) and moved
-    to ``device``. The scales are the reference's; the numbers are not,
-    since torch's generator is not jax.random."""
-    def normal(shape, std):
-        return torch.randn(shape, generator=generator) * std
-
+def init_params(key, cfg: ForecasterConfig, device="cuda") -> Params:
+    """Flat ``{name: float32 tensor}`` parameters, the reference's
+    ``init_params(key, cfg)`` (forecaster.py:48-74): ``key`` is a
+    ``jax.random`` key as ``prng.key`` gives it (uint32 ``[2]``) or a seed
+    for one. The draws are the reference's (``prng``): the same split of
+    the key, the keys taken in the same order, and the same float32 scale
+    multiply, made on the host and moved to ``device``."""
+    if np.ndim(key) == 0:
+        key = prng.key(key)
+    keys = iter(prng.split(key, 4 + 6 * cfg.n_layers))
     p: Params = {}
     for name, shape in param_shapes(cfg).items():
         if name.endswith("/bias"):
             p[name] = torch.zeros(shape)
         elif name.endswith("/scale"):
             p[name] = torch.ones(shape)
-        elif name == "pos":
-            p[name] = normal(shape, 0.02)
         else:
-            p[name] = normal(shape, 1.0 / math.sqrt(shape[0]))  # fan-in
+            std = 0.02 if name == "pos" else 1.0 / math.sqrt(shape[0])
+            p[name] = torch.from_numpy(
+                prng.normal(next(keys), shape) * np.float32(std))
     return {k: v.to(device) for k, v in p.items()}
 
 

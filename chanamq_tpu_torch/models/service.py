@@ -271,13 +271,13 @@ class ForecastService:
     def _torch_setup(self, params: Optional[dict] = None) -> dict[str, Any]:
         """The worker's model state: ``params`` (float32 tensors on the
         service's device, e.g. from ``params_from_numpy``) or, by default,
-        ``init_params`` from a generator seeded with 0, zero ``momentum``,
-        the train ``step`` at the service's ``lr``, and ``forward``, which
-        maps a [1, seq_len, n_features] float32 array to the [n_features]
-        forecast through ``weights``, the parameters cast once
-        (``recast`` casts them again after the parameters change). On a
-        card it sets the process's matrix-product precision to the
-        reference's (``set_matmul_precision``)."""
+        ``init_params`` from key 0 (the reference's ``PRNGKey(0)``), zero
+        ``momentum``, the train ``step`` at the service's ``lr``, and
+        ``forward``, which maps a [1, seq_len, n_features] float32 array
+        to the [n_features] forecast through ``weights``, the parameters
+        cast once (``recast`` casts them again after the parameters
+        change). On a card it sets the process's matrix-product precision
+        to the reference's (``set_matmul_precision``)."""
         import torch
 
         from .forecaster import (
@@ -292,8 +292,7 @@ class ForecastService:
         if device.type == "cuda":
             set_matmul_precision()
         if params is None:
-            params = init_params(torch.Generator().manual_seed(0), cfg,
-                                 device)
+            params = init_params(0, cfg, device)
         state = {"cfg": cfg, "params": params,
                  "momentum": init_momentum(params),
                  "step": make_train_step(cfg, lr=self.lr),

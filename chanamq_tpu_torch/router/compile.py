@@ -420,9 +420,10 @@ BACKENDS = ("torch", "python")
 
 
 def _device_tables(compiled: CompiledExchange, table: dict,
-                   device: torch.device) -> dict:
-    """The snapshot's kernel table on ``device``, uploaded on first use.
-    Snapshots are immutable, so the upload is valid for their lifetime."""
+                   device: torch.device):
+    """The snapshot's kernel table on ``device``, uploaded and checked on
+    first use. Snapshots are immutable, so the upload is valid for their
+    lifetime."""
     cached = compiled._device_tables
     if cached is None or cached[0] != device:
         cached = compiled._device_tables = (
@@ -491,10 +492,9 @@ def route_batch(
         pre_m, suf_m, mlen = _tokenize_topic(wild, uniq, b)
         if backend == "torch":
             device = torch.device(device)
-            t = _device_tables(compiled, wild, device)
             rows = _host_rows(router_match.topic_match(
-                t["pre"], t["suf"], t["plen"], t["slen"], t["has_hash"],
-                t["masks"], torch.from_numpy(pre_m).to(device),
+                _device_tables(compiled, wild, device),
+                torch.from_numpy(pre_m).to(device),
                 torch.from_numpy(suf_m).to(device),
                 torch.from_numpy(mlen).to(device)))
         else:
@@ -517,9 +517,8 @@ def route_batch(
         pids = _tokenize_headers(table, [h for _, h in items], b)
         if backend == "torch":
             device = torch.device(device)
-            t = _device_tables(compiled, table, device)
             rows = _host_rows(router_match.headers_match(
-                t["req"], t["rcount"], t["is_all"], t["masks"],
+                _device_tables(compiled, table, device),
                 torch.from_numpy(pids).to(device)))
         else:
             rows = _headers_kernel(

@@ -19,7 +19,10 @@ rehearse it; any failure exits non-zero:
 3. kernels at the router's caps: both router match kernels at N=512
    rows, W=128 mask words and full token widths (topic P=S=8, headers
    R=8, H=16) against their plain PyTorch versions, word for word, at B in
-   {16, 256, 1024}, with device times and the bound for those inputs;
+   {16, 256, 1024}, with device times and the bound for those inputs,
+   each kernel's time at 1, 2 and 4 messages a block, and each wrapper's
+   host time split into its steps (checks, ``torch.empty``, binding, the
+   launch);
 4. forecaster kernels at the flagship width (``ForecasterConfig()``: T=64,
    d_model 256, 4 heads of 64, d_ff 1024) at B in {1, 32} (the service's
    one window; ``__graft_entry__``'s batch), layernorm also at B = 16 (the
@@ -39,14 +42,22 @@ rehearse it; any failure exits non-zero:
    tensors bit for bit at the kernel's clip scale, with device times, the
    bound and a PyTorch library yardstick (autograd of ``F.layer_norm``,
    ``F.scaled_dot_product_attention``, ``F.gelu``; ``clip_grad_norm_``
-   and a foreach ``SGD`` step);
+   and a foreach ``SGD`` step), attention's backward with its two
+   launches and the forward keeping its row statistics timed apart; the
+   backward's main kernel on four and on eight warps at B in {8, 16, 32}
+   and at the compact default, the same bits (``[bwd-warps]``); then both
+   attention kernels at long windows, T in {400, 1024, 2048} at head
+   widths 16 and 64 (the forward at B = 1, the backward at B = 16), within
+   the same limits and twice for the same bits;
 7. train step at full width: ``make_train_step`` through the kernels
    against the same step through the plain versions under torch autograd,
    from one state on one ``synthetic_batch`` (B=16), 20 steps: every
    parameter and momentum tree within its stated limit after 1 and 20
    steps, the loss falling, host-clock and CUDA-event ms of a step, and
-   each kernel's launches a step (8 / 4 / 4 forward, 8 / 4 / 4 backward,
-   2 for the update);
+   each kernel's launches a step (8 / 4 / 4 forward, 8 / 8 / 4 backward,
+   2 for the update); then the flagship's default parameters (the
+   reference's ``PRNGKey(0)`` draw, made on the host) on the card, bit for
+   bit the host's draw;
 8. main path: the port's ``BrokerServer`` on 127.0.0.1 with default
    router config (backend torch, device cuda) and verify on; 4 publisher
    connections with confirms send 100,000 topic and 50,000 headers
@@ -58,7 +69,8 @@ rehearse it; any failure exits non-zero:
    kernel call's arguments are kept;
 9. main-path kernels: every kept call replayed through the kernel and its
    plain version, word for word; the most common shape is timed and
-   bounded, and the kernels line reports it;
+   bounded (the wrapper's host time split as in 3), and the kernels line
+   reports it;
 10. forecast path: the port's ``BrokerServer`` under a publishing load,
    with a ``ForecastService`` at flagship width (window 64, no training)
    on the card until it has made at least 200 forecasts, a forecast
@@ -76,7 +88,12 @@ rehearse it; any failure exits non-zero:
    each kernel's launches equal to the steps and forwards times their
    launches each, every forward replayed on the parameters it forwarded,
    and the card's busy and idle share;
-12. the kernels line (nine kernels), the card line, and the result line.
+12. long window: the same service with the service's compact default
+   model (d_model 64, 4 heads, 2 layers) at a window of 1,024, training
+   at its defaults for 3 rounds: finite forecasts and losses, every
+   forward replayed through the plain path, each kernel's launches those
+   of the steps and forwards made;
+13. the kernels line (nine kernels), the card line, and the result line.
 
 Without a card, or without the repository beside it, it exits non-zero and
 prints no result.
@@ -113,7 +130,6 @@ KERNEL_N, KERNEL_W = 512, 128
 TOPIC_P = TOPIC_S = 8
 HEADERS_R, HEADERS_H = 8, 16
 BATCHES = (16, 256, 1024)
-CAPS_REPORT_B = 256  # the caps run's batch that the kernels line also shows
 # ~0.1 s at the H100's 1.98 GHz: long enough for the host to queue a timed
 # loop behind it
 SLEEP_CYCLES = 200_000_000
@@ -434,26 +450,49 @@ def _kernel_fns(name: str):
 
 
 def shape_of(name: str, args) -> str:
-    """The dims of one kernel call, as the CUDA launcher takes them."""
+    """The dims of one kernel call ``(table, *messages)``, as the CUDA
+    launcher takes them."""
+    table = args[0]
     if name == "topic_match":
-        pre, suf, masks, pre_m = args[0], args[1], args[5], args[6]
-        return (f"B={pre_m.shape[0]} N={pre.shape[0]} P={pre.shape[1]} "
-                f"S={suf.shape[1]} W={masks.shape[1]}")
-    req, masks, pids = args[0], args[3], args[4]
-    return (f"B={pids.shape[0]} N={req.shape[0]} R={req.shape[1]} "
-            f"H={pids.shape[1]} W={masks.shape[1]}")
+        n, p = table.pre.shape
+        return (f"B={args[1].shape[0]} N={n} P={p} S={table.suf.shape[1]} "
+                f"W={table.masks.shape[1]}")
+    n, r = table.req.shape
+    b, h = args[1].shape
+    return f"B={b} N={n} R={r} H={h} W={table.masks.shape[1]}"
 
 
-def hold(name: str, args, *, timed: bool = True, iters: int = 100) -> dict:
-    """One call's inputs through the kernel's wrapper and its plain
-    version: every word must agree. With ``timed`` (on a card), also the
-    kernel's device time, the wrapper's per-call time, the plain
-    version's device time, and the bound for these inputs."""
+def _numpy_args(name: str, args) -> list:
+    """One call's table (its row-major tensors) and messages as numpy
+    arrays, as the work counters take them."""
+    table = args[0]
+    fields = (("pre", "suf", "plen", "slen", "has_hash", "masks")
+              if name == "topic_match" else
+              ("req", "rcount", "is_all", "masks"))
+    return [getattr(table, f).cpu().numpy() for f in fields] + [
+        a.cpu().numpy() for a in args[1:]]
+
+
+def hold(name: str, args, *, timed: bool = True, iters: int = 100,
+         mb: int | None = None) -> dict:
+    """One call's inputs ``(table, *messages)`` through the kernel's
+    wrapper and its plain version: every word must agree. With ``timed``
+    (on a card), also the kernel's device time, the wrapper's per-call
+    time, the plain version's device time, and the bound for these
+    inputs. ``mb`` times the kernel at that many messages a block instead
+    of the wrapper's choice (the wrapper's own call is checked as well)."""
     kern, ref, prepare, work = _kernel_fns(name)
     got = kern(*args)
     want = ref(*args)
-    diff = (got.to(torch.int64) - want.to(torch.int64)).abs()
-    bad = int((diff != 0).sum())
+    outs = [got]
+    if mb is not None and got.is_cuda:
+        out, launch = prepare(*args, mb=mb)
+        launch()
+        outs.append(out)
+    bad = 0
+    for out in outs:
+        diff = (out.to(torch.int64) - want.to(torch.int64)).abs()
+        bad += int((diff != 0).sum())
     if bad:
         raise AssertionError(f"{name} {shape_of(name, args)}: {bad} words "
                              "differ from the plain version")
@@ -461,19 +500,76 @@ def hold(name: str, args, *, timed: bool = True, iters: int = 100) -> dict:
            "max_abs_err": float(diff.max()) if diff.numel() else 0.0}
     if not timed:
         return row
-    ops, matched = work(*(a.cpu().numpy() for a in args))
-    nbytes = _nbytes(*args, got)
+    ops, matched = work(*_numpy_args(name, args))
+    # the row-major tables (not the transposes beside them), the messages
+    # and the output
+    nbytes = _nbytes(*args[0][:-2], *args[1:], got)
     bound_ms, bound_by = _bound(nbytes, ops)
     row.update({"matched_pairs": matched, "ops": ops, "bytes": nbytes,
                 "bound_ms": bound_ms, "bound_by": bound_by})
     if got.is_cuda:
-        _, launch = prepare(*args)
+        _, launch = prepare(*args, mb=mb)
         row["ms"] = _time_ms(launch, iters, device_only=True)
         row["wrapper_ms"] = _time_ms(lambda: kern(*args), iters,
                                      device_only=False)
         row["plain_ms"] = _time_ms(lambda: ref(*args), max(5, iters // 10),
                                    device_only=True)
     return row
+
+
+def wrapper_split(name: str, args, iters: int = 200) -> dict:
+    """Host us of one router wrapper call at these inputs, and of its
+    steps, each the mean of ``iters`` back-to-back calls on the host clock
+    (one synchronize after each loop): ``call`` the whole wrapper,
+    ``prepare`` its checks, output and binding without the launch,
+    ``empty`` the output's ``torch.empty``, ``bind`` binding a launcher
+    (``build.launcher``), ``launch`` the bound launch alone; ``call_nogc``
+    the wrapper with Python's collector off; ``tracked`` the objects the
+    collector tracks."""
+    import gc
+
+    from chanamq_tpu_torch.kernels import build
+
+    from chanamq_tpu_torch.kernels import forecaster as fk
+
+    kern, _, prepare, _ = _kernel_fns(name)
+    out, launch = prepare(*args)
+    lib = fk.library()
+    device = out.device
+
+    def host_us(fn) -> float:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter_ns()
+        for _ in range(iters):
+            fn()
+        t1 = time.perf_counter_ns()
+        torch.cuda.synchronize()
+        return (t1 - t0) / iters / 1e3
+
+    res = {"call": host_us(lambda: kern(*args)),
+           "prepare": host_us(lambda: prepare(*args)),
+           "empty": host_us(lambda: torch.empty(out.shape, dtype=out.dtype,
+                                                device=device)),
+           "bind": host_us(lambda: build.launcher(
+               lib, lib.chana_empty, "empty", device, 1, 32)),
+           "launch": host_us(launch)}
+    gc.disable()
+    try:
+        res["call_nogc"] = host_us(lambda: kern(*args))
+    finally:
+        gc.enable()
+    res["tracked"] = len(gc.get_objects())
+    return res
+
+
+def _log_split(tag: str, name: str, shape: str, split: dict) -> None:
+    log(f"[{tag}] {name} {shape}: wrapper host us: call "
+        f"{split['call']:.3f} (collector off {split['call_nogc']:.3f}); "
+        f"prepare {split['prepare']:.3f}, of it torch.empty "
+        f"{split['empty']:.3f} and binding a launcher {split['bind']:.3f}; "
+        f"the bound launch {split['launch']:.3f}; "
+        f"{split['tracked']} objects tracked by the collector")
 
 
 def _log_row(tag: str, name: str, row: dict) -> None:
@@ -492,7 +588,10 @@ def phase_kernels(device: torch.device, seed: int, n: int = KERNEL_N,
                   iters: int = 100) -> dict:
     """Both kernels against their plain versions at the router's caps
     (full token widths, every mask word). Returns {kernel name: {B: row}}
-    and raises on any differing word."""
+    and raises on any differing word. On a card each kernel is also timed
+    at each of ``MSGS_PER_BLOCK`` messages a block (``by_mb``), every
+    instance held word for word too."""
+    from chanamq_tpu_torch.kernels import router_match as rm
     from chanamq_tpu_torch.router.tables import tables_from_numpy
 
     rng = np.random.default_rng(seed)
@@ -505,22 +604,35 @@ def phase_kernels(device: torch.device, seed: int, n: int = KERNEL_N,
         msg = [torch.from_numpy(a).to(device)
                for a in topic_messages(rng, tt, b)]
         pids = torch.from_numpy(headers_messages(rng, ht, b)).to(device)
-        cases = (("topic_match", (td["pre"], td["suf"], td["plen"],
-                                  td["slen"], td["has_hash"], td["masks"],
-                                  *msg)),
-                 ("headers_match", (hd["req"], hd["rcount"], hd["is_all"],
-                                    hd["masks"], pids)))
+        cases = (("topic_match", (td, *msg)), ("headers_match", (hd, pids)))
         for name, args in cases:
             row = out[name][b] = hold(name, args, iters=iters)
             _log_row("kernels", name, row)
+            if device.type == "cuda":
+                row["split"] = wrapper_split(name, args)
+                _log_split("kernels", name, row["shape"], row["split"])
+                # messages a block: each instance against the wrapper's
+                # choice, on the same inputs
+                row["by_mb"] = {}
+                for mb in rm.MSGS_PER_BLOCK:
+                    alt = hold(name, args, iters=iters, mb=mb)
+                    row["by_mb"][mb] = alt["ms"]
+                log(f"[kernels] {name} B={b}: kernel us by messages a "
+                    "block " + ", ".join(
+                        f"{mb}: {ms * 1e3:.3f}"
+                        for mb, ms in row["by_mb"].items())
+                    + f" (the wrapper takes {rm.msgs_per_block(b)})")
     return out
 
 
 def phase_path_kernels(calls: dict, iters: int = 100) -> dict:
     """Every kernel call the main path made, replayed: the wrapper against
     the plain version on the same inputs, word for word. The most common
-    shape's last call is timed and bounded; it stands for the kernel in
-    the kernels line. Returns {kernel name: row}."""
+    shape's last call is timed and bounded, on a card also at each of
+    ``MSGS_PER_BLOCK`` messages a block; it stands for the kernel in the
+    kernels line. Returns {kernel name: row}."""
+    from chanamq_tpu_torch.kernels import router_match as rm
+
     out = {}
     for name, recorded in calls.items():
         if not recorded:
@@ -539,6 +651,14 @@ def phase_path_kernels(calls: dict, iters: int = 100) -> dict:
         log(f"[path-kernels] {name}: {len(recorded)} main-path calls "
             f"replayed, 0 differing words; shapes {shapes}")
         _log_row("path-kernels", name, row)
+        if rep[1].is_cuda:
+            row["split"] = wrapper_split(name, rep)
+            _log_split("path-kernels", name, common, row["split"])
+            row["by_mb"] = {mb: hold(name, rep, iters=iters, mb=mb)["ms"]
+                            for mb in rm.MSGS_PER_BLOCK}
+            log(f"[path-kernels] {name}: kernel us by messages a block "
+                + ", ".join(f"{mb}: {ms * 1e3:.3f}"
+                            for mb, ms in row["by_mb"].items()))
     return out
 
 
@@ -799,7 +919,9 @@ def _recording(fn, calls: list):
 
 
 # the CUDA kernels behind a wrapper whose kernels are not "<name>_kernel"
-KERNEL_SYMBOLS = {"clip_momentum_sgd": ("sumsq_kernel", "momentum_sgd_kernel")}
+KERNEL_SYMBOLS = {"clip_momentum_sgd": ("sumsq_kernel", "momentum_sgd_kernel"),
+                  "causal_attention_bwd": ("causal_attention_bwd_stats_kernel",
+                                           "causal_attention_bwd_kernel")}
 
 
 def device_busy(trace, names=("topic_match", "headers_match")) -> dict:
@@ -993,11 +1115,13 @@ def _library_call(name: str, args):
     return lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)
 
 
-def hold_forecaster(name: str, args, *, iters: int = 100) -> dict:
+def hold_forecaster(name: str, args, *, timed: bool = True,
+                    iters: int = 100) -> dict:
     """One forecaster kernel call through its wrapper and its plain version
-    on the same inputs, within ``forecaster_limit``; on a card also the
-    kernel's device time, the wrapper's per-call time, the plain
-    version's and the library call's device times, and the bound."""
+    on the same inputs, within ``forecaster_limit``, and the bound; with
+    ``timed``, on a card, also the kernel's device time, the wrapper's
+    per-call time, and the plain version's and the library call's device
+    times."""
     from chanamq_tpu_torch.kernels import forecaster as fk
 
     kern = getattr(fk, name)
@@ -1017,7 +1141,7 @@ def hold_forecaster(name: str, args, *, iters: int = 100) -> dict:
     row = {"shape": shape, "max_abs_err": err, "limit": limit,
            "bytes": nbytes, "ops": ops, "bound_ms": max(bytes_s, ops_s) * 1e3,
            "bound_by": "operations" if ops_s > bytes_s else "bytes"}
-    if got.is_cuda:
+    if timed and got.is_cuda:
         _, launch = getattr(fk, f"prepare_{name}")(*args)
         row["ms"] = _time_ms(launch, iters, device_only=True)
         row["wrapper_ms"] = _time_ms(lambda: kern(*args), iters,
@@ -1171,7 +1295,7 @@ def phase_forward(device: torch.device, seed: int, cfg=None,
     if device.type == "cuda":
         set_matmul_precision()
     cfg = cfg or ForecasterConfig()
-    params = init_params(torch.Generator().manual_seed(seed), cfg, device)
+    params = init_params(seed, cfg, device)
     weights = cast_weights(params, cfg)
     out = {}
     for b in batches:
@@ -1239,6 +1363,16 @@ TRAIN_STEPS = {"layernorm_bwd": 1.0, "causal_attention_bwd": 4.0,
 SCALE_RTOL = 1e-5
 
 
+def attention_bwd_inputs(qkv: torch.Tensor, dout: torch.Tensor,
+                         heads: int) -> tuple:
+    """The attention backward's arguments ``(qkv, dout, heads, stats)``:
+    ``stats``, the row statistics the forward keeps in training, from one
+    launch of the forward kernel on a card (None on the CPU)."""
+    from chanamq_tpu_torch.kernels import forecaster as fk
+
+    return qkv, dout, heads, fk.causal_attention_with_stats(qkv, heads)[1]
+
+
 def train_inputs(gen: torch.Generator, cfg, b: int,
                  device: torch.device) -> dict:
     """Seeded inputs at the shapes the train step gives each backward
@@ -1260,9 +1394,9 @@ def train_inputs(gen: torch.Generator, cfg, b: int,
         "layernorm_bwd": (randn(b, t, d).to(bf16).to(device),
                           (randn(b, t, d, std=2.0) + 0.5).to(bf16).to(device),
                           (1 + 0.1 * randn(d)).to(device)),
-        "causal_attention_bwd": (randn(b, t, 3 * d).to(bf16).to(device),
-                                 randn(b, t, d).to(bf16).to(device),
-                                 cfg.n_heads),
+        "causal_attention_bwd": attention_bwd_inputs(
+            randn(b, t, 3 * d).to(bf16).to(device),
+            randn(b, t, d).to(bf16).to(device), cfg.n_heads),
         "gelu_tanh_bwd": (randn(b, t, f).to(bf16).to(device),
                           randn(b, t, f, std=2.0).to(bf16).to(device)),
         "clip_momentum_sgd": (
@@ -1295,7 +1429,7 @@ def train_work(name: str, args) -> tuple[int, int, float]:
         params, _, _, _, _ = args
         n = sum(p.numel() for p in params)
         return 5 * 4 * n, 7 * n, 7 * n / F32_FLOPS_PER_S
-    qkv, dout, heads = args
+    qkv, dout, heads = args[:3]
     b, t, d3 = qkv.shape
     hd = d3 // 3 // heads
     pairs = b * heads * t * (t + 1) // 2
@@ -1336,7 +1470,7 @@ def _train_library_call(name: str, args):
         out = F.gelu(xr, approximate="tanh")
         inputs = (xr,)
     else:
-        qkv, dy, heads = args
+        qkv, dy, heads = args[:3]
         b, t, d3 = qkv.shape
         q, k, v = (z.detach().requires_grad_() for z in qkv.view(
             b, t, 3, heads, d3 // 3 // heads).permute(2, 0, 3, 1, 4))
@@ -1432,6 +1566,15 @@ def hold_train_kernel(name: str, args, *, timed: bool = True,
         else:
             _, launch = getattr(mod, f"prepare_{name}")(*args)
             work = args
+            if hasattr(launch, "parts"):  # attention's row pass and main
+                row["parts_ms"] = [_time_ms(part, iters, device_only=True)
+                                   for part in launch.parts]
+                # what keeping the row statistics costs the forward
+                qkv, _, heads, _ = args
+                row["fwd_ms"], row["fwd_stats_ms"] = (
+                    _time_ms(mod.prepare_causal_attention(
+                        qkv, heads, keep_stats=keep)[1], iters,
+                        device_only=True) for keep in (False, True))
         row["ms"] = _time_ms(launch, iters, device_only=True)
         row["wrapper_ms"] = _time_ms(lambda: kern(*work), iters,
                                      device_only=False)
@@ -1440,6 +1583,143 @@ def hold_train_kernel(name: str, args, *, timed: bool = True,
         row["library_ms"] = _time_ms(_train_library_call(name, args), iters,
                                      device_only=True)
     return row
+
+
+# windows past every limit the attention kernels had when they held a head
+# whole, at the service's compact head width (16) and the flagship's (64)
+LONG_WINDOWS = (400, 1024, 2048)
+LONG_WIDTHS = (16, 64)
+LONG_HEADS = 4
+
+
+def phase_long_windows(device: torch.device, seed: int,
+                       windows=LONG_WINDOWS, widths=LONG_WIDTHS,
+                       fwd_batch: int = 1, bwd_batch: int = 16,
+                       iters: int = 20) -> dict:
+    """Both attention kernels at long windows against their plain versions
+    within their limits (the forward at ``fwd_batch``, the service's one
+    window; the backward at ``bwd_batch``, its training batch), each also
+    launched twice for the same bits; with times and bounds on a card.
+    Returns {(T, head width): {"causal_attention": row,
+    "causal_attention_bwd": row}}."""
+    from chanamq_tpu_torch.kernels import forecaster as fk
+    from chanamq_tpu_torch.models.forecaster import ForecasterConfig
+
+    gen = torch.Generator().manual_seed(seed + 2)
+    bf16 = torch.bfloat16
+    out: dict = {}
+    nan = float("nan")
+    for t in windows:
+        for hd in widths:
+            cfg = ForecasterConfig(seq_len=t, d_model=LONG_HEADS * hd,
+                                   n_heads=LONG_HEADS, d_ff=4 * LONG_HEADS * hd)
+            d = cfg.d_model
+            fwd = forecaster_inputs(gen, cfg, fwd_batch, device)[
+                "causal_attention"]
+            bwd = attention_bwd_inputs(
+                torch.randn(bwd_batch, t, 3 * d, generator=gen).to(bf16)
+                .to(device),
+                torch.randn(bwd_batch, t, d, generator=gen).to(bf16)
+                .to(device), LONG_HEADS)
+            rows = out[(t, hd)] = {
+                "causal_attention": hold_forecaster(
+                    "causal_attention", fwd, iters=iters),
+                "causal_attention_bwd": hold_train_kernel(
+                    "causal_attention_bwd", bwd, iters=iters)}
+            for name, args in (("causal_attention", fwd),
+                               ("causal_attention_bwd", bwd)):
+                fn = getattr(fk, name)
+                if not torch.equal(fn(*args), fn(*args)):
+                    raise AssertionError(f"{name} T={t} head width {hd}: "
+                                         "two launches differ")
+                row = rows[name]
+                tag = "fc-kernels" if name == "causal_attention" else \
+                    "fc-train-kernels"
+                log(f"[{tag}] {name} T={t} head width {hd} "
+                    f"[{row['shape']}]: max abs err "
+                    f"{row['max_abs_err']:.6g} (limit {row['limit']:.6g}), "
+                    f"two launches the same bits{_parts_note(row)}; kernel "
+                    f"{row.get('ms', nan) * 1e3:.3f} us (wrapper call "
+                    f"{row.get('wrapper_ms', nan) * 1e3:.3f} us), plain "
+                    f"{row.get('plain_ms', nan) * 1e3:.3f} us, library "
+                    f"{row.get('library_ms', nan) * 1e3:.3f} us, bound "
+                    f"{row['bound_ms'] * 1e3:.4f} us ({row['bound_by']})")
+    return out
+
+
+def phase_init(device: torch.device) -> dict:
+    """The flagship's default parameters (``init_params(0, cfg)``, the
+    reference's ``PRNGKey(0)`` draw, made on the host) on the card equal
+    the host's draw bit for bit: nothing random runs on the card."""
+    from chanamq_tpu_torch.models.forecaster import (
+        ForecasterConfig, init_params,
+    )
+
+    cfg = ForecasterConfig()
+    t0 = time.perf_counter()
+    card = init_params(0, cfg, device)
+    seconds = time.perf_counter() - t0
+    host = init_params(0, cfg, "cpu")
+    bad = [k for k in host if not torch.equal(card[k].cpu(), host[k])]
+    if bad or list(card) != list(host):
+        raise AssertionError(f"default parameters differ on the card: {bad}")
+    values = sum(v.numel() for v in host.values())
+    log(f"[init] the flagship's default parameters (key 0): {len(host)} "
+        f"tensors, {values} values, on the card bit for bit the host's "
+        f"draw; drawn and moved in {seconds:.3f} s (host clock)")
+    return {"tensors": len(host), "values": values, "seconds": seconds}
+
+
+def phase_bwd_warps(device: torch.device, seed: int = 0,
+                    rounds: int = 3, iters: int = 200) -> dict:
+    """The backward's main kernel alone on eight warps and on four, in
+    turn, each held bit for bit to the wrapper's choice, at the flagship's
+    training batches (8: 128 blocks; 16: 256; 32: 512) and the compact
+    default's (d_model 64, 4 heads, window 64, batch 16: 256 blocks):
+    {"B=.. d_model ..": {warps: [us a round]}}. The wrapper takes eight
+    while the grid fits two blocks an SM."""
+    from chanamq_tpu_torch.kernels import forecaster as fk
+
+    gen = torch.Generator().manual_seed(seed)
+    bf16 = torch.bfloat16
+    out: dict = {}
+    for b, d in ((8, 256), (16, 256), (32, 256), (16, 64)):
+        args = attention_bwd_inputs(
+            torch.randn(b, 64, 3 * d, generator=gen).to(bf16).to(device),
+            torch.randn(b, 64, d, generator=gen).to(bf16).to(device), 4)
+        want = fk.causal_attention_bwd(*args)
+        times: dict = {8: [], 4: []}
+        for _ in range(rounds):
+            for warps in times:
+                dqkv, launch = fk.prepare_causal_attention_bwd(
+                    *args, warps=warps)
+                launch()
+                torch.cuda.synchronize()
+                if not torch.equal(dqkv, want):
+                    raise AssertionError(f"B={b} d_model {d}: {warps} warps "
+                                         "differ from the wrapper's choice")
+                times[warps].append(_time_ms(launch.parts[1], iters,
+                                             device_only=True))
+        key = f"B={b} d_model {d}"
+        out[key] = times
+        chosen = fk.attention_bwd_warps(b * 16, fk._sm_count(device))
+        log(f"[bwd-warps] {key} (T=64, 4 heads, {b * 16} blocks): main "
+            f"kernel us alone, {rounds} rounds each: 8 warps "
+            + ", ".join(f"{x * 1e3:.3f}" for x in times[8]) + "; 4 warps "
+            + ", ".join(f"{x * 1e3:.3f}" for x in times[4])
+            + f"; the wrapper takes {chosen}")
+    return out
+
+
+def _parts_note(row: dict) -> str:
+    """The attention backward's two launches timed alone, for a log line."""
+    if "parts_ms" not in row:
+        return ""
+    row_pass, main = (ms * 1e3 for ms in row["parts_ms"])
+    return (f"; row pass {row_pass:.3f} us + main kernel {main:.3f} us "
+            f"alone; the forward keeping the row statistics "
+            f"{row['fwd_stats_ms'] * 1e3:.3f} us ({row['fwd_ms'] * 1e3:.3f} "
+            "us without)")
 
 
 def phase_train_kernels(device: torch.device, seed: int, cfg=None,
@@ -1467,6 +1747,7 @@ def phase_train_kernels(device: torch.device, seed: int, cfg=None,
                 extra = (f" at the kernel's scale {row['scale']:.9g}, which "
                          f"is within {row['scale_rel_err']:.3g} of the plain "
                          f"version's (limit {SCALE_RTOL})")
+            extra += _parts_note(row)
             log(f"[fc-train-kernels] {name} B={b} [{row['shape']}]: max abs "
                 f"err {row['max_abs_err']:.6g} (limit {row['limit']:.6g})"
                 f"{extra}; kernel {row.get('ms', nan) * 1e3:.3f} us "
@@ -1531,7 +1812,7 @@ def phase_train(device: torch.device, seed: int, cfg=None, batch: int = 16,
         set_matmul_precision()
     cfg = cfg or ForecasterConfig()
     lr = 1e-3
-    params = init_params(torch.Generator().manual_seed(seed), cfg, device)
+    params = init_params(seed, cfg, device)
     p_k = {k: v.clone() for k, v in params.items()}
     p_r = {k: v.clone() for k, v in params.items()}
     m_k, m_r = init_momentum(p_k), init_momentum(p_r)
@@ -1808,6 +2089,12 @@ def phase_forecast(device: torch.device, *,
 # the service's defaults, and enough rounds for a median and a p99
 STEPS_PER_ROUND = 20
 TRAIN_ROUNDS = 20
+# a long window on the service's compact default model (ForecastService's
+# model_kwargs), past the limit the attention kernels once had at its head
+# width of 16
+WINDOW_T = 1024
+WINDOW_MODEL = {"d_model": 64, "n_heads": 4, "d_ff": 256, "n_layers": 2}
+WINDOW_ROUNDS = 3
 
 
 def counted_wrappers() -> dict:
@@ -1824,10 +2111,15 @@ def counted_wrappers() -> dict:
 def train_per_step(cfg) -> dict:
     """Each kernel's launches in one train step: the forward's (two
     layernorms, one attention and one GELU a layer), as many backward
-    passes, and the update's two (sum of squares, then update)."""
+    passes (attention's two launches each: row pass, then gradients), and
+    the update's two (sum of squares, then update)."""
+    from chanamq_tpu_torch.kernels import forecaster as fk
+
     fwd = {"layernorm": 2 * cfg.n_layers, "causal_attention": cfg.n_layers,
            "gelu_tanh": cfg.n_layers}
-    return {**fwd, **{f"{k}_bwd": n for k, n in fwd.items()},
+    per_call = {"causal_attention": fk.ATT_BWD_LAUNCHES}
+    return {**fwd, **{f"{k}_bwd": n * per_call.get(k, 1)
+                      for k, n in fwd.items()},
             "clip_momentum_sgd": 2}
 
 
@@ -1901,8 +2193,11 @@ def main() -> int:
     floor = phase_floor(device)
     phase_forward(device, args.seed)
     train_kernels = phase_train_kernels(device, args.seed)
+    bwd_warps = phase_bwd_warps(device, args.seed)
+    long_windows = phase_long_windows(device, args.seed)
     train = phase_train(device, args.seed)
     log_train(train, dev)
+    phase_init(device)
 
     calls: dict = {}
     rm.topic_match.launches = 0
@@ -2012,6 +2307,38 @@ def main() -> int:
         raise AssertionError(f"training path: launches {train_launches}, "
                              f"want {want} for {ft['steps']} steps")
 
+    # the service's compact default model at a window of 1,024, training
+    # at its defaults: every round must train and forecast on the card
+    for wrapper in counted.values():
+        wrapper.launches = 0
+    fw = phase_forecast(device, model_kwargs=dict(WINDOW_MODEL),
+                        seq_len=WINDOW_T, interval_s=0.005,
+                        steps_per_round=STEPS_PER_ROUND, batch=16, lr=1e-3,
+                        min_rounds=WINDOW_ROUNDS, timeout_s=300.0)
+    window_launches = {name: w.launches for name, w in counted.items()}
+    per_step = train_per_step(fw["cfg"])
+    fw_per_forward = {"layernorm": 2 * fw["cfg"].n_layers,
+                      "causal_attention": fw["cfg"].n_layers,
+                      "gelu_tanh": fw["cfg"].n_layers}
+    want = {name: per_step.get(name, 0) * fw["steps"]
+            + fw_per_forward.get(name, 0) * fw["forwards"]
+            for name in FORECASTER_KERNELS + TRAIN_KERNELS}
+    log(f"[forecast-window] window {fw['cfg'].seq_len}, d_model "
+        f"{fw['cfg'].d_model}, {fw['cfg'].n_heads} heads, "
+        f"{fw['cfg'].n_layers} layers: {fw['rounds']} rounds of "
+        f"{STEPS_PER_ROUND} steps (batch 16, lr 1e-3), {fw['steps']} steps "
+        f"and {fw['forwards']} forwards on the card in {fw['run_s']:.3f} s; "
+        f"ms per round {fw['ms_per_round']['median']:.4f} median (the first "
+        f"{fw['ms_per_round']['first']:.4f}); last loss {fw['loss']:.6g}; "
+        f"forecasts finite and non-negative; replay against the plain path "
+        f"max abs err {fw['replay_max_abs_err']:.6g}; kernel launches "
+        f"{window_launches} (want {want}); card {dev['smi']}")
+    if window_launches != want or fw["steps"] < STEPS_PER_ROUND \
+            or not np.isfinite(fw["loss"]):
+        raise AssertionError(f"window {WINDOW_T}: launches "
+                             f"{window_launches}, want {want}, loss "
+                             f"{fw['loss']}")
+
     replaces = {"topic_match": "chanamq_tpu/router/compile.py:289",
                 "headers_match": "chanamq_tpu/router/compile.py:372",
                 "layernorm": "chanamq_tpu/models/forecaster.py:77",
@@ -2036,14 +2363,20 @@ def main() -> int:
             "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": None,
-            "at_caps": {k: caps[name][CAPS_REPORT_B][k] for k in (
-                "shape", "ms", "plain_ms", "bound_ms", "bound_by")}})
+            "at_caps": {b: {k: caps[name][b][k] for k in (
+                "shape", "ms", "wrapper_ms", "plain_ms", "bound_ms",
+                "bound_by", "by_mb")} for b in caps[name]}})
     keys = ("shape", "max_abs_err", "limit", "ms", "wrapper_ms", "plain_ms",
             "library_ms", "bound_ms", "bound_by")
     # the attention kernels' tensor-core instructions, by kernel name
     hmma = {kernel: built[src]["hmma"] for src, kernel in MMA_KERNELS.items()}
     # the empty launch's time beside each layernorm kernel's
     floor_ms = {"floor_ms": floor["one_block"]["ms"]}
+    lw_keys = ("shape", "max_abs_err", "limit", "ms", "plain_ms",
+               "library_ms", "bound_ms", "bound_by")
+    long_rows = {name: {f"t{t}_hd{hd}": {k: rows[name][k] for k in lw_keys}
+                        for (t, hd), rows in long_windows.items()}
+                 for name in ("causal_attention", "causal_attention_bwd")}
     for name in FORECASTER_KERNELS:
         rows = fc_kernels[name]
         main_b = FORECAST_BATCHES[0]  # the service's batch first
@@ -2056,6 +2389,8 @@ def main() -> int:
             **{f"at_b{b}": {k: rows[b][k] for k in keys}
                for b in rows if b != main_b},
             **({"hmma": hmma[name]} if name in hmma else {}),
+            **({"long_windows": long_rows[name]} if name in long_rows
+               else {}),
             **(floor_ms if name == "layernorm" else {})})
     for name in TRAIN_KERNELS:
         rows = train_kernels[name]
@@ -2067,6 +2402,10 @@ def main() -> int:
             **{k: rows[main_b][k] for k in keys},
             f"at_b{other_b}": {k: rows[other_b][k] for k in keys},
             **({"hmma": hmma[name]} if name in hmma else {}),
+            **({"long_windows": long_rows[name]} if name in long_rows
+               else {}),
+            **({"main_kernel_by_warps": bwd_warps}
+               if name == "causal_attention_bwd" else {}),
             **(floor_ms if name == "layernorm_bwd" else {})})
     print(json.dumps({"kernels": line}))
     print(dev["smi"])

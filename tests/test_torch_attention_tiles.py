@@ -102,6 +102,7 @@ def test_geometry_covers_the_shape(shape, smem):
     assert (g.tiles - 1) * TILE < t <= g.tiles * TILE
     assert g.grid(b, heads) == b * heads * g.tiles
     assert getattr(g, smem) <= fk.SMEM_LIMIT
+    assert g.stats_smem <= fk.SMEM_LIMIT
     # every row's copies aligned, at the widest width that divides it
     assert g.copy_bytes in (4, 8, 16) and (2 * hd) % g.copy_bytes == 0
     assert g.copy_bytes == 16 or (2 * hd) % (2 * g.copy_bytes)
@@ -113,12 +114,18 @@ def test_geometry_covers_the_shape(shape, smem):
 
 def test_geometry_at_the_flagship():
     """T = 64, head_dim = 64: four tiles, 16 blocks at the service's batch
-    of 1, 256 at the training batch of 16; both kernels under the 48 KB a
-    block has without opting in."""
+    of 1, 256 at the training batch of 16; the forward and the backward's
+    row pass under the 48 KB a block has without opting in, the
+    backward's main kernel (its own four tiles and both streams staged at
+    once) opted in but still four blocks an SM; and the four key tiles of
+    the longest prefix in one ring slot (staged once, as when the kernels
+    held a head whole)."""
     g = fk.attention_geometry(64, 64)
     assert (g.tiles, g.hd_pad, g.ld, g.copy_bytes) == (4, 64, 72, 16)
     assert g.grid(1, 4) == 16 and g.grid(16, 4) == 256
-    assert g.fwd_smem <= 48 * 1024 and g.bwd_smem <= 48 * 1024
+    assert max(g.fwd_smem, g.stats_smem) <= 48 * 1024
+    assert 4 * g.bwd_smem <= fk.SMEM_LIMIT
+    assert g.tiles <= g.stage == fk.ATT_WARPS
 
 
 @pytest.mark.parametrize("hd", [4, 6, 8, 12, 16, 32, 64, 128, 256])
@@ -136,9 +143,86 @@ def test_geometry_refuses():
         fk.attention_geometry(64, 7)  # odd head width
     with pytest.raises(ValueError):
         fk.attention_geometry(0, 64)
-    # the gpu tests' refusal: a window of 400 at head width 64 is over the
-    # backward's shared memory
-    assert fk.attention_geometry(400, 64).bwd_smem > fk.SMEM_LIMIT
+    # a head too wide for a block's tiles at a slot of one: past 880 at a
+    # window of more than one tile, past 1,776 at one tile
+    with pytest.raises(ValueError):
+        fk.attention_geometry(17, 896)
+    with pytest.raises(ValueError):
+        fk.attention_geometry(16, 1792)
+    assert fk.attention_geometry(100, 880).bwd_smem <= fk.SMEM_LIMIT
+    assert fk.attention_geometry(16, 1776).bwd_smem <= fk.SMEM_LIMIT
+    # the window of 400 at head width 64 the gpu tests once saw refused
+    # now fits
+    g = fk.attention_geometry(400, 64)
+    assert max(g.fwd_smem, g.stats_smem, g.bwd_smem) <= fk.SMEM_LIMIT
+
+
+def test_backward_warps_by_grid():
+    """The backward's main kernel runs its two halves side by side (eight
+    warps, two blocks an SM) while its grid fits the card at two blocks an
+    SM, else on four warps (four blocks an SM): the flagship's training
+    batch of 16 takes eight on an H100 (132 SMs), a batch of 32 four."""
+    g = fk.attention_geometry(64, 64)
+    assert fk.attention_bwd_warps(g.grid(16, 4), 132) == 2 * fk.ATT_WARPS
+    assert fk.attention_bwd_warps(g.grid(32, 4), 132) == fk.ATT_WARPS
+    assert fk.attention_bwd_warps(264, 132) == 8
+    assert fk.attention_bwd_warps(265, 132) == 4
+
+
+@pytest.mark.parametrize("hd,stage", [(2, 4), (16, 4), (336, 4), (352, 2),
+                                      (384, 2), (576, 2), (592, 1),
+                                      (880, 1)])
+def test_geometry_slot_size_by_head_width(hd, stage):
+    """A ring slot holds four tiles (one a warp) while the three kernels'
+    shared memory fits, else two, else one: every head width the first
+    tensor-core kernels took at windows of 32 and more (up to 880) still
+    runs, at every window."""
+    g = fk.attention_geometry(64, hd)
+    assert g.stage == stage
+    assert max(g.fwd_smem, g.stats_smem, g.bwd_smem) <= fk.SMEM_LIMIT
+    if stage > 1:
+        wider = fk.attention_geometry(64, hd + 16)
+        assert wider.stage <= stage
+
+
+def _held_whole_smem(t: int, hd: int) -> int:
+    """The shared memory the tensor-core kernels took when they held a
+    head whole (PRs 4-5): the larger of the forward's (a q tile, k and v
+    of the whole prefix) and the backward's (q, k, v and dout of the whole
+    window, with dlog and W rows)."""
+    rows = -(-t // TILE) * TILE
+    hd_pad = -(-hd // TILE) * TILE
+    ld = hd_pad if hd_pad == TILE else hd_pad + 8
+    fwd = 4 * TILE * (2 * fk.ATT_WARPS + fk.ATT_COLS + 8) \
+        + 2 * ld * (TILE + 2 * rows)
+    bwd = 2 * (4 * rows * ld + 2 * rows * (TILE + 8) + TILE * (rows + 8))
+    return max(fwd, bwd)
+
+
+@pytest.mark.parametrize("t", [1, 16, 17, 32, 48, 64, 128, 256, 320])
+def test_geometry_keeps_the_widths_of_the_whole_head_kernels(t):
+    """Every head width the kernels that held a head whole took at a
+    window still runs there: up to 1,776 at one tile (a ring of one slot,
+    the backward's rings its own tiles), 880 at 32, 416 at 64."""
+    widest = max(hd for hd in range(2, 2000, 2)
+                 if _held_whole_smem(t, hd) <= fk.SMEM_LIMIT)
+    g = fk.attention_geometry(t, widest)
+    assert max(g.fwd_smem, g.stats_smem, g.bwd_smem) <= fk.SMEM_LIMIT
+    assert (g.slots == 1) == (widest > 880)
+    assert g.slots == 2 or g.tiles == 1
+
+
+@pytest.mark.parametrize("hd", [2, 6, 16, 32, 64, 128, 256, 336, 384, 880])
+def test_geometry_smem_does_not_depend_on_the_window(hd):
+    """Every kernel keeps its own tiles and streams the rest through a
+    ring of fixed size, so its shared memory is one number a head width:
+    the same for one row, the flagship's 64 and windows far past every
+    limit the kernels had when they held a head whole."""
+    smem = {t: fk.attention_geometry(t, hd)[4:] for t in
+            (1, 15, 16, 17, 64, 65, 400, 897, 1024, 4096, 100_000)}
+    assert len(set(smem.values())) == 1, smem
+    assert max(smem[1]) <= fk.SMEM_LIMIT
+    assert fk.attention_geometry(100_000, hd).tiles == 6250
 
 
 # -- the tile-order models ---------------------------------------------------------
@@ -160,8 +244,11 @@ def _unheads(z: torch.Tensor, t: int, hd: int) -> torch.Tensor:
 
 def _mma(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """A tensor-core product: exact products of the inputs, summed in
-    float32."""
-    return torch.matmul(a.float(), b.float())
+    float64 and rounded to float32. Products of bf16 values are exact and
+    so, at these widths, are their sums, so a product's bits do not depend
+    on the shape it was taken in (a tile of it gives the same values as
+    the whole)."""
+    return torch.matmul(a.double(), b.double()).float()
 
 
 def _row_softmax(q, k, i: int, t: int, hd: int, dtype) -> torch.Tensor:
@@ -248,6 +335,120 @@ class TileAttention(torch.autograd.Function):
         return attention_bwd_tiles(qkv, dout.contiguous(), ctx.n_heads), None
 
 
+# -- the streamed models: the ring of a slot's tiles (the geometry's stage) -----
+
+
+def _slots(first: int, last: int, stage: int) -> list:
+    """Tiles [first, last) as the ring streams them: slots of ``stage``."""
+    return [(a, min(a + stage, last)) for a in range(first, last, stage)]
+
+
+def _logits(q_rows, k_rows, row0: int, key0: int, t: int, hd: int,
+            dtype) -> torch.Tensor:
+    """Logits of query rows row0.. against keys key0..: rounded to
+    ``dtype``, divided by sqrt(hd), -inf past the row or past T."""
+    s = _mma(q_rows, k_rows.transpose(-1, -2)).to(dtype).float() \
+        / math.sqrt(hd)
+    row = torch.arange(row0, row0 + q_rows.shape[-2])[:, None]
+    key = torch.arange(key0, key0 + k_rows.shape[-2])[None, :]
+    return s.masked_fill((key > row) | (key >= t), float("-inf"))
+
+
+def _row_pass(q, k, v, do, i: int, t: int, hd: int, dtype,
+              stage: int) -> tuple:
+    """Query tile i's max, sum of exponentials and (with ``do``) sum of
+    y dW, over its key prefix slot by slot, each sum added in slot order:
+    the forward's passes (the max and the sum, which it keeps for
+    training) and the backward's row pass (the sum of y dW)."""
+    rows = slice(i * TILE, (i + 1) * TILE)
+    keys = [slice(a * TILE, b * TILE) for a, b in _slots(0, i + 1, stage)]
+    s = [_logits(q[:, :, rows], k[:, :, ks], i * TILE, ks.start, t, hd,
+                 dtype) for ks in keys]
+    m = s[0].amax(-1, keepdim=True)
+    for x in s[1:]:
+        m = torch.maximum(m, x.amax(-1, keepdim=True))
+    e = [torch.exp(x - m) for x in s]
+    l = sum(x.sum(-1, keepdim=True) for x in e)
+    if do is None:
+        return m, l, e, keys
+    su = sum(((x / l) * _mma(do[:, :, rows], v[:, :, ks].transpose(
+        -1, -2)).to(dtype).float()).sum(-1, keepdim=True)
+        for x, ks in zip(e, keys))
+    return m, l, su
+
+
+def attention_stream(qkv: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """The forward kernel's streamed order: a query tile's key prefix in
+    ring slots, the max and the exponentials' sum slot by slot, then W =
+    the weights in qkv's dtype and W . V slot by slot, the slots' partial
+    sums added in order and rounded once."""
+    b, t, d3 = qkv.shape
+    hd = d3 // 3 // n_heads
+    g = fk.attention_geometry(t, hd)
+    q, k, v = (_heads(z, n_heads, g) for z in qkv.split(d3 // 3, dim=-1))
+    out = torch.zeros_like(q)
+    for i in range(g.tiles):
+        _, l, e, keys = _row_pass(q, k, None, None, i, t, hd, qkv.dtype,
+                                  g.stage)
+        o = sum(_mma((x / l).to(qkv.dtype), v[:, :, ks])
+                for x, ks in zip(e, keys))
+        out[:, :, i * TILE:(i + 1) * TILE] = o.to(qkv.dtype)
+    return _unheads(out, t, hd)
+
+
+def _dlog(q_rows, k_rows, do_rows, v_rows, row0: int, key0: int, stats,
+          t: int, hd: int, dtype) -> tuple:
+    """dlog and W of one block of query rows row0.. and keys key0.., from
+    the row pass's statistics alone; zero in rows past T."""
+    m, l, su = stats
+    y = torch.exp(_logits(q_rows, k_rows, row0, key0, t, hd, dtype) - m) / l
+    dw = _mma(do_rows, v_rows.transpose(-1, -2)).to(dtype).float()
+    real = (torch.arange(row0, row0 + q_rows.shape[-2]) < t)[:, None]
+    dlog = ((y * dw - y * su) / math.sqrt(hd)).to(dtype)
+    zero = torch.zeros_like(dlog)
+    return (torch.where(real, dlog, zero),
+            torch.where(real, y.to(dtype), zero))
+
+
+def attention_bwd_stream(qkv: torch.Tensor, dout: torch.Tensor,
+                         n_heads: int) -> torch.Tensor:
+    """The backward kernels' streamed order: the row pass's max, sum and
+    sum of y dW of every query tile; then for each tile t, dk and dv over
+    the query tiles >= t and dq over the key tiles <= t, a ring slot at a
+    time, dlog and W rebuilt from the statistics, the slots' partial
+    products added in order and rounded once."""
+    b, t, d3 = qkv.shape
+    hd = d3 // 3 // n_heads
+    dtype = qkv.dtype
+    g = fk.attention_geometry(t, hd)
+    q, k, v = (_heads(z, n_heads, g) for z in qkv.split(d3 // 3, dim=-1))
+    do = _heads(dout, n_heads, g)
+    stats = [_row_pass(q, k, v, do, i, t, hd, dtype, g.stage)
+             for i in range(g.tiles)]
+    dq, dk, dv = (torch.zeros_like(q) for _ in range(3))
+    for tt in range(g.tiles):
+        own = slice(tt * TILE, (tt + 1) * TILE)
+        dk_t = dv_t = dq_t = 0
+        for i0, i1 in _slots(tt, g.tiles, g.stage):
+            rows = slice(i0 * TILE, i1 * TILE)
+            st = [torch.cat([stats[i][n] for i in range(i0, i1)], -2)
+                  for n in range(3)]
+            dl, w = _dlog(q[:, :, rows], k[:, :, own], do[:, :, rows],
+                          v[:, :, own], rows.start, own.start, st, t, hd,
+                          dtype)
+            dk_t = dk_t + _mma(dl.transpose(-1, -2), q[:, :, rows])
+            dv_t = dv_t + _mma(w.transpose(-1, -2), do[:, :, rows])
+        for j0, j1 in _slots(0, tt + 1, g.stage):
+            keys = slice(j0 * TILE, j1 * TILE)
+            dl, _ = _dlog(q[:, :, own], k[:, :, keys], do[:, :, own],
+                          v[:, :, keys], own.start, keys.start, stats[tt],
+                          t, hd, dtype)
+            dq_t = dq_t + _mma(dl, k[:, :, keys])
+        dq[:, :, own], dk[:, :, own], dv[:, :, own] = (
+            z.to(dtype) for z in (dq_t, dk_t, dv_t))
+    return torch.cat([_unheads(z, t, hd) for z in (dq, dk, dv)], dim=-1)
+
+
 def _inputs(b, t, d, seed):
     rng = np.random.default_rng(seed)
     qkv = rng.normal(size=(b, t, 3 * d)).astype(np.float32)
@@ -310,6 +511,79 @@ def test_tiles_match_jax_vjp(t, d, heads, dtype):
     assert_close(got, np.asarray(out, np.float32),
                  op_tol(dtype, "attention", np.asarray(out, np.float32)),
                  "out")
+    da, dw = torch.autograd.grad(got, (ta, tw),
+                                 torch.from_numpy(dy).to(tcfg.dtype))
+    assert_close(da, want_da, op_tol(dtype, "attention", want_da), "da")
+    assert_close(dw, want_dw, op_tol(dtype, "attention", want_dw), "dw")
+
+
+# -- the streamed models against the unstreamed ones and the plain versions ----
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("b,t,d,heads", MODEL_SHAPES)
+def test_streamed_models_are_the_unstreamed_within_one_slot(b, t, d, heads,
+                                                            dtype):
+    """At T <= 64 every stream is one ring slot, so the streamed order is
+    the one the kernels had when they held a head whole: the same bits."""
+    assert -(-t // TILE) <= fk.attention_geometry(t, d // heads).stage
+    qkv_np, dout_np = _inputs(b, t, d, 400 + t)
+    qkv = torch.from_numpy(qkv_np).to(DTYPES[dtype])
+    dout = torch.from_numpy(dout_np).to(DTYPES[dtype])
+    assert torch.equal(attention_stream(qkv, heads),
+                       attention_tiles(qkv, heads))
+    assert torch.equal(attention_bwd_stream(qkv, dout, heads),
+                       attention_bwd_tiles(qkv, dout, heads))
+
+
+# windows past the old limits (896 rows at head width 16 in the backward,
+# 320 at 64): ragged last tiles, many slots; and a head of 384, whose slots
+# hold two tiles
+LONG_SHAPES = [(1, 1000, 32, 2), (1, 330, 128, 2), (1, 70, 768, 2)]
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("b,t,d,heads", LONG_SHAPES)
+def test_streamed_models_match_plain_past_the_old_limit(b, t, d, heads,
+                                                        dtype):
+    qkv_np, dout_np = _inputs(b, t, d, 500 + t)
+    qkv = torch.from_numpy(qkv_np).to(DTYPES[dtype])
+    dout = torch.from_numpy(dout_np).to(DTYPES[dtype])
+    want = fk.causal_attention_ref(qkv, heads)
+    assert_close(attention_stream(qkv, heads), want.float(),
+                 op_tol(dtype, "attention", _np(want)), "out")
+    got = attention_bwd_stream(qkv, dout, heads)
+    want = fk.causal_attention_bwd_ref(qkv, dout, heads)
+    for part in range(3):
+        cols = slice(part * d, (part + 1) * d)
+        w = want[..., cols]
+        assert_close(got[..., cols], w.float(),
+                     op_tol(dtype, "attention", _np(w)), f"part {part}")
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_plain_attention_matches_jax_past_the_old_limit(dtype):
+    """The plain forward and backward at a window of 1,000 (head width 16,
+    two heads, B = 1), the CPU path of a service at a long window, against
+    jax.vjp of the reference's ``_attention`` with an identity ``proj``."""
+    t, d, heads = 1000, 32, 2
+    jcfg, tcfg = configs(dtype, seq_len=t, d_model=d, n_heads=heads,
+                         d_ff=4 * d, n_layers=1)
+    rng = np.random.default_rng(600)
+    a = rng.normal(size=(1, t, d)).astype(np.float32)
+    w = (rng.normal(size=(d, 3 * d)) / math.sqrt(d)).astype(np.float32)
+    dy = rng.normal(size=(1, t, d)).astype(np.float32)
+    eye = np.eye(d, dtype=np.float32)
+    out, vjp = jax.vjp(lambda a, w: ref._attention(a, w, eye, jcfg),
+                       jnp.asarray(a, jcfg.dtype), jnp.asarray(w))
+    want_da, want_dw = vjp(jnp.asarray(dy, jcfg.dtype))
+    ta = torch.from_numpy(a).to(tcfg.dtype).requires_grad_()
+    tw = torch.from_numpy(w).requires_grad_()
+    fused = torch.matmul(ta, tw.to(tcfg.dtype))
+    got = torch.matmul(fk.KERNELS.causal_attention(fused, heads),
+                       torch.from_numpy(eye).to(tcfg.dtype))
+    want = np.asarray(out, np.float32)
+    assert_close(got, want, op_tol(dtype, "attention", want), "out")
     da, dw = torch.autograd.grad(got, (ta, tw),
                                  torch.from_numpy(dy).to(tcfg.dtype))
     assert_close(da, want_da, op_tol(dtype, "attention", want_da), "da")

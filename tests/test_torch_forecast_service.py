@@ -463,6 +463,29 @@ def test_chip_smoke_train_kernel_phase_rehearsal():
         res["layernorm_bwd"][3]["dscale_limit"]
 
 
+def test_chip_smoke_long_window_phase_rehearsal():
+    """chip_smoke's long-window attention phase on the CPU at a tiny size:
+    windows of more than one ring slot, both kernels' plain paths within
+    their limits and the same bits twice, with a bound for each."""
+    res = chip_smoke.phase_long_windows(torch.device("cpu"), 0,
+                                        windows=(70, 131), widths=(2, 16),
+                                        bwd_batch=2)
+    assert set(res) == {(70, 2), (70, 16), (131, 2), (131, 16)}
+    for rows in res.values():
+        assert set(rows) == {"causal_attention", "causal_attention_bwd"}
+        for row in rows.values():
+            assert row["max_abs_err"] <= row["limit"]
+            assert row["bound_ms"] > 0 and "ms" not in row
+
+
+def test_chip_smoke_init_phase_rehearsal():
+    res = chip_smoke.phase_init(torch.device("cpu"))
+    assert res["tensors"] == 29
+    assert res["values"] == sum(
+        int(np.prod(s)) for s in port_fc.param_shapes(
+            port_fc.ForecasterConfig()).values())
+
+
 def test_chip_smoke_train_work_counts_by_hand():
     """The bytes and operations behind the training kernels' bounds."""
     bf = torch.bfloat16
@@ -499,9 +522,11 @@ def test_chip_smoke_train_phase_rehearsal():
                 assert err <= limit
     assert "host_ms" not in res
     per_step = chip_smoke.train_per_step(cfg)
+    # attention's backward is two launches a call: its row pass and its
+    # main kernel
     assert per_step == {"layernorm": 4, "causal_attention": 2,
                         "gelu_tanh": 2, "layernorm_bwd": 4,
-                        "causal_attention_bwd": 2, "gelu_tanh_bwd": 2,
+                        "causal_attention_bwd": 4, "gelu_tanh_bwd": 2,
                         "clip_momentum_sgd": 2}
 
 

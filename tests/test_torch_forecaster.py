@@ -184,13 +184,12 @@ def test_init_params_names_shapes_and_scales():
     for kw in (SMALL, {}):
         jcfg, tcfg = configs("bfloat16", **kw)
         want = ref.init_params(jax.random.PRNGKey(0), jcfg)
-        got = port.init_params(torch.Generator().manual_seed(0), tcfg, "cpu")
+        got = port.init_params(0, tcfg, "cpu")
         assert list(got) == list(want)
         for name, arr in want.items():
             assert tuple(got[name].shape) == arr.shape, name
             assert got[name].dtype == torch.float32
-        again = port.init_params(torch.Generator().manual_seed(0), tcfg,
-                                 "cpu")
+        again = port.init_params(0, tcfg, "cpu")
         assert all(torch.equal(got[k], again[k]) for k in got)
     # zero biases, unit scales, fan-in scaled normals
     assert float(got["embed/bias"].abs().max()) == 0.0
@@ -202,7 +201,7 @@ def test_init_params_names_shapes_and_scales():
 def test_params_from_numpy_checks_names_and_shapes():
     _, tcfg = configs("bfloat16", **SMALL)
     good = {k: v.numpy() for k, v in port.init_params(
-        torch.Generator().manual_seed(1), tcfg, "cpu").items()}
+        1, tcfg, "cpu").items()}
     got = port.params_from_numpy(good, tcfg, "cpu")
     assert all(np.array_equal(got[k].numpy(), good[k]) for k in good)
     missing = dict(good)
@@ -224,7 +223,7 @@ def test_synthetic_batch():
     x2, _ = port.synthetic_batch(np.random.default_rng(0), tcfg, 3, "cpu")
     assert torch.equal(x, x2)
     assert torch.isfinite(port.forward(
-        port.init_params(torch.Generator().manual_seed(0), tcfg, "cpu"),
+        port.init_params(0, tcfg, "cpu"),
         x, tcfg)).all()
 
 
@@ -232,7 +231,7 @@ def test_plain_ops_are_the_cpu_path():
     """On CPU tensors the wrappers are their plain versions and count no
     launch; ``ops=PLAIN`` gives the same forward."""
     _, tcfg = configs("bfloat16", **SMALL)
-    params = port.init_params(torch.Generator().manual_seed(2), tcfg, "cpu")
+    params = port.init_params(2, tcfg, "cpu")
     x, _ = port.synthetic_batch(np.random.default_rng(2), tcfg, 2, "cpu")
     before = (fk.layernorm.launches, fk.causal_attention.launches,
               fk.gelu_tanh.launches)

@@ -489,7 +489,7 @@ def test_step_casts_the_weights_every_step():
     inside its graph on every step: a second step sees the first's
     update, and a forward after it equals one on freshly cast weights."""
     _, tcfg = configs("bfloat16", **SMALL)
-    params = port.init_params(torch.Generator().manual_seed(3), tcfg, "cpu")
+    params = port.init_params(3, tcfg, "cpu")
     before = {k: v.clone() for k, v in params.items()}
     ids = {k: id(v) for k, v in params.items()}
     momentum = port.init_momentum(params)
@@ -519,8 +519,7 @@ def test_loss_falls_over_twenty_steps():
     x, y = port.synthetic_batch(np.random.default_rng(4), tcfg, 16, "cpu")
     out = {}
     for name, ops in OPS.items():
-        params = port.init_params(torch.Generator().manual_seed(4), tcfg,
-                                  "cpu")
+        params = port.init_params(4, tcfg, "cpu")
         momentum = port.init_momentum(params)
         step = port.make_train_step(tcfg, ops=ops)
         losses = [float(step(params, momentum, (x, y))[2])

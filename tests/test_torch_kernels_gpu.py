@@ -11,7 +11,10 @@ property.)
 
 Each router kernel is also held against the JAX package's own kernel body
 (``_topic_kernel(np, ...)``, ``_headers_kernel(np, ...)``) on the same
-numpy inputs. The outputs are integer bitmasks, so the comparison is exact.
+numpy inputs. The outputs are integer bitmasks, so the comparison is exact,
+at every instance (1, 2 and 4 messages a block) and at odd shapes: one
+message, rows not a multiple of 32, one mask word, no row and every row
+matching, a headers table of one pair id and one of 4,096.
 Each forecaster kernel is held to its plain version within
 ``chip_smoke.forecaster_limit`` (one bf16 step at the largest output, two
 for attention: the same float32 math summed in another order), and the
@@ -19,7 +22,9 @@ whole forward through the kernels to the forward through the plain
 versions within ``chip_smoke.FORWARD_LIMIT``.
 
 Both attention kernels and the layernorm backward are also launched twice
-on the same inputs and must give the same bits, and the launch geometry the
+on the same inputs and must give the same bits, the attention kernels also
+at windows past the limits they had when they held a head whole (T = 400,
+897, 1,024 and 2,048 at head widths 16 and 64), and the launch geometry the
 wrappers compute (``kernels/forecaster.py``'s ``attention_geometry`` and
 ``layernorm_geometry``, held on the CPU by
 ``tests/test_torch_attention_tiles.py`` and
@@ -65,14 +70,36 @@ def cuda():
 # (N rows, W mask words, B messages, token widths): the router's caps at
 # full token widths, the shapes chip_smoke's main path gives the kernels
 # (topic P=8, S=4; headers 512 rows over 16 mask words, R=4, H=8), odd
-# sizes, and one table wider than a block's row chunk (1024) so the chunk
-# loop runs twice
+# sizes, and one table wider than a block's 512 threads so the row loop
+# runs three times
 TOPIC_SHAPES = [(512, 128, 1024, 8, 8), (512, 128, 16, 8, 8),
                 (512, 128, 512, 8, 4), (37, 3, 5, 8, 8), (1, 1, 1, 2, 2),
                 (1500, 7, 33, 8, 8)]
 HEADERS_SHAPES = [(512, 128, 1024, 8, 16), (512, 128, 16, 8, 16),
                   (512, 16, 512, 4, 8), (37, 3, 5, 8, 16), (1, 1, 1, 2, 2),
                   (1500, 7, 33, 8, 16)]
+
+
+def _hold_router(name: str, args, b: int, w: int) -> torch.Tensor:
+    """One call ``(table, *messages)`` through the wrapper (one launch)
+    and through each messages-a-block instance of the kernel, every word
+    equal to the plain version's. Returns the wrapper's output."""
+    kern = getattr(rm, name)
+    ref = getattr(rm, f"{name}_ref")
+    prepare = getattr(rm, f"prepare_{name}")
+    before = kern.launches
+    got = kern(*args)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    want = ref(*args)
+    assert got.dtype == torch.int32 and got.shape == (b, w)
+    assert torch.equal(got, want)
+    for mb in rm.MSGS_PER_BLOCK:
+        out, launch = prepare(*args, mb=mb)
+        launch()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), f"{mb} messages a block"
+    return got
 
 
 @pytest.mark.parametrize("n,w,b,p,s", TOPIC_SHAPES)
@@ -82,15 +109,7 @@ def test_topic_kernel_matches_plain(cuda, n, w, b, p, s):
     t = tables_from_numpy(table, cuda)
     msg_np = chip_smoke.topic_messages(rng, table, b)
     msg = [torch.from_numpy(a).to(cuda) for a in msg_np]
-    args = (t["pre"], t["suf"], t["plen"], t["slen"], t["has_hash"],
-            t["masks"], *msg)
-    before = rm.topic_match.launches
-    got = rm.topic_match(*args)
-    torch.cuda.synchronize()
-    assert rm.topic_match.launches == before + 1
-    want = rm.topic_match_ref(*args)
-    assert got.dtype == torch.int32 and got.shape == (b, w)
-    assert torch.equal(got, want)
+    got = _hold_router("topic_match", (t, *msg), b, w)
     # and the JAX package's own kernel body on the same numpy inputs
     ref = ref_compile._topic_kernel(
         np, table["pre"], table["suf"], table["plen"], table["slen"],
@@ -104,17 +123,119 @@ def test_headers_kernel_matches_plain(cuda, n, w, b, r, h):
     table = chip_smoke.headers_tables(rng, n, w, r)
     t = tables_from_numpy(table, cuda)
     pids_np = chip_smoke.headers_messages(rng, table, b, h)
-    pids = torch.from_numpy(pids_np).to(cuda)
-    args = (t["req"], t["rcount"], t["is_all"], t["masks"], pids)
-    before = rm.headers_match.launches
-    got = rm.headers_match(*args)
-    torch.cuda.synchronize()
-    assert rm.headers_match.launches == before + 1
-    assert torch.equal(got, rm.headers_match_ref(*args))
+    got = _hold_router("headers_match",
+                       (t, torch.from_numpy(pids_np).to(cuda)), b, w)
     ref = ref_compile._headers_kernel(
         np, table["req"], table["rcount"], table["is_all"], table["masks"],
         pids_np)
     np.testing.assert_array_equal(got.cpu().numpy().view(np.uint32), ref)
+
+
+ODD_ROUTER_CASES = ["one-message", "rows-not-a-multiple-of-32",
+                    "one-mask-word", "no-row-matches", "every-row-matches"]
+
+
+def _random_masks(rng, n: int, w: int) -> np.ndarray:
+    masks = rng.integers(0, 2**32, size=(n, w), dtype=np.uint64)
+    return (masks & rng.integers(0, 2**32, size=(n, w),
+                                 dtype=np.uint64)).astype(np.uint32)
+
+
+def _literal_topic_table(rng, n: int, w: int, cell: int) -> dict:
+    """Rows of one word, ``cell`` (STAR) or a literal each, no '#'."""
+    pre = np.full((n, 8), chip_smoke.PAD, np.int32)
+    pre[:, 0] = cell if cell == chip_smoke.STAR else rng.integers(0, 64, n)
+    return {"pre": pre, "suf": np.full((n, 8), chip_smoke.PAD, np.int32),
+            "plen": np.ones(n, np.int32), "slen": np.zeros(n, np.int32),
+            "has_hash": np.zeros(n, bool), "masks": _random_masks(rng, n, w)}
+
+
+@pytest.mark.parametrize("case", ODD_ROUTER_CASES)
+def test_topic_kernel_odd_shapes(cuda, case):
+    rng = np.random.default_rng(len(case))
+    n, w, b = {"one-message": (512, 128, 1),
+               "rows-not-a-multiple-of-32": (45, 5, 16),
+               "one-mask-word": (64, 1, 16)}.get(case, (96, 3, 16))
+    if case in ("no-row-matches", "every-row-matches"):
+        star = case == "every-row-matches"
+        table = _literal_topic_table(rng, n, w, chip_smoke.STAR if star
+                                     else 0)
+        # one-word keys; out of vocabulary where no row may match
+        pre_m = np.full((b, 8), chip_smoke.MISS, np.int32)
+        if star:
+            pre_m[:, 0] = rng.integers(0, 64, b)
+        msgs = (pre_m, pre_m.copy(), np.ones(b, np.int32))
+    else:
+        table = chip_smoke.topic_tables(rng, n, w)
+        msgs = tuple(a[:b] for a in chip_smoke.topic_messages(
+            rng, table, max(b, 16)))
+    t = tables_from_numpy(table, cuda)
+    got = _hold_router("topic_match",
+                       (t, *(torch.from_numpy(a).to(cuda) for a in msgs)),
+                       b, w)
+    every = np.bitwise_or.reduce(table["masks"], axis=0).view(np.int32)
+    if case == "no-row-matches":
+        assert not got.any()
+    elif case == "every-row-matches":
+        assert (got.cpu().numpy() == every[None, :]).all()
+
+
+@pytest.mark.parametrize("case", ODD_ROUTER_CASES + ["one-pair-id",
+                                                      "pair-ids-at-caps"])
+def test_headers_kernel_odd_shapes(cuda, case):
+    rng = np.random.default_rng(len(case) + 100)
+    n, w, b = {"one-message": (512, 128, 1),
+               "rows-not-a-multiple-of-32": (45, 5, 16),
+               "one-mask-word": (64, 1, 16),
+               "pair-ids-at-caps": (512, 128, 64)}.get(case, (96, 3, 16))
+    pad, miss = chip_smoke.PAD, chip_smoke.MISS
+    if case in ("no-row-matches", "every-row-matches", "one-pair-id"):
+        # every row requires id 0 (all or any): messages without it match
+        # none, messages with it match every row; 0 is the only id
+        req = np.full((n, 8), pad, np.int32)
+        req[:, 0] = 0
+        table = {"req": req, "rcount": np.ones(n, np.int32),
+                 "is_all": rng.random(n) < 0.5,
+                 "masks": _random_masks(rng, n, w)}
+        pids = np.full((b, 16), miss, np.int32)
+        if case != "no-row-matches":
+            pids[:, 3] = 0
+            pids[::2, 5] = 7  # an id past the table's: in no row
+    elif case == "pair-ids-at-caps":
+        # 4,096 distinct pair ids, every id of the router's caps (N R)
+        req = rng.permutation(n * 8).astype(np.int32).reshape(n, 8)
+        k = rng.integers(1, 9, n)
+        req[np.arange(8)[None, :] >= k[:, None]] = pad
+        table = {"req": req, "rcount": k.astype(np.int32),
+                 "is_all": rng.random(n) < 0.5,
+                 "masks": _random_masks(rng, n, w)}
+        pids = np.full((b, 16), miss, np.int32)
+        for i in range(b):
+            row = req[rng.integers(0, n)]
+            got_ids = [int(x) for x in row if x != pad][:int(
+                rng.integers(1, 9))]
+            got_ids += [int(x) for x in rng.integers(0, n * 8 + 64, 16 -
+                                                     len(got_ids))]
+            pids[i, :len(got_ids)] = got_ids[:16]
+    else:
+        table = chip_smoke.headers_tables(rng, n, w)
+        pids = chip_smoke.headers_messages(rng, table, max(b, 16))[:b]
+    t = tables_from_numpy(table, cuda)
+    if case == "pair-ids-at-caps":
+        assert t.vocab == n * 8
+    elif case == "one-pair-id":
+        assert t.vocab == 1
+    got = _hold_router("headers_match",
+                       (t, torch.from_numpy(pids).to(cuda)), b, w)
+    ref = ref_compile._headers_kernel(
+        np, table["req"], table["rcount"], table["is_all"], table["masks"],
+        pids)
+    np.testing.assert_array_equal(got.cpu().numpy().view(np.uint32), ref)
+    every = np.bitwise_or.reduce(table["masks"], axis=0).view(np.int32)
+    if case == "no-row-matches":
+        assert not got.any()
+    elif case == "every-row-matches":
+        assert (got.cpu().numpy() == every[None, :]).all()
 
 
 def test_kernel_rejects_bad_input(cuda):
@@ -124,11 +245,14 @@ def test_kernel_rejects_bad_input(cuda):
                           chip_smoke.topic_messages(
                               np.random.default_rng(1), table, 4))
     with pytest.raises(TypeError):
-        rm.topic_match(t["pre"].long(), t["suf"], t["plen"], t["slen"],
-                       t["has_hash"], t["masks"], pre_m, suf_m, mlen)
+        rm.topic_match(t, pre_m.long(), suf_m, mlen)
     with pytest.raises(ValueError):
-        rm.topic_match(t["pre"], t["suf"], t["plen"], t["slen"],
-                       t["has_hash"], t["masks"], pre_m.cpu(), suf_m, mlen)
+        rm.topic_match(t, pre_m.cpu(), suf_m, mlen)
+    with pytest.raises(ValueError):  # a message of another token width
+        rm.topic_match(t, pre_m[:, :3].contiguous(), suf_m, mlen)
+    with pytest.raises(TypeError):  # the table is checked at upload
+        rm.topic_table(t.pre.long(), t.suf, t.plen, t.slen, t.has_hash,
+                       t.masks)
 
 
 # (B, T, d_model, heads, d_ff): the flagship at the service's batch and
@@ -167,7 +291,7 @@ def test_forecaster_kernels_match_plain(cuda, b, t, d, heads, f):
 def test_forecaster_forward_matches_plain(cuda, b):
     port_fc.set_matmul_precision()
     cfg = port_fc.ForecasterConfig()
-    params = port_fc.init_params(torch.Generator().manual_seed(0), cfg, cuda)
+    params = port_fc.init_params(0, cfg, cuda)
     x, _ = port_fc.synthetic_batch(np.random.default_rng(b), cfg, b, cuda)
     before = (fk.layernorm.launches, fk.causal_attention.launches,
               fk.gelu_tanh.launches)
@@ -340,7 +464,7 @@ def test_forward_refuses_reduced_precision_products(cuda):
     accumulate in float32 as the reference's do: forward raises."""
     cfg = port_fc.ForecasterConfig(seq_len=8, d_model=32, n_heads=4,
                                    d_ff=64, n_layers=1)
-    params = port_fc.init_params(torch.Generator().manual_seed(0), cfg, cuda)
+    params = port_fc.init_params(0, cfg, cuda)
     x = torch.zeros(1, 8, 8, device=cuda)
     flags = torch.backends.cuda.matmul
     try:
@@ -372,6 +496,7 @@ def test_train_kernels_match_plain(cuda, b, t, d, heads, f):
     """Each training kernel against its plain version within
     ``chip_smoke.hold_train_kernel``'s limits (the update bit for bit at
     the kernel's scale, with the clip active), one launch each (two for
+    attention's backward, its row pass and its main kernel; two for
     the update)."""
     cfg = port_fc.ForecasterConfig(seq_len=t, d_model=d, n_heads=heads,
                                    d_ff=f)
@@ -387,8 +512,9 @@ def test_train_kernels_match_plain(cuda, b, t, d, heads, f):
         before = counted[name].launches
         chip_smoke.hold_train_kernel(name, args, timed=False)
         torch.cuda.synchronize()
-        assert counted[name].launches == before + (
-            2 if name == "clip_momentum_sgd" else 1)
+        assert counted[name].launches == before + {
+            "clip_momentum_sgd": 2,
+            "causal_attention_bwd": fk.ATT_BWD_LAUNCHES}.get(name, 1)
 
 
 # (B, T, d_model, heads): the flagship forward (the service's batch), the
@@ -404,12 +530,96 @@ def test_attention_kernels_are_deterministic(cuda, b, t, d, heads):
     cfg = port_fc.ForecasterConfig(seq_len=t, d_model=d, n_heads=heads,
                                    d_ff=4 * d)
     gen = torch.Generator().manual_seed(b * 1000 + t + 2)
-    qkv, dout, _ = chip_smoke.train_inputs(gen, cfg, b, cuda)[
+    qkv, dout, _, stats = chip_smoke.train_inputs(gen, cfg, b, cuda)[
         "causal_attention_bwd"]
+    # the forward's row statistics: its two planes (the third is the
+    # backward row pass's)
+    kept = 2 * stats.numel() // fk.ATT_STATS
     outs = [(fk.causal_attention(qkv, heads),
-             fk.causal_attention_bwd(qkv, dout, heads)) for _ in range(2)]
+             fk.causal_attention_with_stats(qkv, heads)[1][:kept],
+             fk.causal_attention_bwd(qkv, dout, heads, stats))
+            for _ in range(2)]
     torch.cuda.synchronize()
     for first, second in zip(*outs):
+        assert torch.equal(first, second)
+    # the forward gives the same bits whether it keeps the statistics or
+    # not, and the backward's main kernel on four warps or on eight
+    assert torch.equal(outs[0][0],
+                       fk.causal_attention_with_stats(qkv, heads)[0])
+    for warps in (4, 8):
+        dqkv, launch = fk.prepare_causal_attention_bwd(qkv, dout, heads,
+                                                       stats, warps=warps)
+        launch()
+        torch.cuda.synchronize()
+        assert torch.equal(dqkv, outs[0][2]), warps
+
+
+# windows past every limit the kernels had when they held a head whole
+# (T > 320 at head width 64 in the backward, T > 896 at width 16), at the
+# flagship's head width and the service's compact default's
+LONG_WINDOWS = [400, 897, 1024, 2048]
+
+
+@pytest.mark.parametrize("hd", [16, 64])
+@pytest.mark.parametrize("t", LONG_WINDOWS)
+def test_attention_kernels_take_any_window(cuda, t, hd):
+    """Both attention kernels at long windows against their plain versions
+    within chip_smoke's limits (the forward at B = 1, the backward at
+    B = 16 below T = 2,048 and B = 4 at it), one launch of the forward
+    and two of the backward a call, and two calls giving the same
+    bits."""
+    cfg = port_fc.ForecasterConfig(seq_len=t, d_model=4 * hd, n_heads=4,
+                                   d_ff=16 * hd)
+    gen = torch.Generator().manual_seed(t * 100 + hd)
+    qkv = chip_smoke.forecaster_inputs(gen, cfg, 1, cuda)[
+        "causal_attention"]
+    before = fk.causal_attention.launches
+    chip_smoke.hold_forecaster("causal_attention", qkv, timed=False)
+    assert fk.causal_attention.launches == before + 1
+    b = 16 if t < 2048 else 4
+    bwd = chip_smoke.train_inputs(gen, cfg, b, cuda)["causal_attention_bwd"]
+    before = fk.causal_attention_bwd.launches
+    chip_smoke.hold_train_kernel("causal_attention_bwd", bwd, timed=False)
+    assert fk.causal_attention_bwd.launches == before + fk.ATT_BWD_LAUNCHES
+    for fn, args in ((fk.causal_attention, qkv), (fk.causal_attention_bwd,
+                                                  bwd)):
+        first, second = fn(*args), fn(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
+
+
+# (T, head width) of heads too wide for slots of four tiles: two tiles a
+# slot (384, 512, 576) or one (592, 880), at windows of one slot, of a few
+# and of many; and, in windows of one tile, heads too wide even for that
+# (a ring of one slot: 1,000 and the widest, 1,776)
+WIDE_HEADS = [(64, 384), (16, 512), (130, 576), (100, 592), (32, 880),
+              (9, 1000), (16, 1776)]
+
+
+@pytest.mark.parametrize("t,hd", WIDE_HEADS)
+def test_attention_kernels_take_wide_heads(cuda, t, hd):
+    """Both attention kernels at head widths whose ring slots hold two
+    tiles or one, or whose ring has one slot (the backward's rings then
+    its own tiles), against their plain versions within chip_smoke's
+    limits (two heads; the forward at B = 1, the backward at B = 2), and
+    two calls giving the same bits."""
+    cfg = port_fc.ForecasterConfig(seq_len=t, d_model=2 * hd, n_heads=2,
+                                   d_ff=8)
+    g = fk.attention_geometry(t, hd)
+    assert g.stage < fk.ATT_WARPS and (g.slots == 1) == (hd > 880)
+    gen = torch.Generator().manual_seed(t * 1000 + hd)
+    qkv = chip_smoke.forecaster_inputs(gen, cfg, 1, cuda)[
+        "causal_attention"]
+    chip_smoke.hold_forecaster("causal_attention", qkv, timed=False)
+    bf16 = torch.bfloat16
+    bwd = chip_smoke.attention_bwd_inputs(
+        torch.randn(2, t, 6 * hd, generator=gen).to(bf16).to(cuda),
+        torch.randn(2, t, 2 * hd, generator=gen).to(bf16).to(cuda), 2)
+    chip_smoke.hold_train_kernel("causal_attention_bwd", bwd, timed=False)
+    for fn, args in ((fk.causal_attention, qkv), (fk.causal_attention_bwd,
+                                                  bwd)):
+        first, second = fn(*args), fn(*args)
+        torch.cuda.synchronize()
         assert torch.equal(first, second)
 
 
@@ -418,11 +628,16 @@ def test_attention_geometry_matches_launchers(cuda):
     its C library computes, at every shape these tests run (the launchers
     refuse a geometry that differs from their own)."""
     lib, tlib = fk.library(), fk.train_library()
-    for _, t, d, heads, _ in FORECASTER_SHAPES + TRAIN_SHAPES:
+    shapes = [(t, 4 * hd, 4) for t in LONG_WINDOWS for hd in (16, 64)] + [
+        (t, 2 * hd, 2) for t, hd in WIDE_HEADS]
+    for t, d, heads in [s[1:4] for s in FORECASTER_SHAPES + TRAIN_SHAPES] \
+            + shapes:
         g = fk.attention_geometry(t, d // heads)
         assert lib.chana_causal_attention_smem(t, d // heads) == g.fwd_smem
         assert tlib.chana_causal_attention_bwd_smem(t, d // heads) == \
             g.bwd_smem
+        assert tlib.chana_causal_attention_bwd_stats_smem(t, d // heads) \
+            == g.stats_smem
 
 
 # (rows, width) for the layernorm kernels: one row and 7 rows (a single
@@ -593,13 +808,31 @@ def test_train_kernels_reject_bad_input(cuda):
     with pytest.raises(ValueError):  # scale on the wrong device
         fk.layernorm_bwd(xb, xb, torch.ones(256))
     qkv = torch.zeros(2, 64, 768, dtype=bf16, device=cuda)
+    _, stats = fk.causal_attention_with_stats(qkv, 4)
     with pytest.raises(ValueError):  # dout is not [B, T, D]
         fk.causal_attention_bwd(qkv, torch.zeros(2, 64, 128, dtype=bf16,
-                                                 device=cuda), 4)
-    with pytest.raises(ValueError):  # T=400 needs more shared memory
-        fk.causal_attention_bwd(
-            torch.zeros(1, 400, 768, dtype=bf16, device=cuda),
-            torch.zeros(1, 400, 256, dtype=bf16, device=cuda), 4)
+                                                 device=cuda), 4, stats)
+    dout = torch.zeros(2, 64, 256, dtype=bf16, device=cuda)
+    with pytest.raises(ValueError):  # no row statistics from the forward
+        fk.causal_attention_bwd(qkv, dout, 4)
+    with pytest.raises(ValueError):  # statistics of another shape
+        fk.causal_attention_bwd(qkv, dout, 4, stats[:-1])
+    # any window: T=400 at head width 64 runs (its shared memory does not
+    # depend on T); a head of 400 runs with slots of two tiles; only a
+    # head too wide for slots of one tile (past 880, or past 1,776 in a
+    # window of one tile) is refused
+    for t, d, heads in ((400, 256, 4), (16, 400, 1)):
+        qkv = torch.zeros(1, t, 3 * d, dtype=bf16, device=cuda)
+        _, stats = fk.causal_attention_with_stats(qkv, heads)
+        dqkv = fk.causal_attention_bwd(
+            qkv, torch.zeros(1, t, d, dtype=bf16, device=cuda), heads, stats)
+        torch.cuda.synchronize()
+        assert dqkv.shape == (1, t, 3 * d) and not dqkv.any()
+    for t, hd in ((32, 896), (16, 1792)):  # over 227 KB
+        with pytest.raises(ValueError):
+            fk.causal_attention_bwd(
+                torch.zeros(1, t, 3 * hd, dtype=bf16, device=cuda),
+                torch.zeros(1, t, hd, dtype=bf16, device=cuda), 1)
     p = [torch.zeros(4, device=cuda)]
     with pytest.raises(TypeError):  # float32 only
         upd.clip_momentum_sgd([p[0].double()], [p[0].double()],

@@ -325,10 +325,14 @@ def test_topic_plain_version_matches_reference_kernel(
         np, wild["pre"], wild["suf"], wild["plen"], wild["slen"],
         wild["has_hash"], wild["masks"], pre_m, suf_m, mlen)
     t = tables_from_numpy(wild, CPU)
-    assert t["masks"].dtype == torch.int32
+    assert t.masks.dtype == torch.int32
+    # the row-major tables are the compiled ones; the transposes beside them
+    assert np.array_equal(t.pre.numpy(), wild["pre"])
+    assert np.array_equal(t.suf.numpy(), wild["suf"])
+    assert torch.equal(t.pre_t, t.pre.t()) and t.pre_t.is_contiguous()
+    assert torch.equal(t.suf_t, t.suf.t()) and t.suf_t.is_contiguous()
     got = rm.topic_match_ref(
-        t["pre"], t["suf"], t["plen"], t["slen"], t["has_hash"], t["masks"],
-        torch.from_numpy(pre_m), torch.from_numpy(suf_m),
+        t, torch.from_numpy(pre_m), torch.from_numpy(suf_m),
         torch.from_numpy(mlen))
     rows = got.numpy().view(np.uint32)
     assert rows.dtype == want.dtype and rows.shape == want.shape
@@ -337,8 +341,7 @@ def test_topic_plain_version_matches_reference_kernel(
     # launch for it
     before = rm.topic_match.launches
     again = rm.topic_match(
-        t["pre"], t["suf"], t["plen"], t["slen"], t["has_hash"], t["masks"],
-        torch.from_numpy(pre_m), torch.from_numpy(suf_m),
+        t, torch.from_numpy(pre_m), torch.from_numpy(suf_m),
         torch.from_numpy(mlen))
     assert torch.equal(again, got) and rm.topic_match.launches == before
 
@@ -364,8 +367,11 @@ def test_headers_plain_version_matches_reference_kernel(
         np, table["req"], table["rcount"], table["is_all"], table["masks"],
         pids)
     t = tables_from_numpy(table, CPU)
-    got = rm.headers_match(t["req"], t["rcount"], t["is_all"], t["masks"],
-                           torch.from_numpy(pids))
+    assert np.array_equal(t.req.numpy(), table["req"])
+    assert torch.equal(t.req_t, t.req.t()) and t.req_t.is_contiguous()
+    # the pair ids are dense: the table holds every id of its vocabulary
+    assert t.vocab == len(table["vocab"])
+    got = rm.headers_match(t, torch.from_numpy(pids))
     assert np.array_equal(got.numpy().view(np.uint32), want)
 
 
@@ -384,8 +390,7 @@ def test_plain_version_bit31_rows():
     want = ref_compile._headers_kernel(
         np, table["req"], table["rcount"], table["is_all"], masks, pids)
     t = tables_from_numpy(table, CPU)
-    got = rm.headers_match_ref(t["req"], t["rcount"], t["is_all"],
-                               t["masks"], torch.from_numpy(pids))
+    got = rm.headers_match_ref(t, torch.from_numpy(pids))
     assert np.array_equal(got.numpy().view(np.uint32), want)
     assert want[0].tolist() == [1 << 31, (1 << 31) | 1, 0xFFFFFFFF]
 
@@ -394,7 +399,38 @@ def test_wrapper_refuses_other_devices():
     t = torch.zeros((1, 1), dtype=torch.int32, device="meta")
     v = torch.zeros((1,), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError):
-        rm.headers_match(t, v, v.bool(), t, t)
+        rm.headers_match(rm.HeadersTable(t, v, v.bool(), t, t, 1), t)
+    with pytest.raises(ValueError):
+        rm.topic_match(rm.TopicTable(t, t, v, v, v.bool(), t, t, t), t, t,
+                       v)
+
+
+def test_tables_are_checked_once_at_upload():
+    """A table's tensors are checked when it is built, not on every call:
+    a wrong dtype or shape, a token table wider than the kernel's 32
+    cells, or a pair id that is neither PAD nor in [0, MAX_IDS) raises."""
+    i32 = torch.int32
+    pre = torch.zeros((4, 2), dtype=i32)
+    v = torch.zeros(4, dtype=i32)
+    masks = torch.zeros((4, 3), dtype=i32)
+    got = rm.topic_table(pre, pre, v, v, v.bool(), masks)
+    assert got.pre_t.shape == (2, 4)
+    with pytest.raises(TypeError):
+        rm.topic_table(pre.long(), pre, v, v, v.bool(), masks)
+    with pytest.raises(ValueError):
+        rm.topic_table(pre, pre, v[:3], v, v.bool(), masks)
+    wide = torch.zeros((4, rm.MAX_TOKENS + 1), dtype=i32)
+    with pytest.raises(ValueError):
+        rm.topic_table(wide, pre, v, v, v.bool(), masks)
+    req = torch.tensor([[0, 5], [rm.PAD, 2], [rm.PAD, rm.PAD], [1, rm.PAD]],
+                       dtype=i32)
+    assert rm.headers_table(req, v, v.bool(), masks).vocab == 6
+    empty = torch.full((4, 2), rm.PAD, dtype=i32)
+    assert rm.headers_table(empty, v, v.bool(), masks).vocab == 1
+    for bad in (-1, -3, rm.MAX_IDS):
+        with pytest.raises(ValueError):
+            rm.headers_table(torch.where(req == 5, bad, req), v, v.bool(),
+                             masks)
 
 
 # -- (d) the engine on the port's broker --------------------------------------
