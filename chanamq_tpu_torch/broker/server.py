@@ -176,18 +176,31 @@ class BrokerServer:
         store: Optional[StoreService] = None
         store_path = config.get("chana.mq.store.path")
         if store_path:
-            if config.bool("chana.mq.wal.enabled"):
-                from ..config import ConfigError
-
-                # the WAL engine waits for the persistence slice
-                raise ConfigError(
-                    "chana.mq.wal.enabled is not ported yet: set it to "
-                    "false to use the sqlite store alone")
             from ..store.sqlite import SqliteStore
 
             store = SqliteStore(
                 store_path,
                 synchronous=config.str("chana.mq.store.synchronous"))
+            if config.bool("chana.mq.wal.enabled"):
+                from ..wal import WalStore
+
+                store = WalStore(
+                    store,
+                    flush_ms=float(config.get("chana.mq.wal.flush-ms")),
+                    flush_bytes=config.size_bytes(
+                        "chana.mq.wal.flush-bytes") or (1 << 20),
+                    segment_bytes=config.size_bytes(
+                        "chana.mq.wal.segment-bytes") or (64 << 20),
+                    sync=config.str("chana.mq.wal.sync"),
+                    checkpoint_ms=float(
+                        config.get("chana.mq.wal.checkpoint-ms")),
+                    memtable_bytes=config.size_bytes(
+                        "chana.mq.wal.memtable-bytes") or (64 << 20),
+                    tier_keep_segments=config.int(
+                        "chana.mq.wal.tier-keep-segments"),
+                    compact_streams=config.bool(
+                        "chana.mq.wal.compact-streams"),
+                )
         ssl_context = None
         tls_port = None
         if config.bool("chana.mq.amqp.amqps.enabled"):

@@ -92,20 +92,6 @@ __device__ float block_sum(float v, float* scratch) {
   return total;
 }
 
-// True in the block that finishes last, after every block has written its
-// partials (the threadfence-reduction pattern: an integer counter, so the
-// order of the final sum does not depend on which block is last).
-__device__ bool last_block(unsigned int* counter) {
-  __shared__ bool is_last;
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    is_last = atomicAdd(counter, 1u) == gridDim.x - 1;
-  }
-  __syncthreads();
-  return is_last;
-}
-
 // Shared-memory address of p, for the PTX below.
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -843,7 +829,9 @@ __global__ void __launch_bounds__(CHANA_GELU_THREADS) gelu_tanh_bwd_kernel(
 // k takes 4096 values of the tensor whose block range holds k. Launch 1
 // writes one partial sum a block and its last block sums them in block
 // order into sq; launch 2 reads sq on the device, so the step needs no host
-// sync, and block 0 also writes s.
+// sync, and block 0 also writes s. The two launches take any tables: a
+// sharded step sums its sharded and its replicated gradients apart, adds
+// the first over its tensor-parallel ranks, and gives launch 2 the total.
 
 struct TensorTable {
   float* p[CHANA_UPD_MAX_TENSORS];
@@ -881,7 +869,7 @@ __global__ void __launch_bounds__(CHANA_UPD_THREADS) sumsq_kernel(
   }
   const float total = block_sum(acc, scratch);
   if (threadIdx.x == 0) partial[blockIdx.x] = total;
-  if (last_block(counter)) {
+  if (last_of(counter, gridDim.x)) {
     float s = 0.f;
     for (unsigned b = threadIdx.x; b < gridDim.x; b += blockDim.x) {
       s += __ldcg(partial + b);

@@ -748,9 +748,13 @@ class Ops(NamedTuple):
     causal_attention: Callable
     gelu_tanh: Callable
     update: Callable  # clip + momentum + SGD, kernels/update.py
+    sum_of_squares: Callable  # the update's two launches apart (sharded)
+    momentum_sgd: Callable
 
 
 KERNELS = Ops(LayerNorm.apply, CausalAttention.apply, GeluTanh.apply,
-              update.clip_momentum_sgd)
+              update.clip_momentum_sgd, update.sum_of_squares,
+              update.momentum_sgd)
 PLAIN = Ops(layernorm_ref, causal_attention_ref, gelu_tanh_ref,
-            update.clip_momentum_sgd_ref)
+            update.clip_momentum_sgd_ref, update.sum_of_squares_ref,
+            update.momentum_sgd_ref)

@@ -36,7 +36,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Optional
+from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -156,16 +156,35 @@ def _check_matmul_precision() -> None:
             "set_matmul_precision() first")
 
 
+class TensorParallel(NamedTuple):
+    """One rank's part of a tensor-parallel forward (``parallel/mesh.py``):
+    its ``params`` hold its columns of ``attn/qkv`` (as q | k | v blocks of
+    its ``n_heads`` heads) and ``mlp/w1`` and its rows of ``attn/proj`` and
+    ``mlp/w2``; ``enter`` is applied to each column-split product's input
+    and ``leave`` to each row-split product's output (the collectives)."""
+    n_heads: int
+    enter: Callable
+    leave: Callable
+
+
+def _same(t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
 def forward(params: Params, x: torch.Tensor, cfg: ForecasterConfig, *,
             weights: Optional[Params] = None,
-            ops: kernels.Ops = kernels.KERNELS) -> torch.Tensor:
+            ops: kernels.Ops = kernels.KERNELS,
+            tp: Optional[TensorParallel] = None) -> torch.Tensor:
     """x: [batch, seq_len, n_features] float32 -> forecast [batch,
     n_features] float32. ``weights`` is ``cast_weights(params, cfg)``,
     cast here when not given; ``ops`` the layernorm, attention and GELU to
-    run (the kernels' wrappers, or ``kernels.PLAIN`` to compare). On a
-    card it raises unless ``set_matmul_precision()`` holds."""
+    run (the kernels' wrappers, or ``kernels.PLAIN`` to compare); ``tp``
+    this rank's part when the products are split over ranks (None: the
+    whole model here). On a card it raises unless
+    ``set_matmul_precision()`` holds."""
     if x.is_cuda:
         _check_matmul_precision()
+    tp = tp or TensorParallel(cfg.n_heads, _same, _same)
     w = cast_weights(params, cfg) if weights is None else weights
     b, t, _ = x.shape
     h = torch.matmul(x.to(cfg.dtype), w["embed/kernel"])
@@ -173,23 +192,24 @@ def forward(params: Params, x: torch.Tensor, cfg: ForecasterConfig, *,
     h = h + w["pos"][None, :t]
     for layer in range(cfg.n_layers):
         pre = f"layer{layer}"
-        a = ops.layernorm(h, params[f"{pre}/ln1/scale"])
+        a = tp.enter(ops.layernorm(h, params[f"{pre}/ln1/scale"]))
         fused = torch.matmul(a, w[f"{pre}/attn/qkv"])
-        att = ops.causal_attention(fused, cfg.n_heads)
-        h = h + torch.matmul(att, w[f"{pre}/attn/proj"])
-        m = ops.layernorm(h, params[f"{pre}/ln2/scale"])
+        att = ops.causal_attention(fused, tp.n_heads)
+        h = h + tp.leave(torch.matmul(att, w[f"{pre}/attn/proj"]))
+        m = tp.enter(ops.layernorm(h, params[f"{pre}/ln2/scale"]))
         m = ops.gelu_tanh(torch.matmul(m, w[f"{pre}/mlp/w1"]))
-        h = h + torch.matmul(m, w[f"{pre}/mlp/w2"])
+        h = h + tp.leave(torch.matmul(m, w[f"{pre}/mlp/w2"]))
     last = h[:, -1, :].to(torch.float32)
     return last @ params["out/kernel"] + params["out/bias"]
 
 
 def loss_fn(params: Params, batch: tuple, cfg: ForecasterConfig, *,
             weights: Optional[Params] = None,
-            ops: kernels.Ops = kernels.KERNELS) -> torch.Tensor:
+            ops: kernels.Ops = kernels.KERNELS,
+            tp: Optional[TensorParallel] = None) -> torch.Tensor:
     """Mean squared error of ``forward`` on ``batch = (x, y)``."""
     x, y = batch
-    pred = forward(params, x, cfg, weights=weights, ops=ops)
+    pred = forward(params, x, cfg, weights=weights, ops=ops, tp=tp)
     return torch.mean((pred - y) ** 2)
 
 

@@ -1,0 +1,1396 @@
+"""WalStore: the log-structured write-ahead engine in front of the store.
+
+Layering (log + memtable + index): every durable mutation appends one
+framed record to the shard's WAL buffer and to an in-RAM *memtable* —
+the op list pending application to the inner SqliteStore, plus an
+overlay of recent message blobs that serves hydration reads without an
+executor round trip.  Durability lives in the WAL: one commit loop
+batches the buffer across ALL channels, queues and subsystems on a
+time/byte window (``chana.mq.wal.flush-ms`` / ``flush-bytes``) and
+performs a single write+fsync per batch; publisher confirms,
+replication sync-gates and stream-seal completions ride
+``mark()``/``flush(intervals)``, resolving at the WAL commit boundary —
+one fsync amortizes over every channel that wrote inside the window
+(the cross-channel group commit the reference's per-op Cassandra writes
+could never do, and the journal/ledger split BookKeeper uses for the
+same reason).
+
+The SQLite index is written *lazily*: a drain folds the memtable to its
+net effect first (``_coalesce_ops`` — a row both created and destroyed
+inside the window never touches SQLite at all, so a steady
+consume-as-fast-as-publish workload leaves the index almost idle) and
+then hands the survivors to the inner FIFO in program order.  Reads are
+linearizable against writes because every read either hits the overlay
+or forces a drain (``_settle``) before enqueuing behind the forwarded
+ops on the inner FIFO.  Drains run at each checkpoint and whenever the
+memtable passes ``chana.mq.wal.memtable-bytes``.
+
+A background checkpointer drains the memtable, waits for the inner
+store to commit it, fsyncs the SQLite file (``PRAGMA
+wal_checkpoint(TRUNCATE)`` — under synchronous=NORMAL that is the only
+fsync SQLite does), persists the covered LSN in ``cluster_kv`` and then
+unlinks whole sealed WAL segments below it.  Recovery replays the WAL
+tail above the last checkpoint into the inner store — every journaled op
+is idempotent (INSERT OR REPLACE / DELETE) so replay-over-checkpoint
+converges; a torn tail is truncated, a mid-log CRC failure stops replay
+there and quarantines the rest (codec.scan_frames documents why).
+
+The same checkpoint pass runs stream-segment maintenance: key compaction
+for queues declared with ``x-stream-compact`` (newest record per routing
+key survives, offsets preserved — blobs become sparse) and tiered
+offload of cold sealed segments (blob bytes move to a side file, the
+SQLite index row stays, reads rehydrate transparently).
+
+Failure semantics: a failed WAL commit records its LSN range so only the
+barriers whose windows overlap it raise (same per-caller attribution
+contract as SqliteStore seq intervals); a failed inner write surfaces
+through ``error_count`` (readiness) and blocks the checkpoint from
+advancing — the WAL keeps the truth until the index catches up.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+import os
+import time
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import replace as dc_replace
+from typing import Optional
+
+from .. import profile, trace
+from ..store.api import StoreService
+from ..utils.metrics import Metrics
+from .codec import (
+    OP_INDEX, WalCodecError, decode_payload, encode_insert_message,
+    encode_insert_published, encode_insert_queue_msg, encode_record,
+    queue_prefix,
+)
+from .segment import (
+    SegmentWriter, ensure_dir, fsync_dir, list_segments, quarantine,
+    read_segment, truncate_segment,
+)
+from .tier import StreamTier, compact_records, compacted_blob
+
+log = logging.getLogger("chanamq.wal")
+
+
+def _stream_segment_mod():
+    """Lazy import of streams.segment: the streams package can only load
+    AFTER the broker package (pre-existing broker<->streams cycle), and
+    the WAL must stay importable standalone — so pull broker in first."""
+    from .. import broker  # noqa: F401
+    from ..streams import segment
+    return segment
+
+
+CHECKPOINT_KEY = "wal_checkpoint"
+
+# commit-failure LSN ranges kept for barrier attribution before the
+# floor swallows the oldest (same bounding idea as SqliteStore._FAILED_CAP)
+_FAILED_CAP = 256
+# traces carried per commit batch for wal-commit spans (bounded: a batch
+# under load covers thousands of appends, sampling covers the rest)
+_TRACE_CAP = 128
+# drained batches below this run the coalescer inline; larger ones go to
+# an executor thread so the fold never stalls the event loop
+_COALESCE_INLINE = 64
+
+# ops that commute with every key the coalescer tracks (message ids,
+# queue-log rows, unack rows) — they pass through without resetting the
+# live maps; any op NOT listed in the handlers below acts as a barrier
+_COALESCE_PASS = frozenset((
+    "worker_id_floor", "update_stream_cursor", "insert_stream_segment",
+    "insert_queue_meta", "insert_exchange", "insert_bind",
+    "insert_exchange_bind", "insert_vhost",
+))
+
+
+def _coalesce_ops(ops: list) -> "tuple[list, int]":
+    """Fold a drained memtable batch to its net effect on the index.
+
+    A message blob, queue-log row or unack row that was both created and
+    destroyed inside the batch never touches SQLite at all — the WAL
+    already holds the full history for recovery, so the index only needs
+    the net state at each drain boundary (reads force a drain first, so
+    intermediate states are never observable).  Ops without a handler or
+    pass-through entry are barriers: the live maps reset so no
+    create/destroy pair spanning one is elided — e.g. a delete_queue
+    between them must still see its rows archived.
+
+    Returns ``(net_ops, elided_count)``.  Pure data walk over tuples the
+    event loop no longer mutates, so it may run on an executor thread.
+    """
+    dead: set = set()
+    repl: dict = {}          # idx -> replacement args (pruned lists)
+    repl_op: dict = {}       # idx -> (name, args) full rewrite (fused splits)
+    live_msg: dict = {}      # msg_id -> [insert idx, refer-count idx|None]
+    live_row: dict = {}      # (vhost, queue) -> {offset: insert idx}
+    live_unack: dict = {}    # (vhost, queue, msg_id) -> insert idx
+    unack_items: dict = {}   # insert idx -> (vhost, queue, {mid: tuple}, n0)
+    last_lc: dict = {}       # (vhost, queue) -> idx of latest watermark
+    fused: dict = {}         # insert_published idx -> [blob_dead, row_dead]
+
+    def kill(j: int, part: int) -> None:
+        # a fused record dies only once BOTH its halves are destroyed;
+        # a half-dead survivor is split back into the living half at the end
+        st = fused.get(j)
+        if st is None:
+            dead.add(j)
+        else:
+            st[part] = True
+            if st[0] and st[1]:
+                dead.add(j)
+
+    for i, (name, args) in enumerate(ops):
+        if name == "insert_message":
+            live_msg[args[0].id] = [i, None]
+        elif name == "insert_published":
+            msg = args[0]
+            live_msg[msg.id] = [i, None]
+            rows = live_row.get((args[1], args[2]))
+            if rows is None:
+                rows = live_row[(args[1], args[2])] = {}
+            rows[args[3]] = i
+            fused[i] = [False, False]
+        elif name == "update_message_refer_count":
+            chain = live_msg.get(args[0])
+            if chain is not None:
+                if chain[1] is not None:
+                    dead.add(chain[1])  # only the latest count matters
+                chain[1] = i
+        elif name == "delete_message":
+            chain = live_msg.pop(args[0], None)
+            if chain is not None:
+                kill(chain[0], 0)
+                if chain[1] is not None:
+                    dead.add(chain[1])
+                dead.add(i)
+        elif name == "delete_messages":
+            kept_ids = []
+            for mid in args[0]:
+                chain = live_msg.pop(mid, None)
+                if chain is None:
+                    kept_ids.append(mid)
+                else:
+                    kill(chain[0], 0)
+                    if chain[1] is not None:
+                        dead.add(chain[1])
+            if not kept_ids:
+                dead.add(i)
+            elif len(kept_ids) < len(args[0]):
+                repl[i] = (kept_ids,)
+        elif name == "insert_queue_msg":
+            rows = live_row.get((args[0], args[1]))
+            if rows is None:
+                rows = live_row[(args[0], args[1])] = {}
+            rows[args[2]] = i
+        elif name == "delete_queue_msg":
+            rows = live_row.get((args[0], args[1]))
+            j = rows.pop(args[2], None) if rows is not None else None
+            if j is not None:
+                kill(j, 1)
+                dead.add(i)
+        elif name == "delete_queue_msgs_offsets":
+            vhost, queue, offsets = args
+            rows = live_row.get((vhost, queue))
+            if rows is None:
+                continue
+            kept_offs = []
+            for off in offsets:
+                j = rows.pop(off, None)
+                if j is None:
+                    kept_offs.append(off)
+                else:
+                    kill(j, 1)
+            if not kept_offs:
+                dead.add(i)
+            elif len(kept_offs) < len(offsets):
+                repl[i] = (vhost, queue, kept_offs)
+        elif name == "update_queue_last_consumed":
+            key = (args[0], args[1])
+            prev = last_lc.get(key)
+            if prev is not None:
+                dead.add(prev)
+            last_lc[key] = i
+            # the index-side write also deletes queue-log rows at or below
+            # the watermark, so any such row created earlier in this batch
+            # is dead on arrival (in-order consumption settles this way;
+            # offset-keyed deletes only cover priority/requeue paths)
+            rows = live_row.get(key)
+            if rows:
+                wm = args[2]
+                killed = [off for off in rows if off <= wm]
+                for off in killed:
+                    kill(rows.pop(off), 1)
+        elif name == "insert_queue_unacks":
+            vhost, queue, unacks = args
+            items = {u[0]: u for u in unacks}
+            unack_items[i] = (vhost, queue, items, len(unacks))
+            for mid in items:
+                live_unack[(vhost, queue, mid)] = i
+        elif name == "delete_queue_unacks":
+            vhost, queue, msg_ids = args
+            kept_mids = []
+            for mid in msg_ids:
+                j = live_unack.pop((vhost, queue, mid), None)
+                if j is None:
+                    kept_mids.append(mid)
+                else:
+                    items = unack_items[j][2]
+                    items.pop(mid, None)
+                    if not items:
+                        dead.add(j)
+            if not kept_mids:
+                dead.add(i)
+            elif len(kept_mids) < len(msg_ids):
+                repl[i] = (vhost, queue, kept_mids)
+        elif name not in _COALESCE_PASS:
+            # barrier: elisions may not span this op (pruning already
+            # recorded for earlier ops stays valid — those rows died
+            # strictly before the barrier)
+            live_msg.clear()
+            live_row.clear()
+            live_unack.clear()
+            last_lc.clear()
+    for i, (vhost, queue, items, n0) in unack_items.items():
+        if i not in dead and len(items) < n0:
+            repl[i] = (vhost, queue, list(items.values()))
+    for i, st in fused.items():
+        if i in dead or st[0] == st[1]:
+            continue  # fully live or fully dead: forward as-is / drop
+        a = ops[i][1]
+        if st[0]:  # blob destroyed, row survives
+            repl_op[i] = ("insert_queue_msg",
+                          (a[1], a[2], a[3], a[0].id, a[4], a[5]))
+        else:      # row destroyed, blob survives
+            repl_op[i] = ("insert_message", (a[0],))
+    if not dead and not repl and not repl_op:
+        return ops, 0
+    net = []
+    for i, (name, args) in enumerate(ops):
+        if i in dead:
+            continue
+        ro = repl_op.get(i)
+        net.append(ro if ro is not None else (name, repl.get(i, args)))
+    return net, len(ops) - len(net)
+
+
+class WalStore(StoreService):
+    """Write-ahead wrapper around an inner :class:`SqliteStore`."""
+
+    def __init__(
+        self, inner, dir_path: Optional[str] = None, *,
+        flush_ms: float = 2.0, flush_bytes: int = 1 << 20,
+        segment_bytes: int = 64 << 20, sync: str = "fsync",
+        checkpoint_ms: float = 1000.0, memtable_bytes: int = 64 << 20,
+        tier_keep_segments: int = 0,
+        compact_streams: bool = False, metrics: Optional[Metrics] = None,
+    ) -> None:
+        if sync not in ("fsync", "os"):
+            raise ValueError(f"bad wal sync mode {sync!r}")
+        self._inner = inner
+        self.path = getattr(inner, "path", None)
+        self.dir = dir_path or (str(self.path) + ".wal")
+        self.flush_ms = float(flush_ms)
+        self.flush_bytes = int(flush_bytes)
+        self.segment_bytes = int(segment_bytes)
+        self.sync_mode = sync
+        self.checkpoint_ms = float(checkpoint_ms)
+        self.memtable_bytes = int(memtable_bytes)
+        self.tier_keep = int(tier_keep_segments)
+        self.compact_streams = bool(compact_streams)
+        self.metrics = metrics if metrics is not None else Metrics()
+        self.tier = StreamTier(os.path.join(self.dir, "tier"))
+
+        # -- log state (event-loop side) --
+        self._lsn = 0            # last appended LSN
+        self._buf: list[bytes] = []
+        self._buf_bytes = 0
+        self._buf_last_lsn = 0
+        self._buf_traces: list = []
+        self._durable_lsn = 0    # last LSN on stable storage
+        self._resolved_lsn = 0   # last LSN whose commit was attempted
+        self._checkpoint_lsn = 0
+        # barrier waiters: (target_lsn, future, intervals|None)
+        self._waiters: list = []
+        # commit-failure attribution: (lo, hi] LSN ranges that never hit disk
+        self._failed: list[tuple[int, int]] = []
+        self._failed_floor = 0
+        self._reported_lsn = 0   # consume-once watermark for flush(None)
+        self._errors = 0
+        self._closed = False
+        self._wake = asyncio.Event()
+        self._writer: Optional[SegmentWriter] = None
+        # sealed but not yet checkpoint-truncated: (first, last, path, size)
+        self._sealed: list[tuple[int, int, str, int]] = []
+        self._sealed_bytes = 0
+        self._executor = ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="wal")
+        self._loop: Optional[asyncio.AbstractEventLoop] = None
+        self._commit_task: Optional[asyncio.Task] = None
+        self._checkpoint_task: Optional[asyncio.Task] = None
+        # -- memtable (event-loop side) --
+        # ops appended but not yet handed to the inner index, in program
+        # order, plus a two-generation overlay of recent message blobs:
+        # the current generation mirrors _pending, the previous one is
+        # already in the inner FIFO but kept hot for one more drain
+        # interval so backlog hydration stays a dict hit
+        self._pending: list = []
+        self._pending_bytes = 0
+        self._mem_msgs: dict = {}   # msg_id -> StoredMessage | None (dead)
+        self._mem_prev: dict = {}
+        self._drain_task: Optional[asyncio.Task] = None
+        self._drain_kicked = False
+        # per-queue constant payload chunk for the row fast paths
+        # (vhost, queue) -> encoded string pair; rebuilt from scratch if
+        # it ever outgrows a sane queue count
+        self._qprefix: dict = {}
+        # blob held back from insert_message_nowait so the queue-log row
+        # that immediately follows (push_local -> queue.push) fuses with
+        # it into one insert_published record; every other observation
+        # point flushes it first (see _flush_stash)
+        self._stash = None
+        # open transaction scope: while not None, _ingest diverts every
+        # (op, args) here instead of framing it, and tx_seal() folds the
+        # lot into ONE tx_batch record (see tx_begin)
+        self._tx_buf: Optional[list] = None
+        # stream maintenance bookkeeping
+        self._compact_flag: dict[tuple[str, str], bool] = {}
+        self._compacted_thru: dict[tuple[str, str], int] = {}
+        self.recovered_records = 0
+
+    @property
+    def memtable_pending_bytes(self) -> int:
+        """Accounted-memory gauge for the flow ladder: bytes staged in the
+        memtable awaiting the next index drain (Broker._flow_tick polls
+        this once per sweep)."""
+        return self._pending_bytes
+
+    def __getattr__(self, name):
+        # anything WalStore doesn't reimplement (diagnostics such as
+        # ``synchronous``/``_submit``, the cluster_kv helpers) falls
+        # through to the index store
+        inner = self.__dict__.get("_inner")
+        if inner is None:
+            raise AttributeError(name)
+        return getattr(inner, name)
+
+    # -- health aggregation -------------------------------------------------
+
+    @property
+    def error_count(self) -> int:
+        """Own commit/checkpoint failures + the inner store's background
+        write failures — telemetry readiness reads one number."""
+        return self._errors + int(getattr(self._inner, "error_count", 0))
+
+    def _fire_done(self, task) -> None:
+        # base class assigns self.error_count (here a read-only property)
+        self._fired_tasks.discard(task)
+        if not task.cancelled() and task.exception():
+            self._errors += 1
+            log.error("background store write failed: %r", task.exception())
+
+    # -- append + barriers --------------------------------------------------
+
+    def _append(self, op: str, args: tuple) -> int:
+        if self._stash is not None:
+            self._flush_stash()
+        if self._closed:
+            raise RuntimeError("wal is closed")
+        t0 = time.perf_counter_ns()
+        lsn = self._lsn + 1
+        frame = encode_record(lsn, OP_INDEX[op], args)
+        self._ingest(lsn, op, args, frame)
+        act = trace.ACTIVE
+        if act is not None:
+            tr = act.current
+            if tr is not None:
+                tr.span(trace.WAL_APPEND, t0, time.perf_counter_ns(),
+                        act.node)
+                if len(self._buf_traces) < _TRACE_CAP:
+                    self._buf_traces.append(tr)
+        prof = profile.ACTIVE
+        if prof is not None:
+            # reuses the span's existing t0 stamp: one extra stamp + two
+            # array adds per append on the durable path only
+            prof.stage_ns[profile.WAL_APPEND] += (
+                time.perf_counter_ns() - t0)
+            prof.stage_calls[profile.WAL_APPEND] += 1
+        return lsn
+
+    def _ingest(self, lsn: int, op: str, args: tuple, frame: bytes) -> None:
+        """Shared append bookkeeping once a frame's bytes exist: stage for
+        the commit loop, stage for the memtable drain, count, wake."""
+        if self._tx_buf is not None:
+            # open transaction scope: the op joins the scope buffer and its
+            # individually framed bytes are discarded — tx_seal() re-frames
+            # the whole scope as one atomic tx_batch record. The memtable is
+            # NOT staged here either, so an aborted scope leaves no trace
+            # (the scope is synchronous: no read can interleave mid-scope).
+            self._tx_buf.append((op, args))
+            return
+        self._lsn = lsn
+        self._buf.append(frame)
+        n = len(frame)
+        self._buf_bytes += n
+        self._buf_last_lsn = lsn
+        self._pending.append((op, args))
+        self._pending_bytes += n
+        if (self._pending_bytes >= self.memtable_bytes
+                and not self._drain_kicked and self._loop is not None):
+            # memtable overgrew between checkpoints: drain early so RAM
+            # stays bounded by ~2 generations of memtable-bytes
+            self._drain_kicked = True
+            self._fire(self._drain())
+        m = self.metrics
+        m.wal_appends += 1
+        m.wal_append_bytes += n
+        if not self._wake.is_set():
+            self._wake.set()
+
+    def mark(self) -> int:
+        """LSN of the last appended record — callers capture windows around
+        their appends and pass (before, after] intervals to flush()."""
+        if self._stash is not None:
+            self._flush_stash()
+        return self._lsn
+
+    def _failed_overlap(self, lo: int, hi: int) -> bool:
+        """Does the (lo, hi] window touch a failed-commit LSN range?"""
+        if lo < self._failed_floor:
+            return True  # conservative: range details were dropped
+        for flo, fhi in reversed(self._failed):
+            if flo < hi and fhi > lo:
+                return True
+        return False
+
+    def _covered_failure(self, target: int, intervals) -> bool:
+        if intervals is None:
+            lo = self._reported_lsn
+            if target > self._reported_lsn:
+                self._reported_lsn = target
+            return self._failed_overlap(lo, target)
+        return any(self._failed_overlap(a, b) for a, b in intervals)
+
+    def _barrier(self, target: int, intervals):
+        loop = self._loop or asyncio.get_running_loop()
+        fut: asyncio.Future = loop.create_future()
+        if self._resolved_lsn >= target:
+            if self._covered_failure(target, intervals):
+                fut.set_exception(RuntimeError(
+                    "wal commit failed under this durability barrier"))
+            else:
+                fut.set_result(None)
+            return fut
+        self._waiters.append((target, fut, intervals))
+        if not self._wake.is_set():
+            self._wake.set()
+        return fut
+
+    def flush(self, intervals=None):
+        """Durability barrier at the WAL commit boundary.
+
+        Attributed form (publisher confirms, push replies): resolves when
+        every LSN inside the caller's windows is fsync-durable, raising iff
+        a failed commit overlaps them.  Global form (shutdown, tests) also
+        barriers the inner store so index-write failures surface."""
+        if intervals is not None:
+            if not intervals:
+                loop = self._loop or asyncio.get_running_loop()
+                fut: asyncio.Future = loop.create_future()
+                fut.set_result(None)
+                return fut
+            return self._barrier(max(hi for _, hi in intervals), intervals)
+        if self._stash is not None:
+            self._flush_stash()
+        target = self._lsn
+
+        async def wait() -> None:
+            await self._barrier(target, None)
+            await self._settle()
+            await self._inner.flush()
+
+        return wait()
+
+    def _resolve_waiters(self) -> None:
+        if not self._waiters:
+            return
+        keep = []
+        for target, fut, intervals in self._waiters:
+            if target > self._resolved_lsn:
+                keep.append((target, fut, intervals))
+            elif not fut.cancelled():
+                if self._covered_failure(target, intervals):
+                    fut.set_exception(RuntimeError(
+                        "wal commit failed under this durability barrier"))
+                else:
+                    fut.set_result(None)
+        self._waiters = keep
+
+    # -- memtable drain -------------------------------------------------------
+
+    def _forward(self, ops: list) -> None:
+        """Hand ops to the inner store in program order.  The inner FIFO
+        enqueues synchronously, so any read submitted afterwards sees
+        them; awaited-form inner calls are fired — failures land in
+        error_count and the next checkpoint's inner.flush() raises on
+        them before the checkpoint LSN can advance."""
+        inner = self._inner
+        fire = self._fire
+        for name, args in ops:
+            if name == "insert_message":
+                inner.insert_message_nowait(args[0])
+            elif name == "insert_queue_msg":
+                inner.insert_queue_msg_nowait(*args)
+            elif name == "insert_published":
+                inner.insert_message_nowait(args[0])
+                inner.insert_queue_msg_nowait(
+                    args[1], args[2], args[3], args[0].id, args[4], args[5])
+            elif name == "insert_queue_unacks":
+                inner.insert_queue_unacks_nowait(*args)
+            elif name == "worker_id_floor":
+                fire(inner.worker_id_floor(args[0]))
+            else:
+                fire(getattr(inner, name)(*args))
+
+    async def _settle(self) -> None:
+        """Read barrier: every appended op becomes visible to the inner
+        FIFO before the caller's read enqueues behind it.  Cheap when the
+        memtable is empty (the overlay absorbs the hot hydration reads,
+        so this mostly runs for control-plane and recovery reads)."""
+        while self._drain_task is not None:
+            try:
+                await asyncio.shield(self._drain_task)
+            except Exception:
+                pass  # the drain's creator observed and counted it
+        if self._stash is not None:
+            self._flush_stash()
+        if self._pending:
+            ops = self._pending
+            self._pending = []
+            self._pending_bytes = 0
+            self._mem_prev.update(self._mem_msgs)
+            self._mem_msgs = {}
+            self._forward(ops)
+
+    async def _drain(self) -> None:
+        """Full drain with coalescing — the checkpoint-path form."""
+        while self._drain_task is not None:
+            try:
+                await asyncio.shield(self._drain_task)
+            except Exception:
+                pass
+        if not self._pending:
+            return
+        self._drain_task = asyncio.ensure_future(self._drain_run())
+        try:
+            await self._drain_task
+        finally:
+            self._drain_task = None
+
+    async def _drain_run(self) -> None:
+        self._drain_kicked = False
+        if self._stash is not None:
+            self._flush_stash()
+        ops = self._pending
+        self._pending = []
+        self._pending_bytes = 0
+        # rotate the overlay: the outgoing generation keeps serving reads
+        # for one more interval (its rows reach the inner FIFO below, but
+        # a dict hit beats the executor round trip); the one before ages out
+        self._mem_prev = self._mem_msgs
+        self._mem_msgs = {}
+        if len(ops) >= _COALESCE_INLINE:
+            loop = self._loop or asyncio.get_running_loop()
+            net, elided = await loop.run_in_executor(None, _coalesce_ops, ops)
+        else:
+            net, elided = _coalesce_ops(ops)
+        self._forward(net)
+        m = self.metrics
+        m.wal_memtable_drains += 1
+        m.wal_memtable_elided += elided
+
+    def _mem_get(self, msg_id):
+        gen = self._mem_msgs
+        if msg_id in gen:
+            return gen[msg_id], True
+        gen = self._mem_prev
+        if msg_id in gen:
+            return gen[msg_id], True
+        return None, False
+
+    # -- commit loop ---------------------------------------------------------
+
+    async def _commit_loop(self) -> None:
+        try:
+            while not self._closed:
+                await self._wake.wait()
+                self._wake.clear()
+                if self._closed:
+                    return
+                if not self._buf:
+                    if self._stash is None:
+                        self._resolve_waiters()
+                        continue
+                    self._flush_stash()
+                # group window: let concurrent channels pile into the batch
+                # unless the byte cap says the batch is already worth a trip
+                if self._buf_bytes < self.flush_bytes and self.flush_ms > 0:
+                    await asyncio.sleep(self.flush_ms / 1000.0)
+                await self._commit_once()
+        except asyncio.CancelledError:
+            pass
+
+    async def _commit_once(self) -> None:
+        if self._stash is not None:
+            self._flush_stash()
+        frames = self._buf
+        if not frames:
+            self._resolve_waiters()
+            return
+        self._buf = []
+        self._buf_bytes = 0
+        traces = self._buf_traces
+        self._buf_traces = []
+        target = self._buf_last_lsn
+        data = b"".join(frames)
+        writer = self._writer
+        fsync = self.sync_mode == "fsync"
+        seg_cap = self.segment_bytes
+
+        def job() -> Optional[SegmentWriter]:
+            writer.append(data, target)
+            writer.sync(fsync)
+            if writer.size >= seg_cap:
+                return writer.roll(fsync)
+            return None
+
+        loop = self._loop or asyncio.get_running_loop()
+        t0 = time.perf_counter_ns()
+        try:
+            rolled = await loop.run_in_executor(self._executor, job)
+        except Exception as exc:
+            lo = self._resolved_lsn
+            self._resolved_lsn = target
+            self._failed.append((lo, target))
+            if len(self._failed) > _FAILED_CAP:
+                _, hi = self._failed.pop(0)
+                self._failed_floor = max(self._failed_floor, hi)
+            self._errors += 1
+            self.metrics.wal_commit_errors += 1
+            log.error("wal commit failed (lsn %d..%d): %r",
+                      lo + 1, target, exc)
+            self._resolve_waiters()
+            return
+        t1 = time.perf_counter_ns()
+        self._durable_lsn = target
+        self._resolved_lsn = target
+        m = self.metrics
+        m.wal_commits += 1
+        if fsync:
+            m.wal_fsyncs += 1
+        m.wal_commit_us.observe_us((t1 - t0) / 1000.0)
+        if rolled is not None:
+            self._sealed.append(
+                (writer.first_lsn, writer.last_lsn, writer.path, writer.size))
+            self._sealed_bytes += writer.size
+            self._writer = rolled
+            m.wal_segments_sealed += 1
+        if traces:
+            act = trace.ACTIVE
+            node = act.node if act is not None else "local"
+            for tr in traces:
+                tr.span(trace.WAL_COMMIT, t0, t1, node)
+        prof = profile.ACTIVE
+        if prof is not None:
+            # commit wall time is executor-side fsync work; one call per
+            # batch commit, so ns/calls reads as µs per commit batch
+            prof.stage_ns[profile.WAL_COMMIT] += t1 - t0
+            prof.stage_calls[profile.WAL_COMMIT] += 1
+        self._resolve_waiters()
+
+    # -- checkpoint + segment truncation -------------------------------------
+
+    async def _checkpoint_loop(self) -> None:
+        try:
+            while not self._closed:
+                await asyncio.sleep(self.checkpoint_ms / 1000.0)
+                if self._closed:
+                    return
+                try:
+                    await self._checkpoint_once()
+                except Exception as exc:
+                    self._errors += 1
+                    self.metrics.wal_checkpoint_errors += 1
+                    log.error("wal checkpoint failed: %r", exc)
+                try:
+                    await self._maintain_streams()
+                except Exception as exc:
+                    self._errors += 1
+                    log.error("wal stream maintenance failed: %r", exc)
+        except asyncio.CancelledError:
+            pass
+
+    async def _checkpoint_once(self) -> None:
+        target = self._lsn
+        if target == self._checkpoint_lsn and not self._sealed:
+            return
+        # drain the memtable (coalesced — churn that lived and died inside
+        # the interval never reaches SQLite), then barrier the inner store:
+        # after this the index durably covers every LSN <= target...
+        await self._drain()
+        await self._inner.flush()
+        await self._inner.put_kv(CHECKPOINT_KEY, target)
+        if self.sync_mode == "fsync":
+            # ...and this makes it POWER-durable: under synchronous=NORMAL
+            # SQLite only fsyncs at wal_checkpoint, so without it a power
+            # cut after segment truncation could lose acknowledged data
+            await self._inner.checkpoint_sync()
+        self._checkpoint_lsn = target
+        self.metrics.wal_checkpoints += 1
+        drop = [s for s in self._sealed if s[1] <= target]
+        if not drop:
+            return
+        self._sealed = [s for s in self._sealed if s[1] > target]
+        loop = self._loop or asyncio.get_running_loop()
+
+        def unlink() -> None:
+            for _first, _last, path, _size in drop:
+                try:
+                    os.unlink(path)
+                except OSError:
+                    pass
+            fsync_dir(self.dir)
+
+        await loop.run_in_executor(self._executor, unlink)
+        for _first, _last, _path, size in drop:
+            self._sealed_bytes -= size
+        self.metrics.wal_segments_truncated += len(drop)
+
+    # -- recovery -------------------------------------------------------------
+
+    async def _recover(self) -> None:
+        loop = self._loop
+        checkpoint = await self._inner.get_kv(CHECKPOINT_KEY) or 0
+        self._checkpoint_lsn = checkpoint
+        segs = list_segments(self.dir)
+        m = self.metrics
+        last_lsn = checkpoint
+        replayed = 0
+        pending: list = []
+        stop = False
+        for i, (_first, path) in enumerate(segs):
+            payloads, good, status = await loop.run_in_executor(
+                self._executor, read_segment, path)
+            if status == "corrupt" or (status == "torn"
+                                       and i != len(segs) - 1):
+                # mid-log damage: ordering below it is untrusted — stop
+                # replay here and quarantine this + every later segment
+                m.wal_recover_corrupt += 1
+                log.error("wal segment %s is corrupt; replay stops here "
+                          "(%d record(s) salvaged)", path, len(payloads))
+                stop = True
+            elif status == "torn":
+                # crash cut the final append: drop the tail, keep the rest
+                m.wal_recover_torn += 1
+                log.warning("wal segment %s has a torn tail; truncating "
+                            "at %d bytes", path, good)
+                await loop.run_in_executor(
+                    self._executor, truncate_segment, path, good)
+            for payload in payloads:
+                try:
+                    lsn, op, args = decode_payload(payload)
+                except WalCodecError as exc:
+                    m.wal_recover_corrupt += 1
+                    log.error("wal record decode failed in %s: %r", path, exc)
+                    stop = True
+                    break
+                if lsn > last_lsn:
+                    if op < len(_REPLAY_OPS):
+                        pending.append(_REPLAY_OPS[op](self._inner, args))
+                        replayed += 1
+                    last_lsn = lsn
+                if len(pending) >= 1000:
+                    await asyncio.gather(*pending)
+                    pending = []
+            if stop:
+                for _flsn, later in segs[i:]:
+                    quarantine(later)
+                break
+        if pending:
+            await asyncio.gather(*pending)
+        self._lsn = last_lsn
+        self.recovered_records = replayed
+        m.wal_recovered_records += replayed
+        if replayed or segs:
+            # re-checkpoint so the replayed tail is in the index and the
+            # old segments can go; recovery is idempotent if we die here
+            await self._inner.flush()
+            await self._inner.put_kv(CHECKPOINT_KEY, last_lsn)
+            if self.sync_mode == "fsync":
+                await self._inner.checkpoint_sync()
+            self._checkpoint_lsn = last_lsn
+
+            def cleanup() -> None:
+                for _flsn, path in segs:
+                    if os.path.exists(path):
+                        os.unlink(path)
+                fsync_dir(self.dir)
+
+            if not stop:
+                await loop.run_in_executor(self._executor, cleanup)
+        self._durable_lsn = last_lsn
+        self._resolved_lsn = last_lsn
+        self._reported_lsn = last_lsn
+        if replayed:
+            log.info("wal recovery replayed %d record(s) over checkpoint %d",
+                     replayed, checkpoint)
+
+    # -- lifecycle ------------------------------------------------------------
+
+    async def open(self) -> None:
+        self._loop = asyncio.get_running_loop()
+        await self._inner.open()
+        await self._loop.run_in_executor(self._executor, ensure_dir, self.dir)
+        await self._recover()
+        self._writer = await self._loop.run_in_executor(
+            self._executor, SegmentWriter, self.dir, self._lsn + 1)
+        await self._loop.run_in_executor(None, self.tier.scan)
+        self._commit_task = asyncio.ensure_future(self._commit_loop())
+        self._checkpoint_task = asyncio.ensure_future(self._checkpoint_loop())
+
+    async def close(self) -> None:
+        if self._closed:
+            await self._inner.close()
+            return
+        self._closed = True
+        for task in (self._commit_task, self._checkpoint_task):
+            if task is not None:
+                task.cancel()
+                try:
+                    await task
+                except (asyncio.CancelledError, Exception):
+                    pass
+        self._commit_task = self._checkpoint_task = None
+        if self._writer is not None:
+            await self._commit_once()  # land whatever the window held
+            try:
+                await self._checkpoint_once()
+            except Exception:
+                pass
+            writer = self._writer
+            self._writer = None
+            loop = asyncio.get_running_loop()
+            fsync = self.sync_mode == "fsync"
+            fully_checkpointed = self._checkpoint_lsn >= self._lsn
+
+            def finish() -> None:
+                writer.close(fsync)
+                if fully_checkpointed:
+                    # clean shutdown: the index covers the whole log, the
+                    # active segment carries nothing recovery would replay
+                    try:
+                        os.unlink(writer.path)
+                    except OSError:
+                        pass
+                    fsync_dir(self.dir)
+
+            await loop.run_in_executor(self._executor, finish)
+        self._resolve_waiters()
+        self._executor.shutdown(wait=False)
+        await self._inner.close()
+
+    async def approx_data_bytes(self) -> Optional[int]:
+        base = await self._inner.approx_data_bytes()
+        wal = self._sealed_bytes + (
+            self._writer.size if self._writer is not None else 0)
+        return (base or 0) + wal + self.tier.data_bytes
+
+    # -- memtable plumbing ---------------------------------------------------
+
+    def _through(self, name: str, *args):
+        """Journal an awaited-form write: the WAL frame is the durable
+        copy, the memtable carries it to the index at the next drain, and
+        the returned barrier resolves (or raises) at the fsync covering
+        this record — same attribution contract the nowait paths get via
+        flush(intervals)."""
+        lsn = self._append(name, args)
+        return self._barrier(lsn, [(lsn - 1, lsn)])
+
+    # -- transaction scope (Tx.Commit atomicity) ----------------------------
+    #
+    # A group-commit batch is one fsync but MANY frames: scan_frames
+    # truncates at the first torn frame, so a SIGKILL mid-write can leave a
+    # durable prefix of a multi-record transaction — partial commit on
+    # replay.  The scope closes that hole: between tx_begin() and tx_seal()
+    # every append diverts into a buffer and the seal frames the lot as one
+    # tx_batch record (one CRC — fully durable or fully torn).  The scope
+    # MUST stay synchronous (no awaits between begin and seal): reads,
+    # drains, checkpoints and the commit loop all assume they never observe
+    # a half-open scope, which a single event-loop turn guarantees.
+
+    def tx_begin(self) -> None:
+        """Open an atomic append scope. Raises if one is already open."""
+        if self._tx_buf is not None:
+            raise RuntimeError("wal transaction scope already open")
+        if self._stash is not None:
+            self._flush_stash()
+        self._tx_buf = []
+
+    def tx_abort(self) -> None:
+        """Drop an open scope: nothing was framed, staged or forwarded —
+        the WAL and memtable look as if the scope never opened."""
+        if self._tx_buf is None:
+            return
+        if self._stash is not None:
+            self._flush_stash()  # diverted into the buffer being dropped
+        self._tx_buf = None
+
+    def tx_seal(self) -> int:
+        """Close the scope: frame every diverted op as ONE tx_batch record,
+        stage the sub-ops in the memtable, and return the record's LSN
+        (== mark(); callers barrier on flush([(mark0, lsn)]))."""
+        if self._stash is not None:
+            self._flush_stash()
+        ops, self._tx_buf = self._tx_buf, None
+        if not ops:
+            return self._lsn
+        lsn = self._lsn + 1
+        sub = [(OP_INDEX[name], args) for name, args in ops]
+        frame = encode_record(lsn, OP_INDEX["tx_batch"], (sub,))
+        self._lsn = lsn
+        self._buf.append(frame)
+        n = len(frame)
+        self._buf_bytes += n
+        self._buf_last_lsn = lsn
+        self._pending.extend(ops)
+        self._pending_bytes += n
+        if (self._pending_bytes >= self.memtable_bytes
+                and not self._drain_kicked and self._loop is not None):
+            self._drain_kicked = True
+            self._fire(self._drain())
+        m = self.metrics
+        m.wal_appends += 1
+        m.wal_append_bytes += n
+        m.wal_tx_batches += 1
+        m.wal_tx_batch_ops += len(ops)
+        if not self._wake.is_set():
+            self._wake.set()
+        return lsn
+
+    # fire-and-forget hot path: append only, no future machinery — the
+    # memtable overlay keeps the blob readable until the drain lands it.
+    # insert_message_nowait holds the blob back (stash): the queue-log
+    # row that follows in the same synchronous block fuses with it into
+    # ONE insert_published record, so the common persistent publish
+    # frames and CRCs once.  Fast paths use the hand-rolled frame
+    # builders; tracing or an unprovable shape falls back to _append,
+    # which also owns the wal-append span.
+    def _flush_stash(self) -> None:
+        """Journal a held-back blob as a plain insert_message record.
+
+        Must run before anything observes the log position or the
+        pending-op list: _append (any other op), mark(), flush(), commit
+        gather, memtable drains/settles, and close all call this first.
+        """
+        stash, self._stash = self._stash, None
+        if stash is None:
+            return
+        frame = encode_insert_message(self._lsn + 1, stash)
+        if frame is None:
+            frame = encode_record(
+                self._lsn + 1, OP_INDEX["insert_message"], (stash,))
+        self._ingest(self._lsn + 1, "insert_message", (stash,), frame)
+
+    def _vq_prefix(self, vhost: str, queue: str) -> bytes:
+        vq = self._qprefix.get((vhost, queue))
+        if vq is None:
+            if len(self._qprefix) >= 4096:
+                self._qprefix.clear()
+            vq = queue_prefix(vhost, queue)
+            self._qprefix[(vhost, queue)] = vq
+        return vq
+
+    def insert_message_nowait(self, msg) -> None:
+        if self._stash is not None:
+            self._flush_stash()
+        if trace.ACTIVE is None and not self._closed:
+            self._stash = msg
+            self._mem_msgs[msg.id] = msg
+            if not self._wake.is_set():
+                self._wake.set()  # the commit gather flushes the stash
+            return
+        self._append("insert_message", (msg,))
+        self._mem_msgs[msg.id] = msg
+
+    def insert_queue_msg_nowait(self, vhost, queue, offset, msg_id,
+                                body_size, expire_at_ms) -> None:
+        stash = self._stash
+        if stash is not None and stash.id == msg_id:
+            self._stash = None
+            if (trace.ACTIVE is None and not self._closed
+                    and type(vhost) is str and type(queue) is str):
+                frame = encode_insert_published(
+                    self._lsn + 1, stash, self._vq_prefix(vhost, queue),
+                    offset, body_size, expire_at_ms)
+                if frame is not None:
+                    self._ingest(self._lsn + 1, "insert_published",
+                                 (stash, vhost, queue, offset, body_size,
+                                  expire_at_ms), frame)
+                    return
+            self._append("insert_message", (stash,))
+            self._append("insert_queue_msg",
+                         (vhost, queue, offset, msg_id, body_size,
+                          expire_at_ms))
+            return
+        if stash is not None:
+            self._flush_stash()
+        if (trace.ACTIVE is None and not self._closed
+                and type(vhost) is str and type(queue) is str):
+            frame = encode_insert_queue_msg(
+                self._lsn + 1, self._vq_prefix(vhost, queue), offset,
+                msg_id, body_size, expire_at_ms)
+            if frame is not None:
+                self._ingest(self._lsn + 1, "insert_queue_msg",
+                             (vhost, queue, offset, msg_id, body_size,
+                              expire_at_ms), frame)
+                return
+        self._append("insert_queue_msg",
+                     (vhost, queue, offset, msg_id, body_size, expire_at_ms))
+
+    def insert_queue_unacks_nowait(self, vhost, queue, unacks) -> None:
+        unacks = [tuple(u) for u in unacks]
+        self._append("insert_queue_unacks", (vhost, queue, unacks))
+
+    # -- messages --
+
+    def insert_message(self, msg):
+        self._mem_msgs[msg.id] = msg
+        return self._through("insert_message", msg)
+
+    async def select_message(self, msg_id):
+        val, hit = self._mem_get(msg_id)
+        if hit:
+            self.metrics.wal_memtable_hits += 1
+            return val
+        await self._settle()
+        return await self._inner.select_message(msg_id)
+
+    async def select_messages(self, msg_ids):
+        out = {}
+        for mid in msg_ids:
+            val, hit = self._mem_get(mid)
+            if not hit:
+                # one cold id sends the whole batch to the index (after a
+                # settle it covers the overlay's rows too — no merge needed)
+                await self._settle()
+                return await self._inner.select_messages(list(msg_ids))
+            if val is not None:
+                out[mid] = val
+        self.metrics.wal_memtable_hits += len(out)
+        return out
+
+    async def select_message_metas(self, msg_ids):
+        await self._settle()
+        return await self._inner.select_message_metas(msg_ids)
+
+    def delete_message(self, msg_id):
+        self._mem_msgs[msg_id] = None
+        return self._through("delete_message", msg_id)
+
+    def delete_messages(self, msg_ids):
+        ids = list(msg_ids)
+        mem = self._mem_msgs
+        for mid in ids:
+            mem[mid] = None
+        return self._through("delete_messages", ids)
+
+    def update_message_refer_count(self, msg_id, count):
+        val, hit = self._mem_get(msg_id)
+        if hit and val is not None:
+            self._mem_msgs[msg_id] = dc_replace(val, refer_count=count)
+        return self._through("update_message_refer_count", msg_id, count)
+
+    # -- queue meta + log --
+
+    def insert_queue_meta(self, q):
+        return self._through("insert_queue_meta", q)
+
+    async def select_queue(self, vhost, name):
+        await self._settle()
+        return await self._inner.select_queue(vhost, name)
+
+    async def all_queues(self, vhost=None):
+        await self._settle()
+        return await self._inner.all_queues(vhost)
+
+    def insert_queue_msg(self, vhost, queue, offset, msg_id, body_size,
+                         expire_at_ms):
+        return self._through("insert_queue_msg", vhost, queue, offset,
+                             msg_id, body_size, expire_at_ms)
+
+    def delete_queue_msg(self, vhost, queue, offset):
+        return self._through("delete_queue_msg", vhost, queue, offset)
+
+    async def iter_queue_msgs(self, vhost, queue, after_offset, limit):
+        await self._settle()
+        return await self._inner.iter_queue_msgs(
+            vhost, queue, after_offset, limit)
+
+    def replace_queue_msgs(self, vhost, queue, msgs):
+        return self._through("replace_queue_msgs", vhost, queue,
+                             [tuple(m) for m in msgs])
+
+    def replace_queue_unacks(self, vhost, queue, unacks):
+        return self._through("replace_queue_unacks", vhost, queue,
+                             [tuple(u) for u in unacks])
+
+    def update_queue_last_consumed(self, vhost, queue, last_consumed):
+        return self._through("update_queue_last_consumed", vhost, queue,
+                             last_consumed)
+
+    def insert_queue_unacks(self, vhost, queue, unacks):
+        return self._through("insert_queue_unacks", vhost, queue,
+                             [tuple(u) for u in unacks])
+
+    def delete_queue_msgs_offsets(self, vhost, queue, offsets):
+        return self._through("delete_queue_msgs_offsets", vhost, queue,
+                             list(offsets))
+
+    def delete_queue_unacks(self, vhost, queue, msg_ids):
+        return self._through("delete_queue_unacks", vhost, queue,
+                             list(msg_ids))
+
+    def archive_queue(self, vhost, queue):
+        return self._through("archive_queue", vhost, queue)
+
+    def delete_queue(self, vhost, queue):
+        self._compact_flag.pop((vhost, queue), None)
+        return self._through("delete_queue", vhost, queue)
+
+    def purge_queue_msgs(self, vhost, queue):
+        return self._through("purge_queue_msgs", vhost, queue)
+
+    # -- streams --
+
+    def insert_stream_segment(self, vhost, queue, base_offset, last_offset,
+                              first_ts_ms, last_ts_ms, size_bytes, blob):
+        return self._through(
+            "insert_stream_segment", vhost, queue, base_offset, last_offset,
+            first_ts_ms, last_ts_ms, size_bytes, blob)
+
+    async def select_stream_segment(self, vhost, queue, base_offset):
+        await self._settle()
+        blob = await self._inner.select_stream_segment(
+            vhost, queue, base_offset)
+        if blob is None:
+            # index row may live on with its bytes offloaded to the tier
+            loop = self._loop or asyncio.get_running_loop()
+            blob = await loop.run_in_executor(
+                None, self.tier.read, vhost, queue, base_offset)
+            if blob is not None:
+                self.metrics.wal_tier_rehydrations += 1
+        return blob
+
+    async def stream_segment_metas(self, vhost, queue):
+        await self._settle()
+        return await self._inner.stream_segment_metas(vhost, queue)
+
+    def delete_stream_segments(self, vhost, queue, base_offsets):
+        base_offsets = list(base_offsets)
+        self.tier.forget(vhost, queue, base_offsets)
+        return self._through(
+            "delete_stream_segments", vhost, queue, base_offsets)
+
+    def update_stream_cursor(self, vhost, queue, name, committed_offset):
+        return self._through("update_stream_cursor", vhost, queue, name,
+                             committed_offset)
+
+    async def select_stream_cursors(self, vhost, queue):
+        await self._settle()
+        return await self._inner.select_stream_cursors(vhost, queue)
+
+    def delete_stream_data(self, vhost, queue):
+        self._compact_flag.pop((vhost, queue), None)
+        self._compacted_thru.pop((vhost, queue), None)
+        self.tier.forget_queue(vhost, queue)
+        return self._through("delete_stream_data", vhost, queue)
+
+    # -- exchanges + binds --
+
+    def insert_exchange(self, ex):
+        return self._through("insert_exchange", ex)
+
+    async def select_exchange(self, vhost, name):
+        await self._settle()
+        return await self._inner.select_exchange(vhost, name)
+
+    async def all_exchanges(self, vhost=None):
+        await self._settle()
+        return await self._inner.all_exchanges(vhost)
+
+    def delete_exchange(self, vhost, name):
+        return self._through("delete_exchange", vhost, name)
+
+    def insert_bind(self, vhost, exchange, queue, routing_key, arguments):
+        return self._through("insert_bind", vhost, exchange, queue,
+                             routing_key, arguments)
+
+    def delete_bind(self, vhost, exchange, queue, routing_key):
+        return self._through("delete_bind", vhost, exchange, queue,
+                             routing_key)
+
+    def delete_queue_binds(self, vhost, queue):
+        return self._through("delete_queue_binds", vhost, queue)
+
+    def insert_exchange_bind(self, vhost, source, destination, routing_key,
+                             arguments):
+        return self._through("insert_exchange_bind", vhost, source,
+                             destination, routing_key, arguments)
+
+    def delete_exchange_bind(self, vhost, source, destination, routing_key):
+        return self._through("delete_exchange_bind", vhost, source,
+                             destination, routing_key)
+
+    def delete_exchange_binds_dest(self, vhost, destination):
+        return self._through("delete_exchange_binds_dest", vhost, destination)
+
+    # -- worker ids + vhosts --
+
+    async def allocate_worker_id(self) -> int:
+        # the id comes from the inner counter; journaling the floor makes
+        # the allocation crash-safe — replay re-raises next_worker_id so an
+        # id handed out just before SIGKILL can never be handed out again
+        wid = await self._inner.allocate_worker_id()
+        lsn = self._append("worker_id_floor", (wid,))
+        await self._barrier(lsn, [(lsn - 1, lsn)])
+        return wid
+
+    def insert_vhost(self, name, active=True):
+        return self._through("insert_vhost", name, active)
+
+    async def all_vhosts(self):
+        await self._settle()
+        return await self._inner.all_vhosts()
+
+    def delete_vhost(self, name):
+        return self._through("delete_vhost", name)
+
+    # -- stream maintenance: key compaction + tiered offload ------------------
+
+    async def _queue_compacts(self, vhost: str, queue: str) -> bool:
+        key = (vhost, queue)
+        flag = self._compact_flag.get(key)
+        if flag is None:
+            args = await self._inner.queue_arguments(vhost, queue)
+            flag = bool(args and args.get("x-stream-compact"))
+            self._compact_flag[key] = flag
+        return flag
+
+    async def _maintain_streams(self) -> None:
+        if self.tier_keep <= 0 and not self.compact_streams:
+            return
+        await self._settle()  # sealed-segment inserts may still be pending
+        index = await self._inner.stream_segment_index()
+        by_queue: dict[tuple[str, str], list] = {}
+        for vhost, queue, base, size, has_blob in index:
+            by_queue.setdefault((vhost, queue), []).append(
+                (base, size, bool(has_blob)))
+        for (vhost, queue), segs in by_queue.items():
+            segs.sort()
+            if self._closed:
+                return
+            if self.compact_streams and await self._queue_compacts(
+                    vhost, queue):
+                await self._compact_queue(vhost, queue, segs)
+            if self.tier_keep > 0:
+                await self._offload_queue(vhost, queue, segs)
+
+    async def _compact_queue(self, vhost: str, queue: str,
+                             segs: list) -> None:
+        """Newest-first key walk over the queue's hot sealed blobs; only
+        runs when a segment newer than the last pass exists (one new seal
+        re-reads the queue's hot set — bounded by the cache-sized window
+        the offloader leaves hot)."""
+        unpack_records = _stream_segment_mod().unpack_records
+        hot = [(base, size) for base, size, has_blob in segs if has_blob]
+        if not hot:
+            return
+        key = (vhost, queue)
+        if hot[-1][0] <= self._compacted_thru.get(key, -1):
+            return
+        seen: set = set()
+        for base, _size in reversed(hot):
+            blob = await self._inner.select_stream_segment(vhost, queue, base)
+            if blob is None:
+                continue
+            try:
+                records = unpack_records(blob)
+            except Exception as exc:
+                log.error("compaction skipped %s/%s seg %d: %r",
+                          vhost, queue, base, exc)
+                continue
+            kept, dropped = compact_records(records, seen)
+            if dropped:
+                new_blob, new_size = compacted_blob(kept)
+                await self._inner.replace_stream_segment_blob(
+                    vhost, queue, base, new_blob, new_size)
+                self.metrics.wal_compactions += 1
+                self.metrics.wal_compacted_records += dropped
+        self._compacted_thru[key] = hot[-1][0]
+
+    async def _offload_queue(self, vhost: str, queue: str,
+                             segs: list) -> None:
+        """Evict blob bytes of all but the newest tier-keep hot segments
+        into tier side files; the index row stays so cursors still see the
+        segment and reads rehydrate from the tier file."""
+        hot = [base for base, _size, has_blob in segs if has_blob]
+        loop = self._loop or asyncio.get_running_loop()
+        for base in hot[:-self.tier_keep] if len(hot) > self.tier_keep else []:
+            if self._closed:
+                return
+            blob = await self._inner.select_stream_segment(vhost, queue, base)
+            if blob is None:
+                continue
+            # durable order: tier file is fsynced before the SQLite blob
+            # drops, so a crash between the two leaves both copies at worst
+            await loop.run_in_executor(
+                None, self.tier.write, vhost, queue, base, blob)
+            await self._inner.evict_stream_blob(vhost, queue, base)
+            self.metrics.wal_tier_offloads += 1
+
+
+def _make_replay(name: str):
+    if name == "worker_id_floor":
+        return lambda inner, args: inner.worker_id_floor(args[0])
+    if name == "tx_batch":
+        def replay_tx(inner, args):
+            # args = ([(op_index, sub_args), ...],): apply every sub-op —
+            # the record is one frame, so recovery sees all of them or
+            # none (the all-or-nothing contract Tx.Commit rides on).
+            # _REPLAY_OPS resolves late: it exists by the time any replay
+            # runs, and a tx_batch never nests another tx_batch.
+            return asyncio.gather(*[
+                _REPLAY_OPS[op](inner, sub_args)
+                for op, sub_args in args[0] if op < len(_REPLAY_OPS)])
+        return replay_tx
+    if name == "insert_published":
+        def replay_published(inner, args):
+            msg, vhost, queue, offset, body_size, expire_at_ms = args
+            return asyncio.gather(
+                inner.insert_message(msg),
+                inner.insert_queue_msg(vhost, queue, offset, msg.id,
+                                       body_size, expire_at_ms))
+        return replay_published
+
+    def replay(inner, args, _name=name):
+        return getattr(inner, _name)(*args)
+
+    return replay
+
+
+# replay table indexed by wire op — one closure per op, no per-record getattr
+from .codec import OPS as _OPS  # noqa: E402
+
+_REPLAY_OPS = tuple(_make_replay(name) for name in _OPS)

@@ -93,7 +93,33 @@ rehearse it; any failure exits non-zero:
    at its defaults for 3 rounds: finite forecasts and losses, every
    forward replayed through the plain path, each kernel's launches those
    of the steps and forwards made;
-13. the kernels line (nine kernels), the card line, and the result line.
+13. sharded train step: ``make_sharded_train_step`` at the flagship width
+   from the [train] state (B = 16, lr 1e-3, 5 steps), (a) over NCCL with
+   one rank a card (in this process on a one-card host) and (b) as 4
+   tensor-parallel ranks sharing the first card over gloo with CUDA
+   tensors: the loss bit for bit on every rank, falling, and within one
+   bf16 step of the one-device kernel step's on the same card after 1 and
+   5 steps; the gathered trees within ``tree_limits``; replicated leaves
+   bit-equal on every rank; each kernel launched as often as a sharded
+   step launches it; every kernel call of each rank's first step (its
+   inputs copied before the call) replayed through the wrapper and its
+   plain version at the kernel's own limits, at that rank's shapes (one
+   head of 64 and 256 w1 columns at tp = 4); host-clock ms a step, one
+   traced step's device split and host ops, and one tp all-reduce's host
+   time;
+14. durable node: a port node from ``BrokerServer.from_config`` in a child
+   process, every ``chana.mq.wal.*`` key at its default (fsync, flush-ms
+   2), its router on the card, the main path's tables (512 topic patterns
+   and 512 headers bindings over 4,096 queues, all durable); 4 publishers
+   with confirms send 50,000 persistent 256 B messages (a third of the
+   main path's stream, at its topic : headers mix); after the last confirm
+   the node is SIGKILLed, a new node starts from the same directory and
+   every queue is consumed: every confirmed message in every queue it was
+   routed to, exactly once, in publish order per publisher, with its body,
+   against a host oracle; confirmed msg/s, the card's busy share of the
+   publish window (traced in the node), the WAL's commits and their µs,
+   records replayed and the time from the restart to the first delivery;
+15. the kernels line (nine kernels), the card line, and the result line.
 
 Without a card, or without the repository beside it, it exits non-zero and
 prints no result.
@@ -920,6 +946,7 @@ def _recording(fn, calls: list):
 
 # the CUDA kernels behind a wrapper whose kernels are not "<name>_kernel"
 KERNEL_SYMBOLS = {"clip_momentum_sgd": ("sumsq_kernel", "momentum_sgd_kernel"),
+                  "sum_of_squares": ("sumsq_kernel",),
                   "causal_attention_bwd": ("causal_attention_bwd_stats_kernel",
                                            "causal_attention_bwd_kernel")}
 
@@ -1116,15 +1143,15 @@ def _library_call(name: str, args):
 
 
 def hold_forecaster(name: str, args, *, timed: bool = True,
-                    iters: int = 100) -> dict:
-    """One forecaster kernel call through its wrapper and its plain version
-    on the same inputs, within ``forecaster_limit``, and the bound; with
-    ``timed``, on a card, also the kernel's device time, the wrapper's
-    per-call time, and the plain version's and the library call's device
-    times."""
+                    iters: int = 100, kern=None) -> dict:
+    """One forecaster kernel call through its wrapper (``kern``, else the
+    wrapper named ``name``) and its plain version on the same inputs,
+    within ``forecaster_limit``, and the bound; with ``timed``, on a card,
+    also the kernel's device time, the wrapper's per-call time, and the
+    plain version's and the library call's device times."""
     from chanamq_tpu_torch.kernels import forecaster as fk
 
-    kern = getattr(fk, name)
+    kern = kern or getattr(fk, name)
     ref = getattr(fk, f"{name}_ref")
     got = kern(*args)
     want = ref(*args)
@@ -1235,8 +1262,9 @@ GEMM_MARKERS = ("gemm", "nvjet", "xmma", "cutlass")
 def device_split(fn, names) -> dict:
     """One call of ``fn`` (after a warm-up call) traced with
     ``torch.profiler``: the device time and launches of the matrix
-    products (cuBLAS), of the port's kernels ``names``, and of the rest
-    (elementwise ops, casts, reductions, copies), in us."""
+    products (cuBLAS), of the port's kernels ``names``, of NCCL's
+    collectives, and of the rest (elementwise ops, casts, reductions,
+    copies), in us."""
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(
@@ -1244,7 +1272,7 @@ def device_split(fn, names) -> dict:
         fn()
         torch.cuda.synchronize()
     out = {k: {"launches": 0, "us": 0.0}
-           for k in ("products", "port_kernels", "other")}
+           for k in ("products", "port_kernels", "collectives", "other")}
     out["other"]["fills"] = 0  # of them torch's fills (zeros, zero_)
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
@@ -1255,6 +1283,8 @@ def device_split(fn, names) -> dict:
             kind = "port_kernels"
         elif any(m in low for m in GEMM_MARKERS):
             kind = "products"
+        elif "nccl" in low:
+            kind = "collectives"
         else:
             kind = "other"
             out[kind]["fills"] += "fill" in low
@@ -2174,10 +2204,772 @@ def log_trace(tag: str, res: dict) -> None:
             "and idle share not measured")
 
 
+# -- 13. sharded train step -------------------------------------------------------
+
+
+SHARDED_STEPS = 5
+SHARDED_LR = 1e-3
+# (b): tensor-parallel ranks sharing one card, over gloo
+SHARDED_TP = 4
+# the sharded step's loss within one bf16 step (2^-8 relative) of the
+# one-device step's: tp ranks round a row-split product's partial sums
+# once more (tests/test_torch_parallel.py)
+SHARDED_LOSS_RTOL = 2.0 ** -8
+SHARDED_KERNELS = FORECASTER_KERNELS + TRAIN_KERNELS[:3] + (
+    "sum_of_squares", "momentum_sgd")
+
+
+def sharded_per_step(cfg) -> dict:
+    """Each kernel's launches in one sharded step: a one-device step's
+    forward and backward, and the update as two sums of squares (sharded
+    and replicated leaves) and one update."""
+    per = train_per_step(cfg)
+    del per["clip_momentum_sgd"]
+    return {**per, "sum_of_squares": 2, "momentum_sgd": 1}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_processes(target, world: int, args: tuple, *, start: str = "spawn",
+                  preload: tuple = (), timeout_s: float = 300.0) -> list:
+    """``target(rank, *args, results)`` in ``world`` processes made by the
+    ``start`` method (``preload``: the modules a forkserver imports
+    first); each puts ``(rank, result)`` on ``results``. Returns the
+    results by rank; raises if a process exits non-zero or the lot has
+    not reported and exited within ``timeout_s``, and kills what still
+    runs."""
+    import queue
+
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context(start)
+    if preload:
+        ctx.set_forkserver_preload(list(preload))
+    results = ctx.Queue()
+    procs = [ctx.Process(target=target, args=(r, *args, results))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    got: dict = {}
+    deadline = time.monotonic() + timeout_s
+    try:
+        while len(got) < world:
+            dead = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
+            if dead or time.monotonic() > deadline:
+                raise AssertionError(f"ranks failed (exit codes {dead}) or "
+                                     f"did not report in {timeout_s} s")
+            try:
+                rank, result = results.get(timeout=0.5)
+                got[rank] = result
+            except queue.Empty:
+                pass
+        for p in procs:
+            p.join(timeout=max(1.0, deadline - time.monotonic()))
+            if p.exitcode != 0:
+                raise AssertionError(f"a rank did not exit cleanly: exit "
+                                     f"code {p.exitcode}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+    return [got[r] for r in range(world)]
+
+
+# the forecaster wrappers a train step's forward and backward call (in
+# training the forward attention keeps its row statistics)
+STEP_WRAPPERS = ("layernorm", "causal_attention_with_stats", "gelu_tanh",
+                 "layernorm_bwd", "causal_attention_bwd", "gelu_tanh_bwd")
+
+
+def _copied(args) -> tuple:
+    """``args`` with every tensor, also in a list, copied."""
+    def one(a):
+        if isinstance(a, torch.Tensor):
+            return a.detach().clone()
+        if isinstance(a, (list, tuple)):
+            return [one(x) for x in a]
+        return a
+    return tuple(one(a) for a in args)
+
+
+def _keeping(fn, calls: list):
+    """``fn`` that also keeps a copy of every call's arguments in
+    ``calls``, made before the call (the update and the attention
+    backward write into their inputs)."""
+    def wrapper(*args):
+        calls.append(_copied(args))
+        return fn(*args)
+    return wrapper
+
+
+def hold_step_call(wrapper: str, args) -> dict:
+    """One recorded train-step kernel call through its wrapper and its
+    plain version on the same inputs, at the limits of the kernel's own
+    phase ([fc-kernels], [fc-train-kernels]); the split update's sum of
+    squares within ``SCALE_RTOL`` of the plain sum, its update as
+    ``hold_train_kernel`` holds the whole one: the scale within
+    ``SCALE_RTOL``, and at the kernel's scale every value bit for bit."""
+    from chanamq_tpu_torch.kernels import forecaster as fk
+    from chanamq_tpu_torch.kernels import update as upd
+
+    if wrapper in FORECASTER_KERNELS:
+        return hold_forecaster(wrapper, args, timed=False)
+    if wrapper == "causal_attention_with_stats":
+        return hold_forecaster(
+            "causal_attention", args, timed=False,
+            kern=lambda qkv, heads: fk.causal_attention_with_stats(
+                qkv, heads)[0])
+    if wrapper in TRAIN_KERNELS:
+        return hold_train_kernel(wrapper, args, timed=False)
+    if wrapper == "sum_of_squares":
+        grads, out = args
+        got = float(upd.sum_of_squares(grads, torch.empty_like(out)))
+        want = float(upd.sum_of_squares_ref(grads))
+        err, limit = abs(got - want), SCALE_RTOL * want
+        shape = f"{len(grads)} tensors, {sum(g.numel() for g in grads)} values"
+        if not err <= limit:
+            raise AssertionError(f"sum_of_squares [{shape}]: {got}, plain "
+                                 f"{want}")
+        return {"shape": shape, "max_abs_err": err, "limit": limit}
+    params, momentum, grads, lr, sq, clip = args
+    shape = f"{len(params)} tensors, {sum(p.numel() for p in params)} values"
+    p_k, m_k = _copied((params, momentum))
+    s_k = upd.momentum_sgd(p_k, m_k, grads, lr, sq, clip)
+    s_r = upd.momentum_sgd_ref(*_copied((params, momentum)), grads, lr, sq,
+                               clip)
+    p_r, m_r = _copied((params, momentum))
+    upd.momentum_sgd_ref(p_r, m_r, grads, lr, sq, clip, scale=s_k)
+    err = max(_max_err(a, b) for a, b in zip(p_k + m_k, p_r + m_r))
+    s_err = abs(float(s_k) - float(s_r)) / float(s_r)
+    if err != 0.0 or not s_err <= SCALE_RTOL:
+        raise AssertionError(f"momentum_sgd [{shape}]: differs by {err} at "
+                             f"the kernel's scale, scale {float(s_k)} vs "
+                             f"{float(s_r)}")
+    return {"shape": shape, "max_abs_err": err, "limit": 0.0,
+            "scale_rel_err": s_err}
+
+
+def hold_step_calls(calls: dict) -> dict:
+    """Every recorded call (``{wrapper: [args, ...]}``) held by
+    ``hold_step_call``; by kernel name, its calls, their shapes and the
+    largest error and ratio of error to limit."""
+    out: dict = {}
+    for wrapper, recorded in calls.items():
+        name = ("causal_attention" if wrapper == "causal_attention_with_stats"
+                else wrapper)
+        row = out.setdefault(name, {"calls": 0, "shapes": {},
+                                    "max_abs_err": 0.0, "of_limit": 0.0})
+        for args in recorded:
+            r = hold_step_call(wrapper, args)
+            row["calls"] += 1
+            row["shapes"][r["shape"]] = row["shapes"].get(r["shape"], 0) + 1
+            row["max_abs_err"] = max(row["max_abs_err"], r["max_abs_err"])
+            if r["limit"]:
+                row["of_limit"] = max(row["of_limit"],
+                                      r["max_abs_err"] / r["limit"])
+    return out
+
+
+def _digest(t: torch.Tensor) -> str:
+    import hashlib
+
+    return hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()
+
+
+def sharded_rank(rank: int, world: int, tp: int | None, init: str,
+                 backend: str, devices: list, seed: int, batch: int,
+                 steps: int, cfg_kwargs: dict | None = None,
+                 results=None) -> dict:
+    """Rank ``rank`` (on ``devices[rank]``) of ``make_sharded_train_step``
+    from ``init_params(seed, cfg)`` on ``synthetic_batch`` (the [train]
+    state): ``steps`` steps, each rank's losses, launches and leaf
+    digests; on rank 0 also the one-device kernel step from the same state
+    on the same card, and after each step the gathered trees held to
+    ``tree_limits`` (kept at step 1 and the last). The first step goes
+    through the same wrappers with each kernel call's inputs kept, and
+    every kept call is replayed by ``hold_step_calls`` after the run. On a
+    card also the host-clock ms a step and one traced step's device split.
+    Puts ``(rank, result)`` on ``results`` if given (a rank of its own
+    process, which then runs torch on one host thread: its host work is
+    launches, and ranks sharing a host must not crowd each other out)."""
+    import contextlib
+
+    import torch.distributed as dist
+
+    from chanamq_tpu_torch.kernels import forecaster as fk
+    from chanamq_tpu_torch.kernels import update as upd
+    from chanamq_tpu_torch.models.forecaster import (
+        ForecasterConfig, init_momentum, init_params, make_train_step,
+        set_matmul_precision, synthetic_batch)
+    from chanamq_tpu_torch.parallel import mesh as pm
+
+    dev = torch.device(devices[rank])
+    if results is not None:
+        torch.set_num_threads(1)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        set_matmul_precision()
+    cfg = ForecasterConfig(**(cfg_kwargs or {}))
+    full = init_params(seed, cfg, dev)
+    data = synthetic_batch(np.random.default_rng(seed), cfg, batch, dev)
+    one = []
+    if rank == 0:
+        p1 = {k: v.clone() for k, v in full.items()}
+        m1 = init_momentum(p1)
+        step1 = make_train_step(cfg, lr=SHARDED_LR)
+        for _ in range(steps):
+            _, _, loss = step1(p1, m1, data)
+            one.append((float(loss), {k: v.clone() for k, v in p1.items()},
+                        {k: v.clone() for k, v in m1.items()}))
+    dist.init_process_group(backend, init_method=init, world_size=world,
+                            rank=rank)
+    try:
+        mesh = pm.make_mesh(world, tp, backend=backend, device=dev)
+        params, part = pm.place(mesh, full, data)
+        momentum = pm.place_params(mesh, init_momentum(full))
+        step = pm.make_sharded_train_step(mesh, cfg, lr=SHARDED_LR)
+        # the first step: the same step through the same wrappers, each
+        # call's inputs kept (the update's through its ops, the forward's
+        # and backward's where the autograd Functions look them up)
+        calls: dict = {}
+        kept = pm.make_sharded_train_step(
+            mesh, cfg, lr=SHARDED_LR, ops=fk.KERNELS._replace(**{
+                name: _keeping(getattr(upd, name),
+                               calls.setdefault(name, []))
+                for name in ("sum_of_squares", "momentum_sgd")}))
+
+        @contextlib.contextmanager
+        def keeping():
+            # a wrapper counts its launches on the module's name for it,
+            # so the stand-in carries the count and hands it back
+            real = {name: getattr(fk, name) for name in STEP_WRAPPERS}
+            stand_in = {name: _keeping(fn, calls.setdefault(name, []))
+                        for name, fn in real.items()}
+            for name, fn in real.items():
+                if hasattr(fn, "launches"):
+                    stand_in[name].launches = fn.launches
+                setattr(fk, name, stand_in[name])
+            try:
+                yield
+            finally:
+                for name, fn in real.items():
+                    setattr(fk, name, fn)
+                    if hasattr(fn, "launches"):
+                        fn.launches = stand_in[name].launches
+
+        counted = {**counted_wrappers(), "sum_of_squares": upd.sum_of_squares,
+                   "momentum_sgd": upd.momentum_sgd}
+        for wrapper in counted.values():
+            wrapper.launches = 0
+        losses, seconds, checked, dm_sum = [], [], {}, {}
+        for n in range(1, steps + 1):
+            t0 = time.perf_counter()
+            if n == 1:
+                with keeping():
+                    _, _, loss = kept(params, momentum, part)
+            else:
+                _, _, loss = step(params, momentum, part)
+            losses.append(float(loss))  # waits for the step
+            seconds.append(time.perf_counter() - t0)
+            got_p = pm.gather_params(mesh, params)
+            got_m = pm.gather_params(mesh, momentum)
+            if one:
+                trees = tree_limits(got_p, one[n - 1][1], got_m,
+                                    one[n - 1][2], SHARDED_LR, dm_sum, n)
+                if n in (1, steps):
+                    checked[n] = trees
+        out = {"rank": rank, "device": str(dev), "shape": mesh.shape,
+               "tp_index": mesh.tp_index,
+               "losses": losses, "one_device_losses": [o[0] for o in one],
+               "trees": checked,
+               "launches": {k: w.launches for k, w in counted.items()},
+               "digests": {k: _digest(v) for k, v in params.items()},
+               "step_ms": _ms_stats(seconds)}
+        if dev.type == "cuda":
+            out["host_ms"] = _host_ms(lambda: step(params, momentum, part), 5)
+            out["traced"] = device_split(
+                lambda: step(params, momentum, part), SHARDED_KERNELS)
+            # where a step's host time goes: the ops of most host time in
+            # one step, and one tp all-reduce of an activation alone
+            out["host_ops"] = host_ops(lambda: step(params, momentum, part))
+            act = torch.ones(batch // mesh.dp * cfg.seq_len, cfg.d_model,
+                             device=dev)
+            out["all_reduce_us"] = 1e3 * _host_ms(
+                lambda: dist.all_reduce(act, group=mesh.tp_group), 20)
+            if one:
+                out["one_device_host_ops"] = host_ops(
+                    lambda: step1(p1, m1, data))
+    finally:
+        dist.destroy_process_group()
+    # after the counts were read: these launches are not the path's
+    out["replay"] = hold_step_calls(calls)
+    if results is not None:
+        results.put((rank, out))
+    return out
+
+
+def host_ops(fn, top: int = 8) -> list:
+    """The ``top`` ops of most host time (self, µs) in one synchronized
+    call of ``fn``, traced on the CPU: ``[(name, calls, us), ...]``."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    return [(e.key, e.count, round(e.self_cpu_time_total, 1))
+            for e in rows[:top]]
+
+
+def run_ranks(world: int, tp: int | None, backend: str, devices: list,
+              seed: int, batch: int, steps: int,
+              cfg_kwargs: dict | None = None,
+              timeout_s: float = 300.0) -> list:
+    """``sharded_rank`` on ``world`` ranks (``tp`` of them a tensor-
+    parallel group; None: the reference's rule), rank r on ``devices[r]``: in
+    this process for one rank, else in spawned processes
+    (``run_processes``). The results by rank."""
+    init = f"tcp://127.0.0.1:{_free_port()}"
+    args = (world, tp, init, backend, devices, seed, batch, steps, cfg_kwargs)
+    if world == 1:
+        return [sharded_rank(0, *args)]
+    return run_processes(sharded_rank, world, args, timeout_s=timeout_s)
+
+
+def check_sharded(label: str, ranks: list, cfg, steps: int) -> dict:
+    """Hold one run's ranks: the loss bit for bit on every rank, finite,
+    falling, and within ``SHARDED_LOSS_RTOL`` of the one-device step at
+    step 1 and the last (at step 1 equal to it on a mesh of one rank);
+    rank 0's gathered trees within ``tree_limits``;
+    every replicated leaf bit-equal on all ranks and every shard on its dp
+    replicas; each kernel launched ``sharded_per_step`` times a step, and
+    each rank's first step replayed call by call (``hold_step_calls``,
+    which raised on an error over its limit), every kernel as often as a
+    step calls it. Returns the worst tree and loss errors."""
+    from chanamq_tpu_torch.kernels import forecaster as fk
+    from chanamq_tpu_torch.parallel.mesh import _spec_for
+
+    first = ranks[0]
+    losses = first["losses"]
+    if any(r["losses"] != losses for r in ranks):
+        raise AssertionError(f"{label}: the ranks' losses differ")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"{label}: losses {losses} not finite and "
+                             "falling")
+    loss_err = {}
+    for n in (1, steps):
+        got, want = losses[n - 1], first["one_device_losses"][n - 1]
+        loss_err[n] = abs(got - want) / abs(want)
+        if not loss_err[n] <= SHARDED_LOSS_RTOL:
+            raise AssertionError(f"{label}: loss after {n} steps {got}, "
+                                 f"one-device {want}")
+    if len(ranks) == 1 and loss_err[1] != 0.0:
+        # one rank sums nothing across ranks: its first forward is the
+        # one-device step's, bit for bit
+        raise AssertionError(f"{label}: one rank's first loss differs")
+    worst = {}
+    for n, trees in first["trees"].items():
+        for kind in ("momentum", "params"):
+            ratio, name = max((v[kind][0] / max(v[kind][1], 1e-30), k)
+                              for k, v in trees.items())
+            worst[f"{kind} after {n}"] = (name, trees[name][kind])
+            if not ratio <= 1.0:
+                raise AssertionError(f"{label}: {name} {kind} after {n} "
+                                     f"steps {trees[name][kind]} over its "
+                                     "limit")
+    for r in ranks:
+        for name, digest in r["digests"].items():
+            peers = [q for q in ranks if not _spec_for(name)
+                     or q["tp_index"] == r["tp_index"]]
+            if any(q["digests"][name] != digest for q in peers):
+                raise AssertionError(f"{label}: {name} differs between "
+                                     "ranks that must hold the same bits")
+    per_call = {"causal_attention_bwd": fk.ATT_BWD_LAUNCHES}
+    calls = {k: v // per_call.get(k, 1)
+             for k, v in sharded_per_step(cfg).items()}
+    for r in ranks:
+        got = {k: v["calls"] for k, v in r["replay"].items()}
+        if got != calls:
+            raise AssertionError(f"{label}: rank {r['rank']} replayed "
+                                 f"{got}, want {calls}")
+    want = {k: v * steps for k, v in sharded_per_step(cfg).items()}
+    for r in ranks:
+        if not r["device"].startswith("cuda"):
+            continue  # the plain versions run on the CPU: no launch
+        got = {k: r["launches"][k] for k in want}
+        if got != want or any(r["launches"][k] for k in r["launches"]
+                              if k not in want):
+            raise AssertionError(f"{label}: rank {r['rank']} launches "
+                                 f"{r['launches']}, want {want}")
+    return {"loss_rel_err": loss_err, "worst_trees": worst}
+
+
+def phase_sharded_train(runs: list, seed: int, cfg_kwargs: dict | None = None,
+                        batch: int = 16, steps: int = SHARDED_STEPS) -> dict:
+    """``make_sharded_train_step`` at ``cfg_kwargs`` (the flagship by
+    default) from the [train] state, one run per ``(label, backend,
+    devices, tp)`` of ``runs`` (one rank a device; ``tp`` None: the
+    reference's rule), each held by ``check_sharded``."""
+    from chanamq_tpu_torch.models.forecaster import ForecasterConfig
+
+    cfg = ForecasterConfig(**(cfg_kwargs or {}))
+    out = {}
+    for label, backend, devices, tp in runs:
+        t0 = time.perf_counter()
+        ranks = run_ranks(len(devices), tp, backend, devices, seed, batch,
+                          steps, cfg_kwargs)
+        out[label] = {"ranks": ranks, "seconds": time.perf_counter() - t0,
+                      "batch": batch,
+                      **check_sharded(label, ranks, cfg, steps)}
+    return out
+
+
+def log_sharded(res: dict, dev: dict) -> None:
+    for label, run in res.items():
+        r0 = run["ranks"][0]
+        per_rank = [{"rank": r["rank"],
+                     "host_ms": r.get("host_ms"),
+                     "step_ms": r["step_ms"]["median"] if r["step_ms"]["n"]
+                     else r["step_ms"]["first"],
+                     "all_reduce_us": r.get("all_reduce_us"),
+                     "traced": r.get("traced")} for r in run["ranks"]]
+        for name in r0["replay"]:
+            rows = [r["replay"][name] for r in run["ranks"]]
+            shapes = sorted({s for row in rows for s in row["shapes"]})
+            log(f"[sharded-replay] {label}: {name}: {rows[0]['calls']} calls "
+                f"of the first step on each of {len(rows)} ranks replayed "
+                f"against the plain version at shapes {shapes}; largest "
+                f"error {max(row['max_abs_err'] for row in rows):.6g}, "
+                f"{max(row['of_limit'] for row in rows):.4g} of its limit")
+        log(f"[sharded-train] {label}: mesh {r0['shape']}, "
+            f"{len(run['ranks'])} ranks, {len(r0['losses'])} steps at "
+            f"batch {run['batch']}; losses {[round(v, 6) for v in r0['losses']]}, "
+            f"one-device {[round(v, 6) for v in r0['one_device_losses']]}, "
+            f"relative loss error {run['loss_rel_err']}; closest to its "
+            f"limit {run['worst_trees']}; launches a rank {r0['launches']}; "
+            f"replicated leaves bit-equal on every rank; per rank (host-"
+            f"clock ms a step, median of the checked steps, one traced step "
+            f"on the card, host-clock us of one tp all-reduce of a "
+            f"[B*T, d_model] float32 activation) {per_rank}; rank 0's ops "
+            f"of most host time (name, calls, self us) in a sharded step "
+            f"{r0.get('host_ops')}, in a one-device step "
+            f"{r0.get('one_device_host_ops')}; phase {run['seconds']:.1f} s; "
+            f"card {dev['smi']}")
+
+
+# -- 14. durable node ---------------------------------------------------------------
+
+
+# persistent messages through a durable port node at the WAL's defaults;
+# the same topic : headers mix and tables as the main path
+DURABLE_TOPIC = 33_336
+DURABLE_HEADERS = 16_664
+
+
+def durable_node(port: int, db: str, device: str, state: str,
+                 make_server=None) -> None:
+    """A port node from ``BrokerServer.from_config`` on 127.0.0.1:``port``
+    with its store at ``db`` and every ``chana.mq.wal.*`` key at its
+    default (fsync, flush-ms 2), its router on ``device``; serves until
+    killed (``make_server(settings)``, given, builds the server from the
+    same settings instead). It writes JSON files into the directory
+    ``state``:
+    ``ready.json`` once it listens (records its WAL replayed, seconds to
+    start, its store's classes); after SIGUSR1 a ``torch.profiler`` trace
+    of the card runs (``tracing.json``), and SIGUSR2 stops it
+    (``trace.json``: the card's busy time and the router kernels, the
+    WAL's commits and their µs, the router's batches)."""
+    import signal
+
+    t0 = time.perf_counter()
+    settings = {"amqp.interface": "127.0.0.1", "amqp.port": port,
+                "store.path": db, "router.device": device}
+    if make_server is None:
+        from chanamq_tpu_torch.broker.server import BrokerServer
+        from chanamq_tpu_torch.config import Config
+
+        server = BrokerServer.from_config(Config(settings, env={}))
+    else:
+        server = make_server(settings)
+    store = server.broker.store
+    trace = None
+    if device.startswith("cuda"):
+        trace = torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA])
+
+    def dump(name: str, obj) -> None:
+        path = os.path.join(state, name)
+        with open(path + ".tmp", "w") as f:
+            json.dump(obj, f)
+        os.replace(path + ".tmp", path)
+
+    def start_trace() -> None:
+        if trace is not None:
+            trace.start()
+        dump("tracing.json", {})
+
+    def stop_trace() -> None:
+        if trace is not None:
+            trace.stop()
+        m, bm = store.metrics, server.broker.metrics
+        dump("trace.json", {
+            "trace": device_busy(trace) if trace is not None else None,
+            "wal": {"commits": m.wal_commits, "fsyncs": m.wal_fsyncs,
+                    "appends": m.wal_appends,
+                    "commit_us_mean": m.wal_commit_us.mean_us,
+                    "commit_us_p50": m.wal_commit_us.percentile_us(0.5),
+                    "commit_us_p99": m.wal_commit_us.percentile_us(0.99),
+                    "commit_errors": m.wal_commit_errors},
+            "router": {"batches": bm.router_batches,
+                       "batch_msgs": bm.router_batch_msgs,
+                       "fallback_msgs": bm.router_fallback_msgs}})
+
+    async def run() -> None:
+        loop = asyncio.get_running_loop()
+        loop.add_signal_handler(signal.SIGUSR1, start_trace)
+        loop.add_signal_handler(signal.SIGUSR2, stop_trace)
+        await server.start()
+        dump("ready.json", {
+            "recovered_records": store.recovered_records,
+            "start_s": time.perf_counter() - t0,
+            "store": type(store).__name__,
+            "inner": type(store._inner).__name__})
+        await asyncio.Event().wait()
+
+    asyncio.run(run())
+
+
+async def _wait_file(path: str, proc, timeout_s: float) -> dict:
+    deadline = time.monotonic() + timeout_s
+    while not os.path.exists(path):
+        if proc.poll() is not None:
+            raise AssertionError(f"durable node exited ({proc.returncode})")
+        if time.monotonic() > deadline:
+            raise AssertionError(f"durable node: no {os.path.basename(path)}"
+                                 f" in {timeout_s} s")
+        await asyncio.sleep(0.01)
+    with open(path) as f:
+        return json.load(f)
+
+
+def _start_node(port: int, db: str, device: str, state: str):
+    os.makedirs(state)
+    here = os.path.dirname(os.path.abspath(__file__))
+    return subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--durable-node",
+         str(port), db, device, state], cwd=here)
+
+
+async def _durable_run(wl: Workload, device: str, tmp: str, window: int,
+                       node_timeout_s: float, start_node=None) -> dict:
+    import signal
+
+    from chanamq_tpu_torch.amqp.properties import BasicProperties
+    from chanamq_tpu_torch.client import AMQPClient
+
+    start_node = start_node or _start_node
+    db = os.path.join(tmp, "node.db")
+    port = _free_port()
+    persistent = BasicProperties(delivery_mode=2)
+    header_props = [BasicProperties(headers=p.headers, delivery_mode=2)
+                    for p in wl.header_props]
+    nodes = []
+    try:
+        nodes.append(start_node(port, db, device, os.path.join(tmp, "a")))
+        ready = await _wait_file(os.path.join(tmp, "a", "ready.json"),
+                                 nodes[0], node_timeout_s)
+        if (ready["store"], ready["inner"]) != ("WalStore", "SqliteStore"):
+            raise AssertionError(f"durable node store {ready}")
+        setup = await AMQPClient.connect("127.0.0.1", port, heartbeat=0)
+        ch = await setup.channel()
+        await ch.exchange_declare("durable.topic", "topic", durable=True)
+        await ch.exchange_declare("durable.headers", "headers", durable=True)
+        for q in wl.queues:
+            await ch.queue_declare(q, durable=True)
+        for pat, q in wl.topic_bindings:
+            await ch.queue_bind(q, "durable.topic", pat)
+        for q, args in wl.headers_bindings:
+            await ch.queue_bind(q, "durable.headers", "", arguments=args)
+        await setup.close()
+
+        async def publish(p: int) -> None:
+            c = await AMQPClient.connect("127.0.0.1", port, heartbeat=0)
+            pch = await c.channel()
+            await pch.confirm_select()
+            for i, (kind, x) in enumerate(wl.streams[p]):
+                if kind == "t":
+                    pch.basic_publish(wl.body(p, i), exchange="durable.topic",
+                                      routing_key=x, properties=persistent)
+                else:
+                    pch.basic_publish(wl.body(p, i),
+                                      exchange="durable.headers",
+                                      properties=header_props[x])
+                if len(pch.unconfirmed) >= window:
+                    await pch.wait_unconfirmed_below(window // 2, timeout=120)
+            await pch.wait_unconfirmed_below(1, timeout=300)
+            await c.close()
+
+        nodes[0].send_signal(signal.SIGUSR1)
+        await _wait_file(os.path.join(tmp, "a", "tracing.json"), nodes[0],
+                         node_timeout_s)
+        t0 = time.perf_counter()
+        await asyncio.gather(*(publish(p) for p in range(wl.publishers)))
+        publish_s = time.perf_counter() - t0
+        nodes[0].send_signal(signal.SIGUSR2)
+        traced = await _wait_file(os.path.join(tmp, "a", "trace.json"),
+                                  nodes[0], node_timeout_s)
+        # every message is confirmed: now the crash
+        nodes[0].send_signal(signal.SIGKILL)
+        nodes[0].wait(timeout=30)
+
+        t_restart = time.perf_counter()
+        nodes.append(start_node(port, db, device, os.path.join(tmp, "b")))
+        ready_b = await _wait_file(os.path.join(tmp, "b", "ready.json"),
+                                   nodes[1], node_timeout_s)
+        ready_s = time.perf_counter() - t_restart
+        busy = [q for q in wl.queues if wl.expected[q]]
+        want_total = sum(len(wl.expected[q]) for q in busy)
+        got: dict = {q: [] for q in busy}
+        first = []
+        count = [0]
+        done = asyncio.Event()
+        cons = await AMQPClient.connect("127.0.0.1", port, heartbeat=0)
+        cch = await cons.channel()
+        for q in busy:
+            def cb(msg, _q=q) -> None:
+                if not first:
+                    first.append(time.perf_counter())
+                got[_q].append(msg)
+                count[0] += 1
+                if count[0] >= want_total:
+                    done.set()
+            await cch.basic_consume(q, cb, no_ack=True)
+        await asyncio.wait_for(done.wait(), timeout=300)
+        await asyncio.sleep(0.5)  # a duplicate would arrive now
+        drained_s = time.perf_counter() - t_restart
+        idle = [q for q in wl.queues if not wl.expected[q]]
+        stray = 0
+        for q in idle:
+            ok = await cch.queue_declare(q, durable=True, passive=True)
+            stray += ok.message_count
+        await cons.close()
+    finally:
+        for proc in nodes:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait(timeout=30)
+
+    lost = dup = reordered = altered = 0
+    for q in busy:
+        want = wl.expected[q]
+        seen = [(int(a), int(b)) for a, b in
+                (m.body.split(b":", 2)[:2] for m in got[q])]
+        dup += len(seen) - len(set(seen))
+        lost += len(set(want) - set(seen))
+        for m, (p, i) in zip(got[q], seen):
+            kind, x = wl.streams[p][i]
+            if m.body != wl.body(p, i) or m.routing_key != (
+                    x if kind == "t" else ""):
+                altered += 1
+        for p in range(wl.publishers):
+            if [i for pp, i in seen if pp == p] != [i for pp, i in want
+                                                    if pp == p]:
+                reordered += 1
+    return {"publish_s": publish_s,
+            "msgs_per_s": wl.n_messages / publish_s,
+            "deliveries": sum(len(v) for v in got.values()),
+            "expected_deliveries": want_total,
+            "lost": lost, "duplicated": dup, "reordered_streams": reordered,
+            "altered": altered, "stray": stray,
+            "restart_to_ready_s": ready_s,
+            "restart_to_first_delivery_s": first[0] - t_restart,
+            "restart_to_drained_s": drained_s,
+            "node_start_s": ready_b["start_s"],
+            "recovered_records": ready_b["recovered_records"],
+            "first_start_recovered": ready["recovered_records"],
+            "traced": traced}
+
+
+def phase_durable(device: torch.device, seed: int, *, window: int = 2048,
+                  node_timeout_s: float = 120.0, n_topic: int = DURABLE_TOPIC,
+                  n_headers: int = DURABLE_HEADERS, start_node=None,
+                  **sizes) -> dict:
+    """A durable port node in a child process (``durable_node``: WAL
+    defaults, router on ``device``) takes the main path's tables, all
+    durable, and 4 confirming publishers' persistent 256 B messages; after
+    the last confirm it is SIGKILLed and a new node starts from the same
+    directory; every queue is consumed and held to the host oracle: every
+    confirmed message in every queue it was routed to, exactly once, in
+    publish order per publisher, with its body; no message in a queue
+    that was routed none. ``start_node(port, db, device, state)``, given,
+    starts each node's process instead of ``_start_node``."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    wl = Workload(seed, n_topic=n_topic, n_headers=n_headers, **sizes)
+    built_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        res = asyncio.run(_durable_run(wl, str(device), tmp, window,
+                                       node_timeout_s, start_node))
+    res.update({"messages": wl.n_messages, "mean_fanout": wl.mean_fanout,
+                "queues": len(wl.queues), "workload_s": built_s})
+    bad = {k: res[k] for k in ("lost", "duplicated", "reordered_streams",
+                               "altered", "stray") if res[k]}
+    if bad or res["deliveries"] != res["expected_deliveries"]:
+        raise AssertionError(f"durable: {bad}, {res['deliveries']} "
+                             f"deliveries of {res['expected_deliveries']}")
+    if res["recovered_records"] <= 0:
+        raise AssertionError("durable: the restarted node replayed no WAL "
+                             "record")
+    return res
+
+
+def log_durable(res: dict, dev: dict) -> None:
+    tr = res["traced"]
+    busy = tr["trace"]
+    window_us = res["publish_s"] * 1e6
+    card = (f"busy {busy['busy_us']:.1f} us = "
+            f"{100 * busy['busy_us'] / window_us:.4f}% of the publish "
+            f"window ({busy['events']} device events; router kernels "
+            f"{busy['kernels']})" if busy and busy["events"] else
+            "busy time not measured (no device event traced)")
+    log(f"[durable] {res['messages']} persistent messages of 256 B, 4 "
+        f"publishers with confirms, {res['queues']} durable queues, mean "
+        f"fan-out {res['mean_fanout']:.3f}, WAL at its defaults (fsync, "
+        f"flush-ms 2): {res['msgs_per_s']:.1f} confirmed msg/s "
+        f"({res['publish_s']:.3f} s, host clock); the card {card}; WAL "
+        f"{tr['wal']}; router {tr['router']}; SIGKILL after the last "
+        f"confirm, restart: {res['recovered_records']} records replayed, "
+        f"node listening {res['restart_to_ready_s']:.3f} s after its "
+        f"process started ({res['node_start_s']:.3f} s of it from its "
+        f"config to listening, replay included), first delivery "
+        f"{res['restart_to_first_delivery_s']:.3f} s after the restart, "
+        f"all {res['deliveries']} deliveries in "
+        f"{res['restart_to_drained_s']:.3f} s; lost {res['lost']}, "
+        f"duplicated {res['duplicated']}, reordered streams "
+        f"{res['reordered_streams']}, altered {res['altered']}; card "
+        f"{dev['smi']}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    # the [durable] phase's node process: port, store path, device, state
+    ap.add_argument("--durable-node", nargs=4, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.durable_node:
+        port, db, device, state = args.durable_node
+        durable_node(int(port), db, device, state)
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was measured",
               file=sys.stderr)
@@ -2339,6 +3131,32 @@ def main() -> int:
                              f"{window_launches}, want {want}, loss "
                              f"{fw['loss']}")
 
+    # the sharded train step: (a) over NCCL, one rank a card; (b) tp ranks
+    # sharing the first card over gloo with CUDA tensors
+    cards = [f"cuda:{i}" for i in range(dev["count"])]
+    sharded = phase_sharded_train(
+        [("nccl", "nccl", cards, None),
+         ("gloo-tp4", "gloo", [cards[0]] * SHARDED_TP, SHARDED_TP)],
+        args.seed)
+    log_sharded(sharded, dev)
+
+    def sharded_path(name: str) -> dict:
+        """A kernel on the sharded path: rank 0's launches in each run and
+        the replay of every rank's first step."""
+        return {label: {
+            "launches": run["ranks"][0]["launches"][name],
+            "replayed_calls": sum(r["replay"][name]["calls"]
+                                  for r in run["ranks"]),
+            "shapes": sorted({s for r in run["ranks"]
+                              for s in r["replay"][name]["shapes"]}),
+            "max_abs_err": max(r["replay"][name]["max_abs_err"]
+                               for r in run["ranks"])}
+            for label, run in sharded.items()}
+
+    # a durable node at the WAL's defaults, killed after its last confirm
+    durable = phase_durable(device, args.seed)
+    log_durable(durable, dev)
+
     replaces = {"topic_match": "chanamq_tpu/router/compile.py:289",
                 "headers_match": "chanamq_tpu/router/compile.py:372",
                 "layernorm": "chanamq_tpu/models/forecaster.py:77",
@@ -2391,6 +3209,7 @@ def main() -> int:
             **({"hmma": hmma[name]} if name in hmma else {}),
             **({"long_windows": long_rows[name]} if name in long_rows
                else {}),
+            "sharded_path": sharded_path(name),
             **(floor_ms if name == "layernorm" else {})})
     for name in TRAIN_KERNELS:
         rows = train_kernels[name]
@@ -2406,6 +3225,10 @@ def main() -> int:
                else {}),
             **({"main_kernel_by_warps": bwd_warps}
                if name == "causal_attention_bwd" else {}),
+            # the update's two kernels, launched apart on the sharded path
+            "sharded_path": ({split: sharded_path(split) for split in (
+                "sum_of_squares", "momentum_sgd")}
+                if name == "clip_momentum_sgd" else sharded_path(name)),
             **(floor_ms if name == "layernorm_bwd" else {})})
     print(json.dumps({"kernels": line}))
     print(dev["smi"])

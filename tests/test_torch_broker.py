@@ -191,6 +191,25 @@ def test_chip_smoke_main_path_rehearsal():
         assert row["ops"] > 0 and row["bound_by"] in ("bytes", "operations")
 
 
+def test_chip_smoke_durable_rehearsal():
+    """chip_smoke's [durable] phase end to end on the CPU at a tiny size: a
+    node process from ``from_config`` at the WAL's defaults, confirmed
+    persistent publishes, SIGKILL, a second node replaying the WAL, every
+    queue consumed and held to the oracle, both processes gone."""
+    res = chip_smoke.phase_durable(
+        torch.device("cpu"), 0, n_queues=64, n_patterns=16, n_keys=200,
+        n_header_sets=32, n_topic=400, n_headers=200, window=128)
+    assert res["messages"] == 600
+    assert res["deliveries"] == res["expected_deliveries"] > 600
+    assert (res["lost"], res["duplicated"], res["reordered_streams"],
+            res["altered"], res["stray"]) == (0, 0, 0, 0, 0)
+    assert res["first_start_recovered"] == 0 < res["recovered_records"]
+    assert res["traced"]["trace"] is None  # the card is traced on a card
+    wal = res["traced"]["wal"]
+    assert wal["fsyncs"] == wal["commits"] > 0 and wal["commit_errors"] == 0
+    assert res["traced"]["router"]["batch_msgs"] > 0
+
+
 def test_chip_smoke_device_busy_unions_spans():
     """The traced busy time is the union of the device's spans (a copy
     overlapping a kernel counts once); host events are not device time,

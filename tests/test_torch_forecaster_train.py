@@ -449,6 +449,39 @@ def test_update_scale(clip):
     assert all(torch.equal(m, g * 0.25) for m, g in zip(m2, grads))
 
 
+@pytest.mark.parametrize("clip", [1.0, 1e6, None], ids=["active", "inactive",
+                                                        "none"])
+def test_update_split_launches(clip):
+    """The update's two launches apart, as the sharded step calls them
+    (``sum_of_squares`` into a caller's buffer, then ``momentum_sgd`` from
+    a caller's ``sq``): two lists' sums added by the caller give the whole
+    sum to float32 rounding, and the update from that ``sq`` changes the
+    same bits as ``clip_momentum_sgd_ref`` at that ``sq``'s scale. Each
+    wrapper counts no launch on the CPU."""
+    rng = np.random.default_rng(16)
+    grads = [torch.from_numpy(rng.normal(size=s).astype(np.float32))
+             for s in ((4, 5), (7,), (3, 2, 2), (6, 3))]
+    params = [torch.from_numpy(rng.normal(size=g.shape).astype(np.float32))
+              for g in grads]
+    momentum = [torch.full_like(g, 0.25) for g in grads]
+    counts = (upd.sum_of_squares.launches, upd.momentum_sgd.launches)
+    parts = [torch.empty(1), torch.empty(1)]
+    assert upd.sum_of_squares(grads[:1], parts[0]) is parts[0]
+    upd.sum_of_squares(grads[1:], parts[1])
+    sq = parts[0] + parts[1]
+    whole = float(upd.sum_of_squares_ref(grads))
+    assert float(sq) == pytest.approx(whole, rel=1e-6)
+    p1, m1 = [p.clone() for p in params], [m.clone() for m in momentum]
+    s = upd.momentum_sgd(p1, m1, grads, LR, sq, clip)
+    want_s = 1.0 if clip is None else min(1.0, clip / math.sqrt(float(sq)))
+    assert float(s) == pytest.approx(want_s, rel=1e-6)
+    p2, m2 = [p.clone() for p in params], [m.clone() for m in momentum]
+    upd.clip_momentum_sgd_ref(p2, m2, grads, LR, clip, scale=s)
+    for a, b in zip(p1 + m1, p2 + m2):
+        assert torch.equal(a, b)
+    assert (upd.sum_of_squares.launches, upd.momentum_sgd.launches) == counts
+
+
 def test_update_refuses_off_the_cpu():
     """Tensors that are not on the CPU go to the kernel's checks, never the
     plain version."""
@@ -458,6 +491,12 @@ def test_update_refuses_off_the_cpu():
     cpu = [torch.zeros(4)]
     with pytest.raises(ValueError, match="no kernel"):
         upd.prepare_clip_momentum_sgd(cpu, cpu, cpu, LR)
+    with pytest.raises(ValueError, match="no kernel"):
+        upd.prepare_sum_of_squares(cpu, torch.zeros(1))
+    with pytest.raises(ValueError, match="no kernel"):
+        upd.prepare_momentum_sgd(cpu, cpu, cpu, LR, torch.zeros(1))
+    with pytest.raises(ValueError, match="no kernel"):
+        upd.momentum_sgd(meta, meta, meta, LR, torch.zeros(1, device="meta"))
     with pytest.raises(ValueError, match="one length"):
         upd.prepare_clip_momentum_sgd(cpu, cpu, [], LR)
 

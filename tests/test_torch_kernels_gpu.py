@@ -794,6 +794,49 @@ def test_update_kernel_without_clip(cuda):
         assert torch.equal(a, b)
 
 
+def test_update_split_launches_match_plain(cuda):
+    """The update's two launches apart, as the sharded step makes them, at
+    the flagship's 29 tensors split into its sharded and replicated
+    leaves: each sum of squares within float32 rounding of the plain one
+    (``chip_smoke.SCALE_RTOL``), one launch each, and the update from the
+    caller's ``sq`` bit for bit with the plain update at the kernel's clip
+    scale, which is the plain scale from that ``sq`` within
+    ``SCALE_RTOL``."""
+    from chanamq_tpu_torch.models.forecaster import param_shapes
+    from chanamq_tpu_torch.parallel.mesh import _spec_for
+
+    cfg = port_fc.ForecasterConfig()
+    params, momentum, grads, lr, clip = chip_smoke.train_inputs(
+        torch.Generator().manual_seed(6), cfg, 16, cuda)["clip_momentum_sgd"]
+    names = sorted(param_shapes(cfg))
+    split = [i for i, n in enumerate(names) if _spec_for(n)]
+    rest = [i for i in range(len(names)) if i not in split]
+    before = (upd.sum_of_squares.launches, upd.momentum_sgd.launches)
+    parts = []
+    for idx in (split, rest):
+        out = torch.empty(1, device=cuda)
+        upd.sum_of_squares([grads[i] for i in idx], out)
+        want = upd.sum_of_squares_ref([grads[i] for i in idx])
+        assert abs(float(out) - float(want)) <= chip_smoke.SCALE_RTOL * float(
+            want)
+        parts.append(out)
+    sq = parts[0] + parts[1]
+    p_k, m_k = [p.clone() for p in params], [m.clone() for m in momentum]
+    s_k = upd.momentum_sgd(p_k, m_k, grads, lr, sq, clip)
+    p_r, m_r = [p.clone() for p in params], [m.clone() for m in momentum]
+    s_r = upd.momentum_sgd_ref([p.clone() for p in params],
+                               [m.clone() for m in momentum], grads, lr, sq,
+                               clip)
+    upd.momentum_sgd_ref(p_r, m_r, grads, lr, sq, clip, scale=s_k)
+    torch.cuda.synchronize()
+    assert (upd.sum_of_squares.launches, upd.momentum_sgd.launches) == (
+        before[0] + 2, before[1] + 1)
+    assert abs(float(s_k) - float(s_r)) <= chip_smoke.SCALE_RTOL * float(s_r)
+    assert float(s_k) < 1.0
+    for a, b in zip(p_k + m_k, p_r + m_r):
+        assert torch.equal(a, b)
+
+
 def test_train_kernels_reject_bad_input(cuda):
     bf16 = torch.bfloat16
     x = torch.zeros(2, 64, 256, device=cuda)
