@@ -5,16 +5,18 @@ Capability parity with the reference's transport extension + process entry
 AMQPServer.scala:39-111): plain AMQP listener (5672), optional TLS listener
 (5671), per-connection protocol engine instances, clean shutdown.
 
-The port carries BrokerServer and from_config. The node entry points
-(run_node, main) compose the admin REST, shard, cluster, federation,
-telemetry, SLO, forecast, control and tenancy layers, which later slices
-port; see ROADMAP.md.
+Run standalone:  python -m chanamq_tpu_torch.broker.server [--port 5672]
+(or the ``chanamq-server-torch`` script). ``run_node`` boots a single
+node with the admin REST, tenancy, telemetry, SLO, forecaster and control
+layers. The port has no cluster, shard or federation layer yet: a config
+that asks for one is refused at boot with ``ConfigError``.
 """
 
 from __future__ import annotations
 
 import asyncio
 import logging
+import os
 import ssl
 from typing import Optional
 
@@ -338,3 +340,328 @@ class BrokerServer:
             raise ConfigError(
                 f"chana.mq.auth.permissions names unknown users: {unknown}")
         return perms
+
+
+def _refuse_unported(config) -> None:
+    """Refuse, before anything starts, a config that needs a layer the
+    port does not have yet (cluster, shard, federation), and a node
+    device (``chana.mq.router.device``, the router's and the
+    forecaster's) naming a card the host does not have. Such a node must fail at
+    boot, never come up single-node or on the CPU in silence, and never
+    fail with an ImportError half-way through boot."""
+    from ..config import ConfigError
+
+    missing = "; the port has no {} layer yet (the cluster slice)"
+    if config.bool("chana.mq.cluster.enabled"):
+        raise ConfigError("chana.mq.cluster.enabled" + missing.format(
+            "cluster/ or replicate/"))
+    if config.bool("chana.mq.federation.enabled"):
+        raise ConfigError("chana.mq.federation.enabled" + missing.format(
+            "federation/"))
+    shard_index = os.environ.get("CHANAMQ_SHARD_INDEX")
+    if shard_index is not None:
+        raise ConfigError(f"CHANAMQ_SHARD_INDEX={shard_index}"
+                          + missing.format("shard/"))
+    count = config.int("chana.mq.shard.count")
+    if count <= 0:  # 0 = one shard per core, as the reference resolves it
+        count = os.cpu_count() or 1
+    if count > 1:
+        raise ConfigError(f"chana.mq.shard.count resolves to {count}"
+                          + missing.format("shard/"))
+    kernels = (config.bool("chana.mq.router.enabled")
+               and config.str("chana.mq.router.backend") == "torch")
+    if not (kernels or config.bool("chana.mq.forecast.enabled")):
+        return
+    key = "chana.mq.router.device"
+    device = config.str(key)
+    import torch
+
+    try:
+        dev = torch.device(device)
+    except RuntimeError as exc:
+        raise ConfigError(f"{key} is {device!r}: {exc}") from None
+    if dev.type != "cuda":
+        return
+    if not torch.cuda.is_available():
+        raise ConfigError(f"{key} is {device!r} but torch sees no CUDA "
+                          "device; set it to 'cpu' to run on the host")
+    count = torch.cuda.device_count()
+    if dev.index is not None and dev.index >= count:
+        raise ConfigError(f"{key} is {device!r} but torch sees {count} "
+                          "CUDA device(s)")
+
+
+async def run_node(config) -> None:
+    """Boot a full single node: broker + AMQP(+AMQPS) listeners + admin
+    REST (the reference's AMQPServer.main composition,
+    AMQPServer.scala:39-111). SIGTERM/SIGINT trigger a graceful drain:
+    listeners close, live connections tear down (unacked requeue, store
+    buffers flush), the group-commit queue drains, then the process exits
+    0 — the analogue of the reference's JVM shutdown hooks. A second
+    signal while draining exits 130 at once."""
+    import signal as signal_module
+
+    from ..rest.admin import AdminServer
+
+    _refuse_unported(config)
+    server = BrokerServer.from_config(config)
+    if config.bool("chana.mq.log.json"):
+        # swap formatters before any traffic so every line is one JSON
+        # object stamped with node id + active trace id
+        from ..utils import logjson
+
+        logjson.install(server.broker)
+    admin = None
+    forecaster = None
+    telemetry = None
+    control = None
+    otel = None
+    started = False
+    stop_event = asyncio.Event()
+    loop = asyncio.get_running_loop()
+
+    def on_signal() -> None:
+        if stop_event.is_set():
+            # second signal while draining: the operator wants OUT now
+            os._exit(130)
+        stop_event.set()
+
+    for sig in (signal_module.SIGTERM, signal_module.SIGINT):
+        try:
+            loop.add_signal_handler(sig, on_signal)
+        except (NotImplementedError, RuntimeError, ValueError):  # pragma: no cover
+            pass  # non-unix platform or non-main thread: KeyboardInterrupt
+    try:
+        await server.start(listen=False)
+        started = True
+        # chaos wiring before any traffic: wraps the store, marks the
+        # broker chaos-capable, optionally installs a boot plan. With
+        # chana.mq.chaos.enabled unset this is a single bool check and the
+        # seams stay no-op module-attribute loads.
+        if config.bool("chana.mq.chaos.enabled"):
+            from .. import chaos as chaos_mod
+
+            chaos_mod.enable_from_config(config, server.broker)
+        # tracing next (same ACTIVE-gate idiom as chaos)
+        if config.bool("chana.mq.trace.enabled"):
+            from .. import trace as trace_mod
+
+            trace_mod.enable_from_config(config, server.broker)
+        # OTLP span exporter: hooks trace completion, so it must come
+        # after tracing is installed. Without an endpoint it still arms
+        # the bounded queue behind GET /admin/otel/spans (pull mode).
+        if config.bool("chana.mq.otel.enabled"):
+            from ..otel.export import OtelExporter
+
+            otel = OtelExporter(
+                server.broker,
+                endpoint=config.str("chana.mq.otel.endpoint"),
+                flush_ms=config.int("chana.mq.otel.flush-ms"),
+                max_batch=config.int("chana.mq.otel.max-batch"),
+                queue_size=config.int("chana.mq.otel.queue-size"))
+            await otel.start()
+            server.broker.otel = otel
+        # cost ledger + sampling profiler (third ACTIVE-gate subsystem):
+        # armed before traffic so stage counters cover the whole run
+        if config.bool("chana.mq.profile.enabled"):
+            from .. import profile as profile_mod
+
+            profile_mod.enable_from_config(config, server.broker)
+        # event bus + firehose (fourth ACTIVE-gate subsystem): installed
+        # before the listeners so every transition is observable from the
+        # first moment it can happen
+        if (config.bool("chana.mq.events.enabled")
+                or config.bool("chana.mq.firehose.enabled")):
+            from .. import events as events_mod
+
+            events_mod.enable_from_config(config, server.broker)
+        # tenant registry (fifth ACTIVE-gate subsystem): installed before
+        # the listeners open so the first handshake already authenticates
+        # against tenant user tables and lands under quota enforcement.
+        # Called unconditionally: the enable path itself fail-closes when
+        # tenants are declared while chana.mq.tenant.enabled is false.
+        from .. import tenancy as tenancy_mod
+
+        tenancy_mod.enable_from_config(config, server.broker)
+        if stop_event.is_set():
+            # signalled during boot: don't open listeners just to tear
+            # clients down
+            return
+        await server.start_listeners()
+        if config.bool("chana.mq.telemetry.enabled"):
+            # per-entity telemetry + health + alerts (telemetry/)
+            from ..telemetry import TelemetryService, default_rules
+
+            telemetry = TelemetryService(
+                server.broker,
+                interval_s=config.duration_s("chana.mq.telemetry.interval")
+                or 1.0,
+                ring_ticks=config.int("chana.mq.telemetry.ring-ticks"),
+                max_queues=config.int("chana.mq.telemetry.max-queues"),
+                max_connections=config.int(
+                    "chana.mq.telemetry.max-connections"),
+                top_k=config.int("chana.mq.telemetry.top-k"),
+                rules=default_rules(
+                    backlog_growth=float(
+                        config.int("chana.mq.alerts.backlog-growth")),
+                    backlog_window=config.int("chana.mq.alerts.backlog-window"),
+                    stall_ticks=config.int("chana.mq.alerts.stall-ticks"),
+                    repl_lag=float(config.int("chana.mq.alerts.repl-lag")),
+                    loop_lag_ms=float(
+                        config.int("chana.mq.alerts.loop-lag-ms")),
+                    memory_stage=float(
+                        config.get("chana.mq.alerts.memory-stage") or 3.5),
+                ),
+                alerts_enabled=config.bool("chana.mq.alerts.enabled"),
+                loop_lag_ready_ms=float(
+                    config.int("chana.mq.telemetry.ready-loop-lag-ms")),
+                repl_lag_ready=config.int("chana.mq.telemetry.ready-repl-lag"),
+                store_error_window=config.int(
+                    "chana.mq.telemetry.store-error-window"),
+                federation_lag_records=config.int(
+                    "chana.mq.slo.federation-lag-records"),
+            )
+            if config.bool("chana.mq.slo.enabled"):
+                # burn-rate SLOs ride the telemetry tick (slo/): specs
+                # from chana.mq.slo.* or POST /admin/slo/configure
+                from ..slo import attach_tenant_latency, engine_from_config
+
+                engine = engine_from_config(
+                    config,
+                    config.duration_s("chana.mq.telemetry.interval") or 1.0)
+                telemetry.set_slo(engine)
+                # tenant-scoped delivery-latency SLOs need their per-tenant
+                # histogram allocated before the first delivery
+                attach_tenant_latency(engine, server.broker.tenancy)
+            server.broker.telemetry = telemetry
+            await telemetry.start()
+        if config.bool("chana.mq.forecast.enabled"):
+            # live-telemetry forecaster (models/): samples metrics on the
+            # loop, trains/predicts on a worker thread on the node's
+            # device, chana.mq.router.device (checked at boot above),
+            # serves GET /admin/forecast + chanamq_forecast_* gauges
+            from ..models.service import ForecastService
+
+            forecaster = ForecastService(
+                server.broker,
+                interval_s=config.duration_s("chana.mq.forecast.interval")
+                or 1.0,
+                train_interval_s=config.duration_s(
+                    "chana.mq.forecast.train-interval") or 30.0,
+                seq_len=config.int("chana.mq.forecast.window"),
+                history=config.int("chana.mq.forecast.history"),
+                queue_top_k=(
+                    config.int("chana.mq.forecast.queue-top-k")
+                    if telemetry is not None else 0),
+                device=config.str("chana.mq.router.device"),
+            )
+            await forecaster.start()
+        if config.bool("chana.mq.control.enabled"):
+            # predictive control plane (control/): forecast/trend-driven
+            # admission pre-arm, queue rebalancing and prefetch
+            # autotuning. Boots after telemetry + forecaster (its inputs)
+            # and works degraded without either — trend-only admission
+            # against the flow ladder. Dry-run by default.
+            from ..control import ControlService
+
+            control = ControlService(
+                server.broker,
+                interval_s=config.duration_s("chana.mq.control.interval")
+                or 1.0,
+                dry_run=config.bool("chana.mq.control.dry-run"),
+                admission=config.bool("chana.mq.control.admission.enabled"),
+                rebalance=config.bool("chana.mq.control.rebalance.enabled"),
+                prefetch=config.bool("chana.mq.control.prefetch.enabled"),
+                horizon_s=config.duration_s("chana.mq.control.horizon")
+                or 5.0,
+                arm_ticks=config.int("chana.mq.control.arm-ticks"),
+                cooldown_s=config.duration_s("chana.mq.control.cooldown")
+                or 10.0,
+                rebalance_cooldown_s=config.duration_s(
+                    "chana.mq.control.rebalance.cooldown") or 30.0,
+                credit_factor=float(config.get(
+                    "chana.mq.control.admission.credit-factor") or 0.5),
+                credit_min=config.size_bytes(
+                    "chana.mq.control.admission.credit-min") or 4096,
+                rebalance_ratio=float(config.get(
+                    "chana.mq.control.rebalance.ratio") or 1.5),
+                rebalance_min_rate=float(config.size_bytes(
+                    "chana.mq.control.rebalance.min-rate") or 1024),
+                prefetch_min=config.int("chana.mq.control.prefetch.min"),
+                prefetch_max=config.int("chana.mq.control.prefetch.max"),
+                log_size=config.int("chana.mq.control.log-size"),
+                forecast_max_age_s=config.duration_s(
+                    "chana.mq.control.forecast-max-age") or 10.0,
+                forecast_error_gate=float(config.get(
+                    "chana.mq.control.forecast-error-gate") or 0.5),
+            )
+            await control.start()
+        if config.bool("chana.mq.admin.enabled"):
+            admin = AdminServer(
+                server.broker,
+                host=config.str("chana.mq.admin.interface"),
+                port=config.int("chana.mq.admin.port"),
+            )
+            await admin.start()
+        await stop_event.wait()
+        # readiness flips 503 the moment the drain starts — the admin
+        # server is still up below, so a load balancer polling
+        # /admin/health stops routing to this node before connections
+        # actually tear down
+        server.broker.draining = True
+        log.info("shutdown signal received; draining")
+    finally:
+        server.broker.draining = True
+        if admin:
+            await admin.stop()
+        if control:
+            await control.stop()
+        if telemetry:
+            await telemetry.stop()
+        if forecaster:
+            await forecaster.stop()
+        if otel:
+            await otel.stop()
+        if started:
+            await server.stop()
+
+
+def main() -> None:
+    import argparse
+
+    from ..config import Config
+
+    parser = argparse.ArgumentParser(description="chanamq-tpu AMQP broker")
+    parser.add_argument("--config", default=None, help="JSON config file")
+    parser.add_argument("--host", default=None)
+    parser.add_argument("--port", type=int, default=None)
+    parser.add_argument("--admin-port", type=int, default=None)
+    parser.add_argument("--no-admin", action="store_true")
+    parser.add_argument("--store", default=None,
+                        help="sqlite db path (default: in-memory transient)")
+    parser.add_argument("--log-level", default="INFO")
+    args = parser.parse_args()
+    logging.basicConfig(
+        level=args.log_level,
+        format="%(asctime)s %(levelname)s %(name)s %(message)s")
+
+    overrides: dict = {}
+    if args.host is not None:
+        overrides["chana.mq.amqp.interface"] = args.host
+    if args.port is not None:
+        overrides["chana.mq.amqp.port"] = args.port
+    if args.admin_port is not None:
+        overrides["chana.mq.admin.port"] = args.admin_port
+    if args.no_admin:
+        overrides["chana.mq.admin.enabled"] = False
+    if args.store is not None:
+        overrides["chana.mq.store.path"] = args.store
+    config = Config(overrides, file=args.config)
+    try:
+        asyncio.run(run_node(config))
+    except KeyboardInterrupt:
+        pass
+
+
+if __name__ == "__main__":
+    main()

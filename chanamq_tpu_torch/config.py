@@ -158,7 +158,7 @@ DEFAULTS: dict[str, Any] = {
     # None/0 disables. Sampled each sweep tick.
     "chana.mq.store.max-bytes": None,
     # telemetry forecasting (models/service.py): sample broker metrics into
-    # a ring each interval; train/predict the JAX forecaster off the event
+    # a ring each interval; train/predict the forecaster off the event
     # loop every train-interval; serve GET /admin/forecast + Prometheus
     # gauges. Off by default — enabling spins an accelerator workload.
     "chana.mq.forecast.enabled": False,
@@ -338,9 +338,12 @@ DEFAULTS: dict[str, Any] = {
     # PyTorch versions when that device is the CPU; "python" runs the
     # reference kernel body on plain numpy. Any other value is an error.
     "chana.mq.router.backend": "torch",
-    # torch.device holding the router's tables. "cuda" needs a card: with
-    # none, the first kernel batch raises rather than run on the CPU.
-    # "cpu" is for tests and hosts without a card.
+    # the node's torch.device: it holds the router's tables, and the
+    # forecaster (chana.mq.forecast.*) trains and predicts on it. "cuda"
+    # (or "cuda:N") runs the hand-written kernels and needs that card:
+    # with none, run_node refuses to boot and a Broker built directly
+    # raises at its first kernel batch rather than run on the CPU. "cpu"
+    # runs their plain versions, for tests and hosts without a card.
     "chana.mq.router.device": "cuda",
     # flushes smaller than this skip the kernel and walk the matcher —
     # below ~16 messages the per-call dispatch overhead beats the win

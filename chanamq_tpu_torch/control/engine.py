@@ -1,0 +1,324 @@
+"""Pure decision engine for the predictive control plane.
+
+The split mirrors ``chanamq_tpu_torch/models``: the engine is a deterministic
+function of one input snapshot plus its own hysteresis counters — no
+clocks, no broker references, no I/O — so the same telemetry series
+always produces the same decision log (asserted byte-for-byte in
+tests/test_control.py and by ``bench.py --control``), and any logged
+decision can be replayed from the inputs recorded alongside it.
+
+Three decision kinds, evaluated in a fixed order each tick:
+
+``admission.prearm`` / ``admission.relax``
+    When projected resident bytes (current gate total plus the horizon's
+    net inflow, from the forecaster when it is fresh and trusted, else
+    from the observed gate-growth trend) would cross the stage-2
+    watermark, pre-arm the flow ladder: pin a stage floor of THROTTLE
+    and shrink the per-connection publish credit, so Channel.Flow and
+    credit gating engage *before* the cliff instead of at it. Relax
+    reverses both once projection and gate total sit inside the stage-2
+    exit band.
+
+``rebalance.move``
+    When this node's inflow load diverges from the cluster mean by the
+    configured ratio, hand the busiest movable queue to the least-loaded
+    peer through the existing holdership machinery.
+
+``prefetch.tune``
+    Nudge the cluster consume-credit window from deliver-rate vs
+    ack-rate: shrink when consumers ack slower than they are fed (the
+    window is hiding latency), grow when acks keep pace and backlog is
+    (or is forecast to be) building.
+
+Every trigger is hysteresis-guarded: it must hold for ``arm_ticks``
+consecutive ticks and respect a per-kind cooldown; triggers blocked by
+either are counted as suppressed.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Optional
+
+from ..flow import STAGE_THROTTLE
+
+# evaluation (and decision-id) order is fixed so logs are reproducible
+KINDS = ("admission", "rebalance", "prefetch")
+
+
+@dataclass(frozen=True)
+class ControlConfig:
+    horizon_ticks: int = 5          # projection lookahead, in control ticks
+    arm_ticks: int = 2              # consecutive trigger ticks before acting
+    cooldown_ticks: int = 10        # min ticks between admission decisions
+    credit_factor: float = 0.5      # publish-credit shrink on pre-arm
+    credit_min: int = 4096
+    rebalance_ratio: float = 1.5    # self load vs cluster mean divergence
+    rebalance_min_rate: float = 1024.0   # bytes/s floor before moving queues
+    rebalance_cooldown_ticks: int = 30
+    prefetch_min: int = 8
+    prefetch_max: int = 256
+    prefetch_lag: float = 0.5       # ack_rate below this fraction of
+    prefetch_keep: float = 0.9      # deliver_rate shrinks; above this grows
+    prefetch_cooldown_ticks: int = 10
+
+
+@dataclass(frozen=True)
+class QueueInput:
+    """One queue's realized tick plus its forecast slot (when pinned)."""
+    vhost: str
+    name: str
+    depth: float
+    publish_rate: float
+    deliver_rate: float
+    ack_rate: float
+    ready_bytes: float
+    consumers: float
+    movable: bool = False
+    forecast_depth: Optional[float] = None
+
+
+@dataclass
+class ControlInputs:
+    """Snapshot of everything one evaluation reads, gathered on the
+    event loop; the engine itself runs off-loop against this copy."""
+    tick: int
+    interval_s: float
+    stage: int
+    floor: int
+    gate_total: int
+    enter_throttle: int
+    exit_throttle: int
+    net_rate: float                 # observed gate-total growth, bytes/s
+    publish_credit: int
+    forecast_net_rate: Optional[float] = None   # trusted forecast, bytes/s
+    queues: tuple = ()
+    node: str = "local"
+    self_load: float = 0.0          # inflow EWMA, bytes/s
+    peer_loads: dict = field(default_factory=dict)
+    consume_credit: Optional[int] = None
+    # a member that just joined (set by the service for a bounded window):
+    # backlog should drain onto it even when this node's load does not
+    # diverge from the cluster mean yet
+    join_target: Optional[str] = None
+
+
+def _r(value: float) -> float:
+    """Round floats entering the decision log so serialization is stable."""
+    return round(float(value), 3)
+
+
+class ControlEngine:
+    """Deterministic evaluator; owns only hysteresis state (streaks,
+    cooldowns, assumed arm/credit), all keyed on tick counters."""
+
+    def __init__(self, cfg: ControlConfig) -> None:
+        self.cfg = cfg
+        self._arm_streak = 0
+        self._relax_streak = 0
+        self._reb_streak = 0
+        # last tick a decision of each kind was emitted (cooldown anchor);
+        # dry-run still advances these so an intent is logged once per
+        # cooldown window instead of every tick
+        self._last_emit: dict[str, int] = {}
+        # engine's view of the armed state: in dry-run the real floor never
+        # moves, so track emitted intent to keep the log shape comparable
+        self._armed = False
+        self._assumed_credit: Optional[int] = None
+
+    # -- helpers -----------------------------------------------------------
+
+    def _cooled(self, kind: str, tick: int, window: int) -> bool:
+        last = self._last_emit.get(kind)
+        return last is None or tick - last >= window
+
+    def _emit(self, decisions: list, inp: ControlInputs, kind: str,
+              action: dict, inputs: dict) -> None:
+        decisions.append({
+            "id": f"d{inp.tick}.{len(decisions)}",
+            "tick": inp.tick,
+            "kind": kind,
+            "action": action,
+            "inputs": inputs,
+        })
+        self._last_emit[kind.split(".", 1)[0]] = inp.tick
+
+    # -- evaluation --------------------------------------------------------
+
+    def evaluate(self, inp: ControlInputs) -> tuple[list, int]:
+        """One control tick -> (decisions, suppressed-trigger count)."""
+        decisions: list = []
+        suppressed = 0
+        suppressed += self._admission(decisions, inp)
+        suppressed += self._rebalance(decisions, inp)
+        suppressed += self._prefetch(decisions, inp)
+        return decisions, suppressed
+
+    def _admission(self, decisions: list, inp: ControlInputs) -> int:
+        cfg = self.cfg
+        if inp.enter_throttle <= 0:
+            return 0
+        source = "trend"
+        net = inp.net_rate
+        if inp.forecast_net_rate is not None:
+            source = "forecast"
+            net = inp.forecast_net_rate
+        projected = inp.gate_total + cfg.horizon_ticks * inp.interval_s * net
+        armed = self._armed or inp.floor >= STAGE_THROTTLE
+        snap = {
+            "gate_total": inp.gate_total,
+            "projected": _r(projected),
+            "net_rate": _r(net),
+            "source": source,
+            "stage": inp.stage,
+            "enter_throttle": inp.enter_throttle,
+            "exit_throttle": inp.exit_throttle,
+        }
+        if not armed:
+            self._relax_streak = 0
+            if inp.stage < STAGE_THROTTLE and projected > inp.enter_throttle:
+                self._arm_streak += 1
+                if self._arm_streak < cfg.arm_ticks:
+                    return 0
+                if not self._cooled("admission", inp.tick, cfg.cooldown_ticks):
+                    return 1
+                credit = inp.publish_credit
+                shrunk = (max(cfg.credit_min, int(credit * cfg.credit_factor))
+                          if credit > 0 else 0)
+                self._emit(decisions, inp, "admission.prearm",
+                           {"floor": STAGE_THROTTLE,
+                            "publish_credit": shrunk}, snap)
+                self._armed = True
+                self._assumed_credit = credit
+            else:
+                self._arm_streak = 0
+            return 0
+        # armed: look for the exit band
+        self._arm_streak = 0
+        if (projected <= inp.exit_throttle
+                and inp.gate_total <= inp.exit_throttle):
+            self._relax_streak += 1
+            if self._relax_streak < cfg.arm_ticks:
+                return 0
+            if not self._cooled("admission", inp.tick, cfg.cooldown_ticks):
+                return 1
+            restore = (self._assumed_credit
+                       if self._assumed_credit is not None
+                       else inp.publish_credit)
+            self._emit(decisions, inp, "admission.relax",
+                       {"floor": 0, "publish_credit": restore}, snap)
+            self._armed = False
+            self._assumed_credit = None
+            self._relax_streak = 0
+        else:
+            self._relax_streak = 0
+        return 0
+
+    def _rebalance(self, decisions: list, inp: ControlInputs) -> int:
+        cfg = self.cfg
+        if not inp.peer_loads:
+            self._reb_streak = 0
+            return 0
+        loads = dict(inp.peer_loads)
+        loads[inp.node] = inp.self_load
+        mean = sum(loads.values()) / len(loads)
+        join = inp.join_target
+        if join is not None and join in inp.peer_loads:
+            # join-triggered rebalance: a fresh member carries nothing, so
+            # the divergence gate would sit silent until this node is
+            # already hot — seed the joiner with the busiest movable queue
+            # immediately (cooldown still applies; the service bounds the
+            # window)
+            if not self._cooled("rebalance", inp.tick,
+                                cfg.rebalance_cooldown_ticks):
+                return 1
+            movable = [q for q in inp.queues if q.movable]
+            if not movable:
+                return 1
+            queue = max(movable,
+                        key=lambda q: (q.publish_rate + q.deliver_rate,
+                                       q.vhost, q.name))
+            self._emit(decisions, inp, "rebalance.move",
+                       {"vhost": queue.vhost, "name": queue.name,
+                        "target": join, "join": True},
+                       {"self_load": _r(inp.self_load),
+                        "mean_load": _r(mean),
+                        "queue_rate": _r(queue.publish_rate
+                                         + queue.deliver_rate),
+                        "loads": {n: _r(v) for n, v in sorted(loads.items())}})
+            self._reb_streak = 0
+            return 0
+        if mean < cfg.rebalance_min_rate or \
+                inp.self_load <= cfg.rebalance_ratio * mean:
+            self._reb_streak = 0
+            return 0
+        self._reb_streak += 1
+        if self._reb_streak < cfg.arm_ticks:
+            return 0
+        if not self._cooled("rebalance", inp.tick,
+                            cfg.rebalance_cooldown_ticks):
+            return 1
+        movable = [q for q in inp.queues if q.movable]
+        if not movable:
+            return 1
+        # busiest movable queue -> least-loaded peer; name tiebreaks keep
+        # the pick deterministic when rates are equal
+        queue = max(movable, key=lambda q: (q.publish_rate + q.deliver_rate,
+                                            q.vhost, q.name))
+        target = min(inp.peer_loads.items(), key=lambda kv: (kv[1], kv[0]))[0]
+        self._emit(decisions, inp, "rebalance.move",
+                   {"vhost": queue.vhost, "name": queue.name,
+                    "target": target},
+                   {"self_load": _r(inp.self_load), "mean_load": _r(mean),
+                    "ratio": _r(cfg.rebalance_ratio),
+                    "queue_rate": _r(queue.publish_rate + queue.deliver_rate),
+                    "loads": {n: _r(v) for n, v in sorted(loads.items())}})
+        self._reb_streak = 0
+        return 0
+
+    def _prefetch(self, decisions: list, inp: ControlInputs) -> int:
+        cfg = self.cfg
+        credit = inp.consume_credit
+        if credit is None or not inp.queues:
+            return 0
+        active = [q for q in inp.queues
+                  if q.consumers > 0 and q.deliver_rate > 0.0]
+        if not active:
+            return 0
+        lagging = [q for q in active
+                   if q.ack_rate < cfg.prefetch_lag * q.deliver_rate]
+        keeping = [q for q in active
+                   if q.ack_rate >= cfg.prefetch_keep * q.deliver_rate]
+        backlog = any(
+            (q.forecast_depth if q.forecast_depth is not None else q.depth)
+            > 0 for q in active)
+        if lagging:
+            new = max(cfg.prefetch_min, credit // 2)
+            reason = "ack-lag"
+        elif keeping and backlog and not lagging:
+            new = min(cfg.prefetch_max, credit * 2)
+            reason = "backlog-headroom"
+        else:
+            return 0
+        if new == credit:
+            return 0
+        if not self._cooled("prefetch", inp.tick, cfg.prefetch_cooldown_ticks):
+            return 1
+        worst = min(active, key=lambda q: (
+            q.ack_rate / q.deliver_rate if q.deliver_rate else 1.0,
+            q.vhost, q.name))
+        self._emit(decisions, inp, "prefetch.tune",
+                   {"consume_credit": new},
+                   {"reason": reason, "current": credit,
+                    "queue": f"{worst.vhost}/{worst.name}",
+                    "deliver_rate": _r(worst.deliver_rate),
+                    "ack_rate": _r(worst.ack_rate)})
+        return 0
+
+    def snapshot(self) -> dict:
+        return {
+            "armed": self._armed,
+            "arm_streak": self._arm_streak,
+            "relax_streak": self._relax_streak,
+            "rebalance_streak": self._reb_streak,
+            "last_emit": dict(self._last_emit),
+        }

@@ -1,0 +1,1328 @@
+"""Localhost admin REST API.
+
+Capability parity with the reference's AdminApi
+(chana-mq-server .../rest/AdminApi.scala:20-61: GET /admin/vhost/put/{v} and
+/admin/vhost/delete/{v}, bound to localhost, with access logging), extended
+with the observability endpoints the reference lacked (SURVEY.md §5):
+metrics snapshot, overview, and per-queue stats.
+
+Hand-rolled HTTP/1.1 on asyncio (no third-party web framework in the image).
+Reads are GET with JSON responses (plus the text-format Prometheus scrape at
+/metrics); vhost mutations require POST.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import json
+import logging
+import time
+from typing import Optional
+from urllib.parse import parse_qs, unquote
+
+from ..broker.broker import Broker
+from ..store.api import is_replica_vhost
+
+log = logging.getLogger("chanamq.admin")
+
+
+class AdminError(Exception):
+    """An expected, client-facing request failure: carries the HTTP status
+    and a stable message. Anything else that escapes a handler is an
+    internal error — logged with traceback server-side, reported to the
+    client as an opaque 500 (raw exception text leaks paths, queue names
+    and implementation detail to anything that can reach the port)."""
+
+    def __init__(self, status: str, message: str) -> None:
+        super().__init__(message)
+        self.status = status
+        self.message = message
+
+
+class _Response:
+    """Handler return wrapper for non-200 success-path statuses (the
+    readiness probe answers 503 with a perfectly well-formed body)."""
+
+    __slots__ = ("status", "payload")
+
+    def __init__(self, status: str, payload: object) -> None:
+        self.status = status
+        self.payload = payload
+
+
+class AdminServer:
+    def __init__(
+        self, broker: Broker, host: str = "127.0.0.1", port: int = 15672
+    ) -> None:
+        self.broker = broker
+        self.host = host
+        self.port = port
+        self._server: Optional[asyncio.AbstractServer] = None
+
+    async def start(self) -> None:
+        self._server = await asyncio.start_server(self._on_client, self.host, self.port)
+        log.info("admin API on http://%s:%d/admin", self.host, self.port)
+
+    @property
+    def bound_port(self) -> int:
+        assert self._server is not None
+        return self._server.sockets[0].getsockname()[1]
+
+    async def stop(self) -> None:
+        if self._server is not None:
+            self._server.close()
+            await self._server.wait_closed()
+            self._server = None
+
+    async def _on_client(
+        self, reader: asyncio.StreamReader, writer: asyncio.StreamWriter
+    ) -> None:
+        try:
+            request_line = await asyncio.wait_for(reader.readline(), 10)
+            parts = request_line.decode("latin-1").split()
+            if len(parts) < 2:
+                return
+            method, path = parts[0], parts[1]
+            # drain headers, keeping Content-Length so POST bodies (the
+            # /admin/chaos/install plan JSON) can be read
+            content_length = 0
+            while True:
+                line = await asyncio.wait_for(reader.readline(), 10)
+                if line in (b"\r\n", b"\n", b""):
+                    break
+                name, _, value = line.decode("latin-1").partition(":")
+                if name.strip().lower() == "content-length":
+                    try:
+                        content_length = int(value.strip())
+                    except ValueError:
+                        pass
+            body = b""
+            if content_length > 0:
+                # 1 MiB cap: admin bodies are small JSON documents
+                body = await asyncio.wait_for(
+                    reader.readexactly(min(content_length, 1 << 20)), 10)
+            status, payload = await self._route(method, path, body)
+            if isinstance(payload, str):
+                # pre-rendered text body (Prometheus exposition format)
+                body = payload.encode()
+                ctype = "text/plain; version=0.0.4; charset=utf-8"
+            else:
+                body = json.dumps(payload, default=str).encode()
+                ctype = "application/json"
+            writer.write(
+                f"HTTP/1.1 {status}\r\n"
+                f"Content-Type: {ctype}\r\n"
+                f"Content-Length: {len(body)}\r\n"
+                f"Connection: close\r\n\r\n".encode() + body
+            )
+            await writer.drain()
+            log.info("%s %s -> %s", method, path, status.split()[0])
+        except (asyncio.TimeoutError, ConnectionResetError):
+            pass
+        except Exception:
+            log.exception("admin request failed")
+        finally:
+            try:
+                writer.close()
+                await writer.wait_closed()
+            except Exception:
+                pass
+
+    async def _route(
+        self, method: str, path: str, body: bytes = b""
+    ) -> tuple[str, object]:
+        path, _, qs = path.partition("?")
+        query = {k: v[-1] for k, v in parse_qs(qs).items()}
+        segments = [unquote(s) for s in path.strip("/").split("/") if s]
+        matched = self._match(segments, body, query)
+        if matched is None:
+            # unknown path: 404 regardless of verb
+            return "404 Not Found", {"error": "unknown path"}
+        allowed, handler = matched
+        if isinstance(allowed, dict):
+            # verb-dispatched path (GET /admin/drain observes, POST starts)
+            handler = allowed.get(method)
+            if handler is None:
+                return ("405 Method Not Allowed",
+                        {"error": f"use {' or '.join(sorted(allowed))}"})
+        elif method != allowed:
+            # KNOWN path, wrong verb: 405 naming the verb that works —
+            # never the blanket 404 that made a POSTed scrape or a GET
+            # mutation attempt indistinguishable from a typo'd path
+            return "405 Method Not Allowed", {"error": f"use {allowed}"}
+        try:
+            result = handler()
+            if asyncio.iscoroutine(result):
+                result = await result
+            if isinstance(result, _Response):
+                return result.status, result.payload
+            return "200 OK", result
+        except AdminError as exc:
+            return exc.status, {"error": exc.message}
+        except Exception:
+            # stable opaque shape to the client, full traceback in the log
+            log.exception("admin handler failed: %s %s", allowed,
+                          "/" + "/".join(segments))
+            return "500 Internal Server Error", {"error": "internal error"}
+
+    def _match(self, segments: list, body: bytes = b"", query: dict = None):
+        """Resolve a path to (allowed_method, handler) or None. Handlers
+        may be sync or async; mutations require POST (a GET mutation is
+        CSRF-triggerable from any web page even on localhost), reads GET.
+        Paths mirror the reference's AdminApi plus the observability
+        endpoints it lacked."""
+        query = query or {}
+        if segments == ["metrics"]:
+            # conventional Prometheus scrape path (text exposition format);
+            # ?format=openmetrics upgrades to OpenMetrics with exemplars
+            return ("GET", lambda: self._prometheus(query))
+        if not segments or segments[0] != "admin":
+            return None
+        rest = segments[1:]
+        if len(rest) == 3 and rest[0] == "vhost":
+            name = rest[2]
+            if rest[1] == "put":
+                return ("POST", lambda: self._vhost_put(name))
+            if rest[1] == "delete":
+                return ("POST", lambda: self._vhost_delete(name))
+            return None
+        if rest == ["metrics"]:
+            return ("GET", self.broker.metrics_snapshot)
+        if rest == ["overview"]:
+            return ("GET", self._overview)
+        if len(rest) == 2 and rest[0] == "queues":
+            return ("GET", lambda: self._queues(rest[1]))
+        if len(rest) == 2 and rest[0] == "exchanges":
+            return ("GET", lambda: self._exchanges(rest[1]))
+        if rest == ["streams"]:
+            return ("GET", self._streams)
+        if rest == ["cluster"]:
+            return ("GET", self._cluster)
+        if rest == ["drain"]:
+            return ({"POST": self._drain_start,
+                     "GET": self._drain_status}, None)
+        if rest == ["replication"]:
+            return ("GET", self._replication)
+        if rest == ["forecast"]:
+            return ("GET", self._forecast)
+        if rest == ["control"]:
+            return ("GET", lambda: self._control(query))
+        if rest == ["control", "configure"]:
+            return ("POST", lambda: self._control_configure(body))
+        if rest == ["chaos"]:
+            return ("GET", self._chaos_status)
+        if rest == ["chaos", "install"]:
+            return ("POST", lambda: self._chaos_install(body))
+        if rest == ["chaos", "clear"]:
+            return ("POST", self._chaos_clear)
+        if rest == ["traces"]:
+            return ("GET", lambda: self._traces(query))
+        if len(rest) == 2 and rest[0] == "traces":
+            return ("GET", lambda: self._trace_detail(rest[1]))
+        if rest == ["otel", "spans"]:
+            return ("GET", lambda: self._otel_spans(query))
+        if rest == ["timeseries"]:
+            return ("GET", lambda: self._timeseries(query))
+        if len(rest) == 4 and rest[:2] == ["timeseries", "queue"]:
+            return ("GET", lambda: self._timeseries_queue(
+                rest[2], rest[3], query))
+        if len(rest) == 3 and rest[:2] == ["timeseries", "connection"]:
+            return ("GET", lambda: self._timeseries_conn(rest[2], query))
+        if rest == ["profile"]:
+            return ("GET", self._profile)
+        if rest == ["profile", "stacks"]:
+            return ("GET", self._profile_stacks)
+        if len(rest) == 3 and rest[:2] == ["profile", "stage"]:
+            return ("GET", lambda: self._profile_stage(rest[2]))
+        if rest == ["health"]:
+            return ("GET", lambda: self._health(query))
+        if rest == ["health", "live"]:
+            return ("GET", lambda: {"live": True})
+        if rest == ["alerts"]:
+            return ("GET", lambda: self._alerts(query))
+        if rest == ["slo"]:
+            return ("GET", lambda: self._slo(query))
+        if rest == ["slo", "configure"]:
+            return ("POST", lambda: self._slo_configure(body))
+        if rest == ["events"]:
+            return ("GET", self._events_status)
+        if rest == ["federation"]:
+            return ({"GET": self._federation,
+                     "POST": lambda: self._federation_post(body)}, None)
+        if rest == ["tenants"]:
+            return ({"GET": self._tenants,
+                     "POST": lambda: self._tenant_put(body)}, None)
+        if len(rest) == 2 and rest[0] == "tenants":
+            return ("GET", lambda: self._tenant_detail(rest[1]))
+        if len(rest) == 3 and rest[0] == "tenants" and rest[2] == "delete":
+            return ("POST", lambda: self._tenant_delete(rest[1]))
+        return None
+
+    @staticmethod
+    def _q_int(query: dict, key: str, default: int, lo: int, hi: int) -> int:
+        try:
+            return max(lo, min(int(query.get(key, default)), hi))
+        except (TypeError, ValueError):
+            raise AdminError("400 Bad Request",
+                             f"query parameter {key!r} must be an integer")
+
+    # -- per-entity telemetry (chanamq_tpu_torch/telemetry/) ----------------------
+
+    def _svc(self):
+        svc = getattr(self.broker, "telemetry", None)
+        if svc is None:
+            raise AdminError(
+                "409 Conflict",
+                "telemetry disabled: boot with chana.mq.telemetry.enabled")
+        return svc
+
+    async def _timeseries(self, query: dict) -> dict:
+        """Cluster-wide per-entity series: every alive node's payload plus
+        a merged top-K-by-rate summary. ?window=N ticks, ?top=K queues per
+        node (0 = all), ?scope=local skips the peer pull."""
+        svc = self._svc()
+        window = self._q_int(query, "window", 60, 1, 4096)
+        top = self._q_int(query, "top", 0, 0, 1024)
+        if query.get("scope") == "local":
+            nodes = {self.broker.trace_node: svc.local_payload(window, top)}
+            out = {"nodes": nodes, "origin": self.broker.trace_node}
+        else:
+            out = await svc.cluster_payload(window, top)
+        out["top_queues"] = self._merge_top(
+            out["nodes"], top or 8)
+        return out
+
+    @staticmethod
+    def _merge_top(nodes: dict, k: int) -> list:
+        """Cluster-wide top-K queues by publish+deliver rate, from the
+        newest vector of each queue series in each node payload."""
+        rows = []
+        for node, payload in nodes.items():
+            fields = payload.get("fields", {}).get("queue")
+            if not fields:
+                continue  # peer errored or telemetry disabled there
+            for entry in payload.get("queues", []):
+                series = entry.get("series") or []
+                if not series:
+                    continue
+                latest = dict(zip(fields, series[-1]))
+                rate = (latest.get("publish_rate", 0.0)
+                        + latest.get("deliver_rate", 0.0))
+                rows.append({"node": node, "vhost": entry["vhost"],
+                             "name": entry["name"], "rate": rate, **latest})
+        rows.sort(key=lambda r: (-r["rate"], r["node"], r["vhost"], r["name"]))
+        return rows[:k]
+
+    async def _timeseries_queue(
+        self, vhost: str, name: str, query: dict
+    ) -> dict:
+        """Single-queue drilldown; searches peers when the queue is not
+        sampled locally (it lives on its owner node)."""
+        svc = self._svc()
+        window = self._q_int(query, "window", 120, 1, 4096)
+        series = svc.queues.series((vhost, name), window)
+        if series is not None:
+            return {"node": self.broker.trace_node, "vhost": vhost,
+                    "name": name, "fields": list(svc.queues.fields),
+                    "series": series.tolist()}
+        payload = await svc.cluster_payload(window)
+        for node, node_payload in payload["nodes"].items():
+            for entry in node_payload.get("queues", []):
+                if entry["vhost"] == vhost and entry["name"] == name:
+                    return {"node": node, "vhost": vhost, "name": name,
+                            "fields": node_payload["fields"]["queue"],
+                            "series": entry["series"]}
+        raise AdminError("404 Not Found",
+                         f"no telemetry for queue {vhost}/{name}")
+
+    async def _timeseries_conn(self, conn_id: str, query: dict) -> dict:
+        svc = self._svc()
+        window = self._q_int(query, "window", 120, 1, 4096)
+        try:
+            key = int(conn_id)
+        except ValueError:
+            raise AdminError("400 Bad Request", "connection id must be an integer")
+        series = svc.conns.series(key, window)
+        if series is not None:
+            return {"node": self.broker.trace_node, "id": key,
+                    "fields": list(svc.conns.fields),
+                    "series": series.tolist()}
+        payload = await svc.cluster_payload(window)
+        for node, node_payload in payload["nodes"].items():
+            for entry in node_payload.get("connections", []):
+                if entry["id"] == key:
+                    return {"node": node, "id": key,
+                            "fields": node_payload["fields"]["connection"],
+                            "series": entry["series"]}
+        raise AdminError("404 Not Found", f"no telemetry for connection {key}")
+
+    async def _health(self, query: dict):
+        """Readiness probe: 200 when ready, 503 with reasons when not —
+        pointable straight at a load balancer. Works without telemetry
+        (drain, shard, and memory-pressure checks only); ?scope=cluster
+        adds every peer's verdict."""
+        svc = getattr(self.broker, "telemetry", None)
+        if svc is not None:
+            out = svc.health()
+        else:
+            from ..telemetry.health import flow_check, shard_check
+
+            draining = bool(getattr(self.broker, "draining", False))
+            reasons = (["draining: shutdown in progress"]
+                       if draining else [])
+            checks: dict = {"draining": {"ok": not draining}}
+            # shard-sibling liveness and the overload ladder need no
+            # telemetry, only membership / the accountant
+            shards = shard_check(self.broker)
+            if shards is not None:
+                checks["shards"], shard_reasons = shards
+                reasons.extend(shard_reasons)
+            pressure = flow_check(self.broker)
+            if pressure is not None:
+                checks["memory_pressure"], flow_reasons = pressure
+                reasons.extend(flow_reasons)
+            out = {"node": self.broker.trace_node, "live": True,
+                   "ready": not reasons, "reasons": reasons,
+                   "checks": checks}
+        if query.get("scope") == "cluster" and svc is not None:
+            payload = await svc.cluster_payload(1)
+            out["cluster"] = {
+                node: node_payload.get(
+                    "health", {"error": node_payload.get("error", "no data")})
+                for node, node_payload in payload["nodes"].items()
+            }
+        if not out["ready"]:
+            return _Response("503 Service Unavailable", out)
+        return out
+
+    async def _alerts(self, query: dict) -> dict:
+        """Alert rules + firing state, cluster-wide by default (every
+        node evaluates its own entities; the union is the operator's
+        pager view). ?scope=local skips the peer pull."""
+        svc = self._svc()
+        out = {"node": self.broker.trace_node, **svc.engine.snapshot()}
+        if query.get("scope") != "local":
+            payload = await svc.cluster_payload(1)
+            out["cluster"] = {}
+            for node, node_payload in payload["nodes"].items():
+                alerts = node_payload.get("alerts")
+                if alerts is None:
+                    out["cluster"][node] = {
+                        "error": node_payload.get("error", "no data")}
+                else:
+                    out["cluster"][node] = {
+                        "firing": alerts["firing"],
+                        "fired_total": alerts["fired_total"],
+                        "resolved_total": alerts["resolved_total"],
+                        "fired_rules": alerts["fired_rules"],
+                    }
+        return out
+
+    # -- SLOs and the event bus (chanamq_tpu_torch/slo/, chanamq_tpu_torch/events/) ----
+
+    def _slo_engine(self):
+        svc = self._svc()
+        if svc.slo is None:
+            raise AdminError(
+                "409 Conflict",
+                "slo disabled: boot with chana.mq.slo.enabled or POST "
+                "/admin/slo/configure")
+        return svc, svc.slo
+
+    async def _slo(self, query: dict) -> dict:
+        """SLO specs, burn rates, error budgets and firing pairs —
+        cluster-aggregated by default (each node evaluates its own SLIs;
+        the pager view wants every node's budget plus the cluster's
+        worst case). ?scope=local skips the peer pull."""
+        _, engine = self._slo_engine()
+        out = {"node": self.broker.trace_node, **engine.snapshot()}
+        if query.get("scope") == "local":
+            return out
+        me = self.broker.trace_node
+
+        def _summary(snap: dict) -> dict:
+            return {
+                "firing": snap.get("firing", []),
+                "fired_total": snap.get("fired_total", 0),
+                "budget": {s["name"]: s["budget_remaining"]
+                           for s in snap.get("slos", [])},
+            }
+
+        out["cluster"] = {me: _summary(out)}
+        cluster = self.broker.cluster
+        if cluster is not None and cluster.membership is not None:
+            for peer in cluster.membership.alive_members():
+                if peer == cluster.name:
+                    continue
+                try:
+                    snap = await cluster._call(
+                        peer, "slo.pull", {}, timeout_s=2.0)
+                except Exception as exc:
+                    out["cluster"][peer] = {
+                        "error": f"pull failed: {type(exc).__name__}"}
+                    continue
+                if "error" in snap:
+                    out["cluster"][peer] = {"error": snap["error"]}
+                else:
+                    out["cluster"][peer] = _summary(snap)
+        # the cluster-level answer: per SLO, the worst remaining budget
+        # across nodes (one node burning is the on-call's problem)
+        worst: dict = {}
+        for entry in out["cluster"].values():
+            for name, remaining in (entry.get("budget") or {}).items():
+                worst[name] = min(worst.get(name, 1.0), remaining)
+        out["budget_worst_case"] = worst
+        return out
+
+    def _slo_configure(self, body: bytes) -> dict:
+        """Replace the SLO spec set at runtime. Budgets and burn windows
+        reset with the specs (they are properties of the objective, not
+        of the process). Installs onto a telemetry service booted without
+        SLOs too — the next tick starts evaluating."""
+        from ..slo import (
+            SLOEngine, attach_tenant_latency, default_slos, specs_from_json,
+        )
+
+        svc = self._svc()
+        try:
+            req = json.loads(body or b"{}")
+        except ValueError as exc:
+            raise AdminError("400 Bad Request", f"bad json: {exc}")
+        raw = req.get("specs") if isinstance(req, dict) else req
+        try:
+            if raw:
+                engine = SLOEngine(specs_from_json(raw, svc.interval_s))
+            else:
+                engine = SLOEngine(default_slos(svc.interval_s))
+        except ValueError as exc:
+            raise AdminError("400 Bad Request", str(exc))
+        svc.set_slo(engine)
+        attach_tenant_latency(engine, self.broker.tenancy)
+        return {"ok": True,
+                "slos": [spec.name for spec in engine.specs]}
+
+    # -- multi-tenancy (chanamq_tpu_torch/tenancy/) -------------------------------
+
+    def _tenancy(self):
+        registry = self.broker.tenancy
+        if registry is None:
+            raise AdminError(
+                "409 Conflict",
+                "tenancy disabled: boot with chana.mq.tenant.enabled")
+        return registry
+
+    def _tenants(self) -> dict:
+        """Registry snapshot: every tenant's quotas, live resource counts,
+        token-bucket level and gate state."""
+        return self._tenancy().snapshot()
+
+    def _tenant_put(self, body: bytes) -> dict:
+        """Define (or replace) one tenant at runtime. Body is the same
+        spec shape chana.mq.tenant.tenants takes, plus a "name" key:
+        {"name": "...", "vhosts": [...], "users": {...}, "acls": {...},
+        "quota": {...}}. New users/ACLs apply from the next handshake."""
+        from ..tenancy import TenancyError
+
+        registry = self._tenancy()
+        try:
+            req = json.loads(body or b"{}")
+        except ValueError as exc:
+            raise AdminError("400 Bad Request", f"bad json: {exc}")
+        if not isinstance(req, dict) or not isinstance(req.get("name"), str) \
+                or not req["name"]:
+            raise AdminError("400 Bad Request",
+                             'body must be an object with a "name" string')
+        spec = {k: v for k, v in req.items() if k != "name"}
+        try:
+            tenant = registry.define(req["name"], spec)
+        except TenancyError as exc:
+            raise AdminError("400 Bad Request", str(exc))
+        return {"ok": True, "tenant": tenant.snapshot()}
+
+    def _tenant_detail(self, name: str) -> dict:
+        registry = self._tenancy()
+        tenant = registry.tenants.get(name)
+        if tenant is None:
+            raise AdminError("404 Not Found", f"unknown tenant {name!r}")
+        return tenant.snapshot()
+
+    def _tenant_delete(self, name: str) -> dict:
+        """Remove a tenant: gates lift, connections detach (and stay open
+        — removal revokes quotas, not sessions), vhosts/users return to
+        the global namespace."""
+        registry = self._tenancy()
+        if not registry.remove(name):
+            raise AdminError("404 Not Found", f"unknown tenant {name!r}")
+        return {"ok": True, "tenant": name}
+
+    def _events_status(self) -> dict:
+        """Event-bus + firehose status: installed?, exchanges, publish /
+        drop counters (the operator's 'is anything listening?' check)."""
+        from .. import events as events_mod
+
+        bus = events_mod.ACTIVE
+        fh = events_mod.FIREHOSE
+        m = self.broker.metrics
+        out: dict = {
+            "enabled": bus is not None,
+            "firehose_enabled": fh is not None,
+            "events": {
+                "published": m.events_published_total,
+                "dropped": m.events_dropped_total,
+            },
+            "firehose": {
+                "published": m.firehose_published_total,
+                "dropped": m.firehose_dropped_total,
+            },
+        }
+        if bus is not None:
+            out["bus"] = bus.snapshot()
+        if fh is not None:
+            out["firehose"].update({
+                "vhost": fh.vhost, "queue_filter": fh.queue_filter})
+        return out
+
+    # -- federation (chanamq_tpu_torch/federation/) ------------------------------
+
+    def _federation_svc(self):
+        svc = getattr(self.broker, "federation", None)
+        if svc is None:
+            raise AdminError(
+                "409 Conflict",
+                "federation disabled: boot with chana.mq.federation.enabled")
+        return svc
+
+    def _federation(self) -> dict:
+        """Per-link state, lag, outbox depth and the recent event log."""
+        return self._federation_svc().stats()
+
+    def _federation_post(self, body: bytes) -> dict:
+        """Operator nudges: {"action": "wake"[, "link": name]} forces an
+        immediate pump instead of waiting out the idle tick (the runbook's
+        first move after healing a severed link)."""
+        svc = self._federation_svc()
+        try:
+            req = json.loads(body or b"{}")
+        except ValueError as exc:
+            raise AdminError("400 Bad Request", f"bad json: {exc}")
+        action = req.get("action")
+        if action != "wake":
+            raise AdminError("400 Bad Request",
+                             'supported actions: "wake"')
+        target = req.get("link")
+        woke = []
+        for link in svc.links:
+            if target is None or link.name == target:
+                link.wake()
+                woke.append(link.name)
+        if target is not None and not woke:
+            raise AdminError("404 Not Found", f"no link {target!r}")
+        return {"ok": True, "woke": woke}
+
+    # -- message tracing (chanamq_tpu_torch/trace/) ------------------------------
+
+    # dimension filters understood by /admin/traces; values match the
+    # attrs the publish path stamps on every sampled/forced trace
+    _TRACE_FILTERS = ("queue", "exchange", "vhost", "tenant", "stage")
+
+    def _traces(self, query: dict = None) -> dict:
+        from .. import trace
+
+        query = query or {}
+        runtime = trace.ACTIVE
+        out = {
+            "enabled": bool(getattr(self.broker, "trace_enabled", False)),
+            "installed": runtime is not None,
+        }
+        if runtime is not None:
+            filters = {k: query[k] for k in self._TRACE_FILTERS
+                       if k in query}
+            if filters or "min_duration_us" in query or "format" in query:
+                limit = self._q_int(query, "limit", 50, 1, 512)
+                min_us = self._q_int(query, "min_duration_us", 0,
+                                     0, 2 ** 31)
+                matched = runtime.query(limit=limit,
+                                        min_duration_us=min_us, **filters)
+                if query.get("format") == "otlp":
+                    from ..otel.export import (default_resource,
+                                               resource_spans)
+
+                    return resource_spans(
+                        matched, default_resource(self.broker))
+                out["matched"] = len(matched)
+                out["traces"] = [t.to_dict() for t in matched]
+                return out
+            out.update(runtime.status())
+            stage_hs = self.broker.metrics.trace_stage_us
+            out["stage_latency_us"] = {
+                key: {
+                    "count": h.count,
+                    "p50": h.percentile_us(0.50),
+                    "p99": h.percentile_us(0.99),
+                    "mean": h.mean_us,
+                }
+                for key, h in stage_hs.items()
+            }
+        return out
+
+    def _trace_detail(self, trace_id: str) -> dict:
+        from .. import trace
+
+        runtime = trace.ACTIVE
+        if runtime is None:
+            raise AdminError("409 Conflict", "tracing not installed")
+        found = runtime.find(trace_id)
+        if found is None:
+            raise AdminError("404 Not Found",
+                             f"no trace {trace_id!r} in the rings")
+        out = found.to_dict()
+        out["finished"] = found.finished
+        return out
+
+    def _otel_spans(self, query: dict) -> dict:
+        """Pull-mode OTLP export: drains the exporter's pending queue
+        when the push exporter is installed (so a collector-less deploy
+        can still scrape spans), otherwise renders the completed rings
+        through the same OTLP shaper."""
+        from .. import trace
+
+        runtime = trace.ACTIVE
+        if runtime is None:
+            raise AdminError("409 Conflict", "tracing not installed")
+        limit = self._q_int(query, "limit", 64, 1, 1024)
+        otel = getattr(self.broker, "otel", None)
+        if otel is not None:
+            return otel.pull(limit)
+        from ..otel.export import default_resource, resource_spans
+
+        return resource_spans(runtime.query(limit=limit),
+                              default_resource(self.broker))
+
+    # -- fault injection (chanamq_tpu_torch/chaos/) ------------------------------
+
+    def _chaos_status(self) -> dict:
+        from .. import chaos
+
+        runtime = chaos.ACTIVE
+        out = {
+            "enabled": bool(getattr(self.broker, "chaos_enabled", False)),
+            "installed": runtime is not None,
+        }
+        if runtime is not None:
+            out.update(runtime.status())
+        return out
+
+    def _chaos_install(self, body: bytes) -> dict:
+        from .. import chaos
+
+        if not getattr(self.broker, "chaos_enabled", False):
+            raise AdminError(
+                "409 Conflict",
+                "chaos disabled: boot with chana.mq.chaos.enabled")
+        try:
+            plan = chaos.FaultPlan.from_dict(json.loads(body or b"{}"))
+        except (ValueError, KeyError, TypeError) as exc:
+            raise AdminError("400 Bad Request", f"bad plan: {exc}")
+        chaos.install(plan, metrics=self.broker.metrics)
+        return {
+            "ok": True,
+            "seed": plan.seed,
+            "rules": [r.name for r in plan.rules],
+            "fingerprint": plan.fingerprint(),
+        }
+
+    def _chaos_clear(self) -> dict:
+        from .. import chaos
+
+        fires = chaos.ACTIVE.plan.total_fires if chaos.ACTIVE else 0
+        chaos.clear()
+        return {"ok": True, "total_fires": fires}
+
+    async def _vhost_put(self, name: str) -> dict:
+        await self.broker.create_vhost(name)
+        return {"ok": True, "vhost": name}
+
+    async def _vhost_delete(self, name: str) -> dict:
+        deleted = await self.broker.delete_vhost(name)
+        return {"ok": deleted, "vhost": name}
+
+    def _forecast(self):
+        forecaster = getattr(self.broker, "forecaster", None)
+        if forecaster is None:
+            return {"enabled": False}
+        return forecaster.snapshot()
+
+    def _control(self, query: dict):
+        control = getattr(self.broker, "control", None)
+        if control is None:
+            return {"enabled": False}
+        tail = self._q_int(query, "log", 32, 0, 4096)
+        return control.snapshot(tail=tail)
+
+    def _control_configure(self, body: bytes) -> dict:
+        """Runtime knobs for the rollout path: observe decisions with
+        {"dry-run": true} (the boot default), then lift it without a
+        restart once the log looks right."""
+        control = getattr(self.broker, "control", None)
+        if control is None:
+            raise AdminError(
+                "409 Conflict",
+                "control disabled: boot with chana.mq.control.enabled")
+        try:
+            req = json.loads(body or b"{}")
+        except ValueError as exc:
+            raise AdminError("400 Bad Request", f"bad json: {exc}")
+        if not isinstance(req, dict):
+            raise AdminError("400 Bad Request", "body must be an object")
+        if "dry-run" in req:
+            control.dry_run = bool(req["dry-run"])
+        for feature in ("admission", "rebalance", "prefetch"):
+            if feature in req:
+                setattr(control, f"{feature}_enabled", bool(req[feature]))
+        return {"ok": True, "dry_run": control.dry_run,
+                "features": {
+                    "admission": control.admission_enabled,
+                    "rebalance": control.rebalance_enabled,
+                    "prefetch": control.prefetch_enabled,
+                }}
+
+    # -- continuous profiling (chanamq_tpu_torch/profile/) ------------------------
+
+    def _profsvc(self):
+        prof = getattr(self.broker, "profile", None)
+        if prof is None:
+            raise AdminError(
+                "409 Conflict",
+                "profiling disabled: boot with chana.mq.profile.enabled")
+        return prof
+
+    def _profile(self) -> dict:
+        """Cost-ledger aggregate: µs/msg by stage and subsystem, loop busy
+        time vs process CPU (attribution ratio), GC pauses, slow-callback
+        captures."""
+        return self._profsvc().snapshot()
+
+    def _profile_stacks(self) -> str:
+        """Folded stacks in flamegraph collapsed format (text/plain, one
+        ``stack count`` per line) — pipe straight into flamegraph.pl."""
+        prof = self._profsvc()
+        if prof.sample_hz <= 0:
+            raise AdminError(
+                "409 Conflict",
+                "stack sampler disabled: set chana.mq.profile.sample-hz")
+        return prof.collapsed()
+
+    def _profile_stage(self, name: str) -> dict:
+        detail = self._profsvc().stage_detail(name)
+        if detail is None:
+            raise AdminError("404 Not Found", f"unknown stage {name!r}")
+        return detail
+
+    # metric name -> prometheus type; everything else in the snapshot is a
+    # gauge. Latency percentiles remain exported as computed gauges for
+    # dashboards that predate the proper histogram series; every Histogram
+    # is ALSO exported as cumulative _bucket/_sum/_count below.
+    _PROM_COUNTERS = frozenset({
+        "published_msgs", "published_bytes", "delivered_msgs",
+        "delivered_bytes", "returned_msgs", "confirmed_msgs",
+        "expired_msgs", "dead_lettered_msgs", "connections_opened",
+        "connections_closed", "connections_refused",
+        "repl_events_shipped", "repl_batches_shipped",
+        "repl_events_applied", "repl_resyncs", "repl_promotions",
+        "repl_ack_timeouts",
+        "stream_appends", "stream_append_bytes", "stream_segments_sealed",
+        "stream_segments_truncated", "stream_records_delivered",
+        "stream_cursor_commits", "stream_groups_created",
+        "stream_group_deliveries",
+        "chaos_fires", "chaos_latency", "chaos_errors", "chaos_drops",
+        "chaos_disconnects", "chaos_corrupt_frames", "chaos_crashes",
+        "chaos_partition_drops",
+        "trace_sampled", "trace_completed", "trace_slow",
+        "trace_chaos_tagged", "trace_ctx_sent", "trace_ctx_recv",
+        "trace_evicted",
+        "otel_forced_samples", "otel_spans_exported", "otel_batches_sent",
+        "otel_export_errors", "otel_spans_shed", "otel_pull_served",
+        "telemetry_ticks", "telemetry_saturated_ticks",
+        "telemetry_evicted_entities", "telemetry_dropped_entities",
+        "alerts_fired", "alerts_resolved",
+        "shard_cross_pushes", "shard_handoffs", "shard_restarts",
+        "control_ticks", "control_decisions", "control_applied",
+        "control_suppressed", "control_dry_run", "control_errors",
+        "lifecycle_drains_started", "lifecycle_queues_evacuated",
+        "lifecycle_evacuation_retries", "lifecycle_rollbacks",
+        "lifecycle_stale_epoch_refused", "lifecycle_join_rebalances",
+        "lifecycle_stale_holders_cleared",
+        "router_batches", "router_batch_msgs", "router_compiles",
+        "router_fallback_msgs", "router_parity_mismatches",
+        "profile_samples_total", "profile_slow_callbacks_total",
+        "profile_gc_pauses_total", "profile_gc_pause_ns_total",
+        "events_published_total", "events_dropped_total",
+        "firehose_published_total", "firehose_dropped_total",
+        "slo_violations_total",
+        "tenancy_throttles_total", "tenancy_resumes_total",
+        "tenancy_quota_refusals_total", "tenancy_acl_denials_total",
+    })
+
+    # histogram families that carry OpenMetrics exemplars under
+    # ?format=openmetrics: the end-to-end latency family by name, every
+    # per-stage trace family by prefix. The exempt set names histograms
+    # whose observations have no trace context (replication acks land on
+    # the follower, WAL commits batch many publishes, batch-size is a
+    # count not a latency) — scripts/metrics_lint.py asserts every
+    # exported family is in exactly one of these buckets.
+    _EXEMPLAR_FAMILIES = frozenset({"publish_to_deliver_us"})
+    _EXEMPLAR_PREFIXES = ("trace_",)
+    _EXEMPLAR_EXEMPT = frozenset({
+        "repl_ack_us", "wal_commit_us", "router_batch_size",
+    })
+
+    @staticmethod
+    def _prom_label(value: str) -> str:
+        return value.replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")
+
+    def _exemplars(self) -> dict:
+        """family -> (trace_id, value_us, unix_ts) drawn from the trace
+        rings, newest first (slow ring preferred — those are the traces
+        an operator actually wants to click through to). Propagated
+        traces expose their W3C id; seeded samples expose the derived
+        id their exported spans carry, so the exemplar always joins."""
+        from .. import trace
+        from ..otel.context import derive_trace_id
+        from ..trace.runtime import STAGE_KEYS
+
+        runtime = trace.ACTIVE
+        if runtime is None:
+            return {}
+        out: dict = {}
+        ts = round(time.time(), 3)
+        for pool in (runtime.slow, runtime.ring):
+            for tr in reversed(pool):
+                tid = (tr.w3c.trace_id if tr.w3c is not None
+                       else derive_trace_id(tr.trace_id))
+                if "publish_to_deliver_us" not in out:
+                    out["publish_to_deliver_us"] = (tid, tr.total_us, ts)
+                for i, s in enumerate(tr.slots):
+                    key = STAGE_KEYS[i]
+                    if s is not None and key not in out:
+                        out[key] = (
+                            tid, max(0.0, (s[1] - s[0]) / 1000.0), ts)
+        return out
+
+    def _prometheus(self, query: dict = None) -> str:
+        """Prometheus text exposition of the broker metrics + per-queue
+        gauges (exceeds the reference, which had no metrics at all —
+        SURVEY.md §5 'observability': throughput was measured by grepping
+        log lines). ``?format=openmetrics`` emits the same series with
+        trace-id exemplars on the hot histograms and a trailing # EOF;
+        the plain scrape stays byte-identical to what it always was."""
+        query = query or {}
+        openmetrics = query.get("format") == "openmetrics"
+        exemplars = self._exemplars() if openmetrics else {}
+        out: list[str] = []
+        snap = self.broker.metrics_snapshot()
+        # on a sharded node every worker scrapes the same metric names;
+        # the shard label keeps the per-process series distinguishable
+        shard_info = getattr(self.broker, "shard_info", None)
+        shard_suffix = (
+            f'{{shard="{self._prom_label(str(shard_info["index"]))}"}}'
+            if shard_info else "")
+        for key, value in snap.items():
+            if isinstance(value, bool):
+                value = int(value)  # e.g. memory_blocked -> 0/1 gauge
+            if not isinstance(value, (int, float)):
+                continue  # None percentiles before any traffic
+            kind = "counter" if key in self._PROM_COUNTERS else "gauge"
+            out.append(f"# TYPE chanamq_{key} {kind}")
+            out.append(f"chanamq_{key}{shard_suffix} {value}")
+        # proper cumulative histogram series: the stored buckets are
+        # per-bound counts, so emit a running sum with +Inf last
+        for name, hist in self.broker.metrics.histograms().items():
+            out.append(f"# TYPE chanamq_{name} histogram")
+            ex = exemplars.get(name)
+            cumulative = 0
+            for bound, count in zip(hist.BOUNDS, hist.buckets):
+                cumulative += count
+                line = f'chanamq_{name}_bucket{{le="{bound}"}} {cumulative}'
+                if ex is not None and ex[1] <= bound:
+                    # OpenMetrics exemplar on the first bucket that
+                    # covers the sampled value, then consumed — the
+                    # spec allows at most one exemplar per line
+                    tid, value, ts = ex
+                    line += f' # {{trace_id="{tid}"}} {value} {ts}'
+                    ex = None
+                out.append(line)
+            line = f'chanamq_{name}_bucket{{le="+Inf"}} {hist.count}'
+            if ex is not None:
+                tid, value, ts = ex
+                line += f' # {{trace_id="{tid}"}} {value} {ts}'
+            out.append(line)
+            out.append(f"chanamq_{name}_sum {hist.total_us}")
+            out.append(f"chanamq_{name}_count {hist.count}")
+        prof = getattr(self.broker, "profile", None)
+        if prof is not None:
+            # cost-ledger stage series, labeled by stage name so a single
+            # PromQL expression yields µs/msg: rate(stage_ns)/rate(calls)
+            from .. import profile as profile_mod
+
+            out.append("# TYPE chanamq_profile_stage_ns_total counter")
+            out.append("# TYPE chanamq_profile_stage_calls_total counter")
+            for i, stage in enumerate(profile_mod.STAGES):
+                labels = f'{{stage="{self._prom_label(stage)}"}}'
+                out.append(
+                    f"chanamq_profile_stage_ns_total{labels} "
+                    f"{int(prof.stage_ns[i])}")
+                out.append(
+                    f"chanamq_profile_stage_calls_total{labels} "
+                    f"{int(prof.stage_calls[i])}")
+        registry = getattr(self.broker, "tenancy", None)
+        out.append("# TYPE chanamq_queue_messages gauge")
+        out.append("# TYPE chanamq_queue_ready_bytes gauge")
+        out.append("# TYPE chanamq_queue_unacked gauge")
+        out.append("# TYPE chanamq_queue_consumers gauge")
+        for vhost in self.broker.vhosts.values():
+            vl = self._prom_label(vhost.name)
+            # queue series on a tenant-owned vhost carry the tenant label;
+            # untenanted vhosts keep the exact two-label shape they had
+            owner = (registry.tenant_of_vhost(vhost.name)
+                     if registry is not None else None)
+            tl = (f',tenant="{self._prom_label(owner)}"'
+                  if owner is not None else "")
+            for queue in vhost.queues.values():
+                labels = (f'{{vhost="{vl}",'
+                          f'queue="{self._prom_label(queue.name)}"{tl}}}')
+                out.append(
+                    f"chanamq_queue_messages{labels} {queue.message_count}")
+                out.append(
+                    f"chanamq_queue_ready_bytes{labels} {queue.ready_bytes}")
+                out.append(
+                    f"chanamq_queue_unacked{labels} {len(queue.outstanding)}")
+                out.append(
+                    f"chanamq_queue_consumers{labels} {queue.consumer_count}")
+        streams = [
+            (vhost, queue)
+            for vhost in self.broker.vhosts.values()
+            if not is_replica_vhost(vhost.name)
+            for queue in vhost.queues.values() if queue.is_stream
+        ]
+        if streams:
+            out.append("# TYPE chanamq_stream_retained_bytes gauge")
+            out.append("# TYPE chanamq_stream_segments gauge")
+            out.append("# TYPE chanamq_stream_cursor_lag gauge")
+            for vhost, queue in streams:
+                vl = self._prom_label(vhost.name)
+                labels = f'{{vhost="{vl}",queue="{self._prom_label(queue.name)}"}}'
+                out.append(
+                    f"chanamq_stream_retained_bytes{labels} "
+                    f"{queue.retained_bytes}")
+                out.append(
+                    f"chanamq_stream_segments{labels} {queue.segment_count}")
+                for cursor in sorted(queue.committed):
+                    clabels = (
+                        f'{{vhost="{vl}",'
+                        f'queue="{self._prom_label(queue.name)}",'
+                        f'cursor="{self._prom_label(cursor)}"}}')
+                    out.append(
+                        f"chanamq_stream_cursor_lag{clabels} "
+                        f"{queue.cursor_lag(cursor)}")
+        federation = getattr(self.broker, "federation", None)
+        if federation is not None and federation.links:
+            # per-link mirror lag in records plus an up/down gauge; the
+            # aggregate federation_* counters ride the plain snapshot above
+            out.append("# TYPE chanamq_federation_link_lag gauge")
+            out.append("# TYPE chanamq_federation_link_up gauge")
+            for link in federation.links:
+                labels = f'{{link="{self._prom_label(link.name)}"}}'
+                out.append(
+                    f"chanamq_federation_link_lag{labels} {link.total_lag()}")
+                out.append(
+                    f"chanamq_federation_link_up{labels} "
+                    f"{int(link.state == 'up')}")
+        telemetry = getattr(self.broker, "telemetry", None)
+        if telemetry is not None and telemetry.engine.firing:
+            # one series per firing alert instance, value 1 while firing;
+            # the instance disappears from the scrape on resolve (the
+            # standard ALERTS{...}-style shape, minus Prometheus itself)
+            out.append("# TYPE chanamq_alert_firing gauge")
+            for info in sorted(telemetry.engine.firing.values(),
+                               key=lambda i: (i["rule"], i["entity"])):
+                labels = (
+                    f'{{rule="{self._prom_label(info["rule"])}",'
+                    f'scope="{self._prom_label(info["scope"])}",'
+                    f'entity="{self._prom_label(info["entity"])}",'
+                    f'severity="{self._prom_label(info["severity"])}"}}')
+                out.append(f"chanamq_alert_firing{labels} 1")
+        if telemetry is not None and telemetry.slo is not None:
+            # one budget/burn-rate pair of series per SLO spec: the
+            # dashboards the burn-rate alerts point the operator at
+            engine = telemetry.slo
+            out.append("# TYPE chanamq_slo_budget_remaining gauge")
+            out.append("# TYPE chanamq_slo_burn_rate gauge")
+            for spec in engine.specs:
+                status = engine.slo_status(spec)
+                tl = (f',tenant="{self._prom_label(spec.tenant)}"'
+                      if spec.tenant else "")
+                slabels = (f'{{slo="{self._prom_label(spec.name)}",'
+                           f'sli="{self._prom_label(spec.sli)}"{tl}}}')
+                out.append(
+                    f"chanamq_slo_budget_remaining{slabels} "
+                    f"{status['budget_remaining']}")
+                for pair in ("fast", "slow"):
+                    blabels = (f'{{slo="{self._prom_label(spec.name)}",'
+                               f'sli="{self._prom_label(spec.sli)}",'
+                               f'window="{pair}"{tl}}}')
+                    out.append(
+                        f"chanamq_slo_burn_rate{blabels} "
+                        f"{status['burn'][f'{pair}_short']['burn_rate']}")
+        if registry is not None:
+            # per-tenant quota/traffic series: one row per tenant, labeled
+            # by tenant name (the noisy-neighbor dashboard's raw material)
+            out.append("# TYPE chanamq_tenancy_tenants gauge")
+            out.append(f"chanamq_tenancy_tenants {len(registry.tenants)}")
+            gauges = ("connections", "channels", "queues", "bindings",
+                      "resident_bytes", "tokens", "floor")
+            counters = ("published", "delivered", "refused", "throttles")
+            for field in gauges + ("gated",):
+                out.append(f"# TYPE chanamq_tenant_{field} gauge")
+            for field in counters:
+                out.append(f"# TYPE chanamq_tenant_{field} counter")
+            for name in sorted(registry.tenants):
+                snap = registry.tenants[name].snapshot()
+                labels = f'{{tenant="{self._prom_label(name)}"}}'
+                for field in gauges + counters:
+                    out.append(
+                        f"chanamq_tenant_{field}{labels} {snap[field]}")
+                out.append(
+                    f"chanamq_tenant_gated{labels} {int(snap['gated'])}")
+        forecaster = getattr(self.broker, "forecaster", None)
+        if forecaster is not None and forecaster.forecast is not None:
+            # next-tick telemetry forecast (models/service.py): one gauge
+            # per feature, in the telemetry ring's units
+            out.append("# TYPE chanamq_forecast gauge")
+            for name, value in forecaster.forecast.items():
+                out.append(
+                    f'chanamq_forecast{{feature="{self._prom_label(name)}"}}'
+                    f" {value}")
+            if forecaster.loss is not None:
+                out.append("# TYPE chanamq_forecast_loss gauge")
+                out.append(f"chanamq_forecast_loss {forecaster.loss}")
+        if forecaster is not None:
+            accuracy = forecaster.accuracy()
+            if accuracy is not None:
+                # realized accuracy of past forecasts (models/service.py
+                # score_tick): the series the control plane gates on
+                out.append("# TYPE chanamq_forecast_error_scored counter")
+                out.append(
+                    f"chanamq_forecast_error_scored {accuracy['scored']}")
+                out.append("# TYPE chanamq_forecast_error_mae gauge")
+                for name, value in accuracy["mae"].items():
+                    out.append(
+                        f"chanamq_forecast_error_mae"
+                        f'{{feature="{self._prom_label(name)}"}} {value}')
+                last = accuracy.get("last_abs_error")
+                if last:
+                    out.append("# TYPE chanamq_forecast_error_last gauge")
+                    for name, value in last.items():
+                        out.append(
+                            f"chanamq_forecast_error_last"
+                            f'{{feature="{self._prom_label(name)}"}} {value}')
+        if openmetrics:
+            out.append("# EOF")
+        return "\n".join(out) + "\n"
+
+    def _overview(self) -> dict:
+        return {
+            "product": "chanamq-tpu",
+            "vhosts": {
+                name: {
+                    "active": vhost.active,
+                    "exchanges": len(vhost.exchanges),
+                    "queues": len(vhost.queues),
+                    "messages": sum(len(q.messages) for q in vhost.queues.values()),
+                    "consumers": sum(q.consumer_count for q in vhost.queues.values()),
+                }
+                for name, vhost in self.broker.vhosts.items()
+            },
+            "metrics": self.broker.metrics_snapshot(),
+        }
+
+    def _queues(self, vhost_name: str) -> list:
+        vhost = self.broker.vhosts.get(vhost_name)
+        if vhost is None:
+            return []
+        return [
+            {
+                "name": queue.name,
+                "durable": queue.durable,
+                "exclusive": queue.exclusive_owner is not None,
+                "auto_delete": queue.auto_delete,
+                "messages": queue.message_count,
+                "ready_bytes": queue.ready_bytes,
+                "unacked": len(queue.outstanding),
+                "consumers": queue.consumer_count,
+                "ttl_ms": queue.ttl_ms,
+                "arguments": queue.arguments or {},
+            }
+            for queue in vhost.queues.values()
+        ]
+
+    def _streams(self) -> list:
+        """Every stream queue across vhosts: log shape (segments, retained
+        bytes, offset range) plus per-cursor committed offset and lag.
+        Replica namespaces are invisible here by construction (they never
+        enter broker.vhosts) and excluded defensively anyway."""
+        out = []
+        for vhost in self.broker.vhosts.values():
+            if is_replica_vhost(vhost.name):
+                continue
+            for queue in vhost.queues.values():
+                if not queue.is_stream:
+                    continue
+                # live cursors may not have committed yet; committed
+                # cursors may have detached — report the union
+                names = set(queue.committed) | set(queue._cursors)
+                out.append({
+                    "vhost": vhost.name,
+                    "name": queue.name,
+                    "segments": queue.segment_count,
+                    "retained_bytes": queue.retained_bytes,
+                    "first_offset": queue.first_offset,
+                    "next_offset": queue.next_offset,
+                    "messages": queue.message_count,
+                    "consumers": queue.consumer_count,
+                    "max_length_bytes": queue.max_length_bytes,
+                    "max_age_ms": queue.max_age_ms,
+                    "cursors": {
+                        name: {
+                            "committed": queue.committed.get(name),
+                            "attached": name in queue._cursors,
+                            "lag": queue.cursor_lag(name),
+                        }
+                        for name in sorted(names)
+                    },
+                    "groups": [
+                        group.snapshot()
+                        for _, group in sorted(queue._groups.items())
+                    ],
+                })
+        return out
+
+    def _lifecycle(self):
+        cluster = self.broker.cluster
+        if cluster is None or cluster.membership is None:
+            raise AdminError(
+                "409 Conflict",
+                "clustering disabled: boot with chana.mq.cluster.enabled")
+        return cluster.lifecycle
+
+    def _drain_start(self) -> dict:
+        """Begin (idempotently) this node's graceful decommission: stop
+        taking new holdership, evacuate every held queue, gossip `left`.
+        Poll GET /admin/drain for progress."""
+        return self._lifecycle().drain()
+
+    def _drain_status(self) -> dict:
+        return self._lifecycle().progress()
+
+    def _cluster(self) -> dict:
+        """Cluster membership + queue ownership as the operator sees it
+        (exceeds the reference, whose admin surface was vhost-only)."""
+        cluster = self.broker.cluster
+        if cluster is None or cluster.membership is None:
+            # membership is None until ClusterNode.start() completes: report
+            # disabled rather than 500 in that window
+            return {"enabled": False}
+        owned = sum(
+            1 for (vhost, name) in cluster.queue_metas
+            if cluster.owns_queue(vhost, name))
+        return {
+            "enabled": True,
+            "self": cluster.name,
+            "members": {
+                name: {"status": member.status,
+                       "incarnation": member.incarnation,
+                       "lifecycle": member.lifecycle}
+                for name, member in cluster.membership.members.items()
+            },
+            "alive": cluster.membership.alive_members(),
+            "placement": cluster.membership.placement_members(),
+            "drain": cluster.lifecycle.progress(),
+            "known_queues": len(cluster.queue_metas),
+            "owned_queues": owned,
+            # fencing epochs: bumped on every holdership change; stale-epoch
+            # metadata and replication ships are refused
+            "queue_epochs": {
+                f"{vhost}/{name}": int(meta.get("epoch") or 0)
+                for (vhost, name), meta in sorted(cluster.queue_metas.items())
+            },
+            "shard": getattr(self.broker, "shard_info", None),
+            "shard_siblings": dict(cluster.uds_map),
+            "replication": (
+                {"enabled": False} if cluster.replication is None else {
+                    "enabled": True,
+                    "factor": cluster.replication.factor,
+                    "sync": cluster.replication.sync,
+                    "lag_events": cluster.replication.total_lag(),
+                    "copies": len(cluster.replication.applier.copies),
+                }),
+            "interconnect": self._interconnect(cluster),
+        }
+
+    def _interconnect(self, cluster) -> dict:
+        """Data-plane fast-path state: per-peer stream depth / buffered
+        micro-batches (each stream reports its reconnect-backoff posture:
+        current delay, consecutive failures, last error) plus the
+        control-plane clients' backoff and the global binary-frame
+        counters."""
+        m = self.broker.metrics
+        return {
+            "peers": {
+                # keys are (peer, transport kind); JSON wants strings
+                f"{peer}#{kind}": plane.stats()
+                for (peer, kind), plane in cluster._dataplanes.items()
+            },
+            "control": {
+                name: client.backoff_state()
+                for name, client in cluster.membership._clients.items()
+            },
+            "data_bytes_sent": m.rpc_data_bytes_sent,
+            "data_bytes_recv": m.rpc_data_bytes_recv,
+            "push_records": m.rpc_push_records,
+            "push_batches": m.rpc_push_batches,
+            "settle_records": m.rpc_settle_records,
+            "settle_batches": m.rpc_settle_batches,
+            "deliver_records": m.rpc_deliver_records,
+            "deliver_batches": m.rpc_deliver_batches,
+            "flushes": {
+                "window": m.rpc_flush_window,
+                "bytes": m.rpc_flush_bytes,
+                "count": m.rpc_flush_count,
+                "demand": m.rpc_flush_demand,
+            },
+        }
+
+    def _replication(self) -> dict:
+        """Per-queue replica state: role, follower ack positions, and event
+        lag on owned queues; applied position on follower copies."""
+        cluster = self.broker.cluster
+        if cluster is None or cluster.replication is None:
+            return {"enabled": False}
+        return cluster.replication.status()
+
+    def _exchanges(self, vhost_name: str) -> list:
+        vhost = self.broker.vhosts.get(vhost_name)
+        if vhost is None:
+            return []
+        return [
+            {
+                "name": exchange.name or "(default)",
+                "type": exchange.type,
+                "durable": exchange.durable,
+                "auto_delete": exchange.auto_delete,
+                "internal": exchange.internal,
+                "bindings": len(exchange.matcher.bindings()),
+                "exchange_bindings": (
+                    len(exchange.ex_matcher.bindings())
+                    if exchange.ex_matcher is not None else 0),
+            }
+            for exchange in vhost.exchanges.values()
+        ]

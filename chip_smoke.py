@@ -119,7 +119,28 @@ rehearse it; any failure exits non-zero:
    against a host oracle; confirmed msg/s, the card's busy share of the
    publish window (traced in the node), the WAL's commits and their µs,
    records replayed and the time from the restart to the first delivery;
-15. the kernels line (nine kernels), the card line, and the result line.
+15. node: the port's node as an operator starts it, ``python -m
+   chanamq_tpu_torch.broker.server --config node.json --port P
+   --admin-port A`` (``main``, unchanged, in a child process of this
+   script), with admin, telemetry, SLOs, control (dry-run) and the
+   forecaster on, the router and the forecaster on the card, every other
+   key at its default except three cadences, so that rounds happen inside
+   the phase: forecast interval 0.1 s, train-interval 2 s (default 30 s),
+   telemetry interval 0.25 s. Over AMQP the main path's tables and 4
+   confirming publishers' 50,000 transient 256 B messages at its topic :
+   headers mix (the [durable] phase's count, a third of the main path's);
+   every queue's count from ``/admin/queues`` against the host oracle,
+   then consumers drain every queue against it; ``/admin/forecast`` at
+   least 3 rounds, finite loss and forecasts, no error; the forecast
+   gauges on ``/metrics``; ``/admin/health`` 200; ``/admin/control``
+   ticking; SIGTERM exit 0 within 30 s. The node reports every kernel's
+   launches in its own process (each of the nine at least once, the
+   update's two under their split names) and its last forecast replayed
+   through the plain path on the parameters that made it, within
+   FORWARD_LIMIT; seconds from spawn to listening and confirmed msg/s;
+16. the kernels line (nine kernels, each with its launches in the
+   [node] phase's node as ``node_path``), the card line, and the result
+   line.
 
 Without a card, or without the repository beside it, it exits non-zero and
 prints no result.
@@ -129,6 +150,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import contextlib
 import json
 import math
 import os
@@ -2309,6 +2331,31 @@ def _keeping(fn, calls: list):
     return wrapper
 
 
+@contextlib.contextmanager
+def keeping_step_wrappers(calls: dict):
+    """While it is open, every ``STEP_WRAPPERS`` call that the autograd
+    Functions make (they look the wrappers up on ``kernels/forecaster``'s
+    module names) also keeps a copy of its arguments in
+    ``calls[name]``. A wrapper counts its launches on the module's name
+    for it, so the stand-in carries the count and hands it back."""
+    from chanamq_tpu_torch.kernels import forecaster as fk
+
+    real = {name: getattr(fk, name) for name in STEP_WRAPPERS}
+    stand_in = {name: _keeping(fn, calls.setdefault(name, []))
+                for name, fn in real.items()}
+    for name, fn in real.items():
+        if hasattr(fn, "launches"):
+            stand_in[name].launches = fn.launches
+        setattr(fk, name, stand_in[name])
+    try:
+        yield
+    finally:
+        for name, fn in real.items():
+            setattr(fk, name, fn)
+            if hasattr(fn, "launches"):
+                fn.launches = stand_in[name].launches
+
+
 def hold_step_call(wrapper: str, args) -> dict:
     """One recorded train-step kernel call through its wrapper and its
     plain version on the same inputs, at the limits of the kernel's own
@@ -2399,8 +2446,6 @@ def sharded_rank(rank: int, world: int, tp: int | None, init: str,
     Puts ``(rank, result)`` on ``results`` if given (a rank of its own
     process, which then runs torch on one host thread: its host work is
     launches, and ranks sharing a host must not crowd each other out)."""
-    import contextlib
-
     import torch.distributed as dist
 
     from chanamq_tpu_torch.kernels import forecaster as fk
@@ -2445,25 +2490,6 @@ def sharded_rank(rank: int, world: int, tp: int | None, init: str,
                                calls.setdefault(name, []))
                 for name in ("sum_of_squares", "momentum_sgd")}))
 
-        @contextlib.contextmanager
-        def keeping():
-            # a wrapper counts its launches on the module's name for it,
-            # so the stand-in carries the count and hands it back
-            real = {name: getattr(fk, name) for name in STEP_WRAPPERS}
-            stand_in = {name: _keeping(fn, calls.setdefault(name, []))
-                        for name, fn in real.items()}
-            for name, fn in real.items():
-                if hasattr(fn, "launches"):
-                    stand_in[name].launches = fn.launches
-                setattr(fk, name, stand_in[name])
-            try:
-                yield
-            finally:
-                for name, fn in real.items():
-                    setattr(fk, name, fn)
-                    if hasattr(fn, "launches"):
-                        fn.launches = stand_in[name].launches
-
         counted = {**counted_wrappers(), "sum_of_squares": upd.sum_of_squares,
                    "momentum_sgd": upd.momentum_sgd}
         for wrapper in counted.values():
@@ -2472,7 +2498,7 @@ def sharded_rank(rank: int, world: int, tp: int | None, init: str,
         for n in range(1, steps + 1):
             t0 = time.perf_counter()
             if n == 1:
-                with keeping():
+                with keeping_step_wrappers(calls):
                     _, _, loss = kept(params, momentum, part)
             else:
                 _, _, loss = step(params, momentum, part)
@@ -2960,11 +2986,455 @@ def log_durable(res: dict, dev: dict) -> None:
         f"{dev['smi']}")
 
 
+# -- 15. the node through its entry point -------------------------------------------
+
+# the [durable] phase's 50,000 messages at the main path's topic : headers mix
+NODE_TOPIC, NODE_HEADERS = DURABLE_TOPIC, DURABLE_HEADERS
+# the only keys the [node] phase moves from their defaults besides turning
+# the layers on and naming the node's device: cadences short enough
+# that the forecaster trains and forecasts several rounds inside the phase
+# (defaults 1 s, 30 s and 1 s)
+NODE_CADENCE = {"chana.mq.forecast.interval": "100ms",
+                "chana.mq.forecast.train-interval": "2s",
+                "chana.mq.telemetry.interval": "250ms"}
+NODE_ROUNDS = 3
+NODE_KERNELS = ("topic_match", "headers_match") + FORECASTER_KERNELS \
+    + TRAIN_KERNELS[:3] + ("sum_of_squares", "momentum_sgd")
+
+
+def node_config(device: str) -> dict:
+    """The [node] phase's config file: admin, telemetry, SLOs, control
+    (dry-run, its default) and the forecaster on, the node's device (the
+    router's and the forecaster's) ``device``, ``NODE_CADENCE``; every
+    other key at its default."""
+    return {"chana.mq.admin.enabled": True,
+            "chana.mq.telemetry.enabled": True,
+            "chana.mq.slo.enabled": True,
+            "chana.mq.control.enabled": True,
+            "chana.mq.forecast.enabled": True,
+            "chana.mq.router.device": device, **NODE_CADENCE}
+
+
+def step_calls(cfg) -> dict:
+    """Each wrapper's calls in one one-device train step, by the names
+    ``hold_step_calls`` reports: ``train_per_step``'s launches with
+    attention's backward as one call, and the update as one sum of
+    squares and one update."""
+    from chanamq_tpu_torch.kernels import forecaster as fk
+
+    per = train_per_step(cfg)
+    del per["clip_momentum_sgd"]
+    per["causal_attention_bwd"] //= fk.ATT_BWD_LAUNCHES
+    return {**per, "sum_of_squares": 1, "momentum_sgd": 1}
+
+
+def node_child(out: str, argv: list) -> None:
+    """The [node] phase's node process: the port's ``main()`` unchanged on
+    ``argv``, as ``chanamq-server-torch`` runs it. Around it, the
+    ``ForecastService`` that ``main`` builds is kept (its ``start`` is
+    wrapped) with every forward's window, forecast and parameters, and
+    the update's two launches are counted under their split names (the
+    prepared launches are wrapped, as ``_recording`` wraps calls). The
+    first ``steps_per_round`` train steps (the first trained round) keep
+    every kernel call's inputs, copied before the call: the forward's and
+    backward's through ``keeping_step_wrappers``, the update's two
+    launches where they launch. After ``main()`` returns, the JSON file
+    ``out`` gets every kernel wrapper's launch count, each forecast, the
+    last one included, replayed through the plain path on the parameters
+    that made it, and every kept call replayed against its plain version
+    by ``hold_step_calls`` (after the counts were read)."""
+    from chanamq_tpu_torch.broker import server
+    from chanamq_tpu_torch.kernels import router_match as rm
+    from chanamq_tpu_torch.kernels import update as upd
+    from chanamq_tpu_torch.kernels.forecaster import PLAIN
+    from chanamq_tpu_torch.models.forecaster import forward
+    from chanamq_tpu_torch.models.service import ForecastService
+
+    kept: list = []
+    forwards: list = []
+    split = {"sum_of_squares": 0, "momentum_sgd": 0}
+    calls: dict = {}  # the first trained round's kernel calls
+    keep = {"on": False, "steps": 0, "cfg": None}
+
+    def counting(launch, name: str, args: tuple):
+        def run():
+            if keep["on"]:
+                calls.setdefault(name, []).append(_copied(args))
+            launch()
+            split[name] += 1
+        return run
+
+    real_sumsq = upd.prepare_sum_of_squares
+    real_msgd = upd.prepare_momentum_sgd
+    upd.prepare_sum_of_squares = lambda *a, **k: counting(
+        real_sumsq(*a, **k), "sum_of_squares", a)
+
+    def prepare_msgd(*a, **k):
+        scale, launch = real_msgd(*a, **k)
+        return scale, counting(launch, "momentum_sgd", a)
+
+    upd.prepare_momentum_sgd = prepare_msgd
+    real_start = ForecastService.start
+
+    async def start(svc) -> None:
+        kept.append(svc)
+        real_setup = svc._torch_setup
+
+        def setup(params=None) -> dict:
+            state = real_setup(params)
+            real_forward, real_step = state["forward"], state["step"]
+            keep["cfg"] = state["cfg"]
+
+            def recorded(window):
+                pred = real_forward(window)
+                forwards.append((window, pred, state["cfg"], {
+                    k: v.clone() for k, v in state["params"].items()}))
+                return pred
+
+            def step(params, momentum, batch):
+                if keep["steps"] >= svc.steps_per_round:
+                    return real_step(params, momentum, batch)
+                keep["steps"] += 1
+                keep["on"] = True
+                try:
+                    with keeping_step_wrappers(calls):
+                        return real_step(params, momentum, batch)
+                finally:
+                    keep["on"] = False
+
+            state.update(forward=recorded, step=step)
+            return state
+
+        svc._torch_setup = setup
+        await real_start(svc)
+
+    ForecastService.start = start
+    sys.argv = ["chanamq-server-torch", *argv]
+    server.main()
+    res: dict = {"services": len(kept), "main_returned": time.time()}
+    if kept:
+        svc = kept[0]
+        # no round may still run when the counts are read
+        svc._executor.shutdown(wait=True)
+        res.update(snapshot=svc.snapshot(),
+                   steps_per_round=svc.steps_per_round)
+    counted = counted_wrappers()
+    res["launches"] = {name: w.launches for name, w in counted.items()}
+    res["launches"].update(topic_match=rm.topic_match.launches,
+                           headers_match=rm.headers_match.launches, **split)
+    errs = []
+    for window, pred, cfg, params in forwards:
+        device = next(iter(params.values())).device
+        want = forward(params, torch.from_numpy(window).to(device), cfg,
+                       ops=PLAIN).cpu().numpy()
+        errs.append(float(np.abs(pred - want).max()))
+    if forwards:
+        res.update(forwards=len(forwards),
+                   pred_finite=bool(np.isfinite(forwards[-1][1]).all()),
+                   replay_last_abs_err=errs[-1],
+                   replay_max_abs_err=max(errs))
+    res["kept_steps"] = keep["steps"]
+    if keep["cfg"] is not None:
+        res["step_calls"] = step_calls(keep["cfg"])
+    try:
+        res["replay"] = hold_step_calls(calls)
+    except AssertionError as exc:  # the parent fails the phase with it
+        res["replay_error"] = str(exc)
+    with open(out + ".tmp", "w") as f:
+        json.dump(res, f)
+    os.replace(out + ".tmp", out)
+
+
+def _http(port: int, path: str) -> "tuple[int, str]":
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=30) as resp:
+            return resp.status, resp.read().decode()
+    except urllib.error.HTTPError as exc:
+        return exc.code, exc.read().decode()
+
+
+async def _node_run(wl: Workload, device: str, tmp: str, window: int,
+                    min_rounds: int, timeout_s: float) -> dict:
+    import signal
+
+    from chanamq_tpu_torch.client import AMQPClient
+
+    cfg_path = os.path.join(tmp, "node.json")
+    with open(cfg_path, "w") as f:
+        json.dump(node_config(device), f)
+    out = os.path.join(tmp, "child.json")
+    port, admin = _free_port(), _free_port()
+    here = os.path.dirname(os.path.abspath(__file__))
+    t_spawn = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--node-child", out,
+         "--config", cfg_path, "--port", str(port), "--admin-port",
+         str(admin)], cwd=here)
+
+    async def get(path: str) -> "tuple[int, str]":
+        return await asyncio.to_thread(_http, admin, path)
+
+    res: dict = {}
+    try:
+        deadline = time.monotonic() + timeout_s
+        while True:
+            if proc.poll() is not None:
+                raise AssertionError(f"node exited ({proc.returncode}) "
+                                     "before listening")
+            try:
+                _, w = await asyncio.open_connection("127.0.0.1", port)
+                w.close()
+                break
+            except OSError:
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"node not listening in "
+                                         f"{timeout_s} s") from None
+                await asyncio.sleep(0.05)
+        res["listen_s"] = time.perf_counter() - t_spawn
+        while True:  # the admin server opens after the other layers
+            try:
+                await get("/admin/overview")
+                break
+            except OSError:
+                if time.monotonic() > deadline:
+                    raise AssertionError("admin API not up") from None
+                await asyncio.sleep(0.05)
+
+        setup = await AMQPClient.connect("127.0.0.1", port, heartbeat=0)
+        ch = await setup.channel()
+        await ch.exchange_declare("node.topic", "topic")
+        await ch.exchange_declare("node.headers", "headers")
+        for q in wl.queues:
+            await ch.queue_declare(q)
+        for pat, q in wl.topic_bindings:
+            await ch.queue_bind(q, "node.topic", pat)
+        for q, args in wl.headers_bindings:
+            await ch.queue_bind(q, "node.headers", "", arguments=args)
+
+        async def publish(p: int) -> None:
+            c = await AMQPClient.connect("127.0.0.1", port, heartbeat=0)
+            pch = await c.channel()
+            await pch.confirm_select()
+            for i, (kind, x) in enumerate(wl.streams[p]):
+                if kind == "t":
+                    pch.basic_publish(wl.body(p, i), exchange="node.topic",
+                                      routing_key=x)
+                else:
+                    pch.basic_publish(wl.body(p, i), exchange="node.headers",
+                                      properties=wl.header_props[x])
+                if len(pch.unconfirmed) >= window:
+                    await pch.wait_unconfirmed_below(window // 2, timeout=120)
+            await pch.wait_unconfirmed_below(1, timeout=300)
+            await c.close()
+
+        t0 = time.perf_counter()
+        await asyncio.gather(*(publish(p) for p in range(wl.publishers)))
+        res["publish_s"] = time.perf_counter() - t0
+
+        # every queue's count, read the operator's way, against the oracle
+        status, body = await get("/admin/queues/%2F")
+        counts = {q["name"]: q["messages"] for q in json.loads(body)}
+        wrong = [(q, counts.get(q), len(wl.expected[q])) for q in wl.queues
+                 if counts.get(q) != len(wl.expected[q])]
+        if status != 200 or wrong:
+            raise AssertionError(f"{len(wrong)} queue counts differ from "
+                                 f"the oracle, e.g. {wrong[:5]}")
+
+        # consumers drain every queue: each message once, in publish order
+        # per publisher, with its body
+        busy = [q for q in wl.queues if wl.expected[q]]
+        want_total = sum(len(wl.expected[q]) for q in busy)
+        got: dict = {q: [] for q in busy}
+        count = [0]
+        done = asyncio.Event()
+        cons = await AMQPClient.connect("127.0.0.1", port, heartbeat=0)
+        cch = await cons.channel()
+        t0 = time.perf_counter()
+        for q in busy:
+            def cb(msg, _q=q) -> None:
+                got[_q].append(msg)
+                count[0] += 1
+                if count[0] >= want_total:
+                    done.set()
+            await cch.basic_consume(q, cb, no_ack=True)
+        await asyncio.wait_for(done.wait(), timeout=300)
+        res["drain_s"] = time.perf_counter() - t0
+        for q in busy:
+            want = wl.expected[q]
+            seen = [(int(a), int(b)) for a, b in
+                    (m.body.split(b":", 2)[:2] for m in got[q])]
+            if sorted(seen) != sorted(want) or any(
+                    [i for pp, i in seen if pp == p]
+                    != [i for pp, i in want if pp == p]
+                    for p in range(wl.publishers)) or any(
+                    m.body != wl.body(p, i) for m, (p, i) in zip(got[q],
+                                                                 seen)):
+                raise AssertionError(f"{q}: deliveries differ from the "
+                                     "oracle")
+        await cons.close()
+        await setup.close()
+        res["deliveries"] = count[0]
+
+        # the forecaster's rounds, as /admin/forecast serves them
+        while True:
+            status, body = await get("/admin/forecast")
+            snap = json.loads(body)
+            if snap.get("error") is not None:
+                raise AssertionError(f"forecaster error {snap['error']}")
+            if snap.get("rounds", 0) >= min_rounds:
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{snap.get('rounds')} forecast rounds "
+                                     f"in {timeout_s} s")
+            await asyncio.sleep(0.2)
+        forecast = snap["forecast"] or {}
+        if not (forecast and all(math.isfinite(v) for v in forecast.values())
+                and snap["loss"] is not None and math.isfinite(snap["loss"])):
+            raise AssertionError(f"/admin/forecast: {snap}")
+        res["forecast"] = snap
+        _, text = await get("/metrics")
+        for name in ('chanamq_forecast{feature="', "chanamq_forecast_loss"):
+            if name not in text:
+                raise AssertionError(f"/metrics has no {name}")
+        # health is a live verdict: the load is over, so it should be ready
+        for _ in range(100):
+            status, body = await get("/admin/health")
+            if status == 200:
+                break
+            await asyncio.sleep(0.1)
+        if status != 200:
+            raise AssertionError(f"/admin/health {status}: {body}")
+        ticks = []
+        for _ in range(2):
+            _, body = await get("/admin/control")
+            ticks.append(json.loads(body)["tick"])
+            await asyncio.sleep(1.5)  # longer than the control interval
+        if not ticks[1] > ticks[0]:
+            raise AssertionError(f"control engine not ticking: {ticks}")
+        res["control_ticks"] = ticks
+
+        # the node's exit is timed to main()'s return in the child; the
+        # child then replays its kept kernel calls before it ends
+        t0, sent = time.perf_counter(), time.time()
+        proc.send_signal(signal.SIGTERM)
+        res["exit"] = await asyncio.to_thread(proc.wait, 30 + 120)
+        res["exit_total_s"] = time.perf_counter() - t0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    if res["exit"] != 0:
+        raise AssertionError(f"node exited {res['exit']} on SIGTERM")
+    with open(out) as f:
+        res["child"] = json.load(f)
+    res["exit_s"] = res["child"]["main_returned"] - sent
+    if not res["exit_s"] <= 30:
+        raise AssertionError(f"main() returned {res['exit_s']} s after "
+                             "SIGTERM")
+    return res
+
+
+def phase_node(device: torch.device, seed: int, *, window: int = 2048,
+               min_rounds: int = NODE_ROUNDS, timeout_s: float = 240.0,
+               n_topic: int = NODE_TOPIC, n_headers: int = NODE_HEADERS,
+               **sizes) -> dict:
+    """The port's node as an operator starts it: ``main`` in a child
+    process (``node_child``) with ``node_config(device)``; over AMQP, the
+    main path's tables (512 topic patterns and 512 headers bindings over
+    4,096 queues) and 4 confirming publishers' transient 256 B messages
+    at its topic : headers mix; every queue's count (``/admin/queues``)
+    against the host oracle, then consumers drain every queue, each
+    message once, in order, with its body. Then ``/admin/forecast`` must
+    show at least ``min_rounds`` rounds, a finite loss and forecasts and
+    no error, ``/metrics`` the forecast gauges, ``/admin/health`` 200,
+    ``/admin/control`` a ticking engine, and SIGTERM exit 0 within 30 s.
+    The child reports every kernel wrapper's launches (on a card each of
+    ``NODE_KERNELS`` at least once, on the CPU none), its last forecast
+    replayed through the plain path within FORWARD_LIMIT, and its first
+    trained round's kernel calls replayed against their plain versions at
+    each kernel's own limits: a whole round, every kernel as often as
+    ``step_calls`` says a step calls it (on the CPU, where the update's
+    plain version runs, the forward's and backward's)."""
+    import tempfile
+
+    wl = Workload(seed, n_topic=n_topic, n_headers=n_headers, **sizes)
+    with tempfile.TemporaryDirectory() as tmp:
+        res = asyncio.run(_node_run(wl, str(device), tmp, window,
+                                    min_rounds, timeout_s))
+    child = res["child"]
+    launches = child["launches"]
+    if device.type == "cuda":
+        idle = [k for k in NODE_KERNELS if launches[k] < 1]
+        if idle:
+            raise AssertionError(f"node path: {idle} never launched")
+        if (launches["clip_momentum_sgd"] != launches["sum_of_squares"]
+                + launches["momentum_sgd"]):
+            raise AssertionError(f"node path: update launches {launches}")
+    elif any(launches.values()):
+        raise AssertionError(f"node path on the CPU launched {launches}")
+    if not (child.get("pred_finite") and child["replay_max_abs_err"]
+            <= FORWARD_LIMIT):
+        raise AssertionError(f"node path: a forecast differs from the "
+                             f"plain path by "
+                             f"{child.get('replay_max_abs_err')}")
+    if "replay_error" in child:
+        raise AssertionError(f"node path: {child['replay_error']}")
+    steps = child["kept_steps"]
+    want = {k: v * steps for k, v in child["step_calls"].items()
+            if device.type == "cuda" or k not in ("sum_of_squares",
+                                                  "momentum_sgd")}
+    got = {k: v["calls"] for k, v in child["replay"].items()}
+    if steps != child["steps_per_round"] or got != want:
+        raise AssertionError(f"node path: {steps} train steps kept, "
+                             f"{got} calls replayed, want {want}")
+    res.update(messages=wl.n_messages, mean_fanout=wl.mean_fanout,
+               queues=len(wl.queues),
+               msgs_per_s=wl.n_messages / res["publish_s"])
+    return res
+
+
+def log_node(res: dict, dev: dict) -> None:
+    child = res["child"]
+    snap = res["forecast"]
+    for name, row in child["replay"].items():
+        log(f"[node-replay] {name}: {row['calls']} calls of the node's "
+            f"first trained round ({child['kept_steps']} steps) replayed "
+            f"against the plain version at shapes {row['shapes']}; largest "
+            f"error {row['max_abs_err']:.6g}, {row['of_limit']:.4g} of its "
+            f"limit; card {dev['smi']}")
+    log(f"[node] python -m chanamq_tpu_torch.broker.server (main) in a "
+        f"child: AMQP listening {res['listen_s']:.3f} s after spawn; "
+        f"{res['messages']} transient 256 B messages, 4 confirming "
+        f"publishers, {res['queues']} queues, mean fan-out "
+        f"{res['mean_fanout']:.3f}: {res['msgs_per_s']:.1f} confirmed msg/s "
+        f"({res['publish_s']:.3f} s, host clock); queue counts equal the "
+        f"oracle; {res['deliveries']} deliveries drained in "
+        f"{res['drain_s']:.3f} s (from the first consume), in order; forecaster {snap['rounds']} "
+        f"rounds, {snap['trained_steps']} trained steps, "
+        f"{child.get('forwards')} forecasts, loss {snap['loss']:.6g}; "
+        f"forecasts replayed through the plain path on their parameters: "
+        f"the last max abs err {child['replay_last_abs_err']:.6g}, all "
+        f"{child['replay_max_abs_err']:.6g}; control ticks "
+        f"{res['control_ticks']}; SIGTERM exit {res['exit']} in "
+        f"{res['exit_s']:.3f} s (main() returned; the process ended after "
+        f"its replay in {res['exit_total_s']:.3f} s); kernel launches in "
+        f"the node "
+        f"{child['launches']}; card {dev['smi']}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     # the [durable] phase's node process: port, store path, device, state
     ap.add_argument("--durable-node", nargs=4, help=argparse.SUPPRESS)
+    if sys.argv[1:2] == ["--node-child"]:
+        # the [node] phase's node: --node-child <out.json> <main's args>
+        node_child(sys.argv[2], sys.argv[3:])
+        return 0
     args = ap.parse_args()
     if args.durable_node:
         port, db, device, state = args.durable_node
@@ -2976,6 +3446,7 @@ def main() -> int:
         return 2
     from chanamq_tpu_torch.kernels import router_match as rm
 
+    t_run = time.perf_counter()
     dev = phase_device()
     built = phase_build()
     device = torch.device("cuda", 0)
@@ -3157,6 +3628,29 @@ def main() -> int:
     durable = phase_durable(device, args.seed)
     log_durable(durable, dev)
 
+    # the node as an operator starts it, through main, with its forecaster
+    # on the card: the kernels' launches counted in the node's process
+    node = phase_node(device, args.seed)
+    log_node(node, dev)
+    node_launches = node["child"]["launches"]
+
+    node_replay = node["child"]["replay"]
+
+    def node_path(name: str) -> dict:
+        """A kernel's launches in the [node] phase's node and the replay of
+        its calls in the node's first trained round (the router kernels'
+        calls are held on the main path); the update's two under their
+        split names."""
+        if name == "clip_momentum_sgd":
+            return {split: node_path(split) for split in (
+                "sum_of_squares", "momentum_sgd")}
+        row = {"launches": node_launches[name]}
+        if name in node_replay:
+            r = node_replay[name]
+            row.update(replayed_calls=r["calls"], shapes=sorted(r["shapes"]),
+                       max_abs_err=r["max_abs_err"], of_limit=r["of_limit"])
+        return row
+
     replaces = {"topic_match": "chanamq_tpu/router/compile.py:289",
                 "headers_match": "chanamq_tpu/router/compile.py:372",
                 "layernorm": "chanamq_tpu/models/forecaster.py:77",
@@ -3180,7 +3674,7 @@ def main() -> int:
             "ms": row["ms"], "wrapper_ms": row["wrapper_ms"],
             "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": None,
+            "library_ms": None, "node_path": node_path(name),
             "at_caps": {b: {k: caps[name][b][k] for k in (
                 "shape", "ms", "wrapper_ms", "plain_ms", "bound_ms",
                 "bound_by", "by_mb")} for b in caps[name]}})
@@ -3209,7 +3703,7 @@ def main() -> int:
             **({"hmma": hmma[name]} if name in hmma else {}),
             **({"long_windows": long_rows[name]} if name in long_rows
                else {}),
-            "sharded_path": sharded_path(name),
+            "sharded_path": sharded_path(name), "node_path": node_path(name),
             **(floor_ms if name == "layernorm" else {})})
     for name in TRAIN_KERNELS:
         rows = train_kernels[name]
@@ -3229,7 +3723,10 @@ def main() -> int:
             "sharded_path": ({split: sharded_path(split) for split in (
                 "sum_of_squares", "momentum_sgd")}
                 if name == "clip_momentum_sgd" else sharded_path(name)),
+            "node_path": node_path(name),
             **(floor_ms if name == "layernorm_bwd" else {})})
+    log(f"[time] every phase in {time.perf_counter() - t_run:.1f} s (host "
+        f"clock, builds included); card {dev['smi']}")
     print(json.dumps({"kernels": line}))
     print(dev["smi"])
     print(json.dumps({"ok": True, "device": {

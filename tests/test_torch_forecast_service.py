@@ -15,13 +15,14 @@
   feature's std; the losses within 2% of the reference's. In float32 the
   forecasts agree within 1e-4 and the losses within 1e-5 of themselves;
 - the forecast after a trained round reads the trained weights;
-- the reference's observed-traffic test on the port's BrokerServer and
-  client with ``device="cpu"``, training with the reference's
-  ``steps_per_round=5``;
+- the reference's observed-traffic test on the port's BrokerServer,
+  client and admin API with ``device="cpu"``, training with the
+  reference's ``steps_per_round=5``, and its disabled-forecaster case;
 - the defaults are the reference's (20 steps a round, lr 1e-3).
 """
 
 import asyncio
+import json
 import types
 
 import numpy as np
@@ -41,6 +42,7 @@ from chanamq_tpu_torch.kernels import forecaster as fk
 from chanamq_tpu_torch.models import forecaster as port_fc
 from chanamq_tpu_torch.models import telemetry as port_tm
 from chanamq_tpu_torch.models.service import ForecastService as PortService
+from chanamq_tpu_torch.rest.admin import AdminServer as PortAdmin
 
 FORWARD_LIMIT = 0.1  # bf16 forward, normalized units
 TINY_MODEL = {"d_model": 32, "n_heads": 4, "d_ff": 64, "n_layers": 2}
@@ -296,15 +298,27 @@ def test_default_device_is_the_card():
 # -- end to end: the port's broker under load -> forecast ---------------------
 
 
+async def _http_get(port: int, path: str) -> tuple[str, bytes]:
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    writer.write(f"GET {path} HTTP/1.1\r\nHost: x\r\n\r\n".encode())
+    await writer.drain()
+    raw = await asyncio.wait_for(reader.read(-1), 10)
+    writer.close()
+    head, _, body = raw.partition(b"\r\n\r\n")
+    return head.decode("latin-1").split("\r\n")[0], body
+
+
 async def test_forecast_from_observed_traffic():
     """The reference's test_forecast_from_observed_traffic on the port's
-    server and client, training with its ``steps_per_round=5``, without
-    the admin API: the sampler sees the real traffic, the model trains to
-    a finite loss and the service serves a finite, non-negative next-tick
-    forecast."""
+    server, client and admin API, training with its
+    ``steps_per_round=5``: the sampler sees the real traffic, the model
+    trains to a finite loss, and ``GET /admin/forecast`` and ``/metrics``
+    serve a finite, non-negative next-tick forecast."""
     server = PortServer(PortBroker(router_device="cpu"), host="127.0.0.1",
                         port=0, heartbeat_s=0)
     await server.start()
+    admin = PortAdmin(server.broker, port=0)
+    await admin.start()
     forecaster = PortService(
         server.broker, interval_s=0.02, train_interval_s=0.2, seq_len=8,
         history=4096, batch=8, steps_per_round=5, model_kwargs=TINY_MODEL,
@@ -346,12 +360,45 @@ async def test_forecast_from_observed_traffic():
         for name, value in forecast.items():
             assert np.isfinite(value), (name, value)
             assert value >= 0.0
+
+        status, body = await _http_get(admin.bound_port, "/admin/forecast")
+        assert status.endswith("200 OK")
+        payload = json.loads(body)
+        assert payload["enabled"] is True
+        forecast = payload["forecast"]
+        assert set(forecast) == set(port_tm.FEATURES)
+        for name, value in forecast.items():
+            assert np.isfinite(value), (name, value)
+            assert value >= 0.0
+        assert payload["loss"] is not None and np.isfinite(payload["loss"])
+
+        status, body = await _http_get(admin.bound_port, "/metrics")
+        assert status.endswith("200 OK")
+        text = body.decode()
+        assert 'chanamq_forecast{feature="publish_rate"}' in text
+        assert "chanamq_forecast_loss" in text
         assert len(received) > 0
     finally:
         await client.close()
         await forecaster.stop()
+        await admin.stop()
         await server.stop()
     assert server.broker.forecaster is None
+
+
+async def test_admin_forecast_disabled_reports_enabled_false():
+    server = PortServer(PortBroker(router_device="cpu"), host="127.0.0.1",
+                        port=0, heartbeat_s=0)
+    await server.start()
+    admin = PortAdmin(server.broker, port=0)
+    await admin.start()
+    try:
+        status, body = await _http_get(admin.bound_port, "/admin/forecast")
+        assert status.endswith("200 OK")
+        assert json.loads(body) == {"enabled": False}
+    finally:
+        await admin.stop()
+        await server.stop()
 
 
 # -- chip_smoke rehearsals -----------------------------------------------------

@@ -59,6 +59,14 @@ def test_importing_the_port_loads_no_jax_or_reference():
         "import chanamq_tpu_torch.parallel.mesh\n"
         "import chanamq_tpu_torch.wal.engine\n"
         "import chanamq_tpu_torch.wal.tier\n"
+        "import chanamq_tpu_torch.rest.admin\n"
+        "import chanamq_tpu_torch.tenancy\n"
+        "import chanamq_tpu_torch.slo\n"
+        "import chanamq_tpu_torch.telemetry\n"
+        "import chanamq_tpu_torch.control\n"
+        "import chanamq_tpu_torch.otel.export\n"
+        "import chanamq_tpu_torch.cluster.rpc\n"
+        "import chanamq_tpu_torch.utils.logjson\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'chanamq_tpu'))\n"

@@ -1,0 +1,557 @@
+"""Ops surface tests: config tree, admin REST, TLS listener.
+
+The port's copy of ``tests/test_ops_surface.py``: imports point at
+``chanamq_tpu_torch``, every broker's router on the CPU; the
+assertions are the reference's.
+
+``test_admin_cluster_endpoint`` keeps its single-node half; its two-node
+half needs ``cluster/node.py``, not in the port yet. The SIGTERM case
+boots the port's node (``python -m chanamq_tpu_torch.broker.server``) on
+a free port.
+"""
+
+import asyncio
+import json
+import ssl
+import subprocess
+
+import pytest
+
+from chanamq_tpu_torch.broker.server import BrokerServer
+from chanamq_tpu_torch.client import AMQPClient
+from chanamq_tpu_torch.config import Config, ConfigError, parse_duration_s, parse_size_bytes
+from chanamq_tpu_torch.rest.admin import AdminServer
+from chanamq_tpu_torch.broker.broker import Broker
+
+pytestmark = pytest.mark.asyncio
+
+
+# ---------------------------------------------------------------------------
+# config
+# ---------------------------------------------------------------------------
+
+
+def test_config_defaults():
+    cfg = Config(env={})
+    assert cfg.int("chana.mq.amqp.port") == 5672
+    assert cfg.size_bytes("chana.mq.amqp.connection.frame-max") == 128 * 1024
+    assert cfg.duration_s("chana.mq.amqp.connection.heartbeat") == 30.0
+    assert cfg.str("chana.mq.vhost.default") == "/"
+
+
+def test_config_env_override():
+    cfg = Config(env={"CHANAMQ_AMQP_PORT": "5673",
+                      "CHANAMQ_AMQP_CONNECTION_HEARTBEAT": "10s",
+                      "CHANAMQ_ADMIN_ENABLED": "false"})
+    assert cfg.int("chana.mq.amqp.port") == 5673
+    assert cfg.duration_s("chana.mq.amqp.connection.heartbeat") == 10.0
+    assert cfg.bool("chana.mq.admin.enabled") is False
+
+
+def test_config_file_layer(tmp_path):
+    f = tmp_path / "broker.json"
+    f.write_text(json.dumps({
+        "amqp": {"port": 6000, "connection": {"frame-max": "64KiB"}},
+        "chana.mq.admin.port": 16000,
+    }))
+    cfg = Config(file=str(f), env={})
+    assert cfg.int("chana.mq.amqp.port") == 6000
+    assert cfg.size_bytes("chana.mq.amqp.connection.frame-max") == 64 * 1024
+    assert cfg.int("chana.mq.admin.port") == 16000
+
+
+def test_config_overrides_win(tmp_path):
+    f = tmp_path / "c.json"
+    f.write_text(json.dumps({"amqp": {"port": 6000}}))
+    cfg = Config({"chana.mq.amqp.port": 7000}, file=str(f), env={})
+    assert cfg.int("chana.mq.amqp.port") == 7000
+
+
+def test_duration_and_size_parsing():
+    assert parse_duration_s("500ms") == 0.5
+    assert parse_duration_s("2m") == 120.0
+    assert parse_duration_s("1h") == 3600.0
+    assert parse_duration_s("infinite") is None
+    assert parse_duration_s(15) == 15.0
+    assert parse_size_bytes("4MiB") == 4 * 1024 * 1024
+    assert parse_size_bytes("1KB") == 1000
+    assert parse_size_bytes(4096) == 4096
+    with pytest.raises(ConfigError):
+        parse_duration_s("eleventy")
+
+
+# ---------------------------------------------------------------------------
+# admin REST
+# ---------------------------------------------------------------------------
+
+
+async def http_req(port: int, path: str, method: str = "GET") -> tuple[int, dict]:
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    writer.write(f"{method} {path} HTTP/1.1\r\nHost: localhost\r\n\r\n".encode())
+    await writer.drain()
+    raw = await asyncio.wait_for(reader.read(65536), 5)
+    writer.close()
+    head, _, body = raw.partition(b"\r\n\r\n")
+    status = int(head.split()[1])
+    return status, json.loads(body) if body else {}
+
+
+@pytest.fixture
+async def stack():
+    server = BrokerServer(broker=Broker(router_device="cpu"), host="127.0.0.1",
+                          port=0, heartbeat_s=0)
+    await server.start()
+    admin = AdminServer(server.broker, port=0)
+    await admin.start()
+    yield server, admin
+    await admin.stop()
+    await server.stop()
+
+
+async def test_admin_vhost_put_delete(stack):
+    server, admin = stack
+    status, body = await http_req(admin.bound_port, "/admin/vhost/put/tenant1", "POST")
+    assert status == 200 and body["ok"]
+    assert "tenant1" in server.broker.vhosts
+    # AMQP clients can use it immediately
+    c = await AMQPClient.connect("127.0.0.1", server.bound_port, vhost="tenant1")
+    await c.close()
+    status, body = await http_req(admin.bound_port, "/admin/vhost/delete/tenant1", "POST")
+    assert status == 200 and body["ok"]
+    assert "tenant1" not in server.broker.vhosts
+
+
+async def test_admin_overview_and_queues(stack):
+    server, admin = stack
+    c = await AMQPClient.connect("127.0.0.1", server.bound_port)
+    ch = await c.channel()
+    await ch.queue_declare("adm_q", durable=True)
+    ch.basic_publish(b"x", routing_key="adm_q")
+    await asyncio.sleep(0.05)
+
+    status, overview = await http_req(admin.bound_port, "/admin/overview")
+    assert status == 200
+    assert overview["vhosts"]["/"]["queues"] == 1
+    assert overview["vhosts"]["/"]["messages"] == 1
+
+    status, queues = await http_req(admin.bound_port, "/admin/queues/%2F")
+    assert status == 200
+    assert queues[0]["name"] == "adm_q"
+    assert queues[0]["messages"] == 1
+    assert queues[0]["durable"] is True
+
+    status, metrics = await http_req(admin.bound_port, "/admin/metrics")
+    assert status == 200
+    assert metrics["published_msgs"] == 1
+
+    status, exchanges = await http_req(admin.bound_port, "/admin/exchanges/%2F")
+    assert status == 200
+    assert any(e["name"] == "(default)" for e in exchanges)
+    await c.close()
+
+
+async def test_admin_unknown_path_404(stack):
+    _, admin = stack
+    status, _ = await http_req(admin.bound_port, "/admin/nope")
+    assert status == 404
+    status, _ = await http_req(admin.bound_port, "/favicon.ico")
+    assert status == 404
+
+
+async def test_admin_known_path_wrong_method_405(stack):
+    _, admin = stack
+    # known GET paths refuse POST with 405 (not a blanket 404) and name
+    # the allowed method in the body
+    status, body = await http_req(admin.bound_port, "/metrics", "POST")
+    assert status == 405 and body["error"] == "use GET"
+    status, body = await http_req(admin.bound_port, "/admin/overview", "POST")
+    assert status == 405 and body["error"] == "use GET"
+    status, body = await http_req(admin.bound_port, "/admin/streams", "POST")
+    assert status == 405
+    # mutating vhost paths refuse GET the same way
+    status, body = await http_req(admin.bound_port, "/admin/vhost/put/x")
+    assert status == 405 and body["error"] == "use POST"
+    # unknown paths keep 404 regardless of method
+    status, _ = await http_req(admin.bound_port, "/admin/nope", "POST")
+    assert status == 404
+
+
+# ---------------------------------------------------------------------------
+# TLS (AMQPS)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def certs(tmp_path_factory):
+    path = tmp_path_factory.mktemp("certs")
+    cert, key = str(path / "cert.pem"), str(path / "key.pem")
+    subprocess.run(
+        ["openssl", "req", "-x509", "-newkey", "rsa:2048", "-nodes",
+         "-keyout", key, "-out", cert, "-days", "1",
+         "-subj", "/CN=localhost"],
+        check=True, capture_output=True)
+    return cert, key
+
+
+async def test_amqps_listener(certs):
+    certfile, keyfile = certs
+    server_ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+    server_ctx.load_cert_chain(certfile, keyfile)
+    server = BrokerServer(broker=Broker(router_device="cpu"), host="127.0.0.1",
+                          port=0, heartbeat_s=0, tls_port=0,
+                          ssl_context=server_ctx)
+    await server.start()
+    try:
+        tls_port = server._servers[1].sockets[0].getsockname()[1]
+        client_ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_CLIENT)
+        client_ctx.check_hostname = False
+        client_ctx.verify_mode = ssl.CERT_NONE
+        c = await AMQPClient.connect("127.0.0.1", tls_port, ssl=client_ctx)
+        ch = await c.channel()
+        await ch.queue_declare("tls_q")
+        ch.basic_publish(b"over-tls", routing_key="tls_q")
+        await asyncio.sleep(0.05)
+        msg = await ch.basic_get("tls_q", no_ack=True)
+        assert msg.body == b"over-tls"
+        await c.close()
+    finally:
+        await server.stop()
+
+
+async def test_admin_mutations_require_post(stack):
+    """GET on a mutating endpoint must be rejected (CSRF hardening; the
+    reference used GET here, which is browser-triggerable)."""
+    server, admin = stack
+    status, _ = await http_req(admin.bound_port, "/admin/vhost/put/evil")
+    assert status == 405
+    assert "evil" not in server.broker.vhosts
+
+
+# ---------------------------------------------------------------------------
+# listener resource limits (reference: ServerSettings max-connections /
+# backlog, Settings.scala:141-219)
+# ---------------------------------------------------------------------------
+
+
+async def test_max_connections_refuses_excess_cleanly():
+    """Connections beyond chana.mq.server.max-connections are refused with
+    a TCP close before the handshake, while existing connections keep
+    working undisturbed."""
+    from chanamq_tpu_torch.client import AMQPClient
+
+    server = BrokerServer(broker=Broker(router_device="cpu"), host="127.0.0.1",
+                          port=0, heartbeat_s=0, max_connections=2)
+    await server.start()
+    try:
+        c1 = await AMQPClient.connect("127.0.0.1", server.bound_port)
+        c2 = await AMQPClient.connect("127.0.0.1", server.bound_port)
+        # third connection: TCP accepted then closed pre-handshake
+        with pytest.raises((ConnectionError, asyncio.IncompleteReadError,
+                            EOFError, OSError)):
+            await AMQPClient.connect("127.0.0.1", server.bound_port)
+        assert server.refused_connections == 1
+        # existing connections unaffected: full declare/publish/get cycle
+        ch = await c1.channel()
+        await ch.queue_declare("lim_q")
+        ch.basic_publish(b"still-alive", routing_key="lim_q")
+        await c1.drain()
+        for _ in range(50):
+            msg = await ch.basic_get("lim_q", no_ack=True)
+            if msg is not None:
+                break
+            await asyncio.sleep(0.02)
+        assert msg is not None and bytes(msg.body) == b"still-alive"
+        await c2.close()
+        # a slot freed: new connections are admitted again
+        c3 = await AMQPClient.connect("127.0.0.1", server.bound_port)
+        await c3.close()
+        await c1.close()
+    finally:
+        await server.stop()
+
+
+def test_listener_limit_knobs_from_config():
+    from chanamq_tpu_torch.config import Config
+
+    cfg = Config(overrides={"chana.mq.admin.enabled": False,
+                            "chana.mq.server.max-connections": 7,
+                            "chana.mq.server.backlog": 9})
+    server = BrokerServer.from_config(cfg)
+    assert server.max_connections == 7
+    assert server.backlog == 9
+
+
+async def test_admin_cluster_endpoint(stack):
+    server, admin = stack
+    # single node, no cluster: endpoint reports disabled
+    status, body = await http_req(admin.bound_port, "/admin/cluster")
+    assert status == 200 and body == {"enabled": False}
+
+
+async def test_sigterm_graceful_drain(tmp_path):
+    """SIGTERM on a live node exits 0 after draining: connections tear
+    down (unacked in-flight deliveries requeue durably), store buffers
+    flush — nothing confirmed is lost across the restart (the analogue of
+    the reference's JVM shutdown hooks)."""
+    import json as jsonlib
+    import signal
+    import subprocess
+    import sys
+
+    from chanamq_tpu_torch.amqp.properties import BasicProperties
+
+    import socket
+
+    # a free port, not the reference copy's fixed one: both files may run
+    # at once under xdist
+    with socket.socket() as probe:
+        probe.bind(("127.0.0.1", 0))
+        port = probe.getsockname()[1]
+    db = str(tmp_path / "g.db")
+    cfg_path = tmp_path / "n.json"
+    cfg_path.write_text(jsonlib.dumps({
+        "chana.mq.amqp.interface": "127.0.0.1",
+        "chana.mq.amqp.port": port,
+        "chana.mq.admin.enabled": False,
+        "chana.mq.store.path": db,
+        "chana.mq.router.device": "cpu",
+    }))
+
+    def start():
+        return subprocess.Popen(
+            [sys.executable, "-m", "chanamq_tpu_torch.broker.server",
+             "--config", str(cfg_path), "--log-level", "WARNING"],
+            stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+
+    async def wait_up():
+        for _ in range(150):
+            try:
+                _, w = await asyncio.open_connection("127.0.0.1", port)
+                w.close()
+                return
+            except OSError:
+                await asyncio.sleep(0.1)
+        raise RuntimeError("node never came up")
+
+    p = start()
+    try:
+        await wait_up()
+        c = await AMQPClient.connect("127.0.0.1", port)
+        ch = await c.channel()
+        await ch.confirm_select()
+        await ch.queue_declare("gq", durable=True)
+        persistent = BasicProperties(delivery_mode=2)
+        for i in range(50):
+            ch.basic_publish(b"g-%02d" % i, routing_key="gq",
+                             properties=persistent)
+        await ch.wait_unconfirmed_below(1)
+        got = []
+        await ch.basic_consume("gq", lambda m: got.append(m))  # never acks
+        for _ in range(50):
+            if len(got) >= 10:
+                break
+            await asyncio.sleep(0.05)
+        p.send_signal(signal.SIGTERM)
+        assert p.wait(timeout=15) == 0
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+    p = start()
+    try:
+        await wait_up()
+        c2 = await AMQPClient.connect("127.0.0.1", port)
+        ch2 = await c2.channel()
+        ok = await ch2.queue_declare("gq", durable=True, passive=True)
+        assert ok.message_count == 50
+        await c2.close()
+    finally:
+        p.terminate()
+        p.wait(timeout=10)
+
+
+async def test_plain_auth_verifies_when_users_configured():
+    """chana.mq.auth.users turns SASL PLAIN verification on (the reference
+    parses credentials but never verifies; auth listed unimplemented in its
+    README). Wrong password or unknown user -> ACCESS_REFUSED close;
+    EXTERNAL is refused while a user table is set."""
+    from chanamq_tpu_torch.broker.server import BrokerServer
+    from chanamq_tpu_torch.client import AMQPClient
+    from chanamq_tpu_torch.client.client import ConnectionClosedError
+
+    srv = BrokerServer(broker=Broker(router_device="cpu"), host="127.0.0.1",
+                       port=0, heartbeat_s=0, users={"alice": "s3cret"})
+    await srv.start()
+    try:
+        c = await AMQPClient.connect("127.0.0.1", srv.bound_port,
+                                     username="alice", password="s3cret")
+        ch = await c.channel()
+        await ch.queue_declare("authed_q")
+        await c.close()
+
+        for user, pw in (("alice", "wrong"), ("mallory", "s3cret")):
+            with pytest.raises((ConnectionClosedError, OSError,
+                                asyncio.IncompleteReadError,
+                                asyncio.TimeoutError)):
+                await AMQPClient.connect("127.0.0.1", srv.bound_port,
+                                         username=user, password=pw)
+    finally:
+        await srv.stop()
+
+
+async def test_auth_disabled_accepts_anything():
+    from chanamq_tpu_torch.broker.server import BrokerServer
+    from chanamq_tpu_torch.client import AMQPClient
+
+    srv = BrokerServer(broker=Broker(router_device="cpu"), host="127.0.0.1",
+                       port=0, heartbeat_s=0)
+    await srv.start()
+    try:
+        c = await AMQPClient.connect("127.0.0.1", srv.bound_port,
+                                     username="anyone", password="anything")
+        await c.close()
+    finally:
+        await srv.stop()
+
+
+async def test_auth_users_from_config_file_and_env(tmp_path):
+    """Dict-valued chana.mq.auth.users survives BOTH config layers: a JSON
+    config file (flattening stops at the users mapping) and a JSON-object
+    environment variable. Malformed values fail the boot, never fail open."""
+    import json as _json
+
+    from chanamq_tpu_torch.config import Config, ConfigError
+    from chanamq_tpu_torch.broker.server import BrokerServer
+    from chanamq_tpu_torch.client import AMQPClient
+    from chanamq_tpu_torch.client.client import ConnectionClosedError
+
+    cfg_file = tmp_path / "broker.json"
+    cfg_file.write_text(_json.dumps(
+        {"auth": {"users": {"bob": "pw1"}},
+         "router": {"device": "cpu"},
+         "amqp": {"interface": "127.0.0.1", "port": 0,
+                  "connection": {"heartbeat": "0s"}}}))
+    cfg = Config(file=str(cfg_file), env={})
+    assert cfg.get("chana.mq.auth.users") == {"bob": "pw1"}
+    srv = BrokerServer.from_config(cfg)
+    await srv.start()
+    try:
+        c = await AMQPClient.connect("127.0.0.1", srv.bound_port,
+                                     username="bob", password="pw1")
+        await c.close()
+        with pytest.raises((ConnectionClosedError, OSError,
+                            asyncio.IncompleteReadError,
+                            asyncio.TimeoutError)):
+            await AMQPClient.connect("127.0.0.1", srv.bound_port,
+                                     username="bob", password="nope")
+    finally:
+        await srv.stop()
+
+    # env layer: JSON object required
+    cfg2 = Config(env={"CHANAMQ_AUTH_USERS": '{"eve": "pw2"}'})
+    assert cfg2.get("chana.mq.auth.users") == {"eve": "pw2"}
+    with pytest.raises(ConfigError):
+        Config(env={"CHANAMQ_AUTH_USERS": "not-json"})
+    with pytest.raises(ConfigError):
+        Config(env={"CHANAMQ_AUTH_USERS": '["list"]'})
+    # fail-closed on a malformed override too
+    with pytest.raises(ConfigError):
+        BrokerServer.from_config(
+            Config(overrides={"chana.mq.auth.users": "alice:pw"}, env={}))
+
+
+async def http_text(port: int, path: str) -> tuple[int, str, str]:
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    writer.write(f"GET {path} HTTP/1.1\r\nHost: localhost\r\n\r\n".encode())
+    await writer.drain()
+    # the server sends Connection: close — read to EOF so a response split
+    # across TCP segments can't truncate the body
+    raw = await asyncio.wait_for(reader.read(), 5)
+    writer.close()
+    head, _, body = raw.partition(b"\r\n\r\n")
+    status = int(head.split()[1])
+    ctype = ""
+    for line in head.decode("latin-1").split("\r\n"):
+        if line.lower().startswith("content-type:"):
+            ctype = line.split(":", 1)[1].strip()
+    return status, ctype, body.decode()
+
+
+async def test_prometheus_metrics_endpoint(stack):
+    """GET /metrics serves the Prometheus text exposition format: typed
+    broker counters/gauges plus per-queue gauges with vhost/queue labels
+    (the reference had no metrics subsystem at all)."""
+    server, admin = stack
+    c = await AMQPClient.connect("127.0.0.1", server.bound_port)
+    ch = await c.channel()
+    await ch.queue_declare("prom_q")
+    ch.basic_publish(b"x" * 64, routing_key="prom_q")
+    await asyncio.sleep(0.05)
+
+    status, ctype, text = await http_text(admin.bound_port, "/metrics")
+    assert status == 200
+    assert ctype.startswith("text/plain")
+    lines = text.splitlines()
+    assert "# TYPE chanamq_published_msgs counter" in lines
+    assert "# TYPE chanamq_resident_bytes gauge" in lines
+    metrics = {}
+    for line in lines:
+        if line.startswith("#") or not line:
+            continue
+        name, _, value = line.rpartition(" ")
+        metrics[name] = float(value)
+    assert metrics["chanamq_published_msgs"] >= 1
+    assert metrics['chanamq_queue_messages{vhost="/",queue="prom_q"}'] == 1
+    assert metrics['chanamq_queue_ready_bytes{vhost="/",queue="prom_q"}'] == 64
+    assert metrics["chanamq_memory_blocked"] == 0
+    await c.close()
+
+
+async def test_vhost_permissions_enforced():
+    """chana.mq.auth.permissions: a user with an allowlist may open only
+    those vhosts; users absent from the map stay unrestricted."""
+    from chanamq_tpu_torch.broker.server import BrokerServer
+    from chanamq_tpu_torch.client import AMQPClient
+    from chanamq_tpu_torch.client.client import ConnectionClosedError
+
+    srv = BrokerServer(broker=Broker(router_device="cpu"), host="127.0.0.1",
+                       port=0, heartbeat_s=0,
+                       users={"tenant": "pw", "admin": "pw"},
+                       permissions={"tenant": ["tenant-vh"]})
+    await srv.start()
+    await srv.broker.create_vhost("tenant-vh")
+    try:
+        # tenant: allowed vhost works
+        c = await AMQPClient.connect("127.0.0.1", srv.bound_port,
+                                     vhost="tenant-vh",
+                                     username="tenant", password="pw")
+        await c.close()
+        # tenant: default vhost refused
+        with pytest.raises((ConnectionClosedError, OSError,
+                            asyncio.IncompleteReadError,
+                            asyncio.TimeoutError)):
+            await AMQPClient.connect("127.0.0.1", srv.bound_port,
+                                     vhost="/",
+                                     username="tenant", password="pw")
+        # admin (no allowlist entry): unrestricted
+        c = await AMQPClient.connect("127.0.0.1", srv.bound_port, vhost="/",
+                                     username="admin", password="pw")
+        await c.close()
+    finally:
+        await srv.stop()
+
+
+async def test_permissions_config_fails_closed():
+    """Allowlists that could silently not be enforced are boot errors:
+    permissions without users, or permissions naming unknown users."""
+    from chanamq_tpu_torch.broker.server import BrokerServer
+    from chanamq_tpu_torch.config import Config, ConfigError
+
+    with pytest.raises(ConfigError):
+        BrokerServer.from_config(Config(
+            overrides={"chana.mq.auth.permissions": {"t": ["/"]}}, env={}))
+    with pytest.raises(ConfigError):
+        BrokerServer.from_config(Config(overrides={
+            "chana.mq.auth.users": {"alice": "pw"},
+            "chana.mq.auth.permissions": {"bob": ["/"]}}, env={}))

@@ -1,0 +1,411 @@
+"""Per-entity telemetry: rings, alert engine, health surface, admin routes.
+
+Covers the telemetry subsystem end to end: fixed-slot entity
+rings, deterministic alert evaluation with hysteresis, the incremental
+broker gauges vs an explicit walk after a mixed workload, readiness
+flipping 503 on drain, admin GET/405/404 conventions for the new routes,
+opaque 500s, and the 2-node cluster aggregation that lets either node
+serve the whole-cluster timeseries view.
+
+The port's copy of ``tests/test_telemetry.py``: imports point at
+``chanamq_tpu_torch``, every broker's router on the CPU; the
+assertions are the reference's.
+
+Not carried over: ``test_cluster_timeseries_served_from_either_node``,
+which needs two clustered nodes (``cluster/node.py``, not in the port
+yet).
+"""
+
+import asyncio
+import json
+
+import numpy as np
+import pytest
+
+from chanamq_tpu_torch.broker.server import BrokerServer
+from chanamq_tpu_torch.client import AMQPClient
+from chanamq_tpu_torch.rest.admin import AdminServer
+from chanamq_tpu_torch.store.memory import MemoryStore
+from chanamq_tpu_torch.telemetry import (
+    AlertEngine, AlertRule, EntityRings, QUEUE_FIELDS, TelemetryService,
+    default_rules,
+)
+from chanamq_tpu_torch.broker.broker import Broker
+
+pytestmark = pytest.mark.asyncio
+
+
+async def http_req(port: int, path: str, method: str = "GET") -> tuple[int, dict]:
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    writer.write(f"{method} {path} HTTP/1.1\r\nHost: localhost\r\n\r\n".encode())
+    await writer.drain()
+    raw = await asyncio.wait_for(reader.read(1 << 20), 5)
+    writer.close()
+    head, _, body = raw.partition(b"\r\n\r\n")
+    status = int(head.split()[1])
+    return status, json.loads(body) if body else {}
+
+
+# ---------------------------------------------------------------------------
+# EntityRings
+# ---------------------------------------------------------------------------
+
+
+def test_entity_rings_lease_retire_drop():
+    rings = EntityRings(2, 4, ("a", "b"))
+    s1 = rings.lease("q1")
+    s2 = rings.lease("q2")
+    assert s1 != s2 and len(rings) == 2
+    # full: a third entity is dropped (counted), not resized
+    assert rings.lease("q3") is None
+    assert rings.dropped == 1
+    # retire recycles the slot for the next newcomer
+    rings.retire("q1")
+    assert rings.evicted == 1
+    s3 = rings.lease("q3")
+    assert s3 == s1 and len(rings) == 2
+    # retire_absent sweeps everything not in the live set
+    rings.retire_absent({"q3"})
+    assert rings.keys() == ["q3"]
+
+
+def test_entity_rings_series_and_matrices():
+    rings = EntityRings(4, 4, ("x", "y"))
+    slot = rings.lease("q")
+    for i in range(6):  # wraps the 4-tick ring
+        rings.push(slot, np.array([i, 10 * i], dtype=np.float32))
+    series = rings.series("q", 10)
+    # only the newest 4 retained, oldest first
+    assert series[:, 0].tolist() == [2.0, 3.0, 4.0, 5.0]
+    assert rings.series("q", 2)[:, 0].tolist() == [4.0, 5.0]
+    assert rings.series("ghost", 4) is None
+    keys, latest = rings.latest_matrix()
+    assert keys == ["q"] and latest[0].tolist() == [5.0, 50.0]
+    # growth over 2 ticks: 5 - 3
+    _, delta = rings.delta_matrix(2)
+    assert delta[0, 0] == 2.0
+    # single-sample entity reports zero growth, not garbage
+    s2 = rings.lease("fresh")
+    rings.push(s2, np.array([7.0, 7.0], dtype=np.float32))
+    keys, delta = rings.delta_matrix(3)
+    assert delta[keys.index("fresh")].tolist() == [0.0, 0.0]
+
+
+# ---------------------------------------------------------------------------
+# alert engine: hysteresis + determinism
+# ---------------------------------------------------------------------------
+
+
+def _drive(engine, series):
+    """Feed a synthetic per-tick depth series for one queue; returns the
+    flattened event stream."""
+    events = []
+    rings = EntityRings(4, 16, QUEUE_FIELDS)
+    slot = rings.lease(("/", "q"))
+    for tick, depth in enumerate(series, start=1):
+        vec = np.zeros(len(QUEUE_FIELDS), dtype=np.float32)
+        vec[QUEUE_FIELDS.index("depth")] = depth
+        rings.push(slot, vec)
+        keys, latest = rings.latest_matrix()
+        events.extend(engine.evaluate(
+            tick, keys, latest, lambda w: rings.delta_matrix(w)[1],
+            "node", {}))
+    return events
+
+
+def test_alert_hysteresis_for_and_clear_ticks():
+    rule = AlertRule(name="deep", scope="queue", metric="depth",
+                     threshold=100.0, for_ticks=3, clear_ticks=2)
+    engine = AlertEngine([rule])
+    # 2 breach ticks < for_ticks: no fire
+    assert _drive(engine, [200, 200, 0, 0]) == []
+    # 3 straight breaches fire once; 1 OK tick is not enough to resolve,
+    # the second is
+    engine = AlertEngine([rule])
+    events = _drive(engine, [200, 200, 200, 200, 0, 200, 0, 0])
+    kinds = [e["event"] for e in events]
+    assert kinds == ["fired", "resolved"]
+    assert events[0]["rule"] == "deep" and events[0]["entity"] == "//q"
+    assert engine.fired_total == 1 and engine.resolved_total == 1
+
+
+def test_alert_engine_deterministic_over_same_series():
+    series = [0, 50, 300, 300, 300, 0, 0, 0, 120, 400, 400, 0, 0, 0]
+    runs = []
+    for _ in range(2):
+        engine = AlertEngine(default_rules(backlog_growth=100.0))
+        runs.append(_drive(engine, series))
+    assert runs[0] == runs[1]
+    assert any(e["event"] == "fired" for e in runs[0])
+
+
+def test_alert_engine_rejects_unknown_metric():
+    with pytest.raises(ValueError):
+        AlertEngine([AlertRule(name="bad", scope="queue",
+                               metric="nope", threshold=1.0)])
+
+
+def test_node_scope_rules_use_probes():
+    rule = AlertRule(name="lag", scope="node", metric="loop_lag_ms",
+                     threshold=250.0, for_ticks=2, clear_ticks=1)
+    engine = AlertEngine([rule])
+    events = []
+    for tick, lag in enumerate([300, 300, 300, 10], start=1):
+        events.extend(engine.evaluate(
+            tick, [], np.zeros((0, len(QUEUE_FIELDS)), dtype=np.float32),
+            lambda w: np.zeros((0, len(QUEUE_FIELDS)), dtype=np.float32),
+            "n1", {"loop_lag_ms": lag}))
+    assert [e["event"] for e in events] == ["fired", "resolved"]
+    assert events[0]["entity"] == "n1"
+
+
+# ---------------------------------------------------------------------------
+# incremental gauges == explicit walk, after a mixed workload
+# ---------------------------------------------------------------------------
+
+
+def _walk(broker):
+    depth = unacked = consumers = 0
+    for vhost in broker.vhosts.values():
+        for queue in vhost.queues.values():
+            depth += len(queue.messages)
+            unacked += len(queue.outstanding)
+            consumers += len(queue.consumers)
+    return depth, unacked, consumers
+
+
+async def test_incremental_gauges_match_walk():
+    server = BrokerServer(broker=Broker(router_device="cpu"), host="127.0.0.1",
+                          port=0, heartbeat_s=0)
+    await server.start()
+    try:
+        broker = server.broker
+        c = await AMQPClient.connect("127.0.0.1", server.bound_port)
+        ch = await c.channel()
+        await ch.queue_declare("g1")
+        await ch.queue_declare("g2")
+        for i in range(20):
+            ch.basic_publish(f"m{i}".encode(), routing_key="g1")
+        for i in range(5):
+            ch.basic_publish(f"n{i}".encode(), routing_key="g2")
+        await asyncio.sleep(0.1)
+        assert (broker.queue_depth, broker.queue_unacked,
+                broker.queue_consumers) == _walk(broker)
+
+        # unacked consumer takes deliveries without settling
+        await ch.basic_qos(prefetch_count=8)
+        got = asyncio.Event()
+        tags = []
+
+        def on_msg(msg):
+            tags.append(msg.delivery_tag)
+            if len(tags) >= 8:
+                got.set()
+
+        await ch.basic_consume("g1", on_msg, consumer_tag="t1")
+        await asyncio.wait_for(got.wait(), 5)
+        await asyncio.sleep(0.05)
+        assert broker.queue_unacked == 8
+        assert (broker.queue_depth, broker.queue_unacked,
+                broker.queue_consumers) == _walk(broker)
+
+        # ack half, requeue the rest via recover
+        for tag in tags[:4]:
+            ch.basic_ack(tag)
+        await asyncio.sleep(0.05)
+        await ch.basic_cancel("t1")
+        await ch.basic_recover(requeue=True)
+        await asyncio.sleep(0.1)
+        assert (broker.queue_depth, broker.queue_unacked,
+                broker.queue_consumers) == _walk(broker)
+
+        # purge one queue, delete the other
+        await ch.queue_purge("g1")
+        await ch.queue_delete("g2")
+        await asyncio.sleep(0.05)
+        assert (broker.queue_depth, broker.queue_unacked,
+                broker.queue_consumers) == _walk(broker)
+        await c.close()
+        # connection teardown releases everything: gauges return to zero
+        await asyncio.sleep(0.1)
+        assert (broker.queue_depth, broker.queue_unacked,
+                broker.queue_consumers) == _walk(broker)
+    finally:
+        await server.stop()
+
+
+# ---------------------------------------------------------------------------
+# service sampling + payloads
+# ---------------------------------------------------------------------------
+
+
+async def test_service_samples_and_serves_payload():
+    server = BrokerServer(broker=Broker(router_device="cpu"), host="127.0.0.1",
+                          port=0, heartbeat_s=0)
+    await server.start()
+    try:
+        broker = server.broker
+        svc = TelemetryService(broker, interval_s=1.0, ring_ticks=16)
+        broker.telemetry = svc
+        c = await AMQPClient.connect("127.0.0.1", server.bound_port)
+        ch = await c.channel()
+        await ch.queue_declare("ts_q")
+        svc.sample_tick(1.0)  # baseline before the burst
+        for i in range(10):
+            ch.basic_publish(b"x", routing_key="ts_q")
+        await asyncio.sleep(0.1)
+        svc.sample_tick(1.0)
+
+        payload = svc.local_payload(window=8)
+        entry = next(q for q in payload["queues"] if q["name"] == "ts_q")
+        fields = payload["fields"]["queue"]
+        latest = dict(zip(fields, entry["series"][-1]))
+        assert latest["depth"] == 10.0
+        assert latest["publish_rate"] == 10.0  # 10 msgs over dt=1 s
+        assert payload["queues"] and payload["connections"]
+        assert payload["health"]["ready"] is True
+        # entity count reflects both AMQP queues and the ring stats
+        assert payload["stats"]["queues"]["entities"] >= 1
+
+        # gauges merge into the broker metrics snapshot
+        snap = broker.metrics_snapshot()
+        assert snap["telemetry_queue_entities"] >= 1
+        assert snap["telemetry_ticks"] == 2
+
+        # top-K features: busiest queue's (depth, publish_rate) first,
+        # zero-padded to 2k
+        feats = svc.topk_features(3)
+        assert feats.shape == (6,)
+        assert feats[0] == 10.0 and feats[1] == 10.0
+
+        # retired connection slots recycle on the next tick
+        await c.close()
+        await asyncio.sleep(0.05)
+        svc.sample_tick(1.0)
+        assert len(svc.conns) == 0
+    finally:
+        await server.stop()
+
+
+# ---------------------------------------------------------------------------
+# admin routes: conventions, 404s, readiness 503, opaque 500
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+async def telemetry_stack():
+    server = BrokerServer(broker=Broker(router_device="cpu"), host="127.0.0.1",
+                          port=0, heartbeat_s=0)
+    await server.start()
+    server.broker.telemetry = TelemetryService(
+        server.broker, interval_s=1.0, ring_ticks=16)
+    admin = AdminServer(server.broker, port=0)
+    await admin.start()
+    yield server, admin
+    await admin.stop()
+    await server.stop()
+
+
+async def test_admin_telemetry_get_and_405(telemetry_stack):
+    server, admin = telemetry_stack
+    server.broker.telemetry.sample_tick(1.0)
+    for path in ("/admin/timeseries", "/admin/health",
+                 "/admin/health/live", "/admin/alerts"):
+        status, _ = await http_req(admin.bound_port, path)
+        assert status == 200, path
+        status, body = await http_req(admin.bound_port, path, "POST")
+        assert status == 405 and body == {"error": "use GET"}, path
+
+    status, body = await http_req(admin.bound_port, "/admin/timeseries")
+    node = server.broker.trace_node
+    assert node in body["nodes"]
+    assert body["nodes"][node]["fields"]["queue"] == list(QUEUE_FIELDS)
+    assert "top_queues" in body
+
+    status, body = await http_req(admin.bound_port, "/admin/alerts")
+    assert [r["name"] for r in body["rules"]] == [
+        "backlog-growth", "consumer-stall", "replication-lag", "loop-lag",
+        "memory-pressure", "control-prearm-stuck", "drain-stuck"]
+    assert body["firing"] == []
+
+
+async def test_admin_timeseries_drilldown_and_404(telemetry_stack):
+    server, admin = telemetry_stack
+    c = await AMQPClient.connect("127.0.0.1", server.bound_port)
+    ch = await c.channel()
+    await ch.queue_declare("drill_q")
+    server.broker.telemetry.sample_tick(1.0)
+
+    status, body = await http_req(
+        admin.bound_port, "/admin/timeseries/queue/%2F/drill_q")
+    assert status == 200
+    assert body["vhost"] == "/" and body["name"] == "drill_q"
+    assert len(body["series"]) == 1
+
+    status, body = await http_req(
+        admin.bound_port, "/admin/timeseries/queue/%2F/no_such_q")
+    assert status == 404 and "no telemetry" in body["error"]
+
+    conn_id = next(iter(server.broker.connections)).id
+    status, body = await http_req(
+        admin.bound_port, f"/admin/timeseries/connection/{conn_id}")
+    assert status == 200 and body["id"] == conn_id
+
+    status, body = await http_req(
+        admin.bound_port, "/admin/timeseries/connection/999999")
+    assert status == 404
+
+    status, body = await http_req(
+        admin.bound_port, "/admin/timeseries/connection/notanint")
+    assert status == 400
+
+    status, body = await http_req(
+        admin.bound_port, "/admin/timeseries?window=banana")
+    assert status == 400
+    await c.close()
+
+
+async def test_health_flips_503_on_drain(telemetry_stack):
+    server, admin = telemetry_stack
+    server.broker.telemetry.sample_tick(1.0)
+    status, body = await http_req(admin.bound_port, "/admin/health")
+    assert status == 200 and body["ready"] is True
+
+    server.broker.draining = True
+    status, body = await http_req(admin.bound_port, "/admin/health")
+    assert status == 503 and body["ready"] is False
+    assert any("draining" in r for r in body["reasons"])
+    assert body["live"] is True  # still alive, just not accepting work
+    # liveness endpoint is unaffected by the drain
+    status, body = await http_req(admin.bound_port, "/admin/health/live")
+    assert status == 200 and body["live"] is True
+
+
+async def test_admin_telemetry_disabled_409():
+    server = BrokerServer(broker=Broker(router_device="cpu"), host="127.0.0.1",
+                          port=0, heartbeat_s=0)
+    await server.start()
+    admin = AdminServer(server.broker, port=0)
+    await admin.start()
+    try:
+        for path in ("/admin/timeseries", "/admin/alerts"):
+            status, body = await http_req(admin.bound_port, path)
+            assert status == 409 and "telemetry disabled" in body["error"]
+        # health still answers without telemetry (drain check only)
+        status, body = await http_req(admin.bound_port, "/admin/health")
+        assert status == 200 and body["ready"] is True
+    finally:
+        await admin.stop()
+        await server.stop()
+
+
+async def test_admin_internal_errors_are_opaque(telemetry_stack):
+    server, admin = telemetry_stack
+
+    def boom():
+        raise RuntimeError("secret /etc/path leaked")
+
+    server.broker.metrics_snapshot = boom
+    status, body = await http_req(admin.bound_port, "/admin/metrics")
+    assert status == 500
+    assert body == {"error": "internal error"}  # no str(exc) leak
