@@ -116,7 +116,7 @@ class Broker:
         # flushes them at pass end (inside the dispatch ledger window)
         self.egress_dirty: set = set()
         self.vhosts: dict[str, VHost] = {}
-        # set by chanamq_tpu.cluster.node.ClusterNode when clustering is on
+        # set by chanamq_tpu_torch.cluster.node.ClusterNode when clustering is on
         self.cluster = None
         # span attribution for message traces (chanamq_tpu/trace/):
         # ClusterNode.start() overwrites with its host:port name
@@ -124,13 +124,13 @@ class Broker:
         # set by chanamq_tpu_torch.models.service.ForecastService when
         # forecasting is on; snapshot() is its read surface
         self.forecaster = None
-        # set by chanamq_tpu.telemetry.service.TelemetryService when
+        # set by chanamq_tpu_torch.telemetry.service.TelemetryService when
         # per-entity sampling is on (chana.mq.telemetry.enabled)
         self.telemetry = None
-        # set by chanamq_tpu.control.ControlService when the predictive
+        # set by chanamq_tpu_torch.control.ControlService when the predictive
         # control plane is on (chana.mq.control.enabled)
         self.control = None
-        # set by chanamq_tpu.profile.enable_from_config when the cost
+        # set by chanamq_tpu_torch.profile.enable_from_config when the cost
         # ledger is on (chana.mq.profile.enabled); admin serves its snapshot
         self.profile = None
         # advanced delivery semantics (chanamq_tpu/semantics/): the master
@@ -353,6 +353,62 @@ class Broker:
             sc[profile.ROUTE] += n
             sns[profile.ENQUEUE] += time.perf_counter_ns() - t_enq
             sc[profile.ENQUEUE] += n
+
+    async def flush_deferred_clustered(
+        self, vhost_name: str, entries: list,
+        confirm_marks: Optional[list], pending: list,
+    ) -> bool:
+        """flush_deferred_publishes for a clustered node: route the whole
+        batch through the tensor router (exchanges and bindings are
+        replicated to every node, so each node routes its own publishes),
+        then, in arrival order, what _publish_clustered's pipelined branch
+        does with each routed name set: queues held here enqueue (a queue
+        this node owns but has not activated is activated first, which may
+        await), the rest buffer one push record per owner into
+        ``pending`` for the connection's batch barrier. Returns whether a
+        confirm-armed publish buffered a remote push. The reference's
+        clustered node routes each publish through the matchers instead;
+        the routed sets are the same (the router's kernels are held to the
+        matchers word for word)."""
+        routes, t0, t1 = self.router.route_pending(
+            vhost_name, entries, names=True)
+        vhost = self.vhosts[vhost_name]
+        strict = False
+        for entry, names in zip(entries, routes):
+            exchange, routing_key, props, body, header, exrk, confirmed = entry
+            delay = self.delay
+            if delay is not None and props.headers is not None:
+                delay_ms = parse_delay(props.headers)
+                if delay_ms is not None:
+                    delay.park(vhost_name, exchange, routing_key, props,
+                               body, delay_ms)
+                    continue
+            self.metrics.published(len(body))
+            tr = None
+            if trace.ACTIVE is not None:
+                tr = trace.ACTIVE.begin_publish(self.trace_node,
+                                                props.headers)
+                if tr is not None:
+                    tr.span(trace.ROUTE, t0, t1, self.trace_node)
+            local, by_owner = await self._cluster_targets(vhost, names)
+            if not local and not by_owner:
+                continue
+            props_raw = header if header is not None \
+                else props.encode_header(len(body))
+            for owner, queue_names in by_owner.items():
+                record = (vhost_name, queue_names, exchange, routing_key,
+                          props_raw, body)
+                pending.append((owner, record if tr is None
+                                else (*record, None, tr)))
+                strict = strict or confirmed
+            if local:
+                if tr is not None:
+                    # re-pin: an activation above may have run others
+                    trace.ACTIVE.current = tr
+                self.push_local(
+                    local, props, body, exchange, routing_key, props_raw,
+                    confirm_marks if confirmed else None)
+        return strict
 
     def spawn(self, coro: Awaitable) -> None:
         """Fire-and-forget a coroutine with a strong reference held until
@@ -1837,21 +1893,13 @@ class Broker:
             fh.tap_publish(exchange_name, routing_key, body, queues)
         return message
 
-    async def _publish_clustered(
-        self, vhost: VHost, exchange_name: str, routing_key: str,
-        properties: BasicProperties, body: bytes, queue_names: set[str],
-        *, mandatory: bool, immediate: bool,
-        header_raw: Optional[bytes] = None,
-        marks: Optional[list[tuple[int, int]]] = None,
-        pending: Optional[list] = None,
-        tr=None,
-    ) -> tuple[bool, bool]:
-        """Cluster publish: routing already happened locally on the
-        replicated exchange metadata; per-owner queue.push RPCs carry the
-        message to remote queue owners (the reference's ExchangeEntity ->
-        QueueEntity ask path, ExchangeEntity.scala:287-331, with one hop
-        instead of two)."""
-        assert self.cluster is not None
+    async def _cluster_targets(
+        self, vhost: VHost, queue_names,
+    ) -> tuple[list[Queue], dict[str, list[str]]]:
+        """Routed queue names split for a clustered publish: the queues
+        held here (one this node owns but has not activated is activated
+        first), and the rest's names by owner. Names with no replicated
+        metadata are dropped."""
         local: list[Queue] = []
         by_owner: dict[str, list[str]] = {}
         for name in queue_names:
@@ -1868,6 +1916,24 @@ class Broker:
             else:
                 owner = self.cluster.queue_owner(vhost.name, name)
                 by_owner.setdefault(owner, []).append(name)
+        return local, by_owner
+
+    async def _publish_clustered(
+        self, vhost: VHost, exchange_name: str, routing_key: str,
+        properties: BasicProperties, body: bytes, queue_names: set[str],
+        *, mandatory: bool, immediate: bool,
+        header_raw: Optional[bytes] = None,
+        marks: Optional[list[tuple[int, int]]] = None,
+        pending: Optional[list] = None,
+        tr=None,
+    ) -> tuple[bool, bool]:
+        """Cluster publish: routing already happened locally on the
+        replicated exchange metadata; per-owner queue.push RPCs carry the
+        message to remote queue owners (the reference's ExchangeEntity ->
+        QueueEntity ask path, ExchangeEntity.scala:287-331, with one hop
+        instead of two)."""
+        assert self.cluster is not None
+        local, by_owner = await self._cluster_targets(vhost, queue_names)
         cache = self._cluster_route_cache
         if cache is not None and pending is not None \
                 and not mandatory and not immediate:

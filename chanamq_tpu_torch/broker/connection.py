@@ -1113,7 +1113,7 @@ class AMQPConnection:
                 # a generic command may publish, mutate topology, or read
                 # queue state: deferred publishes must land first
                 if self._route_pending:
-                    self._flush_route_pending()
+                    await self._flush_deferred()
                 if not await self._run_command(out):
                     return False
         return True
@@ -1308,23 +1308,24 @@ class AMQPConnection:
             # gate check observes before the NEXT frame
             rated.spend(len(body) + self.HELD_COMMAND_OVERHEAD)
         broker = self.broker
+        router = broker.router
+        if router is not None and router.defer_ok(self.vhost_name, exchange):
+            # batch routing: buffer the decoded publish; the whole read
+            # batch routes in one kernel call at the next flush point (a
+            # clustered node too: it routes its own publishes on the
+            # replicated bindings, and the flush buffers the remote pushes).
+            # Confirm arming is identical to the inline path — the confirm
+            # can only be RELEASED after a barrier, and every barrier
+            # flushes this buffer first.
+            seq = self._arm_confirm(channel)
+            self._route_pending.append((
+                exchange, routing_key, props, body, header, exrk_raw,
+                seq is not None))
+            if seq is not None:
+                self._pending_confirms[channel_id] = seq
+                broker.metrics.confirmed_msgs += 1
+            return consumed
         if broker.cluster is None:
-            router = broker.router
-            if router is not None and router.defer_ok(
-                    self.vhost_name, exchange):
-                # batch routing: buffer the decoded publish; the whole
-                # read batch routes in one kernel call at the next flush
-                # point. Confirm arming is identical to the inline path —
-                # the confirm can only be RELEASED after a barrier, and
-                # every barrier flushes this buffer first.
-                seq = self._arm_confirm(channel)
-                self._route_pending.append((
-                    exchange, routing_key, props, body, header, exrk_raw,
-                    seq is not None))
-                if seq is not None:
-                    self._pending_confirms[channel_id] = seq
-                    broker.metrics.confirmed_msgs += 1
-                return consumed
             if self._route_pending:
                 # non-deferrable publish while deferred ones are buffered:
                 # flush first (per-channel/per-queue FIFO)
@@ -1337,6 +1338,10 @@ class AMQPConnection:
                 exrk_raw=exrk_raw,
             )
         else:
+            if self._route_pending:
+                # deferred publishes go first, and a clustered flush may
+                # await: the generic path flushes them before this one
+                return 0
             # clustered: fused only on a route-cache hit (checked before
             # arming the confirm, so a miss has no side effects) — the
             # generic path resolves the route once and fills the cache
@@ -1369,6 +1374,20 @@ class AMQPConnection:
         self.broker.flush_deferred_publishes(
             self.vhost_name, entries, self._confirm_marks)
 
+    async def _flush_deferred(self) -> None:
+        """_flush_route_pending on any node. A clustered node's flush
+        buffers its remote pushes into _remote_pending (a confirm-armed
+        one makes the batch strict) and may await, activating a queue
+        this node owns; nothing else runs on this connection meanwhile."""
+        if self.broker.cluster is None:
+            self._flush_route_pending()
+            return
+        entries, self._route_pending = self._route_pending, []
+        if await self.broker.flush_deferred_clustered(
+                self.vhost_name, entries, self._confirm_marks,
+                self._remote_pending):
+            self._remote_strict = True
+
     async def _batch_barrier(self) -> None:
         """Per-read-batch barrier. When ONLY pipelined remote pushes gate
         this batch's confirms (no local store marks, no sync replication),
@@ -1377,6 +1396,10 @@ class AMQPConnection:
         through the data plane's per-stream windows instead of stalling
         the whole connection one RTT each. Anything needing the store or
         replication barrier takes the synchronous path below."""
+        if self._route_pending:
+            # deferred publishes first: a clustered flush buffers remote
+            # pushes and store marks that decide the path below
+            await self._flush_deferred()
         cluster = self.broker.cluster
         if (self._remote_pending and not self._confirm_marks
                 and not self._remote_failures
@@ -1445,7 +1468,7 @@ class AMQPConnection:
         if self._route_pending:
             # deferred publishes must enqueue their store writes (and
             # record their marks) before the marks are consumed below
-            self._flush_route_pending()
+            await self._flush_deferred()
         await self._settle_remote_failures()
         if self._pending_confirms:
             intervals, self._confirm_marks = self._confirm_marks, []
@@ -2072,14 +2095,9 @@ class AMQPConnection:
         elif isinstance(method, am.Basic.Cancel):
             consumer = channel.consumers.pop(method.consumer_tag, None)
             if consumer is not None:
-                # the cluster slice is not ported: with no cluster every
-                # consumer queue is local, and cluster.node is absent
-                remote = False
-                if self.broker.cluster is not None:
-                    from ..cluster.node import RemoteQueueRef
+                from ..cluster.node import RemoteQueueRef
 
-                    remote = isinstance(consumer.queue, RemoteQueueRef)
-                if remote:
+                if isinstance(consumer.queue, RemoteQueueRef):
                     await self.broker.cluster.remote_cancel(
                         consumer.queue.vhost, consumer.queue.name, consumer.tag)
                 else:

@@ -393,7 +393,7 @@ def matcher_for(exchange_type: str) -> Matcher:
         return FanoutMatcher()
     if t == "topic":
         # the C++ trie is the routing fast path when the native lib is built
-        # (chanamq_tpu.native_ext); same semantics, Python trie as fallback
+        # (chanamq_tpu_torch.native_ext); same semantics, Python trie as fallback
         from .. import native_ext
 
         if native_ext.available():

@@ -6,10 +6,12 @@ AMQPServer.scala:39-111): plain AMQP listener (5672), optional TLS listener
 (5671), per-connection protocol engine instances, clean shutdown.
 
 Run standalone:  python -m chanamq_tpu_torch.broker.server [--port 5672]
-(or the ``chanamq-server-torch`` script). ``run_node`` boots a single
-node with the admin REST, tenancy, telemetry, SLO, forecaster and control
-layers. The port has no cluster, shard or federation layer yet: a config
-that asks for one is refused at boot with ``ConfigError``.
+(or the ``chanamq-server-torch`` script). ``run_node`` boots a node with
+the admin REST, tenancy, telemetry, SLO, forecaster and control layers, a
+cluster node (``chana.mq.cluster.enabled``), federation, or a shard
+supervisor and its workers (``chana.mq.shard.count`` past 1). A node
+device (``chana.mq.router.device``) the host lacks is refused at boot
+with ``ConfigError``, before anything starts.
 """
 
 from __future__ import annotations
@@ -70,8 +72,12 @@ class BrokerServer:
         self.permissions = permissions or None
         self.max_message_size = max_message_size
         self.refused_connections = 0
-        # sibling workers may share one AMQP port via SO_REUSEPORT
+        # sharded node (chanamq_tpu_torch/shard/): sibling workers share one
+        # AMQP port via SO_REUSEPORT; where that's unavailable the
+        # supervisor accepts and ships fds to handoff_path instead
         self.reuse_port = reuse_port
+        self.handoff_path: Optional[str] = None
+        self._handoff = None
         self._servers: list[asyncio.AbstractServer] = []
         self._connections: set[AMQPConnection] = set()
 
@@ -85,6 +91,15 @@ class BrokerServer:
             await self.start_listeners()
 
     async def start_listeners(self) -> None:
+        if self.handoff_path is not None:
+            # reuse-port fallback: no TCP listener here — the shard
+            # supervisor accepts and hands client sockets over Unix
+            from ..shard.handoff import HandoffReceiver
+
+            self._handoff = HandoffReceiver(self, self.handoff_path)
+            await self._handoff.start()
+            log.info("AMQP via fd handoff at %s", self.handoff_path)
+            return
         kwargs: dict = {}
         if self.reuse_port:
             kwargs["reuse_port"] = True
@@ -140,6 +155,9 @@ class BrokerServer:
             self._connections.discard(connection)
 
     async def stop(self) -> None:
+        if self._handoff is not None:
+            await self._handoff.stop()
+            self._handoff = None
         for server in self._servers:
             server.close()
         # kick live connections first: in py3.12 Server.wait_closed() waits
@@ -342,32 +360,18 @@ class BrokerServer:
         return perms
 
 
-def _refuse_unported(config) -> None:
-    """Refuse, before anything starts, a config that needs a layer the
-    port does not have yet (cluster, shard, federation), and a node
-    device (``chana.mq.router.device``, the router's and the
-    forecaster's) naming a card the host does not have. Such a node must fail at
-    boot, never come up single-node or on the CPU in silence, and never
-    fail with an ImportError half-way through boot."""
+def _check_device(config) -> None:
+    """Refuse, before anything starts, a node device
+    (``chana.mq.router.device``, the router's and the forecaster's) naming
+    a card the host does not have: ``cuda`` with none, or ``cuda:N`` past
+    the count. Such a node must fail at boot, never come up on the CPU in
+    silence. ``run_node`` calls it first, so a shard supervisor refuses
+    before it spawns a worker (and each worker checks again), and a cluster
+    node refuses before its cluster port opens. It reads the card count
+    only (``torch.cuda.device_count``): no CUDA context is created, so a
+    supervisor, which launches nothing, holds none."""
     from ..config import ConfigError
 
-    missing = "; the port has no {} layer yet (the cluster slice)"
-    if config.bool("chana.mq.cluster.enabled"):
-        raise ConfigError("chana.mq.cluster.enabled" + missing.format(
-            "cluster/ or replicate/"))
-    if config.bool("chana.mq.federation.enabled"):
-        raise ConfigError("chana.mq.federation.enabled" + missing.format(
-            "federation/"))
-    shard_index = os.environ.get("CHANAMQ_SHARD_INDEX")
-    if shard_index is not None:
-        raise ConfigError(f"CHANAMQ_SHARD_INDEX={shard_index}"
-                          + missing.format("shard/"))
-    count = config.int("chana.mq.shard.count")
-    if count <= 0:  # 0 = one shard per core, as the reference resolves it
-        count = os.cpu_count() or 1
-    if count > 1:
-        raise ConfigError(f"chana.mq.shard.count resolves to {count}"
-                          + missing.format("shard/"))
     kernels = (config.bool("chana.mq.router.enabled")
                and config.str("chana.mq.router.backend") == "torch")
     if not (kernels or config.bool("chana.mq.forecast.enabled")):
@@ -392,19 +396,51 @@ def _refuse_unported(config) -> None:
 
 
 async def run_node(config) -> None:
-    """Boot a full single node: broker + AMQP(+AMQPS) listeners + admin
-    REST (the reference's AMQPServer.main composition,
-    AMQPServer.scala:39-111). SIGTERM/SIGINT trigger a graceful drain:
-    listeners close, live connections tear down (unacked requeue, store
-    buffers flush), the group-commit queue drains, then the process exits
-    0 — the analogue of the reference's JVM shutdown hooks. A second
-    signal while draining exits 130 at once."""
+    """Boot a full node: broker + AMQP(+AMQPS) listeners + admin REST
+    (the reference's AMQPServer.main composition, AMQPServer.scala:39-111).
+    SIGTERM/SIGINT trigger a graceful drain: listeners close, live
+    connections tear down (unacked requeue, store buffers flush), the
+    group-commit queue drains, then the process exits 0 — the analogue of
+    the reference's JVM shutdown hooks. A second signal while draining
+    exits 130 at once."""
     import signal as signal_module
 
     from ..rest.admin import AdminServer
 
-    _refuse_unported(config)
+    _check_device(config)
+    # multi-process sharding: with chana.mq.shard.count past 1 this
+    # process becomes the supervisor (spawns one worker per shard and
+    # returns when they're all down); workers carry CHANAMQ_SHARD_INDEX
+    # and fall through to the normal boot below with shard wiring
+    shard_index_env = os.environ.get("CHANAMQ_SHARD_INDEX")
+    if shard_index_env is None:
+        from ..shard import resolve_count
+
+        if resolve_count(config) > 1:
+            from ..shard.supervisor import run_supervisor
+
+            await run_supervisor(config)
+            return
+
     server = BrokerServer.from_config(config)
+    shard_topo = None
+    shard_index = 0
+    if shard_index_env is not None:
+        from ..shard import ShardTopology
+
+        shard_index = int(shard_index_env)
+        shard_topo = ShardTopology.from_env(config, shard_index)
+        server.broker.shard_info = {
+            "index": shard_index,
+            "count": shard_topo.count,
+            "name": shard_topo.name(shard_index),
+        }
+        server.broker.metrics.shard_restarts = int(
+            os.environ.get("CHANAMQ_SHARD_RESTARTS", "0") or 0)
+        if config.bool("chana.mq.shard.reuse-port"):
+            server.reuse_port = True
+        else:
+            server.handoff_path = shard_topo.handoff_path(shard_index)
     if config.bool("chana.mq.log.json"):
         # swap formatters before any traffic so every line is one JSON
         # object stamped with node id + active trace id
@@ -412,9 +448,11 @@ async def run_node(config) -> None:
 
         logjson.install(server.broker)
     admin = None
+    cluster = None
     forecaster = None
     telemetry = None
     control = None
+    federation = None
     otel = None
     started = False
     stop_event = asyncio.Event()
@@ -432,6 +470,14 @@ async def run_node(config) -> None:
         except (NotImplementedError, RuntimeError, ValueError):  # pragma: no cover
             pass  # non-unix platform or non-main thread: KeyboardInterrupt
     try:
+        if server.broker.router is not None:
+            # the card's context and the kernel library, before the node
+            # joins a cluster or takes a client (not in a shard
+            # supervisor, which returned above and holds no context)
+            server.broker.router.warm()
+        # boot order matters: broker state, then the cluster layer, then
+        # the AMQP listeners — a client accepted before the cluster is live
+        # would see a node that mis-routes clustered queues
         await server.start(listen=False)
         started = True
         # chaos wiring before any traffic: wraps the store, marks the
@@ -442,7 +488,9 @@ async def run_node(config) -> None:
             from .. import chaos as chaos_mod
 
             chaos_mod.enable_from_config(config, server.broker)
-        # tracing next (same ACTIVE-gate idiom as chaos)
+        # tracing next (same ACTIVE-gate idiom as chaos): installed before
+        # the cluster starts so ClusterNode.start can rename the runtime's
+        # node tag from "local" to host:port
         if config.bool("chana.mq.trace.enabled"):
             from .. import trace as trace_mod
 
@@ -462,19 +510,28 @@ async def run_node(config) -> None:
             await otel.start()
             server.broker.otel = otel
         # cost ledger + sampling profiler (third ACTIVE-gate subsystem):
-        # armed before traffic so stage counters cover the whole run
+        # armed before traffic so stage counters cover the whole run, and
+        # before the cluster so cluster-push batches are attributed
         if config.bool("chana.mq.profile.enabled"):
             from .. import profile as profile_mod
 
             profile_mod.enable_from_config(config, server.broker)
         # event bus + firehose (fourth ACTIVE-gate subsystem): installed
-        # before the listeners so every transition is observable from the
-        # first moment it can happen
+        # before the cluster so lifecycle transitions and chaos fires are
+        # observable from the first moment they can happen
         if (config.bool("chana.mq.events.enabled")
                 or config.bool("chana.mq.firehose.enabled")):
             from .. import events as events_mod
 
-            events_mod.enable_from_config(config, server.broker)
+            bus, _ = events_mod.enable_from_config(config, server.broker)
+            if bus is not None:
+                restarts = int(
+                    os.environ.get("CHANAMQ_SHARD_RESTARTS", "0") or 0)
+                if restarts > 0:
+                    # this worker is a supervisor respawn: the one boot
+                    # event a consumer can alert on
+                    bus.emit("shard.restarted", {
+                        "shard": shard_index, "restarts": restarts})
         # tenant registry (fifth ACTIVE-gate subsystem): installed before
         # the listeners open so the first handshake already authenticates
         # against tenant user tables and lands under quota enforcement.
@@ -483,13 +540,67 @@ async def run_node(config) -> None:
         from .. import tenancy as tenancy_mod
 
         tenancy_mod.enable_from_config(config, server.broker)
+        if config.bool("chana.mq.cluster.enabled"):
+            from ..cluster.node import ClusterNode
+
+            cluster = ClusterNode(
+                server.broker,
+                host=config.str("chana.mq.cluster.host"),
+                port=config.int("chana.mq.cluster.port"),
+                seeds=config.list("chana.mq.cluster.seeds"),
+                virtual_nodes=config.int("chana.mq.cluster.virtual-nodes"),
+                heartbeat_interval_s=config.duration_s(
+                    "chana.mq.cluster.heartbeat-interval") or 1.0,
+                failure_timeout_s=config.duration_s(
+                    "chana.mq.cluster.failure-timeout") or 5.0,
+                replicate_factor=config.int("chana.mq.replicate.factor"),
+                replicate_sync=config.bool("chana.mq.replicate.sync"),
+                replicate_batch_max=config.int(
+                    "chana.mq.replicate.batch-max"),
+                replicate_ack_timeout_ms=config.int(
+                    "chana.mq.replicate.ack-timeout-ms"),
+                streams=config.int("chana.mq.cluster.streams"),
+                stream_inflight=config.int("chana.mq.cluster.stream-inflight"),
+                flush_window_us=config.int("chana.mq.cluster.flush-window-us"),
+                flush_max_bytes=config.size_bytes(
+                    "chana.mq.cluster.flush-max-bytes") or (1 << 20),
+                flush_max_count=config.int("chana.mq.cluster.flush-max-count"),
+                consume_credit=config.int("chana.mq.cluster.consume-credit"),
+                call_timeout_s=config.duration_s(
+                    "chana.mq.cluster.call-timeout") or 10.0,
+                drain_retry_limit=config.int(
+                    "chana.mq.lifecycle.drain-retry-limit"),
+                drain_backoff_ms=int((config.duration_s(
+                    "chana.mq.lifecycle.drain-backoff") or 0.1) * 1000),
+                drain_backoff_cap_ms=int((config.duration_s(
+                    "chana.mq.lifecycle.drain-backoff-cap") or 2.0) * 1000),
+                drain_budget_s=config.duration_s(
+                    "chana.mq.lifecycle.drain-budget") or 30.0,
+                uds_path=(shard_topo.uds_path(shard_index)
+                          if shard_topo is not None else None),
+                uds_map=(shard_topo.uds_map_for(shard_index)
+                         if shard_topo is not None else None),
+            )
+            await cluster.start()
         if stop_event.is_set():
-            # signalled during boot: don't open listeners just to tear
-            # clients down
+            # signalled during boot (e.g. while the cluster joined its
+            # seeds): don't open listeners just to tear clients down
             return
         await server.start_listeners()
+        if config.bool("chana.mq.federation.enabled"):
+            # cross-cluster federation (federation/): the fed.* listener
+            # (mirror side) plus one shipping link per configured remote.
+            # Boots after the listeners so an inbound fed.resume can
+            # declare its mirror streams on a fully-started broker; with
+            # no links configured the only steady-state cost is the idle
+            # listener and `broker.federation is None` checks staying hot
+            from ..federation import enable_from_config as federation_enable
+
+            federation = await federation_enable(config, server.broker)
         if config.bool("chana.mq.telemetry.enabled"):
-            # per-entity telemetry + health + alerts (telemetry/)
+            # per-entity telemetry + health + alerts (telemetry/): started
+            # after the cluster layer so the first tick already sees the
+            # real node name and replication state
             from ..telemetry import TelemetryService, default_rules
 
             telemetry = TelemetryService(
@@ -620,8 +731,12 @@ async def run_node(config) -> None:
             await telemetry.stop()
         if forecaster:
             await forecaster.stop()
+        if federation:
+            await federation.stop()
         if otel:
             await otel.stop()
+        if cluster:
+            await cluster.stop()
         if started:
             await server.stop()
 

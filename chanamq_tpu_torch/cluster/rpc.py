@@ -244,6 +244,7 @@ class RpcServer:
         self._server: Optional[asyncio.AbstractServer] = None
         self._uds_server: Optional[asyncio.AbstractServer] = None
         self._peer_writers: set[asyncio.StreamWriter] = set()
+        self._stopping = False
 
     def register(self, method: str, handler: Handler) -> None:
         self.handlers[method] = handler
@@ -254,6 +255,7 @@ class RpcServer:
         self.binary_handlers[method_id] = handler
 
     async def start(self) -> None:
+        self._stopping = False
         self._server = await asyncio.start_server(self._on_client, self.host, self.port)
         if self.uds_path:
             starter = getattr(asyncio, "start_unix_server", None)
@@ -277,6 +279,11 @@ class RpcServer:
         return self._server.sockets[0].getsockname()[1]
 
     async def stop(self) -> None:
+        # a connection accepted before the listener closed may have its
+        # handler run only after the writers below were closed: that
+        # handler closes at once (below, in _on_client), or wait_closed()
+        # would wait for a peer that keeps its connection open, forever
+        self._stopping = True
         servers = [s for s in (self._server, self._uds_server) if s is not None]
         self._server = self._uds_server = None
         if servers:
@@ -300,6 +307,9 @@ class RpcServer:
     async def _on_client(
         self, reader: asyncio.StreamReader, writer: asyncio.StreamWriter
     ) -> None:
+        if self._stopping:
+            writer.close()
+            return
         _set_nodelay(writer)
         self._peer_writers.add(writer)
         try:

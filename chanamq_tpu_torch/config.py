@@ -245,7 +245,7 @@ DEFAULTS: dict[str, Any] = {
     "chana.mq.cluster.consume-credit": 1024,
     "chana.mq.cluster.call-timeout": "10s",
     # multi-process sharding (chanamq_tpu/shard/): count > 1 makes
-    # `python -m chanamq_tpu.broker.server` run a supervisor that spawns
+    # `python -m chanamq_tpu_torch.broker.server` run a supervisor that spawns
     # one worker process per shard; 0 = auto (os.cpu_count()); 1 = off.
     # Workers share the AMQP port via SO_REUSEPORT (or the fd-handoff
     # acceptor when reuse-port is unavailable) and talk to each other

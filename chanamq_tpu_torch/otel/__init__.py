@@ -7,7 +7,7 @@ traces (chanamq_tpu/trace/):
   deterministic id derivations that let a forced sample mint span ids
   without touching the seeded sampling RNG;
 - :mod:`export` — the OTLP/HTTP JSON render (``ResourceSpans``) and the
-  background :class:`~chanamq_tpu.otel.export.OtelExporter` service
+  background :class:`~chanamq_tpu_torch.otel.export.OtelExporter` service
   behind ``chana.mq.otel.*``;
 - Prometheus exemplars are rendered by rest/admin from the same slow
   ring (scrape ``/metrics?format=openmetrics``).

@@ -1,0 +1,589 @@
+"""Owner-side replication: per-queue mutation logs + the node manager.
+
+The replication unit is the queue's DURABLE STORE STATE, not its wire
+traffic: every store-mutation funnel in broker/entities.py appends one
+sequenced event here (enqueue rides the queue-log row insert, settles ride
+the unack-row deletes, watermark moves ride the persisted watermark), so a
+follower that applies the stream in order holds exactly the rows the owner
+would recover from its own store. Transient messages are never shipped —
+they make no durability promise and die with the owner, same as the
+single-node contract.
+
+Ship path: events buffer per queue and a per-queue ship task drains them in
+batches (bounded by chana.mq.replicate.batch-max events and a byte budget)
+to every follower concurrently over the cluster RPC mesh. The owner keeps
+NO shipped-event history — a follower that misses a batch detects the
+sequence gap and resyncs wholesale from the owner's store (the snapshot
+covers every event at or below its captured seq; later events re-apply
+idempotently on top). Each batch piggybacks the full follower-ack map so
+followers know their peers' sync state for deterministic promotion
+election when the owner dies.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import json
+import logging
+import time
+from collections import deque
+from typing import TYPE_CHECKING, Optional
+
+from .. import chaos
+from ..store.api import StoredQueue
+from .applier import ReplicaApplier
+
+if TYPE_CHECKING:  # pragma: no cover
+    from ..broker.entities import Message, Queue, QueuedMessage
+    from ..cluster.node import ClusterNode
+
+log = logging.getLogger("chanamq.replicate")
+
+
+class QueueRepLog:
+    """One queue's outgoing replication log (owner side)."""
+
+    __slots__ = ("vhost", "name", "manager", "seq", "pending",
+                 "pending_bytes", "followers", "closed", "_ship_task",
+                 "_ack_event")
+
+    def __init__(self, vhost: str, name: str, manager: "ReplicationManager") -> None:
+        self.vhost = vhost
+        self.name = name
+        self.manager = manager
+        self.seq = 0                      # last assigned event sequence
+        self.pending: deque[dict] = deque()
+        self.pending_bytes = 0
+        # follower node -> highest acked (applied) seq
+        self.followers: dict[str, int] = {}
+        self.closed = False
+        self._ship_task: Optional[asyncio.Task] = None
+        self._ack_event = asyncio.Event()
+
+    # -- event append (called synchronously from entity hot paths) ---------
+
+    def append(self, op: str, data: dict) -> None:
+        if self.closed:
+            return
+        self.seq += 1
+        data["s"] = self.seq
+        data["op"] = op
+        self.pending.append(data)
+        self.pending_bytes += len(data.get("body") or b"")
+        self.manager._ship_soon(self)
+
+    def enqueue(self, qm: "QueuedMessage", message: "Message") -> None:
+        """Ship one durable+persistent enqueue (body travels with the event;
+        a fanout sibling may have already passivated the shared body — the
+        follower then pulls the blob from the owner's store via resync)."""
+        self.append("enqueue", {
+            "o": qm.offset, "m": message.id, "z": qm.body_size,
+            "e": qm.expire_at_ms, "body": message.body,
+            "props": message.header_payload(), "ex": message.exchange,
+            "rk": message.routing_key, "ttl": message.ttl_ms,
+        })
+
+    # -- sync state ---------------------------------------------------------
+
+    def live_ack_floor(self) -> int:
+        """Lowest acked seq among followers membership says are alive.
+        With no live follower there is nobody to wait for: the floor is the
+        head (sync barriers pass — durability then rests on the local
+        store, exactly the pre-replication contract)."""
+        membership = self.manager.node.membership
+        floors = [
+            acked for name, acked in self.followers.items()
+            if membership is not None and membership.is_alive(name)
+        ]
+        return min(floors) if floors else self.seq
+
+    def lag(self) -> int:
+        return max(0, self.seq - self.live_ack_floor())
+
+
+class ReplicationManager:
+    """Per-node replication coordinator: owns every local queue's outgoing
+    log, the follower-side applier, and the promotion protocol."""
+
+    _SHIP_BYTES = 8 * 1024 * 1024   # early batch cut-off (body bytes)
+    _ROWS_PAGE = 4096               # resync snapshot page size
+
+    def __init__(
+        self,
+        node: "ClusterNode",
+        *,
+        factor: int = 2,
+        sync: bool = False,
+        batch_max: int = 256,
+        ack_timeout_ms: int = 1000,
+    ) -> None:
+        self.node = node
+        self.broker = node.broker
+        self.factor = factor
+        self.sync = sync
+        self.batch_max = max(1, batch_max)
+        self.ack_timeout_s = ack_timeout_ms / 1000.0
+        self._logs: dict[tuple[str, str], QueueRepLog] = {}
+        self._promoting: dict[tuple[str, str], asyncio.Future] = {}
+        self.applier = ReplicaApplier(self)
+        node.rpc.register("repl.append", self.applier.h_append)
+        node.rpc.register("repl.resync", self._h_resync)
+        node.rpc.register("repl.rows", self._h_rows)
+        node.rpc.register("repl.fetch", self._h_fetch)
+        node.rpc.register("repl.probe", self.applier.h_probe)
+        node.rpc.register("repl.retire", self.applier.h_retire)
+
+    @property
+    def metrics(self):
+        return self.broker.metrics
+
+    def client_for(self, name: str):
+        assert self.node.membership is not None
+        return self.node.membership.client(name)
+
+    # ------------------------------------------------------------------
+    # attach / detach (queue lifecycle on the owner)
+    # ------------------------------------------------------------------
+
+    def _select_followers(self, vhost: str, name: str) -> list[str]:
+        prefs = self.node.ring.preference_entity("q", vhost, name, self.factor)
+        return [n for n in prefs if n != self.node.name][: self.factor - 1]
+
+    def attach(self, queue: "Queue") -> None:
+        """This node now serves `queue`: open (or re-bind) its replication
+        log. Exclusive and transient queues never replicate — they make no
+        cross-restart promise to mirror."""
+        if queue.exclusive_owner is not None or not queue.durable:
+            return
+        key = (queue.vhost, queue.name)
+        repl = self._logs.get(key)
+        if repl is None:
+            repl = QueueRepLog(queue.vhost, queue.name, self)
+            for follower in self._select_followers(queue.vhost, queue.name):
+                repl.followers[follower] = 0
+            self._logs[key] = repl
+        if getattr(queue, "repl", None) is not repl:
+            queue.repl = repl
+            self._meta_event(repl, queue)
+
+    def _meta_event(self, repl: QueueRepLog, queue: "Queue") -> None:
+        # backlog > 0 tells a fresh follower its copy is incomplete (the
+        # queue existed before the log opened) so it resyncs from the store
+        backlog = len(queue.messages) + len(queue.outstanding)
+        repl.append("meta", {
+            "durable": queue.durable, "ttl": queue.ttl_ms,
+            "args": json.dumps(queue.arguments or {}),
+            "wm": queue.last_consumed, "backlog": backlog,
+        })
+
+    def detach(self, vhost: str, name: str, *, deleted: bool = False) -> None:
+        key = (vhost, name)
+        repl = self._logs.get(key)
+        if repl is None:
+            return
+        if deleted:
+            repl.append("delete", {})
+        repl.closed = True
+        if not repl.pending:
+            self._logs.pop(key, None)
+
+    # ------------------------------------------------------------------
+    # ship loop
+    # ------------------------------------------------------------------
+
+    def _ship_soon(self, repl: QueueRepLog) -> None:
+        if repl._ship_task is None or repl._ship_task.done():
+            repl._ship_task = asyncio.get_event_loop().create_task(
+                self._ship(repl))
+
+    async def _ship(self, repl: QueueRepLog) -> None:
+        membership = self.node.membership
+        while repl.pending:
+            batch: list[dict] = []
+            nbytes = 0
+            while (repl.pending and len(batch) < self.batch_max
+                   and nbytes < self._SHIP_BYTES):
+                event = repl.pending.popleft()
+                nbytes += len(event.get("body") or b"")
+                batch.append(event)
+            repl.pending_bytes -= nbytes
+            targets = [
+                n for n in repl.followers
+                if membership is not None and membership.is_alive(n)
+            ]
+            if targets:
+                payload = {
+                    "vhost": repl.vhost, "queue": repl.name,
+                    "owner": self.node.name, "base": batch[0]["s"],
+                    "events": batch,
+                    "acks": dict(repl.followers),
+                    # fencing: followers refuse batches stamped with an
+                    # epoch older than the holdership they know about
+                    "epoch": self.node.queue_epoch(repl.vhost, repl.name),
+                }
+                await asyncio.gather(*(
+                    self._ship_one(repl, follower, payload)
+                    for follower in targets))
+            self.metrics.repl_events_shipped += len(batch)
+            self.metrics.repl_batches_shipped += 1
+            repl._ack_event.set()
+        if repl.closed:
+            self._logs.pop((repl.vhost, repl.name), None)
+
+    async def _ship_one(
+        self, repl: QueueRepLog, follower: str, payload: dict
+    ) -> None:
+        t0 = time.perf_counter()
+        try:
+            if chaos.ACTIVE is not None:
+                fault = await chaos.ACTIVE.fire(
+                    "repl.ship", peer=follower,
+                    on_error=lambda f: OSError(f"chaos[{f.rule}]: {f.message}"))
+                if fault is not None:
+                    # batch lost toward this follower: it gap-detects on the
+                    # next one and resyncs wholesale (the designed path)
+                    raise OSError(f"chaos[{fault.rule}]: batch dropped")
+            reply = await self.client_for(follower).call(
+                "repl.append", payload, timeout_s=self.ack_timeout_s)
+            applied = int(reply.get("applied", 0))
+            if applied > repl.followers.get(follower, 0):
+                repl.followers[follower] = applied
+            self.metrics.repl_ack_us.observe_us(
+                (time.perf_counter() - t0) * 1e6)
+        except (OSError, asyncio.TimeoutError) as exc:
+            self.metrics.repl_ack_timeouts += 1
+            log.debug("%s: repl.append to %s failed: %r",
+                      self.node.name, follower, exc)
+        except Exception as exc:  # noqa: BLE001 — RpcError / codec trouble
+            self.metrics.repl_ack_timeouts += 1
+            log.warning("%s: repl.append to %s failed: %r",
+                        self.node.name, follower, exc)
+
+    async def sync_barrier(self) -> None:
+        """Block until every live follower of every local log has acked the
+        log head, or the ack timeout passes (timeout: count it and proceed —
+        a wedged follower must not wedge every publisher; it will gap-detect
+        and resync)."""
+        loop = asyncio.get_event_loop()
+        deadline = loop.time() + self.ack_timeout_s
+        for repl in list(self._logs.values()):
+            target = repl.seq
+            while repl.live_ack_floor() < target:
+                remaining = deadline - loop.time()
+                if remaining <= 0:
+                    self.metrics.repl_ack_timeouts += 1
+                    return
+                repl._ack_event.clear()
+                try:
+                    await asyncio.wait_for(repl._ack_event.wait(), remaining)
+                except asyncio.TimeoutError:
+                    pass
+
+    # ------------------------------------------------------------------
+    # graceful handoff (drain / rebalance)
+    # ------------------------------------------------------------------
+
+    async def prepare_handoff(
+        self, vhost: str, name: str, target: str,
+        timeout_s: Optional[float] = None,
+    ) -> bool:
+        """Gate a graceful holdership move: make sure ``target`` holds a
+        replica copy synced to this log's head before anything moves.
+        Adds the target as a follower if the ring didn't already pick it
+        (a join target, or the only node left standing), nudges it with a
+        meta event (backlog > 0 makes a fresh follower resync wholesale
+        from this node's store), then polls its applied seq up to the
+        head. Nothing here is destructive — a timeout just refuses the
+        handoff and the queue stays where it is."""
+        from ..cluster.rpc import RpcError
+
+        key = (vhost, name)
+        vh = self.broker.vhosts.get(vhost)
+        queue = vh.queues.get(name) if vh is not None else None
+        if queue is None:
+            return False
+        repl = self._logs.get(key)
+        if repl is None:
+            # a previous aborted handoff may have closed the log: reattach
+            self.attach(queue)
+            repl = self._logs.get(key)
+            if repl is None:
+                return False
+        queue.flush_store_buffers()
+        if target not in repl.followers:
+            repl.followers[target] = 0
+        self._meta_event(repl, queue)
+        loop = asyncio.get_event_loop()
+        deadline = loop.time() + (
+            timeout_s if timeout_s is not None
+            else max(5.0, self.ack_timeout_s * 5))
+        while repl.followers.get(target, 0) < repl.seq:
+            if loop.time() >= deadline:
+                log.warning(
+                    "%s: handoff prepare of %s/%s -> %s timed out "
+                    "(acked %d < head %d)", self.node.name, vhost, name,
+                    target, repl.followers.get(target, 0), repl.seq)
+                return False
+            await asyncio.sleep(0.03)
+            try:
+                reply = await self.client_for(target).call(
+                    "repl.probe",
+                    {"vhost": vhost, "queue": name,
+                     "owner": self.node.name},
+                    timeout_s=self.ack_timeout_s)
+                applied = int(reply.get("applied", -1))
+                if applied > repl.followers.get(target, 0):
+                    repl.followers[target] = applied
+            except (RpcError, OSError, asyncio.TimeoutError):
+                pass  # transient; the deadline bounds us
+        return True
+
+    async def materialize_copy(self, vhost: str, name: str) -> bool:
+        """Graceful-handoff twin of the death promotion: turn this node's
+        replica copy into the live queue. No election — the source
+        coordinated the move and synced our copy to its head first. No-op
+        without a copy (shared-store deployments activate from the store
+        instead)."""
+        key = (vhost, name)
+        fut = self._promoting.get(key)
+        if fut is not None:
+            await fut
+            return True
+        copy = self.applier.copies.get(key)
+        if copy is None:
+            return False
+        loop = asyncio.get_event_loop()
+        fut = loop.create_future()
+        self._promoting[key] = fut
+        await self._promote(key, copy, fut, reason="handoff")
+        return True
+
+    # ------------------------------------------------------------------
+    # membership reactions + promotion
+    # ------------------------------------------------------------------
+
+    def on_membership(self) -> None:
+        """Recompute follower sets from the (already updated) ring. Retained
+        followers keep their ack state; new ones start at 0 and resync on
+        the first batch they see (gap or meta-backlog detection). Dropped
+        followers are told to discard their copies: a copy that will never
+        see another ship is not a safety net but a split-election seed —
+        were the owner to die later, the dropped follower and the current
+        one would each elect themselves from disjoint ack maps. Best-effort
+        (a partitioned ex-follower keeps its copy; the dual-holder
+        reconcile mops up that corner)."""
+        membership = self.node.membership
+        for repl in self._logs.values():
+            wanted = self._select_followers(repl.vhost, repl.name)
+            fresh = [n for n in wanted if n not in repl.followers]
+            dropped = [n for n in repl.followers if n not in wanted]
+            repl.followers = {n: repl.followers.get(n, 0) for n in wanted}
+            for name in dropped:
+                if membership is None or not membership.is_alive(name):
+                    continue
+                asyncio.get_event_loop().create_task(
+                    self._retire_one(name, repl.vhost, repl.name))
+            if fresh:
+                vh = self.broker.vhosts.get(repl.vhost)
+                queue = vh.queues.get(repl.name) if vh is not None else None
+                if queue is not None:
+                    # a meta event wakes the new follower; backlog > 0 makes
+                    # it pull the full snapshot
+                    self._meta_event(repl, queue)
+            if repl.pending:
+                self._ship_soon(repl)
+
+    async def _retire_one(self, follower: str, vhost: str, name: str) -> None:
+        from ..cluster.rpc import RpcError
+
+        try:
+            await self.client_for(follower).call(
+                "repl.retire",
+                {"vhost": vhost, "queue": name, "owner": self.node.name},
+                timeout_s=self.ack_timeout_s)
+        except (RpcError, OSError, asyncio.TimeoutError):
+            pass  # best-effort; the dual-holder reconcile covers the miss
+
+    def on_node_down(self, dead: str) -> None:
+        """Owner side: re-pick followers. Follower side: elect a promotion
+        winner for every copy whose owner just died. The election is
+        deterministic — highest (acked seq, node name) wins, judged from
+        the dead owner's last piggybacked ack map (each node's own applied
+        seq is authoritative for itself) — so at most one surviving
+        follower promotes."""
+        from ..cluster.membership import DRAINING, LEFT
+
+        self.on_membership()
+        me = self.node.name
+        membership = self.node.membership
+
+        def electable(name: str) -> bool:
+            # draining/left nodes keep serving copies (they are handoff
+            # sources) but must never WIN a failover election: a
+            # decommissioned node re-claiming a queue would undo its own
+            # evacuation. Every voter applies the same lifecycle filter,
+            # so the election stays single-winner.
+            if membership is None:
+                return True
+            return membership.lifecycle_of(name) not in (DRAINING, LEFT)
+
+        for key, copy in list(self.applier.copies.items()):
+            if copy.owner != dead or key in self._promoting:
+                continue
+            holder = (self.node.queue_metas.get(key) or {}).get("holder")
+            if (holder and holder != dead and membership is not None
+                    and membership.is_alive(holder)):
+                # the queue already moved on (evacuated or promoted while
+                # this copy idled): electing from the relic would steal
+                # holdership back from the live owner with a fresher epoch
+                continue
+            contenders = {me: copy.applied_seq} if electable(me) else {}
+            for name, acked in (copy.peer_acks or {}).items():
+                if (name != me and name != dead and membership is not None
+                        and membership.is_alive(name) and electable(name)):
+                    contenders[name] = int(acked)
+            if not contenders:
+                continue
+            winner = max(contenders.items(), key=lambda kv: (kv[1], kv[0]))[0]
+            if winner != me:
+                continue
+            loop = asyncio.get_event_loop()
+            fut: asyncio.Future = loop.create_future()
+            self._promoting[key] = fut
+            loop.create_task(self._promote(key, copy, fut))
+
+    async def await_promotion(self, vhost: str, name: str) -> None:
+        """Broker hook: activate_queue blocks on an in-flight promotion so a
+        racing consumer-reconcile can't cold-activate an empty shell over
+        the warm copy."""
+        fut = self._promoting.get((vhost, name))
+        if fut is not None:
+            await fut
+
+    async def _promote(
+        self, key: tuple[str, str], copy, fut: asyncio.Future,
+        *, reason: str = "failover",
+    ) -> None:
+        vhost_name, name = key
+        try:
+            rows = sorted(copy.rows.items())
+            sq = StoredQueue(
+                vhost=vhost_name, name=name, durable=True,
+                ttl_ms=copy.ttl_ms, last_consumed=copy.wm,
+                arguments=dict(copy.arguments),
+                msgs=[(o, m, z, e) for o, (m, z, e) in rows],
+                unacks={m: (o, z, e) for m, (o, z, e) in copy.unacks.items()},
+            )
+            store = self.broker.store
+            await store.insert_queue_meta(sq)
+            await store.replace_queue_msgs(vhost_name, name, list(sq.msgs))
+            await store.replace_queue_unacks(
+                vhost_name, name,
+                [(m, o, z, e) for m, (o, z, e) in copy.unacks.items()])
+            vhost = self.broker.vhosts.get(vhost_name)
+            if vhost is None:
+                await self.broker.create_vhost(vhost_name)
+                vhost = self.broker.vhosts[vhost_name]
+            queue = vhost.queues.get(name)
+            if queue is None:
+                queue = await self.broker._load_stored_queue(sq)
+                vhost.queues[name] = queue
+            self.node.claim_queue(queue)
+            self.attach(queue)
+            self.applier.release_copy(key)
+            if reason == "failover":
+                self.metrics.repl_promotions += 1
+            log.info(
+                "%s: promoted replica of %s/%s at seq %d (%s; "
+                "%d ready, %d unacked requeued)",
+                self.node.name, vhost_name, name, copy.applied_seq,
+                reason, len(sq.msgs), len(sq.unacks))
+        except Exception:
+            log.exception("%s: promotion of %s/%s failed",
+                          self.node.name, vhost_name, name)
+        finally:
+            self._promoting.pop(key, None)
+            if not fut.done():
+                fut.set_result(None)
+
+    # ------------------------------------------------------------------
+    # owner-side resync serving
+    # ------------------------------------------------------------------
+
+    async def _h_resync(self, payload: dict) -> dict:
+        from ..cluster.rpc import RpcError
+
+        vhost = str(payload["vhost"])
+        name = str(payload["queue"])
+        repl = self._logs.get((vhost, name))
+        if repl is None:
+            raise RpcError(
+                "not_replicating", f"{vhost}/{name} has no log on this node")
+        vh = self.broker.vhosts.get(vhost)
+        queue = vh.queues.get(name) if vh is not None else None
+        if queue is not None:
+            # land per-tick coalescing buffers so the store snapshot is
+            # current; the store queue is FIFO, so the reads below see them
+            queue.flush_store_buffers()
+        seq = repl.seq
+        sq = await self.broker.store.select_queue(vhost, name)
+        if sq is None:
+            sq = StoredQueue(vhost=vhost, name=name)
+            if queue is not None:
+                sq.ttl_ms = queue.ttl_ms
+                sq.arguments = dict(queue.arguments or {})
+                sq.last_consumed = queue.last_consumed
+        rows = sq.msgs
+        return {
+            "seq": seq, "durable": sq.durable, "ttl": sq.ttl_ms,
+            "args": json.dumps(sq.arguments or {}), "wm": sq.last_consumed,
+            "rows": [list(r) for r in rows[: self._ROWS_PAGE]],
+            "more": len(rows) > self._ROWS_PAGE,
+            "unacks": [[m, o, z, e] for m, (o, z, e) in sq.unacks.items()],
+        }
+
+    async def _h_rows(self, payload: dict) -> dict:
+        rows = await self.broker.store.iter_queue_msgs(
+            str(payload["vhost"]), str(payload["queue"]),
+            int(payload.get("after", 0)), self._ROWS_PAGE)
+        return {"rows": [list(r) for r in rows],
+                "more": len(rows) >= self._ROWS_PAGE}
+
+    async def _h_fetch(self, payload: dict) -> dict:
+        ids = [int(i) for i in payload.get("ids") or []]
+        msgs = await self.broker.store.select_messages(ids)
+        return {"msgs": [
+            [m.id, m.properties_raw, m.body, m.exchange, m.routing_key,
+             m.ttl_ms]
+            for m in msgs.values()
+        ]}
+
+    # ------------------------------------------------------------------
+    # introspection (admin / metrics)
+    # ------------------------------------------------------------------
+
+    def total_lag(self) -> int:
+        return sum(repl.lag() for repl in self._logs.values())
+
+    def status(self) -> dict:
+        queues: dict[str, dict] = {}
+        for (vh, name), repl in self._logs.items():
+            queues[f"{vh}/{name}"] = {
+                "role": "owner", "seq": repl.seq,
+                "followers": dict(repl.followers),
+                "lag": repl.lag(), "pending": len(repl.pending),
+            }
+        for (vh, name), copy in self.applier.copies.items():
+            queues.setdefault(f"{vh}/{name}", {
+                "role": "follower", "owner": copy.owner,
+                "applied_seq": copy.applied_seq,
+                "messages": len(copy.rows), "unacked": len(copy.unacks),
+                "resyncing": copy.resyncing,
+            })
+        return {
+            "enabled": True, "factor": self.factor, "sync": self.sync,
+            "batch_max": self.batch_max,
+            "ack_timeout_ms": int(self.ack_timeout_s * 1000),
+            "promoting": [f"{v}/{n}" for v, n in self._promoting],
+            "queues": queues,
+        }

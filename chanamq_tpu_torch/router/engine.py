@@ -103,6 +103,18 @@ class TensorRouter:
         # graph must drop every root built over it
         self._closure_deps: dict = {}
 
+    def warm(self) -> None:
+        """On a card, create its context and load the kernel library now
+        (building it if need be). A node calls this at boot: its first
+        kernel batch would otherwise do it inside the event loop, for
+        seconds, long enough for cluster peers to mark the node down."""
+        if self.backend != "torch" or self.device.type != "cuda":
+            return
+        from ..kernels import router_match
+
+        torch.zeros(1, device=self.device)
+        router_match.library()
+
     # -- invalidation ------------------------------------------------------
 
     def invalidate(self, vhost: Optional[str] = None,
@@ -296,15 +308,24 @@ class TensorRouter:
             cache[key] = queues
         return queues
 
-    def route_pending(self, vhost_name: str, entries: list):
+    def route_pending(self, vhost_name: str, entries: list, *,
+                      names: bool = False):
         """Route one deferred flush. ``entries`` rows are
         ``(exchange, routing_key, props, body, header_raw, exrk_raw,
         confirmed)``; returns ``(queues_per_entry, t0_ns, t1_ns)`` with the
-        batch routing window for ROUTE span stamping."""
+        batch routing window for ROUTE span stamping. With ``names`` each
+        entry's route is its frozenset of queue names instead (a clustered
+        node: most named queues live on other nodes)."""
         t0 = time.perf_counter_ns()
         metrics = self.broker.metrics
         vhost = self.broker.vhosts[vhost_name]
         out: list = [None] * len(entries)
+        if names:
+            def resolve(routed):
+                return routed
+        else:
+            def resolve(routed):
+                return self._queues(vhost_name, vhost, routed)
         # group by exchange: one compiled snapshot + one kernel call each
         groups: dict[str, list[int]] = {}
         for idx, entry in enumerate(entries):
@@ -323,16 +344,14 @@ class TensorRouter:
                 if exchange.ex_matcher is not None:
                     for idx in idxs:
                         entry = entries[idx]
-                        names = frozenset(vhost.route(
-                            exchange_name, entry[1], entry[2].headers))
-                        out[idx] = self._queues(vhost_name, vhost, names)
+                        out[idx] = resolve(frozenset(vhost.route(
+                            exchange_name, entry[1], entry[2].headers)))
                 else:
                     matcher = exchange.matcher
                     for idx in idxs:
                         entry = entries[idx]
-                        names = frozenset(
-                            matcher.route(entry[1], entry[2].headers))
-                        out[idx] = self._queues(vhost_name, vhost, names)
+                        out[idx] = resolve(frozenset(
+                            matcher.route(entry[1], entry[2].headers)))
                 continue
             items = [(entries[i][1], entries[i][2].headers) for i in idxs]
             name_sets = rcompile.route_batch(
@@ -358,6 +377,6 @@ class TensorRouter:
             metrics.router_batches += 1
             metrics.router_batch_msgs += len(idxs)
             metrics.router_batch_size.observe_us(len(idxs))
-            for idx, names in zip(idxs, name_sets):
-                out[idx] = self._queues(vhost_name, vhost, names)
+            for idx, routed in zip(idxs, name_sets):
+                out[idx] = resolve(routed)
         return out, t0, time.perf_counter_ns()

@@ -1,0 +1,196 @@
+"""Shard supervisor: spawn, watch, and restart per-core broker workers.
+
+``python -m chanamq_tpu_torch.broker.server`` with ``chana.mq.shard.count``
+past 1 lands here instead of booting a broker: the supervisor writes
+the merged config to ``<dir>/node-config.json``, then spawns one
+worker process per shard with the per-shard pieces layered on top via
+``CHANAMQ_*`` environment variables (the ordinary env-override path —
+no second config mechanism):
+
+* ``CHANAMQ_SHARD_INDEX / _COUNT / _DIR / _RESTARTS`` mark the worker;
+* ``CHANAMQ_CLUSTER_PORT`` = base + index, ``CHANAMQ_CLUSTER_SEEDS`` =
+  the sibling shard endpoints (+ any cross-machine seeds), heartbeat /
+  failure timeouts come from the much tighter ``chana.mq.shard.*``
+  knobs;
+* ``CHANAMQ_ADMIN_PORT`` = admin base + index, ``CHANAMQ_STORE_PATH``
+  gets a per-shard suffix so sqlite files never collide.
+
+A worker that dies is respawned after ``chana.mq.shard.restart-backoff``
+(up to ``chana.mq.shard.max-restarts`` times); the survivors' membership
+marks it DOWN in the meantime, which re-hashes its queue ownership and
+triggers replication promotion exactly like a remote node death.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import json
+import logging
+import os
+import signal as signal_module
+import sys
+from typing import Optional
+
+from .topology import ShardTopology
+
+log = logging.getLogger("chanamq.shard.supervisor")
+
+
+def child_env(
+    config, topo: ShardTopology, index: int, restarts: int,
+) -> dict[str, str]:
+    """Environment for worker ``index`` (layered over the dumped file)."""
+    env = dict(os.environ)
+    external = config.list("chana.mq.cluster.seeds")
+    env.update({
+        "CHANAMQ_SHARD_INDEX": str(index),
+        "CHANAMQ_SHARD_COUNT": str(topo.count),
+        "CHANAMQ_SHARD_DIR": topo.dir,
+        "CHANAMQ_SHARD_RESTARTS": str(restarts),
+        "CHANAMQ_CLUSTER_ENABLED": "true",
+        "CHANAMQ_CLUSTER_HOST": topo.host,
+        "CHANAMQ_CLUSTER_PORT": str(topo.base_port + index),
+        "CHANAMQ_CLUSTER_SEEDS": ",".join(topo.seeds_for(index, external)),
+        "CHANAMQ_CLUSTER_HEARTBEAT_INTERVAL":
+            config.str("chana.mq.shard.heartbeat-interval"),
+        "CHANAMQ_CLUSTER_FAILURE_TIMEOUT":
+            config.str("chana.mq.shard.failure-timeout"),
+    })
+    if config.bool("chana.mq.admin.enabled"):
+        env["CHANAMQ_ADMIN_PORT"] = str(
+            config.int("chana.mq.admin.port") + index)
+    store_path = config.get("chana.mq.store.path")
+    if store_path:
+        env["CHANAMQ_STORE_PATH"] = f"{store_path}.shard{index}"
+    return env
+
+
+class ShardSupervisor:
+    def __init__(self, config) -> None:
+        self.config = config
+        self.topo = ShardTopology.from_config(config)
+        self.restart_backoff_s = config.duration_s(
+            "chana.mq.shard.restart-backoff") or 0.5
+        self.max_restarts = config.int("chana.mq.shard.max-restarts")
+        self.reuse_port = config.bool("chana.mq.shard.reuse-port")
+        self.restarts = [0] * self.topo.count
+        self._procs: list[Optional[asyncio.subprocess.Process]] = (
+            [None] * self.topo.count)
+        self._stop = asyncio.Event()
+        self._config_path = os.path.join(self.topo.dir, "node-config.json")
+        self._acceptor = None
+
+    # -- lifecycle ---------------------------------------------------------
+
+    async def run(self) -> None:
+        loop = asyncio.get_running_loop()
+
+        def on_signal() -> None:
+            if self._stop.is_set():
+                os._exit(130)
+            self._stop.set()
+
+        for sig in (signal_module.SIGTERM, signal_module.SIGINT):
+            try:
+                loop.add_signal_handler(sig, on_signal)
+            except (NotImplementedError, RuntimeError, ValueError):  # pragma: no cover
+                pass
+
+        dump = self.config.dump()
+        # workers re-read this file; the resolved count/dir must land in
+        # it so a worker never re-resolves 0 -> cpu_count differently
+        dump["chana.mq.shard.count"] = self.topo.count
+        dump["chana.mq.shard.dir"] = self.topo.dir
+        with open(self._config_path, "w") as f:
+            json.dump(dump, f)
+        log.info("supervising %d shards (dir %s, %s)",
+                 self.topo.count, self.topo.dir,
+                 "SO_REUSEPORT" if self.reuse_port else "fd handoff")
+
+        watchers = [
+            asyncio.get_event_loop().create_task(self._supervise(i))
+            for i in range(self.topo.count)
+        ]
+        try:
+            if not self.reuse_port:
+                # workers bind their feed sockets at boot; the acceptor
+                # dials lazily per connection, so start order is soft
+                from .handoff import HandoffAcceptor
+
+                self._acceptor = HandoffAcceptor(
+                    self.config.str("chana.mq.amqp.interface"),
+                    self.config.int("chana.mq.amqp.port"),
+                    [self.topo.handoff_path(i)
+                     for i in range(self.topo.count)],
+                    backlog=self.config.int("chana.mq.server.backlog") or 128)
+                await self._acceptor.start()
+            await self._stop.wait()
+            log.info("shutdown signal; terminating %d shards",
+                     self.topo.count)
+        finally:
+            self._stop.set()
+            if self._acceptor is not None:
+                await self._acceptor.stop()
+            for proc in self._procs:
+                if proc is not None and proc.returncode is None:
+                    try:
+                        proc.terminate()
+                    except ProcessLookupError:
+                        pass
+            await asyncio.gather(*watchers, return_exceptions=True)
+
+    # -- per-shard watcher -------------------------------------------------
+
+    async def _spawn(self, index: int) -> asyncio.subprocess.Process:
+        proc = await asyncio.create_subprocess_exec(
+            sys.executable, "-m", "chanamq_tpu_torch.broker.server",
+            "--config", self._config_path,
+            env=child_env(
+                self.config, self.topo, index, self.restarts[index]))
+        log.info("shard %d up: pid %d (%s)", index, proc.pid,
+                 self.topo.name(index))
+        return proc
+
+    async def _supervise(self, index: int) -> None:
+        while not self._stop.is_set():
+            try:
+                proc = await self._spawn(index)
+            except OSError as exc:
+                log.error("shard %d spawn failed: %r", index, exc)
+                return
+            self._procs[index] = proc
+            wait_proc = asyncio.get_event_loop().create_task(proc.wait())
+            wait_stop = asyncio.get_event_loop().create_task(
+                self._stop.wait())
+            done, _pending = await asyncio.wait(
+                {wait_proc, wait_stop},
+                return_when=asyncio.FIRST_COMPLETED)
+            if wait_proc not in done:
+                # shutting down: the run() finally already sent SIGTERM
+                wait_stop.cancel()
+                await wait_proc
+                return
+            wait_stop.cancel()
+            rc = wait_proc.result()
+            self._procs[index] = None
+            if self._stop.is_set():
+                return
+            self.restarts[index] += 1
+            if self.restarts[index] > self.max_restarts:
+                log.error("shard %d exited rc=%s; restart budget (%d) "
+                          "exhausted — leaving it down", index, rc,
+                          self.max_restarts)
+                return
+            log.warning("shard %d exited rc=%s; restart %d/%d in %.1fs",
+                        index, rc, self.restarts[index], self.max_restarts,
+                        self.restart_backoff_s)
+            try:
+                await asyncio.wait_for(
+                    self._stop.wait(), timeout=self.restart_backoff_s)
+                return  # stop arrived during the backoff
+            except asyncio.TimeoutError:
+                pass
+
+
+async def run_supervisor(config) -> None:
+    await ShardSupervisor(config).run()

@@ -1,4 +1,4 @@
-"""Message tracing gate — same idiom as :mod:`chanamq_tpu.chaos`.
+"""Message tracing gate — same idiom as :mod:`chanamq_tpu_torch.chaos`.
 
 ``ACTIVE`` is the module-level runtime; every hot-path seam costs one
 module-attribute load plus an ``is None`` check when tracing is off, so

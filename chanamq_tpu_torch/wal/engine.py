@@ -554,16 +554,27 @@ class WalStore(StoreService):
             else:
                 fire(getattr(inner, name)(*args))
 
+    async def _drain_idle(self) -> None:
+        """Wait until no drain runs. A finished drain task stays in the slot
+        until its creator resumes and clears it, and awaiting a finished
+        task does not yield: spinning on it would never let the creator
+        run (a livelock that stalled a follower's loop under replication
+        reads). So a finished task yields once instead."""
+        while self._drain_task is not None:
+            if self._drain_task.done():
+                await asyncio.sleep(0)
+                continue
+            try:
+                await asyncio.shield(self._drain_task)
+            except Exception:
+                pass  # the drain's creator observed and counted it
+
     async def _settle(self) -> None:
         """Read barrier: every appended op becomes visible to the inner
         FIFO before the caller's read enqueues behind it.  Cheap when the
         memtable is empty (the overlay absorbs the hot hydration reads,
         so this mostly runs for control-plane and recovery reads)."""
-        while self._drain_task is not None:
-            try:
-                await asyncio.shield(self._drain_task)
-            except Exception:
-                pass  # the drain's creator observed and counted it
+        await self._drain_idle()
         if self._stash is not None:
             self._flush_stash()
         if self._pending:
@@ -576,11 +587,7 @@ class WalStore(StoreService):
 
     async def _drain(self) -> None:
         """Full drain with coalescing — the checkpoint-path form."""
-        while self._drain_task is not None:
-            try:
-                await asyncio.shield(self._drain_task)
-            except Exception:
-                pass
+        await self._drain_idle()
         if not self._pending:
             return
         self._drain_task = asyncio.ensure_future(self._drain_run())

@@ -138,9 +138,38 @@ rehearse it; any failure exits non-zero:
    update's two under their split names) and its last forecast replayed
    through the plain path on the parameters that made it, within
    FORWARD_LIMIT; seconds from spawn to listening and confirmed msg/s;
-16. the kernels line (nine kernels, each with its launches in the
-   [node] phase's node as ``node_path``), the card line, and the result
-   line.
+16. cluster: three port nodes, each ``main`` in a child
+   (``cluster_child``: its router kernel calls counted and kept), as the
+   README's "Replication & failover" deploys them: ``replicate.factor`` 2,
+   ``replicate.sync`` true, a private store each (the WAL at its
+   defaults), the router on the card, every other key at its default but
+   ``cluster.streams`` 1 (``CLUSTER_STREAMS``). The main path's tables,
+   all durable, declared through node 1; 4 confirming publishers, two on
+   each node but the victim (the owner of the most queues), send 50,000
+   persistent 256 B messages at the main path's mix; the victim is
+   SIGKILLed after the last confirm; the survivors must promote every
+   queue it held, consumers on them drain every queue against the host
+   oracle (exactly once, in order, with its body), each survivor's router
+   kernels must have launched in its process and replay word for word,
+   and SIGTERM exits each 0; convergence, confirmed msg/s, the kill to
+   the last promotion and to the first delivery, the messages served from
+   promoted copies, the router's compiles and generation on each node
+   before and after the kill, and each process's card memory;
+17. shard: one sharded node, ``main`` in a child (``shard_child``) with
+   ``chana.mq.shard.count`` 4, reuse-port, admin on, the router on the
+   card, ``cluster.streams`` 1; the supervisor spawns four workers of the
+   port's server module (each run as ``cluster_child``); the main path's
+   tables (transient queues) and 4 confirming publishers' 50,000
+   transient 256 B messages, one publisher a worker; every queue's count
+   at its owner's ``/admin/queues`` against the oracle, every queue
+   drained against it, router batches on every worker, cross-shard pushes,
+   each worker's kernels launched and replayed, nvidia-smi showing the
+   four workers on the card and not the supervisor, and SIGTERM to the
+   supervisor exiting 0 within 30 s with every worker gone;
+18. the kernels line (nine kernels, each with its launches in the
+   [node] phase's node as ``node_path``, the router's also in each
+   [cluster] survivor and [shard] worker as ``cluster_path``), the card
+   line, and the result line.
 
 Without a card, or without the repository beside it, it exits non-zero and
 prints no result.
@@ -2799,15 +2828,11 @@ async def _durable_run(wl: Workload, device: str, tmp: str, window: int,
                        node_timeout_s: float, start_node=None) -> dict:
     import signal
 
-    from chanamq_tpu_torch.amqp.properties import BasicProperties
     from chanamq_tpu_torch.client import AMQPClient
 
     start_node = start_node or _start_node
     db = os.path.join(tmp, "node.db")
     port = _free_port()
-    persistent = BasicProperties(delivery_mode=2)
-    header_props = [BasicProperties(headers=p.headers, delivery_mode=2)
-                    for p in wl.header_props]
     nodes = []
     try:
         nodes.append(start_node(port, db, device, os.path.join(tmp, "a")))
@@ -2829,19 +2854,8 @@ async def _durable_run(wl: Workload, device: str, tmp: str, window: int,
 
         async def publish(p: int) -> None:
             c = await AMQPClient.connect("127.0.0.1", port, heartbeat=0)
-            pch = await c.channel()
-            await pch.confirm_select()
-            for i, (kind, x) in enumerate(wl.streams[p]):
-                if kind == "t":
-                    pch.basic_publish(wl.body(p, i), exchange="durable.topic",
-                                      routing_key=x, properties=persistent)
-                else:
-                    pch.basic_publish(wl.body(p, i),
-                                      exchange="durable.headers",
-                                      properties=header_props[x])
-                if len(pch.unconfirmed) >= window:
-                    await pch.wait_unconfirmed_below(window // 2, timeout=120)
-            await pch.wait_unconfirmed_below(1, timeout=300)
+            await _publish_stream(c, wl, p, "durable", window,
+                                  persistent=True)
             await c.close()
 
         nodes[0].send_signal(signal.SIGUSR1)
@@ -2894,28 +2908,10 @@ async def _durable_run(wl: Workload, device: str, tmp: str, window: int,
                 proc.kill()
             proc.wait(timeout=30)
 
-    lost = dup = reordered = altered = 0
-    for q in busy:
-        want = wl.expected[q]
-        seen = [(int(a), int(b)) for a, b in
-                (m.body.split(b":", 2)[:2] for m in got[q])]
-        dup += len(seen) - len(set(seen))
-        lost += len(set(want) - set(seen))
-        for m, (p, i) in zip(got[q], seen):
-            kind, x = wl.streams[p][i]
-            if m.body != wl.body(p, i) or m.routing_key != (
-                    x if kind == "t" else ""):
-                altered += 1
-        for p in range(wl.publishers):
-            if [i for pp, i in seen if pp == p] != [i for pp, i in want
-                                                    if pp == p]:
-                reordered += 1
     return {"publish_s": publish_s,
             "msgs_per_s": wl.n_messages / publish_s,
-            "deliveries": sum(len(v) for v in got.values()),
-            "expected_deliveries": want_total,
-            "lost": lost, "duplicated": dup, "reordered_streams": reordered,
-            "altered": altered, "stray": stray,
+            **hold_deliveries(wl, got),
+            "expected_deliveries": want_total, "stray": stray,
             "restart_to_ready_s": ready_s,
             "restart_to_first_delivery_s": first[0] - t_restart,
             "restart_to_drained_s": drained_s,
@@ -3217,18 +3213,8 @@ async def _node_run(wl: Workload, device: str, tmp: str, window: int,
 
         async def publish(p: int) -> None:
             c = await AMQPClient.connect("127.0.0.1", port, heartbeat=0)
-            pch = await c.channel()
-            await pch.confirm_select()
-            for i, (kind, x) in enumerate(wl.streams[p]):
-                if kind == "t":
-                    pch.basic_publish(wl.body(p, i), exchange="node.topic",
-                                      routing_key=x)
-                else:
-                    pch.basic_publish(wl.body(p, i), exchange="node.headers",
-                                      properties=wl.header_props[x])
-                if len(pch.unconfirmed) >= window:
-                    await pch.wait_unconfirmed_below(window // 2, timeout=120)
-            await pch.wait_unconfirmed_below(1, timeout=300)
+            await _publish_stream(c, wl, p, "node", window,
+                                  persistent=False)
             await c.close()
 
         t0 = time.perf_counter()
@@ -3426,6 +3412,880 @@ def log_node(res: dict, dev: dict) -> None:
         f"{child['launches']}; card {dev['smi']}")
 
 
+# -- 16. a replicated cluster -------------------------------------------------------
+
+# the [durable] phase's 50,000 persistent messages at the main path's mix
+CLUSTER_TOPIC, CLUSTER_HEADERS = DURABLE_TOPIC, DURABLE_HEADERS
+CLUSTER_NODES = 3
+ROUTER_KERNELS = ("topic_match", "headers_match")
+# the one key the [cluster] and [shard] phases move from its default (2):
+# a push record that fans out to several queues of one owner rides the
+# stream of its first queue, so over two streams one publisher's messages
+# can reach a queue out of order, in the reference's cluster as in the
+# port's; over one stream per peer every queue keeps publish order
+CLUSTER_STREAMS = 1
+# the [cluster] phase's replica ack timeout (default 1,000 ms). A sync
+# confirm waits for the followers' acks only this long, then is released
+# anyway (counted in repl_ack_timeouts): at the default the followers
+# fall behind this burst and a confirmed message can die with its owner.
+# Waiting longer holds every confirm to its replica, the guarantee the
+# phase checks
+CLUSTER_ACK_TIMEOUT_MS = 60_000
+
+
+def cluster_child(out: str, argv: list) -> None:
+    """A [cluster] node or a [shard] worker: the port's ``main()``
+    unchanged on ``argv``. Every router kernel call is kept (the router
+    reaches the wrappers through its module reference; the wrappers and
+    their launch counts stay as they are). After ``main()`` returns, the
+    JSON file ``out`` gets each wrapper's launches, read first, then every
+    kept call replayed against its plain version, word for word."""
+    from chanamq_tpu_torch.broker import server
+    from chanamq_tpu_torch.kernels import router_match as rm
+    from chanamq_tpu_torch.router import compile as rcompile
+
+    calls: dict = {}
+    rcompile.router_match = types.SimpleNamespace(**{
+        name: _recording(getattr(rm, name), calls.setdefault(name, []))
+        for name in ROUTER_KERNELS})
+    with open(out + ".pid", "w") as f:  # the parent watches this process
+        f.write(str(os.getpid()))
+    sys.argv = ["chanamq-server-torch", *argv]
+    server.main()
+    res: dict = {"main_returned": time.time(),
+                 "launches": {name: getattr(rm, name).launches
+                              for name in ROUTER_KERNELS},
+                 "replay": {}}
+    try:
+        for name, recorded in calls.items():
+            shapes: dict = {}
+            worst = 0.0
+            for args in recorded:
+                row = hold(name, args, timed=False)
+                worst = max(worst, row["max_abs_err"])
+                shapes[row["shape"]] = shapes.get(row["shape"], 0) + 1
+            res["replay"][name] = {"calls": len(recorded), "shapes": shapes,
+                                   "max_abs_err": worst}
+    except AssertionError as exc:  # the parent fails the phase with it
+        res["replay_error"] = str(exc)
+    with open(out + ".tmp", "w") as f:
+        json.dump(res, f)
+    os.replace(out + ".tmp", out)
+
+
+def _distinct_free_ports(n: int) -> list:
+    """``n`` free ports, all different (held open together while picked)."""
+    import socket
+
+    probes = [socket.socket() for _ in range(n)]
+    try:
+        for probe in probes:
+            probe.bind(("127.0.0.1", 0))
+        return [probe.getsockname()[1] for probe in probes]
+    finally:
+        for probe in probes:
+            probe.close()
+
+
+def _free_ports(n: int) -> int:
+    """The first of ``n`` consecutive free ports (a shard's cluster and
+    admin ports are a base + its index)."""
+    import socket
+
+    for _ in range(200):
+        base = _free_port()
+        if base + n > 65535:
+            continue
+        probes = []
+        try:
+            for i in range(n):
+                probe = socket.socket()
+                probes.append(probe)
+                probe.bind(("127.0.0.1", base + i))
+            return base
+        except OSError:
+            continue
+        finally:
+            for probe in probes:
+                probe.close()
+    raise AssertionError(f"no {n} consecutive free ports")
+
+
+def compute_apps() -> "list | None":
+    """(pid, MiB) of each process holding a context on the card, as
+    ``nvidia-smi --query-compute-apps=pid,used_memory`` lists them (its
+    pids may be another namespace's, even repeat); None where nvidia-smi
+    does not run."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, timeout=30, check=True).stdout
+    except (OSError, subprocess.SubprocessError):
+        return None
+    apps = []
+    for line in out.strip().splitlines():
+        pid, mib = (x.strip() for x in line.split(","))
+        apps.append((int(pid), float(mib)))
+    return apps
+
+
+def card_usage(pids: dict) -> "dict | None":
+    """The processes holding a context on the card, as nvidia-smi lists
+    them: ``processes`` their count and ``mib`` their memory, and under
+    ``named`` each process of ``pids`` with its MiB (0: no context) where
+    nvidia-smi's pids are this machine's; where they are not (another
+    pid namespace's) ``named`` is None. None where nvidia-smi does not
+    run."""
+    apps = compute_apps()
+    if apps is None:
+        return None
+    by_pid = dict(apps)
+    mapped = len(by_pid) == len(apps) and (
+        os.getpid() in by_pid or any(p in by_pid for p in pids.values()))
+    return {"processes": len(apps), "mib": sorted(m for _, m in apps),
+            "named": ({name: by_pid.get(pid, 0.0)
+                       for name, pid in pids.items()} if mapped else None)}
+
+
+def _joined(view: dict, n: int) -> bool:
+    """``/admin/cluster`` shows ``n`` members alive and active: a seed
+    counts as alive before any contact, a member turns active only once
+    it has exchanged a heartbeat with the cluster."""
+    members = view.get("members", {}).values()
+    return len(view.get("alive", [])) == n and len(members) == n and all(
+        m["lifecycle"] == "active" for m in members)
+
+
+async def _get_json(port: int, path: str):
+    status, body = await asyncio.to_thread(_http, port, path)
+    if status != 200:
+        raise AssertionError(f"GET {path} on {port}: {status} {body[:200]}")
+    return json.loads(body)
+
+
+async def _until(check, what: str, deadline: float, procs=()):
+    """Poll ``check()`` (async) until it returns a true value; fail at the
+    deadline or when a process in ``procs`` has exited."""
+    while True:
+        for proc in procs:
+            if proc.poll() is not None:
+                raise AssertionError(f"a node exited ({proc.returncode}) "
+                                     f"while waiting for {what}")
+        try:
+            got = await check()
+            if got:
+                return got
+        except (OSError, ValueError, KeyError, AssertionError):
+            pass
+        if time.monotonic() > deadline:
+            raise AssertionError(f"timed out waiting for {what}")
+        await asyncio.sleep(0.05)
+
+
+async def _declare_tables(port: int, wl: Workload, prefix: str,
+                          durable: bool, admins: list, deadline: float,
+                          procs: list) -> None:
+    """The main path's tables through the node at ``port``: exchanges and
+    queues, then, once every node knows every queue (a queue's metadata
+    reaches the other nodes after its owner declared it), the bindings,
+    until every node holds every binding (so each routes its own
+    publishes)."""
+    from chanamq_tpu_torch.client import AMQPClient
+
+    want = {f"{prefix}.topic": len(wl.topic_bindings),
+            f"{prefix}.headers": len(wl.headers_bindings)}
+
+    async def known(bindings: bool) -> bool:
+        for admin in admins:
+            view = await _get_json(admin, "/admin/cluster")
+            if view["known_queues"] != len(wl.queues):
+                return False
+            got = {e["name"]: e["bindings"]
+                   for e in await _get_json(admin, "/admin/exchanges/%2F")}
+            if bindings and any(got.get(k) != n for k, n in want.items()):
+                return False
+        return True
+
+    setup = await AMQPClient.connect("127.0.0.1", port, heartbeat=0)
+    ch = await setup.channel()
+    await ch.exchange_declare(f"{prefix}.topic", "topic", durable=durable)
+    await ch.exchange_declare(f"{prefix}.headers", "headers",
+                              durable=durable)
+    for q in wl.queues:
+        await ch.queue_declare(q, durable=durable)
+    await _until(lambda: known(False), "every queue on every node",
+                 deadline, procs)
+    for pat, q in wl.topic_bindings:
+        await ch.queue_bind(q, f"{prefix}.topic", pat)
+    for q, args in wl.headers_bindings:
+        await ch.queue_bind(q, f"{prefix}.headers", "", arguments=args)
+    await setup.close()
+    await _until(lambda: known(True), "every binding on every node",
+                 deadline, procs)
+
+
+async def _publish_stream(client, wl: Workload, p: int, prefix: str,
+                          window: int, persistent: bool) -> None:
+    from chanamq_tpu_torch.amqp.properties import BasicProperties
+
+    topic_props = BasicProperties(delivery_mode=2) if persistent else None
+    header_props = ([BasicProperties(headers=h.headers, delivery_mode=2)
+                     for h in wl.header_props] if persistent
+                    else wl.header_props)
+    pch = await client.channel()
+    await pch.confirm_select()
+    for i, (kind, x) in enumerate(wl.streams[p]):
+        if kind == "t":
+            pch.basic_publish(wl.body(p, i), exchange=f"{prefix}.topic",
+                              routing_key=x, properties=topic_props)
+        else:
+            pch.basic_publish(wl.body(p, i), exchange=f"{prefix}.headers",
+                              properties=header_props[x])
+        if len(pch.unconfirmed) >= window:
+            await pch.wait_unconfirmed_below(window // 2, timeout=120)
+    await pch.wait_unconfirmed_below(1, timeout=300)
+
+
+def hold_deliveries(wl: Workload, got: dict) -> dict:
+    """Deliveries (queue -> messages) against the oracle: messages lost,
+    duplicated, altered (body or routing key), and (queue, publisher)
+    streams out of publish order."""
+    lost = dup = reordered = altered = 0
+    for q, msgs in got.items():
+        want = wl.expected[q]
+        seen = [(int(a), int(b)) for a, b in
+                (m.body.split(b":", 2)[:2] for m in msgs)]
+        dup += len(seen) - len(set(seen))
+        lost += len(set(want) - set(seen))
+        for m, (p, i) in zip(msgs, seen):
+            kind, x = wl.streams[p][i]
+            if m.body != wl.body(p, i) or m.routing_key != (
+                    x if kind == "t" else ""):
+                altered += 1
+        for p in range(wl.publishers):
+            if [i for pp, i in seen if pp == p] != [i for pp, i in want
+                                                    if pp == p]:
+                reordered += 1
+    return {"lost": lost, "duplicated": dup, "reordered_streams": reordered,
+            "altered": altered,
+            "deliveries": sum(len(v) for v in got.values())}
+
+
+def _spawn_child(flag: str, out: str, cfg: dict, tmp: str, name: str):
+    """``chip_smoke.py <flag> <out> --config <cfg>``: ``main`` in a child
+    whose log goes to ``<tmp>/<name>.log``, in a session of its own so
+    that ``_reap`` also ends any process it spawned."""
+    path = os.path.join(tmp, f"{name}.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    logf = open(os.path.join(tmp, f"{name}.log"), "w")
+    here = os.path.dirname(os.path.abspath(__file__))
+    try:
+        return subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), flag, out,
+             "--config", path, "--log-level", "WARNING"],
+            cwd=here, stdout=logf, stderr=subprocess.STDOUT,
+            start_new_session=True)
+    finally:
+        logf.close()
+
+
+def _reap(proc) -> None:
+    """Kill whatever is left of ``proc``'s session (a node, or a shard
+    supervisor and its workers) and wait for ``proc``."""
+    import signal
+
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+    proc.wait(timeout=30)
+
+
+def _log_tail(tmp: str, name: str, n: int = 1500) -> str:
+    try:
+        with open(os.path.join(tmp, f"{name}.log")) as f:
+            return f.read()[-n:]
+    except OSError:
+        return ""
+
+
+def _log_warnings(tmp: str, name: str, top: int = 6) -> dict:
+    """The child's WARNING and ERROR lines, counted by message with its
+    numbers and addresses blanked, the most frequent first."""
+    counts: dict = {}
+    try:
+        with open(os.path.join(tmp, f"{name}.log")) as f:
+            for line in f:
+                if " WARNING " not in line and " ERROR " not in line:
+                    continue
+                key = re.sub(r"[0-9.:]+", "#", line.split(" ", 2)[-1])[:120]
+                counts[key.strip()] = counts.get(key.strip(), 0) + 1
+    except OSError:
+        return {}
+    return dict(sorted(counts.items(), key=lambda kv: -kv[1])[:top])
+
+
+REPL_COUNTERS = ("repl_events_shipped", "repl_events_applied",
+                 "repl_ack_timeouts", "repl_resyncs", "repl_promotions",
+                 "flow_cluster_stalls")
+
+
+def _router_counters(metrics: dict) -> dict:
+    return {k: metrics[k] for k in ("router_compiles", "router_generation",
+                                    "router_batches", "router_batch_msgs",
+                                    "router_fallback_msgs")}
+
+
+async def _consume_all(ports_by_queue: dict, wl: Workload, want_total: int,
+                       timeout_s: float, first: list) -> dict:
+    """Consume every busy queue through the node ``ports_by_queue`` names
+    for it (no ack) until ``want_total`` deliveries arrived, then wait
+    0.5 s for a duplicate; returns queue -> messages."""
+    from chanamq_tpu_torch.client import AMQPClient
+
+    got: dict = {q: [] for q in ports_by_queue}
+    count = [0]
+    done = asyncio.Event()
+    clients = {}
+    try:
+        for q, port in ports_by_queue.items():
+            if port not in clients:
+                c = await AMQPClient.connect("127.0.0.1", port, heartbeat=0)
+                clients[port] = (c, await c.channel())
+
+            def cb(msg, _q=q) -> None:
+                if not first:
+                    first.append(time.perf_counter())
+                got[_q].append(msg)
+                count[0] += 1
+                if count[0] >= want_total:
+                    done.set()
+            await clients[port][1].basic_consume(q, cb, no_ack=True)
+        try:
+            await asyncio.wait_for(done.wait(), timeout=timeout_s)
+        except asyncio.TimeoutError:
+            # what never arrived is counted as lost by the caller
+            log(f"drain: {count[0]} of {want_total} deliveries in "
+                f"{timeout_s} s")
+        await asyncio.sleep(0.5)  # a duplicate would arrive now
+    finally:
+        for c, _ in clients.values():
+            await c.close()
+    return got
+
+
+async def _cluster_run(wl: Workload, device: str, tmp: str, window: int,
+                       timeout_s: float) -> dict:
+    import signal
+
+    from chanamq_tpu_torch.client import AMQPClient
+
+    n = CLUSTER_NODES
+    ports = _distinct_free_ports(3 * n)
+    amqp, admin, cport = ports[:n], ports[n:2 * n], ports[2 * n:]
+    names = [f"127.0.0.1:{p}" for p in cport]
+    outs = [os.path.join(tmp, f"node{i}.out.json") for i in range(n)]
+    procs: list = []
+    res: dict = {}
+    deadline = time.monotonic() + timeout_s
+    t_spawn = time.perf_counter()
+    try:
+        for i in range(n):
+            procs.append(_spawn_child("--cluster-child", outs[i], {
+                "chana.mq.amqp.interface": "127.0.0.1",
+                "chana.mq.amqp.port": amqp[i],
+                "chana.mq.admin.enabled": True,
+                "chana.mq.admin.interface": "127.0.0.1",
+                "chana.mq.admin.port": admin[i],
+                "chana.mq.cluster.enabled": True,
+                "chana.mq.cluster.host": "127.0.0.1",
+                "chana.mq.cluster.port": cport[i],
+                "chana.mq.cluster.seeds": [names[0]] if i else [],
+                "chana.mq.cluster.streams": CLUSTER_STREAMS,
+                "chana.mq.replicate.factor": 2,
+                "chana.mq.replicate.sync": True,
+                "chana.mq.replicate.ack-timeout-ms": CLUSTER_ACK_TIMEOUT_MS,
+                "chana.mq.store.path": os.path.join(tmp, f"node{i}.db"),
+                "chana.mq.router.device": device}, tmp, f"node{i}"))
+
+        async def converged():
+            views = [await _get_json(a, "/admin/cluster") for a in admin]
+            return all(sorted(v["alive"]) == sorted(names)
+                       and _joined(v, n) for v in views)
+
+        await _until(converged, "three members alive on every node",
+                     deadline, procs)
+        res["converge_s"] = time.perf_counter() - t_spawn
+        # two heartbeats (the default 1 s): every pair has exchanged one
+        # directly, and a worker-id clash between private stores resolves
+        # on direct contact
+        await asyncio.sleep(2.0)
+        await _declare_tables(amqp[0], wl, "cluster", True, admin,
+                              deadline, procs)
+        views = [await _get_json(a, "/admin/cluster") for a in admin]
+        owned = [v["owned_queues"] for v in views]
+        victim = max(range(n), key=lambda i: owned[i])
+        alive = [i for i in range(n) if i != victim]
+        victim_held = {q["name"] for q in
+                       await _get_json(admin[victim], "/admin/queues/%2F")}
+        res.update(owned=owned, victim=victim)
+
+        clients = []
+        try:
+            for p in range(wl.publishers):
+                clients.append(await AMQPClient.connect(
+                    "127.0.0.1", amqp[alive[p % 2]], heartbeat=0))
+            t0 = time.perf_counter()
+            await asyncio.gather(*(
+                _publish_stream(clients[p], wl, p, "cluster", window,
+                                persistent=True)
+                for p in range(wl.publishers)))
+            res["publish_s"] = time.perf_counter() - t0
+        finally:
+            for c in clients:
+                await c.close()
+        before = [await _get_json(a, "/admin/metrics") for a in admin]
+        res["before"] = [_router_counters(m) for m in before]
+        res["repl_before"] = [{k: m[k] for k in REPL_COUNTERS}
+                              for m in before]
+        log(f"[cluster] {time.perf_counter() - t_spawn:.1f} s: published "
+            f"in {res['publish_s']:.3f} s; replication {res['repl_before']}")
+        res["card"] = card_usage({f"node{i}": procs[i].pid
+                                  for i in range(n)})
+
+        # every message is confirmed: now the owner of the most queues dies
+        t_kill = time.perf_counter()
+        procs[victim].send_signal(signal.SIGKILL)
+        procs[victim].wait(timeout=30)
+
+        async def promoted():
+            ms = [await _get_json(admin[i], "/admin/metrics") for i in alive]
+            return sum(m["repl_promotions"] for m in ms) >= len(victim_held)
+
+        await _until(promoted, "the victim's queues promoted", deadline,
+                     [procs[i] for i in alive])
+        res["kill_to_promoted_s"] = time.perf_counter() - t_kill
+        after = [await _get_json(admin[i], "/admin/metrics") for i in alive]
+        res["promotions"] = [m["repl_promotions"] for m in after]
+        if not sum(res["promotions"]) == len(victim_held) == owned[victim]:
+            raise AssertionError(
+                f"survivors promoted {res['promotions']}; the victim held "
+                f"{len(victim_held)} queues and owned {owned[victim]}")
+        # each busy queue is consumed through the survivor that holds it
+        held: dict = {}
+        for i in alive:
+            for q in await _get_json(admin[i], "/admin/queues/%2F"):
+                held[q["name"]] = i
+        busy = [q for q in wl.queues if wl.expected[q]]
+        missing = [q for q in busy if q not in held]
+        if missing:
+            raise AssertionError(f"{len(missing)} queues held by no "
+                                 f"survivor, e.g. {missing[:5]}")
+        want_total = sum(len(wl.expected[q]) for q in busy)
+        first: list = []
+        got = await _consume_all({q: amqp[held[q]] for q in busy}, wl,
+                                 want_total, 300.0, first)
+        res["kill_to_first_delivery_s"] = first[0] - t_kill
+        res["drained_s"] = time.perf_counter() - t_kill
+        res.update(hold_deliveries(wl, got))
+        res["lost_in_promoted"] = hold_deliveries(wl, {
+            q: got[q] for q in busy if q in victim_held})["lost"]
+        res["expected_deliveries"] = want_total
+        res["promoted_queues"] = len(victim_held)
+        res["served_from_promoted"] = sum(len(got[q]) for q in busy
+                                          if q in victim_held)
+        res["after"] = [_router_counters(m) for m in after]
+
+        t_term, sent = time.perf_counter(), time.time()
+        for i in alive:
+            procs[i].send_signal(signal.SIGTERM)
+        res["exit"] = [await asyncio.to_thread(procs[i].wait, 30 + 120)
+                       for i in alive]
+        res["exit_total_s"] = time.perf_counter() - t_term
+    except BaseException:
+        for i in range(len(procs)):
+            log(f"[cluster] node{i} log tail: {_log_tail(tmp, f'node{i}')}")
+        raise
+    finally:
+        for proc in procs:
+            _reap(proc)
+        res["warnings"] = {f"node{i}": _log_warnings(tmp, f"node{i}")
+                           for i in range(len(procs))}
+    if res["exit"] != [0, 0]:
+        raise AssertionError(f"survivors exited {res['exit']} on SIGTERM")
+    children = []
+    for i in alive:
+        with open(outs[i]) as f:
+            children.append(json.load(f))
+    res["children"] = children
+    res["exit_s"] = [c["main_returned"] - sent for c in children]
+    res["alive"] = alive
+    return res
+
+
+def phase_cluster(device: torch.device, seed: int, *, window: int = 2048,
+                  timeout_s: float = 300.0, n_topic: int = CLUSTER_TOPIC,
+                  n_headers: int = CLUSTER_HEADERS, **sizes) -> dict:
+    """Three port nodes, each ``main`` in a child (``cluster_child``),
+    replicated as the README's "Replication & failover" documents:
+    ``replicate.factor`` 2, ``replicate.sync`` true, a private store each
+    (the WAL at its defaults), admin on, the router on ``device``, nodes 2
+    and 3 seeded with node 1, every other key at its default but
+    ``cluster.streams`` (``CLUSTER_STREAMS``). Once ``/admin/cluster``
+    shows three members alive everywhere, the main path's tables, all
+    durable, are declared through node 1; the node owning the most queues
+    is the victim, and no client connects to it. Two confirming
+    publishers on each survivor send persistent 256 B messages at the main
+    path's mix. After the last confirm the victim is SIGKILLed: the
+    survivors' ``repl_promotions`` must sum to its queue count, consumers
+    on the survivors drain every queue against the host oracle (each
+    confirmed message in every queue it was routed to, exactly once, in
+    publish order per publisher, with its body), each survivor's router
+    kernels must have launched in its own process (on a card; none on the
+    CPU) and its every kernel call must replay word for word, and SIGTERM
+    must exit each survivor 0 with ``main()`` back within 30 s."""
+    import tempfile
+
+    wl = Workload(seed, n_topic=n_topic, n_headers=n_headers, **sizes)
+    with tempfile.TemporaryDirectory() as tmp:
+        res = asyncio.run(_cluster_run(wl, str(device), tmp, window,
+                                       timeout_s))
+    res.update(messages=wl.n_messages, mean_fanout=wl.mean_fanout,
+               queues=len(wl.queues),
+               msgs_per_s=wl.n_messages / res["publish_s"])
+    bad = {k: res[k] for k in ("lost", "duplicated", "reordered_streams",
+                               "altered") if res[k]}
+    if bad or res["deliveries"] != res["expected_deliveries"]:
+        raise AssertionError(
+            f"cluster: {bad} ({res['lost_in_promoted']} lost in promoted "
+            f"queues), {res['deliveries']} deliveries of "
+            f"{res['expected_deliveries']}; replication before the kill "
+            f"{res['repl_before']}; promotions {res['promotions']}; node "
+            f"warnings {res['warnings']}")
+    _hold_children("cluster", res["children"], device)
+    if not all(s <= 30 for s in res["exit_s"]):
+        raise AssertionError(f"cluster: main() returned {res['exit_s']} s "
+                             "after SIGTERM")
+    return res
+
+
+def _hold_children(tag: str, children: list, device: torch.device) -> None:
+    """Each node process's router kernels launched (on a card; none on the
+    CPU, where the plain versions run) and every kept call replayed word
+    for word."""
+    for child in children:
+        launches = child["launches"]
+        if "replay_error" in child:
+            raise AssertionError(f"{tag}: {child['replay_error']}")
+        if device.type == "cuda":
+            idle = [k for k in ROUTER_KERNELS if launches[k] < 1]
+            if idle:
+                raise AssertionError(f"{tag}: {idle} never launched in a "
+                                     f"node: {launches}")
+            calls = {k: child["replay"].get(k, {}).get("calls", 0)
+                     for k in ROUTER_KERNELS}
+            if calls != launches:
+                raise AssertionError(f"{tag}: {calls} calls kept for "
+                                     f"{launches} launches")
+        elif any(launches.values()):
+            raise AssertionError(f"{tag} on the CPU launched {launches}")
+
+
+def log_cluster(res: dict, dev: dict) -> None:
+    for i, child in zip(res["alive"], res["children"]):
+        for name, row in child["replay"].items():
+            log(f"[cluster-replay] node{i} {name}: {row['calls']} calls "
+                f"replayed against the plain version, 0 differing words, "
+                f"shapes {row['shapes']}; card {dev['smi']}")
+    log(f"[cluster] 3 port nodes (main in children), replicate.factor 2, "
+        f"sync, a private store each, cluster.streams {CLUSTER_STREAMS}: "
+        f"membership converged {res['converge_s']:.3f} s after spawn; "
+        f"{res['queues']} durable queues owned {res['owned']}, victim "
+        f"node{res['victim']}; {res['messages']} persistent 256 B messages, "
+        f"4 confirming publishers on the survivors, mean fan-out "
+        f"{res['mean_fanout']:.3f}: {res['msgs_per_s']:.1f} confirmed msg/s "
+        f"({res['publish_s']:.3f} s, host clock); SIGKILL after the last "
+        f"confirm: {res['promoted_queues']} queues promoted "
+        f"({res['promotions']} by survivor) {res['kill_to_promoted_s']:.3f} "
+        f"s after it (polled every 50 ms), first delivery "
+        f"{res['kill_to_first_delivery_s']:.3f} s, every queue drained "
+        f"{res['drained_s']:.3f} s after it; {res['deliveries']} deliveries, "
+        f"{res['served_from_promoted']} from promoted copies; lost "
+        f"{res['lost']}, duplicated {res['duplicated']}, reordered streams "
+        f"{res['reordered_streams']}, altered {res['altered']}; "
+        f"replication before the kill {res['repl_before']}; node warnings "
+        f"{res['warnings']}; router "
+        f"counters before the kill {res['before']}, survivors after "
+        f"{res['after']}; on the card {res['card']}; kernel launches in "
+        f"the survivors {[c['launches'] for c in res['children']]}; "
+        f"SIGTERM exit {res['exit']}, main() back {res['exit_s']} s after "
+        f"it (processes gone in {res['exit_total_s']:.3f} s, replays "
+        f"included); card {dev['smi']}")
+
+
+# -- 17. a sharded node ---------------------------------------------------------------
+
+SHARDS = 4
+
+
+def shard_child(outdir: str, argv: list) -> None:
+    """The [shard] phase's supervisor: the port's ``main()`` unchanged on
+    ``argv`` (``chana.mq.shard.count`` 4). Each worker the supervisor
+    spawns must be the port's server module (``-m
+    chanamq_tpu_torch.broker.server``); it runs as ``cluster_child`` (the
+    same ``main()``, its router kernel calls counted and kept), writing
+    ``<outdir>/worker<index>.json``. After ``main()`` returns, the JSON
+    file ``<outdir>/supervisor.json`` gets the time it returned."""
+    from chanamq_tpu_torch.broker import server
+    from chanamq_tpu_torch.shard import supervisor
+
+    real_exec = supervisor.asyncio.create_subprocess_exec
+
+    async def exec_worker(program, *args, **kwargs):
+        if args[:2] != ("-m", "chanamq_tpu_torch.broker.server"):
+            raise AssertionError(f"the supervisor spawned {args}")
+        index = kwargs["env"]["CHANAMQ_SHARD_INDEX"]
+        return await real_exec(
+            program, os.path.abspath(__file__), "--cluster-child",
+            os.path.join(outdir, f"worker{index}.json"), *args[2:],
+            **kwargs)
+
+    supervisor.asyncio.create_subprocess_exec = exec_worker
+    sys.argv = ["chanamq-server-torch", *argv]
+    server.main()
+    with open(os.path.join(outdir, "supervisor.json"), "w") as f:
+        json.dump({"main_returned": time.time()}, f)
+
+
+def _gone(pid: int) -> bool:
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().split(")")[-1].split()[0] in ("Z", "X")
+    except OSError:
+        return True
+
+
+async def _shard_run(wl: Workload, device: str, tmp: str, window: int,
+                     timeout_s: float) -> dict:
+    import signal
+
+    from chanamq_tpu_torch.client import AMQPClient
+
+    n = SHARDS
+    amqp, admin, cluster = _free_port(), _free_ports(n), _free_ports(n)
+    admins = [admin + i for i in range(n)]
+    res: dict = {}
+    deadline = time.monotonic() + timeout_s
+    t_spawn = time.perf_counter()
+    proc = _spawn_child("--shard-child", tmp, {
+        "chana.mq.amqp.interface": "127.0.0.1",
+        "chana.mq.amqp.port": amqp,
+        "chana.mq.admin.enabled": True,
+        "chana.mq.admin.interface": "127.0.0.1",
+        "chana.mq.admin.port": admin,
+        "chana.mq.cluster.host": "127.0.0.1",
+        "chana.mq.cluster.port": cluster,
+        "chana.mq.cluster.streams": CLUSTER_STREAMS,
+        "chana.mq.shard.count": n,
+        "chana.mq.shard.dir": os.path.join(tmp, "shards"),
+        "chana.mq.router.device": device}, tmp, "supervisor")
+    workers: list = []
+    try:
+        async def listening():
+            for a in admins:
+                await _get_json(a, "/admin/overview")
+            return True
+
+        await _until(listening, "every worker listening", deadline, [proc])
+        res["listen_s"] = time.perf_counter() - t_spawn
+
+        async def converged():
+            views = [await _get_json(a, "/admin/cluster") for a in admins]
+            return all(_joined(v, n) for v in views)
+
+        await _until(converged, "the shards clustered", deadline, [proc])
+        res["converge_s"] = time.perf_counter() - t_spawn
+        # two shard heartbeats (the default 200 ms): every pair has
+        # exchanged one directly (worker ids settle on direct contact)
+        await asyncio.sleep(0.4)
+        workers = []
+        for i in range(n):
+            with open(os.path.join(tmp, f"worker{i}.json.pid")) as f:
+                workers.append(int(f.read()))
+        await _declare_tables(amqp, wl, "shard", False, admins, deadline,
+                              [proc])
+
+        # one publisher a worker: the kernel spreads connections over the
+        # workers by address hash, so a connection landing on a worker
+        # that already has one is closed and made again
+        async def opened() -> list:
+            return [(await _get_json(a, "/admin/metrics"))[
+                "connections_opened"] for a in admins]
+
+        clients: dict = {}
+        spare = []
+        try:
+            for _ in range(400):
+                if len(clients) == n:
+                    break
+                base = await opened()
+                c = await AMQPClient.connect("127.0.0.1", amqp, heartbeat=0)
+                now = await opened()
+                hit = [i for i in range(n) if now[i] > base[i]]
+                if len(hit) == 1 and hit[0] not in clients:
+                    clients[hit[0]] = c
+                else:
+                    spare.append(c)
+            for c in spare:
+                await c.close()
+            if len(clients) != n:
+                raise AssertionError(f"publishers reached workers "
+                                     f"{sorted(clients)} only")
+            t0 = time.perf_counter()
+            await asyncio.gather(*(
+                _publish_stream(c, wl, p, "shard", window, persistent=False)
+                for p, c in enumerate(clients.values())))
+            res["publish_s"] = time.perf_counter() - t0
+        finally:
+            for c in clients.values():
+                await c.close()
+
+        # every queue's count at its owner, read the operator's way
+        counts: dict = {}
+        for a in admins:
+            for q in await _get_json(a, "/admin/queues/%2F"):
+                counts.setdefault(q["name"], []).append(q["messages"])
+        wrong = [(q, counts.get(q), len(wl.expected[q])) for q in wl.queues
+                 if counts.get(q) != [len(wl.expected[q])]]
+        if wrong:
+            raise AssertionError(f"{len(wrong)} queue counts differ from the "
+                                 f"oracle, e.g. {wrong[:5]}")
+        metrics = [await _get_json(a, "/admin/metrics") for a in admins]
+        res["router_batches"] = [m["router_batches"] for m in metrics]
+        res["router_fallback_msgs"] = [m["router_fallback_msgs"]
+                                       for m in metrics]
+        res["cross_pushes"] = [m["shard_cross_pushes"] for m in metrics]
+        res["card"] = card_usage({"supervisor": proc.pid, **{
+            f"worker{i}": pid for i, pid in enumerate(workers)}})
+
+        busy = [q for q in wl.queues if wl.expected[q]]
+        want_total = sum(len(wl.expected[q]) for q in busy)
+        t0 = time.perf_counter()
+        got = await _consume_all({q: amqp for q in busy}, wl, want_total,
+                                 300.0, [])
+        res["drain_s"] = time.perf_counter() - t0
+        res.update(hold_deliveries(wl, got))
+        res["expected_deliveries"] = want_total
+
+        t_term, sent = time.perf_counter(), time.time()
+        proc.send_signal(signal.SIGTERM)
+        res["exit"] = await asyncio.to_thread(proc.wait, 30 + 120)
+        res["exit_total_s"] = time.perf_counter() - t_term
+    except BaseException:
+        log(f"[shard] supervisor log tail: {_log_tail(tmp, 'supervisor')}")
+        raise
+    finally:
+        # the gate reads which workers outlived the supervisor before the
+        # session is reaped
+        res["workers_left"] = [pid for pid in workers if not _gone(pid)]
+        _reap(proc)
+    res["workers"] = workers
+    with open(os.path.join(tmp, "supervisor.json")) as f:
+        res["exit_s"] = json.load(f)["main_returned"] - sent
+    children = []
+    for i in range(n):
+        with open(os.path.join(tmp, f"worker{i}.json")) as f:
+            children.append(json.load(f))
+    res["children"] = children
+    return res
+
+
+def phase_shard(device: torch.device, seed: int, *, window: int = 2048,
+                timeout_s: float = 300.0, n_topic: int = CLUSTER_TOPIC,
+                n_headers: int = CLUSTER_HEADERS, **sizes) -> dict:
+    """One sharded node as the README documents it: ``main`` in a child
+    (``shard_child``) with ``chana.mq.shard.count`` 4, reuse-port at its
+    default (true), admin on (a worker's admin port is the base + its
+    index), the router on ``device``, every other key at its default but
+    ``cluster.streams`` (``CLUSTER_STREAMS``). The supervisor spawns four
+    workers; the main path's tables (transient queues) and 4 confirming
+    publishers' transient 256 B messages, one publisher on each worker.
+    Every queue's count at its owner's ``/admin/queues`` must equal the
+    oracle, consumers drain every queue against it, every worker's
+    ``/admin/metrics`` must show router batches (no fallback: on a card
+    they ran there) and cross-shard pushes must sum above zero; on a card
+    each worker's kernels launched in its own process and replay word for
+    word, and nvidia-smi shows the four workers on the card and no
+    supervisor; SIGTERM to the supervisor exits 0 within 30 s with every
+    worker gone."""
+    import tempfile
+
+    wl = Workload(seed, n_topic=n_topic, n_headers=n_headers, **sizes)
+    with tempfile.TemporaryDirectory() as tmp:
+        res = asyncio.run(_shard_run(wl, str(device), tmp, window,
+                                     timeout_s))
+    res.update(messages=wl.n_messages, mean_fanout=wl.mean_fanout,
+               queues=len(wl.queues),
+               msgs_per_s=wl.n_messages / res["publish_s"])
+    bad = {k: res[k] for k in ("lost", "duplicated", "reordered_streams",
+                               "altered") if res[k]}
+    if bad or res["deliveries"] != res["expected_deliveries"]:
+        raise AssertionError(f"shard: {bad}, {res['deliveries']} "
+                             f"deliveries of {res['expected_deliveries']}")
+    if not all(b > 0 for b in res["router_batches"]):
+        raise AssertionError(f"shard: router batches {res['router_batches']}")
+    if sum(res["cross_pushes"]) <= 0:
+        raise AssertionError("shard: no cross-shard push")
+    if res["exit"] != 0 or res["exit_s"] > 30 or res["workers_left"]:
+        raise AssertionError(f"shard: SIGTERM exit {res['exit']} after "
+                             f"{res['exit_s']} s, workers left "
+                             f"{res['workers_left']}")
+    if len(res["workers"]) != SHARDS:
+        raise AssertionError(f"shard: workers {res['workers']}")
+    if device.type == "cuda":
+        # four workers on the card and no supervisor: by pid where
+        # nvidia-smi's pids are this machine's, else by count (the workers
+        # and this process, which holds a context from earlier phases)
+        card = res["card"]
+        named = card and card["named"]
+        if card is None or (named is not None and (
+                named["supervisor"] > 0
+                or any(named[f"worker{i}"] <= 0 for i in range(SHARDS)))) \
+                or (named is None and card["processes"] != SHARDS + 1):
+            raise AssertionError(f"shard: on the card {card}")
+    _hold_children("shard", res["children"], device)
+    return res
+
+
+def log_shard(res: dict, dev: dict) -> None:
+    for i, child in enumerate(res["children"]):
+        for name, row in child["replay"].items():
+            log(f"[shard-replay] worker{i} {name}: {row['calls']} calls "
+                f"replayed against the plain version, 0 differing words, "
+                f"shapes {row['shapes']}; card {dev['smi']}")
+    cross = sum(res["cross_pushes"])
+    log(f"[shard] chana.mq.shard.count {SHARDS} through main in a child, "
+        f"reuse-port, cluster.streams {CLUSTER_STREAMS}: every worker "
+        f"listening {res['listen_s']:.3f} s after spawn, clustered "
+        f"{res['converge_s']:.3f} s; {res['queues']} transient queues, "
+        f"{res['messages']} transient 256 B messages, one confirming "
+        f"publisher a worker, mean fan-out {res['mean_fanout']:.3f}: "
+        f"{res['msgs_per_s']:.1f} confirmed msg/s ({res['publish_s']:.3f} "
+        f"s, host clock); queue counts equal the oracle; "
+        f"{res['deliveries']} deliveries drained in {res['drain_s']:.3f} s, "
+        f"lost {res['lost']}, duplicated {res['duplicated']}, reordered "
+        f"streams {res['reordered_streams']}; router batches by worker "
+        f"{res['router_batches']} (fallback messages "
+        f"{res['router_fallback_msgs']}); cross-shard push records "
+        f"{res['cross_pushes']} = {cross / res['messages']:.3f} a message; "
+        f"on the card {res['card']}; kernel launches in the workers "
+        f"{[c['launches'] for c in res['children']]}; SIGTERM exit "
+        f"{res['exit']}, main() back {res['exit_s']:.3f} s after it, "
+        f"workers left {res['workers_left']}; card {dev['smi']}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3434,6 +4294,15 @@ def main() -> int:
     if sys.argv[1:2] == ["--node-child"]:
         # the [node] phase's node: --node-child <out.json> <main's args>
         node_child(sys.argv[2], sys.argv[3:])
+        return 0
+    if sys.argv[1:2] == ["--cluster-child"]:
+        # a [cluster] node or [shard] worker: --cluster-child <out.json>
+        # <main's args>
+        cluster_child(sys.argv[2], sys.argv[3:])
+        return 0
+    if sys.argv[1:2] == ["--shard-child"]:
+        # the [shard] phase's supervisor: --shard-child <dir> <main's args>
+        shard_child(sys.argv[2], sys.argv[3:])
         return 0
     args = ap.parse_args()
     if args.durable_node:
@@ -3636,6 +4505,30 @@ def main() -> int:
 
     node_replay = node["child"]["replay"]
 
+    # a replicated cluster of three port nodes, the owner of the most
+    # queues killed; then one sharded node of four workers. Each node's
+    # router kernels are counted in its own process, from 0
+    cluster = phase_cluster(device, args.seed)
+    log_cluster(cluster, dev)
+    shard = phase_shard(device, args.seed)
+    log_shard(shard, dev)
+
+    def cluster_path(name: str) -> dict:
+        """A router kernel's launches in each [cluster] survivor and each
+        [shard] worker, and the replay of their calls."""
+        def rows(children, labels):
+            return {label: {"launches": c["launches"][name],
+                            "replayed_calls": c["replay"][name]["calls"],
+                            "shapes": c["replay"][name]["shapes"],
+                            "max_abs_err": c["replay"][name]["max_abs_err"]}
+                    for label, c in zip(labels, children)}
+        return {"cluster_survivors": rows(
+                    cluster["children"],
+                    [f"node{i}" for i in cluster["alive"]]),
+                "shard_workers": rows(
+                    shard["children"],
+                    [f"worker{i}" for i in range(SHARDS)])}
+
     def node_path(name: str) -> dict:
         """A kernel's launches in the [node] phase's node and the replay of
         its calls in the node's first trained round (the router kernels'
@@ -3675,6 +4568,7 @@ def main() -> int:
             "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": None, "node_path": node_path(name),
+            "cluster_path": cluster_path(name),
             "at_caps": {b: {k: caps[name][b][k] for k in (
                 "shape", "ms", "wrapper_ms", "plain_ms", "bound_ms",
                 "bound_by", "by_mb")} for b in caps[name]}})

@@ -6,13 +6,6 @@ accuracy tracking, cluster queue handoff, and the /admin/control surface.
 The port's copy of ``tests/test_control.py``: imports point at
 ``chanamq_tpu_torch``, every broker's router on the CPU; the
 assertions are the reference's.
-
-Not carried over: the cluster queue handoff cases
-(``test_handoff_moves_durable_backlog``,
-``test_handoff_refuses_unsafe_queues``,
-``test_handoff_rebinds_remote_consumer``, ``test_control_load_rpc``),
-which need two clustered nodes (``cluster/node.py``, not in the port
-yet).
 """
 
 import asyncio
@@ -425,6 +418,184 @@ async def test_control_forecast_trust_gate():
     finally:
         broker.forecaster = None
         await control.stop()
+
+
+# ---------------------------------------------------------------------------
+# proactive rebalancing: cluster queue handoff
+# ---------------------------------------------------------------------------
+
+
+async def _start_cluster_pair(tmp_path):
+    from chanamq_tpu_torch.broker.server import BrokerServer
+    from chanamq_tpu_torch.cluster.node import ClusterNode
+    from chanamq_tpu_torch.store.sqlite import SqliteStore
+
+    store = str(tmp_path / "shared.db")
+    nodes = []
+    seeds: list = []
+    for _ in range(2):
+        server = BrokerServer(broker=Broker(store=SqliteStore(store), router_device="cpu"),
+                              host="127.0.0.1", port=0, heartbeat_s=0)
+        await server.start()
+        cluster = ClusterNode(server.broker, "127.0.0.1", 0, list(seeds),
+                              heartbeat_interval_s=0.1,
+                              failure_timeout_s=0.8)
+        await cluster.start()
+        nodes.append((server, cluster))
+        seeds = [nodes[0][1].name]
+    for _ in range(100):
+        if all(len(c.membership.alive_members()) == 2 for _, c in nodes):
+            break
+        await asyncio.sleep(0.05)
+    assert all(len(c.membership.alive_members()) == 2 for _, c in nodes)
+    return nodes
+
+
+async def _stop_cluster(nodes):
+    for server, cluster in nodes:
+        await cluster.stop()
+        await server.stop()
+
+
+async def test_handoff_moves_durable_backlog(tmp_path):
+    from chanamq_tpu_torch.client import AMQPClient
+
+    nodes = await _start_cluster_pair(tmp_path)
+    try:
+        owner_name = nodes[0][1].queue_owner("/", "hq")
+        owner = next(n for n in nodes if n[1].name == owner_name)
+        other = next(n for n in nodes if n[1].name != owner_name)
+
+        client = await AMQPClient.connect(
+            "127.0.0.1", owner[0].bound_port)
+        ch = await client.channel()
+        await ch.confirm_select()
+        await ch.queue_declare("hq", durable=True)
+        for i in range(3):
+            ch.basic_publish(b"h%d" % i, routing_key="hq",
+                             properties=BasicProperties(delivery_mode=2))
+        await ch.wait_unconfirmed_below(1, timeout=10)
+        await asyncio.sleep(0.3)   # let the store writes settle
+
+        resident_before = owner[0].broker.resident_bytes
+        moved = await owner[1].handoff_queue("/", "hq", other[1].name)
+        assert moved is True
+        # holdership converges on every node
+        for _ in range(100):
+            if all(c.queue_owner("/", "hq") == other[1].name
+                   for _, c in nodes):
+                break
+            await asyncio.sleep(0.05)
+        assert all(c.queue_owner("/", "hq") == other[1].name
+                   for _, c in nodes)
+        # the origin dropped the queue and released its accounted bytes
+        assert "hq" not in owner[0].broker.vhosts["/"].queues
+        assert owner[0].broker.resident_bytes < resident_before
+        # the target serves the full durable backlog (recovered from the
+        # shared store), proxied transparently through the old owner
+        ok = await ch.queue_declare("hq", passive=True)
+        assert ok.message_count == 3
+        msg = await ch.basic_get("hq")
+        assert msg.body == b"h0"
+        ch.basic_ack(msg.delivery_tag)
+        await client.close()
+    finally:
+        await _stop_cluster(nodes)
+
+
+async def test_handoff_refuses_unsafe_queues(tmp_path):
+    from chanamq_tpu_torch.client import AMQPClient
+
+    nodes = await _start_cluster_pair(tmp_path)
+    try:
+        owner_name = nodes[0][1].queue_owner("/", "uq")
+        owner = next(n for n in nodes if n[1].name == owner_name)
+        other = next(n for n in nodes if n[1].name != owner_name)
+        client = await AMQPClient.connect(
+            "127.0.0.1", owner[0].bound_port)
+        ch = await client.channel()
+        await ch.queue_declare("uq")          # transient
+        ch.basic_publish(b"t0", routing_key="uq")
+        await asyncio.sleep(0.3)
+        # a transient backlog is NOT recoverable by the target: refused
+        assert not await owner[1].handoff_queue("/", "uq", other[1].name)
+        assert all(c.queue_owner("/", "uq") == owner[1].name
+                   for _, c in nodes)
+        # unknown target: refused
+        await ch.queue_purge("uq")
+        await asyncio.sleep(0.2)
+        assert not await owner[1].handoff_queue("/", "uq", "nope")
+        await client.close()
+    finally:
+        await _stop_cluster(nodes)
+
+
+async def test_handoff_rebinds_remote_consumer(tmp_path):
+    from chanamq_tpu_torch.client import AMQPClient
+
+    nodes = await _start_cluster_pair(tmp_path)
+    try:
+        owner_name = nodes[0][1].queue_owner("/", "rq")
+        owner = next(n for n in nodes if n[1].name == owner_name)
+        other = next(n for n in nodes if n[1].name != owner_name)
+        # consumer attaches through the NON-owner: the owner sees a
+        # RemoteConsumer stub, the safe-to-move kind
+        c_client = await AMQPClient.connect(
+            "127.0.0.1", other[0].bound_port)
+        cch = await c_client.channel()
+        await cch.queue_declare("rq", durable=True)
+        got = []
+
+        def on_msg(msg):
+            got.append(bytes(msg.body))
+            cch.basic_ack(msg.delivery_tag)
+
+        await cch.basic_consume("rq", on_msg)
+        await asyncio.sleep(0.3)
+
+        moved = await owner[1].handoff_queue("/", "rq", other[1].name)
+        assert moved is True
+        for _ in range(100):
+            if all(c.queue_owner("/", "rq") == other[1].name
+                   for _, c in nodes):
+                break
+            await asyncio.sleep(0.05)
+        # after the move the consumer's node owns the queue; a publish
+        # through the OLD owner must still reach the consumer
+        p_client = await AMQPClient.connect(
+            "127.0.0.1", owner[0].bound_port)
+        pch = await p_client.channel()
+        pch.basic_publish(b"after-move", routing_key="rq")
+        for _ in range(100):
+            if got:
+                break
+            await asyncio.sleep(0.05)
+        assert got == [b"after-move"]
+        await p_client.close()
+        await c_client.close()
+    finally:
+        await _stop_cluster(nodes)
+
+
+async def test_control_load_rpc(tmp_path):
+    nodes = await _start_cluster_pair(tmp_path)
+    try:
+        reply = await nodes[0][1]._call(
+            nodes[1][1].name, "control.load", {}, timeout_s=2.0)
+        assert reply["node"] == nodes[1][1].name
+        assert reply["load"] == 0.0
+        # with a control service attached the RPC reports its EWMA
+        control = ControlService(nodes[1][0].broker, rebalance=False,
+                                 prefetch=False)
+        control.load_rate = 123.5
+        try:
+            reply = await nodes[0][1]._call(
+                nodes[1][1].name, "control.load", {}, timeout_s=2.0)
+            assert reply["load"] == 123.5
+        finally:
+            await control.stop()
+    finally:
+        await _stop_cluster(nodes)
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,12 @@
 """The port stands alone: ``chanamq_tpu_torch`` and ``chip_smoke.py``
-import neither JAX nor anything of the JAX package, and the default router
-device is the card, never a silent CPU."""
+import neither JAX nor anything of the JAX package, name no module of the
+JAX package in a string (a process the port spawns runs the port), and
+the default router device is the card, never a silent CPU."""
 
 import ast
+import asyncio
 import os
+import re
 import subprocess
 import sys
 
@@ -44,6 +47,55 @@ def test_no_jax_or_reference_imports_in_sources():
     assert bad == []
 
 
+# a dotted module name of the JAX package (``chanamq_tpu.broker.server``,
+# as ``-m`` or ``import_module`` would take it) or the package itself;
+# file paths (``chanamq_tpu/router/compile.py:289``, what a kernel
+# replaces) are not module names
+REFERENCE_MODULE = re.compile(
+    r"(?<![\w/.])chanamq_tpu(?:\.\w+)+|^chanamq_tpu$")
+
+
+def test_no_string_names_a_reference_module():
+    assert REFERENCE_MODULE.search("-m chanamq_tpu.broker.server")
+    assert REFERENCE_MODULE.search("chanamq_tpu")
+    assert not REFERENCE_MODULE.search("chanamq_tpu_torch.broker.server")
+    assert not REFERENCE_MODULE.search("chanamq_tpu/router/compile.py:289")
+    bad = []
+    for path in _port_sources():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Constant) and isinstance(node.value, str):
+                bad += [(path, node.lineno, m.group(0))
+                        for m in REFERENCE_MODULE.finditer(node.value)]
+    assert bad == []
+
+
+def test_shard_supervisor_spawns_the_port(tmp_path, monkeypatch):
+    """A shard worker is the port's server module, run by this Python."""
+    from chanamq_tpu_torch.config import Config
+    from chanamq_tpu_torch.shard import supervisor
+
+    argv: list = []
+
+    async def exec_(*args, **kwargs):
+        argv.append(args)
+        raise OSError("not spawned in this test")
+
+    monkeypatch.setattr(supervisor.asyncio, "create_subprocess_exec", exec_)
+    sup = supervisor.ShardSupervisor(Config(
+        {"chana.mq.shard.count": 2, "chana.mq.shard.dir": str(tmp_path)},
+        env={}))
+    loop = asyncio.new_event_loop()
+    try:
+        with pytest.raises(OSError):
+            loop.run_until_complete(sup._spawn(1))
+    finally:
+        loop.close()
+    assert argv[0][:3] == (sys.executable, "-m",
+                           "chanamq_tpu_torch.broker.server")
+
+
 def test_importing_the_port_loads_no_jax_or_reference():
     code = (
         "import sys\n"
@@ -66,6 +118,12 @@ def test_importing_the_port_loads_no_jax_or_reference():
         "import chanamq_tpu_torch.control\n"
         "import chanamq_tpu_torch.otel.export\n"
         "import chanamq_tpu_torch.cluster.rpc\n"
+        "import chanamq_tpu_torch.cluster.node\n"
+        "import chanamq_tpu_torch.cluster.lifecycle\n"
+        "import chanamq_tpu_torch.replicate\n"
+        "import chanamq_tpu_torch.shard.supervisor\n"
+        "import chanamq_tpu_torch.shard.handoff\n"
+        "import chanamq_tpu_torch.federation\n"
         "import chanamq_tpu_torch.utils.logjson\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

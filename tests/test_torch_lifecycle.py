@@ -1,0 +1,322 @@
+"""Node lifecycle tests: graceful drain/decommission, handoff retry and
+rollback, holdership fencing epochs, and follower retirement.
+
+The chaos-soak twin (bench.py --elastic) exercises the same machinery at
+cluster scale under a seeded fault plan; these tests pin the individual
+contracts so a regression is named, not just detected.
+
+The port's copy of ``tests/test_lifecycle.py``: imports point at
+``chanamq_tpu_torch``, every broker's router on the CPU; the
+assertions are the reference's.
+"""
+
+import asyncio
+
+import pytest
+
+from chanamq_tpu_torch.amqp.properties import BasicProperties
+from chanamq_tpu_torch.broker.broker import Broker
+from chanamq_tpu_torch.broker.server import BrokerServer
+from chanamq_tpu_torch.client import AMQPClient
+from chanamq_tpu_torch.cluster.membership import DRAINING, LEFT
+from chanamq_tpu_torch.cluster.node import ClusterNode
+from chanamq_tpu_torch.store.memory import MemoryStore
+from chanamq_tpu_torch.store.sqlite import SqliteStore
+
+pytestmark = pytest.mark.asyncio
+
+PERSISTENT = BasicProperties(delivery_mode=2)
+
+
+class Node:
+    def __init__(self, server: BrokerServer, cluster: ClusterNode) -> None:
+        self.server = server
+        self.cluster = cluster
+
+    @property
+    def port(self) -> int:
+        return self.server.bound_port
+
+    @property
+    def name(self) -> str:
+        return self.cluster.name
+
+    @property
+    def broker(self) -> Broker:
+        return self.server.broker
+
+    async def stop(self) -> None:
+        await self.cluster.stop()
+        await self.server.stop()
+
+
+async def start_node(store, seeds, *, replicate_factor=1) -> Node:
+    server = BrokerServer(broker=Broker(store=store, router_device="cpu"),
+                          host="127.0.0.1", port=0, heartbeat_s=0)
+    await server.start()
+    cluster = ClusterNode(server.broker, "127.0.0.1", 0, seeds,
+                          heartbeat_interval_s=0.1,
+                          failure_timeout_s=0.8,
+                          replicate_factor=replicate_factor,
+                          replicate_sync=replicate_factor > 1,
+                          drain_budget_s=10.0)
+    await cluster.start()
+    return Node(server, cluster)
+
+
+async def start_cluster(tmp_path, n=2):
+    """n nodes on one shared sqlite store (handoffs rematerialize durable
+    content from it, no replication required)."""
+    store_path = str(tmp_path / "shared.db")
+    first = await start_node(SqliteStore(store_path), [])
+    nodes = [first]
+    for _ in range(n - 1):
+        nodes.append(await start_node(SqliteStore(store_path), [first.name]))
+    await converge(nodes, n)
+    return nodes
+
+
+async def converge(nodes, n):
+    for _ in range(100):
+        if all(len(node.cluster.membership.alive_members()) == n
+               for node in nodes):
+            return
+        await asyncio.sleep(0.05)
+    raise AssertionError("membership never converged")
+
+
+def owned_queue(node, prefix="lq"):
+    """A queue name the given node's ring places on itself."""
+    return next(f"{prefix}{i}" for i in range(2000)
+                if node.cluster.queue_owner("/", f"{prefix}{i}") == node.name)
+
+
+async def declare_with_backlog(node, qname, count=1):
+    client = await AMQPClient.connect("127.0.0.1", node.port)
+    ch = await client.channel()
+    await ch.confirm_select()
+    await ch.queue_declare(qname, durable=True)
+    for i in range(count):
+        await ch.basic_publish_confirmed(
+            b"m%03d" % i, routing_key=qname, properties=PERSISTENT,
+            timeout=10)
+    await client.close()
+
+
+async def eventually(predicate, timeout=5.0):
+    deadline = asyncio.get_event_loop().time() + timeout
+    while not predicate():
+        if asyncio.get_event_loop().time() > deadline:
+            return False
+        await asyncio.sleep(0.05)
+    return True
+
+
+# ---------------------------------------------------------------------------
+# handoff: activate failure -> bounded retry -> rollback
+# ---------------------------------------------------------------------------
+
+async def test_handoff_activate_failure_rolls_back(tmp_path):
+    nodes = await start_cluster(tmp_path, 2)
+    src, tgt = nodes
+    try:
+        qname = owned_queue(src)
+        await declare_with_backlog(src, qname, 2)
+        epoch_before = src.cluster.queue_epoch("/", qname)
+        assert epoch_before >= 1  # declare seats the fencing epoch
+
+        async def broken_activate(payload):
+            raise OSError("activate refused for the test")
+
+        tgt.cluster.rpc.register("queue.activate", broken_activate)
+        ok = await src.cluster.handoff_queue("/", qname, tgt.name)
+        assert ok is False
+        assert src.broker.metrics.lifecycle_rollbacks == 1
+        assert src.broker.metrics.lifecycle_evacuation_retries >= 1
+        # the queue is back home with its full backlog...
+        queue = src.broker.vhosts["/"].queues[qname]
+        assert not queue.deleted and len(queue.messages) == 2
+        # ...holdership rolled back to the source with a FRESH epoch, so
+        # the aborted target-side claim can never win a late race
+        assert src.cluster.queue_metas[("/", qname)]["holder"] == src.name
+        assert src.cluster.queue_epoch("/", qname) > epoch_before
+
+        # with the target healthy again the same move goes through
+        tgt.cluster.rpc.register("queue.activate",
+                                 tgt.cluster._h_queue_activate)
+        assert await src.cluster.handoff_queue("/", qname, tgt.name) is True
+        assert qname not in src.broker.vhosts["/"].queues
+        assert await eventually(
+            lambda: qname in tgt.broker.vhosts["/"].queues
+            and len(tgt.broker.vhosts["/"].queues[qname].messages) == 2)
+    finally:
+        for node in nodes:
+            await node.stop()
+
+
+async def test_handoff_target_dies_mid_move(tmp_path):
+    nodes = await start_cluster(tmp_path, 3)
+    src, tgt, other = nodes
+    try:
+        qname = owned_queue(src)
+        await declare_with_backlog(src, qname, 1)
+        # kill the target abruptly: the source still believes it alive, so
+        # the handoff proceeds past the holder broadcast and only fails at
+        # the activate RPC — the retry loop must give up and roll back
+        await tgt.stop()
+        ok = await src.cluster.handoff_queue("/", qname, tgt.name)
+        assert ok is False
+        assert src.broker.metrics.lifecycle_rollbacks == 1
+        queue = src.broker.vhosts["/"].queues[qname]
+        assert not queue.deleted and len(queue.messages) == 1
+        assert src.cluster.queue_metas[("/", qname)]["holder"] == src.name
+
+        # a subsequent drain routes around the corpse onto the live peer
+        await eventually(
+            lambda: not src.cluster.membership.is_alive(tgt.name))
+        src.cluster.lifecycle.drain()
+        report = await src.cluster.lifecycle.wait(15)
+        assert report["state"] == "drained"
+        assert report["failed"] == [] and report["pinned"] == []
+        assert await eventually(
+            lambda: qname in other.broker.vhosts["/"].queues
+            and len(other.broker.vhosts["/"].queues[qname].messages) == 1)
+    finally:
+        for node in (src, other):
+            await node.stop()
+
+
+# ---------------------------------------------------------------------------
+# drain: idempotence, gossip, placement exclusion
+# ---------------------------------------------------------------------------
+
+async def test_double_drain_is_idempotent(tmp_path):
+    nodes = await start_cluster(tmp_path, 2)
+    src, tgt = nodes
+    try:
+        qname = owned_queue(src)
+        await declare_with_backlog(src, qname, 1)
+        first = src.cluster.lifecycle.drain()
+        second = src.cluster.lifecycle.drain()  # observe, don't restart
+        assert first["state"] == second["state"] == "draining"
+        assert src.broker.metrics.lifecycle_drains_started == 1
+        report = await src.cluster.lifecycle.wait(15)
+        assert report["state"] == "drained"
+        moved = report["queues_moved"]
+        # draining again after completion is a pure observation too
+        again = src.cluster.lifecycle.drain()
+        assert again["state"] == "drained"
+        assert again["queues_moved"] == moved
+        assert src.broker.metrics.lifecycle_drains_started == 1
+    finally:
+        for node in nodes:
+            await node.stop()
+
+
+async def test_drain_gossips_lifecycle_and_leaves_placement(tmp_path):
+    nodes = await start_cluster(tmp_path, 2)
+    src, peer = nodes
+    try:
+        qname = owned_queue(src)
+        await declare_with_backlog(src, qname, 1)
+        assert src.name in peer.cluster.membership.placement_members()
+        src.cluster.lifecycle.drain()
+        # the evacuation task flips both as its first act
+        assert await eventually(
+            lambda: src.cluster.draining and src.broker.draining)
+        report = await src.cluster.lifecycle.wait(15)
+        assert report["state"] == "drained"
+        assert report["lifecycle"] == LEFT
+        # the terminal state gossips to peers and drops the node from
+        # placement while plain liveness still sees the process up
+        assert await eventually(
+            lambda: peer.cluster.membership.lifecycle_of(src.name) == LEFT)
+        assert src.name not in peer.cluster.membership.placement_members()
+        assert peer.cluster.membership.is_alive(src.name)
+        # anti-entropy must not pull snapshots from the departed member:
+        # liveness still says "alive", lifecycle says LEFT, lifecycle wins
+        assert src.name not in peer.cluster._anti_entropy_peers()
+        assert peer.broker.metrics.lifecycle_left_peer_skipped >= 1
+    finally:
+        for node in nodes:
+            await node.stop()
+
+
+# ---------------------------------------------------------------------------
+# fencing epochs
+# ---------------------------------------------------------------------------
+
+async def test_declare_seats_fencing_epoch_on_both_sides():
+    a = await start_node(MemoryStore(), [], replicate_factor=2)
+    b = await start_node(MemoryStore(), [a.name], replicate_factor=2)
+    try:
+        await converge([a, b], 2)
+        qname = owned_queue(a, "fq")
+        await declare_with_backlog(a, qname, 1)
+        assert a.cluster.queue_epoch("/", qname) == 1
+        assert await eventually(
+            lambda: b.cluster.queue_epoch("/", qname) == 1)
+    finally:
+        await b.stop()
+        await a.stop()
+
+
+async def test_stale_epoch_ship_is_refused():
+    a = await start_node(MemoryStore(), [], replicate_factor=2)
+    b = await start_node(MemoryStore(), [a.name], replicate_factor=2)
+    try:
+        await converge([a, b], 2)
+        qname = owned_queue(a, "fq")
+        await declare_with_backlog(a, qname, 1)
+        assert await eventually(
+            lambda: b.cluster.replication.applier.copies.get(
+                ("/", qname)) is not None)
+        # simulate the queue having moved on while A was dark: B knows a
+        # newer holdership epoch, so A's next ship arrives stale
+        b.cluster.queue_metas[("/", qname)]["epoch"] = 3
+        refused_before = b.broker.metrics.lifecycle_stale_epoch_refused
+        applied_before = b.cluster.replication.applier.copies[
+            ("/", qname)].applied_seq
+        client = await AMQPClient.connect("127.0.0.1", a.port)
+        ch = await client.channel()
+        await ch.confirm_select()
+        # the confirm still resolves (the sync barrier gives up on the
+        # refusing follower); the invariant is the refusal itself
+        await ch.basic_publish_confirmed(
+            b"stale", routing_key=qname, properties=PERSISTENT, timeout=10)
+        await client.close()
+        assert await eventually(
+            lambda: b.broker.metrics.lifecycle_stale_epoch_refused
+            > refused_before)
+        copy = b.cluster.replication.applier.copies.get(("/", qname))
+        assert copy is not None and copy.applied_seq == applied_before
+    finally:
+        await b.stop()
+        await a.stop()
+
+
+async def test_retire_discards_dropped_follower_copy():
+    a = await start_node(MemoryStore(), [], replicate_factor=2)
+    b = await start_node(MemoryStore(), [a.name], replicate_factor=2)
+    try:
+        await converge([a, b], 2)
+        qname = owned_queue(a, "rq")
+        await declare_with_backlog(a, qname, 1)
+        applier = b.cluster.replication.applier
+        assert await eventually(
+            lambda: applier.copies.get(("/", qname)) is not None)
+        # wrong owner: the retire must not touch the copy
+        reply = await applier.h_retire(
+            {"vhost": "/", "queue": qname, "owner": "127.0.0.1:1"})
+        assert reply == {"retired": False}
+        assert applier.copies.get(("/", qname)) is not None
+        # the real owner dropping B from the follower set discards it —
+        # a copy that will never see another ship is a split-election
+        # seed, not a safety net
+        reply = await applier.h_retire(
+            {"vhost": "/", "queue": qname, "owner": a.name})
+        assert reply == {"retired": True}
+        assert applier.copies.get(("/", qname)) is None
+    finally:
+        await b.stop()
+        await a.stop()

@@ -4,10 +4,8 @@ The port's copy of ``tests/test_ops_surface.py``: imports point at
 ``chanamq_tpu_torch``, every broker's router on the CPU; the
 assertions are the reference's.
 
-``test_admin_cluster_endpoint`` keeps its single-node half; its two-node
-half needs ``cluster/node.py``, not in the port yet. The SIGTERM case
-boots the port's node (``python -m chanamq_tpu_torch.broker.server``) on
-a free port.
+The SIGTERM case boots the port's node (``python -m
+chanamq_tpu_torch.broker.server``) on a free port.
 """
 
 import asyncio
@@ -286,6 +284,37 @@ async def test_admin_cluster_endpoint(stack):
     # single node, no cluster: endpoint reports disabled
     status, body = await http_req(admin.bound_port, "/admin/cluster")
     assert status == 200 and body == {"enabled": False}
+
+    # with a live 2-node cluster: membership + ownership are visible
+    from chanamq_tpu_torch.broker.server import BrokerServer as BS
+    from chanamq_tpu_torch.cluster.node import ClusterNode
+
+    cl = ClusterNode(server.broker, "127.0.0.1", 0, [],
+                     heartbeat_interval_s=0.2, failure_timeout_s=5)
+    peer = peer_srv = None
+    try:
+        await cl.start()
+        peer_srv = BS(broker=Broker(router_device="cpu"), host="127.0.0.1",
+                      port=0, heartbeat_s=0)
+        await peer_srv.start()
+        peer = ClusterNode(peer_srv.broker, "127.0.0.1", 0, [cl.name],
+                           heartbeat_interval_s=0.2, failure_timeout_s=5)
+        await peer.start()
+        for _ in range(100):
+            if len(cl.membership.alive_members()) == 2:
+                break
+            await asyncio.sleep(0.05)
+        status, body = await http_req(admin.bound_port, "/admin/cluster")
+        assert status == 200
+        assert body["enabled"] and body["self"] == cl.name
+        assert set(body["alive"]) == {cl.name, peer.name}
+        assert all("incarnation" in m for m in body["members"].values())
+    finally:
+        if peer is not None:
+            await peer.stop()
+        if peer_srv is not None:
+            await peer_srv.stop()
+        await cl.stop()
 
 
 async def test_sigterm_graceful_drain(tmp_path):

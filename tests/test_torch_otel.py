@@ -8,10 +8,6 @@ join key.
 The port's copy of ``tests/test_otel.py``: imports point at
 ``chanamq_tpu_torch``, every broker's router on the CPU; the
 assertions are the reference's.
-
-Not carried over: ``test_federated_trace_joins_one_span_tree``, which
-needs a federation link (``federation/``, not in the port yet);
-``eventually`` is copied here from the reference's federation tests.
 """
 
 import asyncio
@@ -39,17 +35,12 @@ from chanamq_tpu_torch.trace import (
 from chanamq_tpu_torch.utils.metrics import Metrics
 from chanamq_tpu_torch.broker.broker import Broker
 
+from test_torch_federation import (
+    PERSISTENT, STREAM_SMALL, collect, eventually, start_pair, stop_pair,
+)
 from test_torch_trace import _http
 
 pytestmark = pytest.mark.asyncio
-
-
-async def eventually(predicate, timeout=10.0, what="condition"):
-    deadline = asyncio.get_event_loop().time() + timeout
-    while not predicate():
-        assert asyncio.get_event_loop().time() < deadline, \
-            f"timed out waiting for {what}"
-        await asyncio.sleep(0.02)
 
 TID = "0af7651916cd43dd8448eb211c80319c"
 SPAN = "b7ad6b7169203331"
@@ -550,6 +541,103 @@ async def test_openmetrics_exemplars():
     finally:
         await admin.stop()
         await server.stop()
+
+
+# ---------------------------------------------------------------------------
+# log join key
+# ---------------------------------------------------------------------------
+
+
+# ---------------------------------------------------------------------------
+# cross-cluster: one joined span tree over a federation link
+# ---------------------------------------------------------------------------
+
+
+async def test_federated_trace_joins_one_span_tree():
+    """The acceptance walk: a client publishes with a
+    traceparent on cluster A; the segment ships over the federation
+    link; a consumer on cluster B receives it. The origin trace and the
+    mirror trace must render as ONE OTLP tree under the client's trace
+    id: client span -> origin broker root -> (stages) and origin root ->
+    mirror root -> remote-apply/deliver."""
+    a_srv, fed_a, b_srv, fed_b = await start_pair()
+    rt = trace.install(TraceRuntime(
+        sample_rate=0.0, metrics=a_srv.broker.metrics, node="cluster-a"))
+    try:
+        conn = await AMQPClient.connect("127.0.0.1", a_srv.bound_port)
+        ch = await conn.channel()
+        await ch.confirm_select()
+        await ch.queue_declare("fq", durable=True, arguments=STREAM_SMALL)
+        props = BasicProperties(
+            delivery_mode=2, headers={"traceparent": TRACEPARENT})
+        for i in range(30):
+            ch.basic_publish(f"f{i:06d}".encode(), routing_key="fq",
+                             properties=props)
+        await ch.wait_unconfirmed_below(1, timeout=15)
+        sealed_tail = a_srv.broker.get_queue("/", "fq")._active_base
+        assert sealed_tail > 1, "expected at least one sealed segment"
+        await eventually(
+            lambda: ("fq" in b_srv.broker.vhosts["/"].queues
+                     and b_srv.broker.vhosts["/"].queues["fq"].next_offset
+                     >= sealed_tail),
+            what="mirror catch-up")
+        b_queue = b_srv.broker.vhosts["/"].queues["fq"]
+        # the apply path lifted the shipped contexts into mirror traces
+        assert b_queue.fed_traces
+        assert b_srv.broker.metrics.trace_ctx_recv >= sealed_tail - 1
+        # stream-side origin traces completed at append (records are
+        # copies; nothing settles the publish Message)
+        origins = [t for t in rt.ring if t.slots[ENQUEUE] is not None
+                   and t.slots[REMOTE_APPLY] is None]
+        assert origins and all(t.w3c.trace_id == TID for t in origins)
+
+        b_conn = await AMQPClient.connect("127.0.0.1", b_srv.bound_port)
+        b_ch = await b_conn.channel()
+        await b_ch.basic_qos(prefetch_count=64)
+        got = await collect(b_ch, "fq", sealed_tail - 1)
+        # the mirrored record still carries the ORIGIN's outgoing
+        # traceparent (same trace id end to end)
+        out = got[0].properties.headers["traceparent"]
+        assert out.startswith(f"00-{TID}-") and out != TRACEPARENT
+        await eventually(
+            lambda: any(t.slots[REMOTE_APPLY] is not None
+                        for t in rt.ring),
+            what="mirror trace settle")
+        mirrors = [t for t in rt.ring
+                   if t.slots[REMOTE_APPLY] is not None]
+        mirror = mirrors[0]
+        assert mirror.w3c.trace_id == TID
+        assert mirror.attrs["federated"] == "1"
+        assert mirror.attrs["queue"] == "fq"
+        assert mirror.slots[DELIVER] is not None  # consumer leg captured
+        # THE join: the mirror's parent is some origin trace's root span
+        origin_roots = {t.w3c.root_span_id for t in origins}
+        assert mirror.w3c.parent_span_id in origin_roots
+        origin = next(t for t in origins
+                      if t.w3c.root_span_id == mirror.w3c.parent_span_id)
+        # render both halves as one OTLP document and walk the tree:
+        # producer -> origin root -> mirror root, all one trace id
+        doc = resource_spans([origin, mirror],
+                             default_resource(a_srv.broker))
+        spans = doc["resourceSpans"][0]["scopeSpans"][0]["spans"]
+        assert {s["traceId"] for s in spans} == {TID}
+        by_id = {s["spanId"]: s for s in spans}
+        mirror_root = by_id[mirror.w3c.root_span_id]
+        origin_root = by_id[origin.w3c.root_span_id]
+        assert mirror_root["parentSpanId"] == origin_root["spanId"]
+        assert origin_root["parentSpanId"] == SPAN  # the producer's span
+        # every stage span hangs off its half's root
+        for s in spans:
+            if s["spanId"] in (origin_root["spanId"],
+                               mirror_root["spanId"]):
+                continue
+            assert s["parentSpanId"] in (origin_root["spanId"],
+                                         mirror_root["spanId"])
+        await b_conn.close()
+        await conn.close()
+    finally:
+        trace.clear()
+        await stop_pair(a_srv, fed_a, b_srv, fed_b)
 
 
 # ---------------------------------------------------------------------------

@@ -10,10 +10,6 @@ serve the whole-cluster timeseries view.
 The port's copy of ``tests/test_telemetry.py``: imports point at
 ``chanamq_tpu_torch``, every broker's router on the CPU; the
 assertions are the reference's.
-
-Not carried over: ``test_cluster_timeseries_served_from_either_node``,
-which needs two clustered nodes (``cluster/node.py``, not in the port
-yet).
 """
 
 import asyncio
@@ -409,3 +405,84 @@ async def test_admin_internal_errors_are_opaque(telemetry_stack):
     status, body = await http_req(admin.bound_port, "/admin/metrics")
     assert status == 500
     assert body == {"error": "internal error"}  # no str(exc) leak
+
+
+# ---------------------------------------------------------------------------
+# cluster aggregation: the whole-cluster view from either node
+# ---------------------------------------------------------------------------
+
+
+async def test_cluster_timeseries_served_from_either_node():
+    from chanamq_tpu_torch.cluster.node import ClusterNode
+
+    async def start_node(seeds):
+        srv = BrokerServer(broker=Broker(store=MemoryStore(), router_device="cpu"),
+                           host="127.0.0.1", port=0, heartbeat_s=0)
+        await srv.start()
+        cl = ClusterNode(srv.broker, "127.0.0.1", 0, seeds,
+                         heartbeat_interval_s=0.2, failure_timeout_s=2.0)
+        await cl.start()
+        srv.broker.telemetry = TelemetryService(
+            srv.broker, interval_s=1.0, ring_ticks=16)
+        adm = AdminServer(srv.broker, port=0)
+        await adm.start()
+        return srv, cl, adm
+
+    a = b = None
+    try:
+        a = await start_node([])
+        b = await start_node([a[1].name])
+        for _ in range(100):
+            if all(len(n[1].membership.alive_members()) == 2 for n in (a, b)):
+                break
+            await asyncio.sleep(0.05)
+        else:
+            raise RuntimeError("membership did not converge")
+
+        # a queue owned by A, declared and published via A
+        qname = next(f"agg{i}" for i in range(200)
+                     if a[1].queue_owner("/", f"agg{i}") == a[1].name)
+        c = await AMQPClient.connect("127.0.0.1", a[0].bound_port)
+        ch = await c.channel()
+        await ch.queue_declare(qname)
+        for _ in range(6):
+            ch.basic_publish(b"x", routing_key=qname)
+        await asyncio.sleep(0.1)
+        for node in (a, b):
+            node[0].broker.telemetry.sample_tick(1.0)
+
+        # B serves the cluster view including A's queue series
+        status, body = await http_req(b[2].bound_port, "/admin/timeseries")
+        assert status == 200
+        assert set(body["nodes"]) == {a[1].name, b[1].name}
+        a_queues = {q["name"] for q in body["nodes"][a[1].name]["queues"]}
+        assert qname in a_queues
+        # and the merged top-K sees it as the busiest queue cluster-wide
+        assert any(r["name"] == qname and r["node"] == a[1].name
+                   for r in body["top_queues"])
+
+        # per-entity drilldown from B finds the series on A
+        status, body = await http_req(
+            b[2].bound_port, f"/admin/timeseries/queue/%2F/{qname}")
+        assert status == 200 and body["node"] == a[1].name
+        assert len(body["series"]) >= 1
+
+        # cluster-scope health from B reports both nodes ready
+        status, body = await http_req(
+            b[2].bound_port, "/admin/health?scope=cluster")
+        assert status == 200
+        assert set(body["cluster"]) == {a[1].name, b[1].name}
+        assert all(h["ready"] for h in body["cluster"].values())
+
+        # cluster-scope alerts include both nodes
+        status, body = await http_req(b[2].bound_port, "/admin/alerts")
+        assert status == 200
+        assert set(body["cluster"]) == {a[1].name, b[1].name}
+        await c.close()
+    finally:
+        for node in (b, a):
+            if node is None:
+                continue
+            await node[2].stop()
+            await node[1].stop()
+            await node[0].stop()

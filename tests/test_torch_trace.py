@@ -8,10 +8,8 @@ The port's copy of ``tests/test_trace.py``: imports point at
 ``chanamq_tpu_torch``, every broker's router on the CPU; the
 assertions are the reference's.
 
-Not carried over: ``test_cross_node_trace_stitching``, which needs two
-clustered nodes (``cluster/node.py``, not in the port yet), and the
-slow-marked overhead claim, which times the reference's ``bench.py``
-(the port has no bench script yet).
+Not carried over: the slow-marked overhead claim, which times the
+reference's ``bench.py`` (the port has no bench script yet).
 """
 
 import asyncio
@@ -34,7 +32,7 @@ from chanamq_tpu_torch.trace import (
 from chanamq_tpu_torch.utils.metrics import Metrics
 from chanamq_tpu_torch.broker.broker import Broker
 
-from test_cluster_broker import start_cluster
+from test_torch_cluster_broker import start_cluster
 
 pytestmark = pytest.mark.asyncio
 
@@ -123,6 +121,72 @@ async def test_blob_roundtrip_and_trailer():
     # the tail happens to contain arbitrary bytes
     assert decode_trailer(b"\x00recordbytes") is None
     assert decode_trailer(b"") is None
+
+
+# ---------------------------------------------------------------------------
+# cross-node stitching over the data plane
+# ---------------------------------------------------------------------------
+
+
+async def test_cross_node_trace_stitching(tmp_path):
+    """Publish via the NON-owner with sample-rate 1.0: the trace must ride
+    the push trailer to the owner, come back on the deliver trailer, and
+    finish as ONE stitched trace spanning both nodes — with the message
+    body delivered byte-identical (the trailer never perturbs the
+    zero-copy record decode)."""
+    nodes = await start_cluster(tmp_path, 2)
+    try:
+        qn = next(f"tq{i}" for i in range(200)
+                  if nodes[0].cluster.queue_owner("/", f"tq{i}")
+                  != nodes[0].name)
+        other = nodes[0]  # non-owner of qn by construction
+        rt = trace.install(TraceRuntime(
+            sample_rate=1.0, metrics=other.server.broker.metrics,
+            node=other.name))
+
+        body = b"\xde\xad" + bytes(range(256))
+        client = await AMQPClient.connect("127.0.0.1", other.port)
+        ch = await client.channel()
+        await ch.confirm_select()
+        await ch.queue_declare(qn)
+        for _ in range(100):  # owner's meta broadcast is fire-and-forget
+            if ("/", qn) in other.cluster.queue_metas:
+                break
+            await asyncio.sleep(0.05)
+        got = asyncio.get_event_loop().create_future()
+        await ch.basic_consume(qn, lambda m: got.done()
+                               or got.set_result(bytes(m.body)),
+                               no_ack=True)
+        ch.basic_publish(body, routing_key=qn)
+        await ch.wait_unconfirmed_below(1, timeout=10)
+        assert await asyncio.wait_for(got, 10) == body
+        await client.close()
+
+        for _ in range(100):  # settle lands via the async deliver path
+            if rt.ring:
+                break
+            await asyncio.sleep(0.05)
+        tr = rt.ring[-1]
+        stitched = rt.find(tr.trace_id)
+        d = stitched.to_dict()
+        assert len(d["nodes"]) == 2, d
+        for stage in (INGRESS_PARSE, ROUTE, CLUSTER_PUSH, REMOTE_APPLY,
+                      DELIVER, SETTLE):
+            assert stitched.slots[stage] is not None, (STAGES[stage], d)
+        # monotone: every span sits inside the trace bounds
+        lo, hi = stitched.bounds_ns()
+        assert all(lo <= s[0] <= s[1] <= hi
+                   for s in stitched.slots if s is not None)
+        # the owner-side stages carry the owner's node tag
+        owner_name = nodes[0].cluster.queue_owner("/", qn)
+        assert stitched.slots[REMOTE_APPLY][2] == owner_name
+        assert stitched.slots[INGRESS_PARSE][2] == other.name
+        assert other.server.broker.metrics.trace_ctx_sent > 0
+        assert other.server.broker.metrics.trace_ctx_recv > 0
+    finally:
+        trace.clear()
+        for node in nodes:
+            await node.stop()
 
 
 # ---------------------------------------------------------------------------
