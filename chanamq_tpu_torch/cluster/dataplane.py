@@ -282,6 +282,30 @@ def decode_deliver_many(view: memoryview) -> tuple:
     return vhost, queue, tag, records()
 
 
+def _all_of(futures: list) -> asyncio.Future:
+    """A future that completes once every one of ``futures`` has: with the
+    first failure among them, else True. Unlike ``asyncio.gather``,
+    cancelling it leaves ``futures`` alone: they are batch futures that
+    other pushes share."""
+    out = asyncio.get_event_loop().create_future()
+    left = [len(futures)]
+
+    def done(fut: asyncio.Future) -> None:
+        left[0] -= 1
+        exc = (asyncio.CancelledError() if fut.cancelled()
+               else fut.exception())
+        if out.done():
+            return
+        if exc is not None:
+            out.set_exception(exc)
+        elif left[0] == 0:
+            out.set_result(True)
+
+    for fut in futures:
+        fut.add_done_callback(done)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # streams
 # ---------------------------------------------------------------------------
@@ -338,6 +362,7 @@ class DataStream:
         async with self._connect_lock:
             if self._writer is not None and not self._writer.is_closing():
                 return self._writer
+            await self._fence_old_connection()
             self._backoff.check()
             try:
                 if chaos.ACTIVE is not None:
@@ -357,6 +382,24 @@ class DataStream:
             self._reader_task = asyncio.get_event_loop().create_task(
                 self._read_loop(reader, writer))
             return writer
+
+    async def _fence_old_connection(self) -> None:
+        """A redial writes nothing until the dropped connection is done:
+        its read loop has ended, so every request written on it has been
+        answered or failed back to its caller, and its last frames have
+        left (a closing writer flushes before it closes). Without the
+        fence a request made just after the drop rode a fresh connection
+        ahead of frames still in flight on the old one. A connection that
+        does not finish within the request timeout is aborted."""
+        old = self._reader_task
+        if old is None or old.done():
+            return
+        done, _ = await asyncio.wait({old}, timeout=self.timeout_s)
+        if not done:
+            transport = getattr(self._writer, "transport", None)
+            if transport is not None:
+                transport.abort()
+            await asyncio.wait({old})
 
     async def _read_loop(
         self, reader: asyncio.StreamReader, writer: asyncio.StreamWriter
@@ -589,14 +632,33 @@ class PeerDataPlane:
         routing_key: str, props_raw: bytes, body: bytes,
         head: Optional[bytes] = None, tr=None,
     ) -> asyncio.Future:
-        """Buffer one push; returns the covering batch's completion future.
-        The caller's barrier awaits it; caps may flush the batch before the
-        window timer does. head: cached encode_push_meta_head, if any.
-        tr: sampled trace riding this record — parked locally and shipped
-        in the batch's trace trailer, keyed by record index."""
-        idx = self.stream_for(vhost, queues[0] if queues else "")
-        parts = encode_push_record(
-            vhost, queues, exchange, routing_key, props_raw, body, head)
+        """Buffer one push; returns a future that completes when every
+        batch carrying it has. The caller's barrier awaits it; caps may
+        flush a batch before the window timer does. head: cached
+        encode_push_meta_head, if any. tr: sampled trace riding this
+        record — parked locally and shipped in the batch's trace trailer,
+        keyed by record index.
+
+        A fan-out record is split by stream: each queue's part rides that
+        queue's stream (``stream_for``), so a later push to any one of its
+        queues cannot overtake it on another stream. The body goes once
+        per stream, and each part is a whole push_many record."""
+        groups: dict[int, list[str]] = {}
+        for name in queues or [""]:
+            groups.setdefault(self.stream_for(vhost, name), []).append(name)
+        if len(groups) == 1:
+            ((idx, _),) = groups.items()
+            return self._buffer_push(idx, encode_push_record(
+                vhost, queues, exchange, routing_key, props_raw, body,
+                head), tr)
+        futures = [
+            self._buffer_push(idx, encode_push_record(
+                vhost, names, exchange, routing_key, props_raw, body),
+                tr if n == 0 else None)
+            for n, (idx, names) in enumerate(groups.items())]
+        return _all_of(futures)
+
+    def _buffer_push(self, idx: int, parts: list, tr) -> asyncio.Future:
         nbytes = sum(len(p) for p in parts)
         acc = self._push[idx]
         if acc is None:

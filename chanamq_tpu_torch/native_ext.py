@@ -1,9 +1,13 @@
 """ctypes bindings for the native hot paths (native/chanamq_native.cpp).
 
-Loads the repo checkout's native/libchanamq_native.so, compiled on first
-use (``make -C native``) when a C++ toolchain is present. Falls back
-silently (callers keep the pure-Python implementations)
-when no library can be found or built, or CHANAMQ_NATIVE=0.
+Compiles the repo checkout's native/chanamq_native.cpp on first use (with
+the Makefile's flags) into the port's own git-ignored
+``chanamq_tpu_torch/_build/libchanamq_native.so`` when a C++ toolchain is
+present; it never writes ``native/libchanamq_native.so``, the reference's
+build. Each build writes a temporary file of its own and renames it into
+place, so processes building at once each load a whole library. Falls back
+silently (callers keep the pure-Python implementations) when no library
+can be found or built, or CHANAMQ_NATIVE=0.
 
 Exposes:
   NativeFrameParser   — drop-in for amqp.frame.FrameParser; batches also
@@ -31,7 +35,11 @@ from .broker.matchers import Matcher
 log = logging.getLogger("chanamq.native")
 
 _NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "native")
-_LIB_PATH = os.path.join(_NATIVE_DIR, "libchanamq_native.so")
+_SRC_PATH = os.path.join(_NATIVE_DIR, "chanamq_native.cpp")
+_BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
+_LIB_PATH = os.path.join(_BUILD_DIR, "libchanamq_native.so")
+# native/Makefile's compile line
+_CXXFLAGS = ("-O2", "-std=c++17", "-fPIC", "-shared")
 
 _lib: Optional[ctypes.CDLL] = None
 _load_attempted = False
@@ -42,24 +50,31 @@ _has_pipeline = False
 
 
 def _build() -> bool:
-    src = os.path.join(_NATIVE_DIR, "chanamq_native.cpp")
-    if not os.path.exists(src):
+    """Compile the source into a temporary file of this process's own,
+    then rename it over ``_LIB_PATH``: a concurrent build or load never
+    sees a half-written library."""
+    if not os.path.exists(_SRC_PATH):
         return False
+    tmp = f"{_LIB_PATH}.{os.getpid()}.{time.monotonic_ns()}.tmp"
     try:
-        subprocess.run(["make", "-C", _NATIVE_DIR], check=True,
-                       capture_output=True, timeout=120)
-        return os.path.exists(_LIB_PATH)
+        os.makedirs(_BUILD_DIR, exist_ok=True)
+        subprocess.run([os.environ.get("CXX", "g++"), *_CXXFLAGS, "-o", tmp,
+                        _SRC_PATH], check=True, capture_output=True,
+                       timeout=120)
+        os.replace(tmp, _LIB_PATH)
+        return True
     except Exception as exc:
         log.info("native build unavailable: %r", exc)
         return False
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
 
 
 def _find_lib() -> Optional[str]:
-    src = os.path.join(_NATIVE_DIR, "chanamq_native.cpp")
-    # repo checkout: make-on-demand in native/
     needs_build = not os.path.exists(_LIB_PATH) or (
-        os.path.exists(src)
-        and os.path.getmtime(src) > os.path.getmtime(_LIB_PATH))
+        os.path.exists(_SRC_PATH)
+        and os.path.getmtime(_SRC_PATH) > os.path.getmtime(_LIB_PATH))
     if needs_build and not _build():
         return None
     return _LIB_PATH

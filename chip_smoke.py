@@ -142,10 +142,11 @@ rehearse it; any failure exits non-zero:
    (``cluster_child``: its router kernel calls counted and kept), as the
    README's "Replication & failover" deploys them: ``replicate.factor`` 2,
    ``replicate.sync`` true, a private store each (the WAL at its
-   defaults), the router on the card, every other key at its default but
-   ``cluster.streams`` 1 (``CLUSTER_STREAMS``). The main path's tables,
+   defaults), the router on the card, every other key at its default (two
+   data-plane streams a peer) but ``replicate.ack-timeout-ms`` 60,000
+   (``CLUSTER_ACK_TIMEOUT_MS``). The main path's tables,
    all durable, declared through node 1; 4 confirming publishers, two on
-   each node but the victim (the owner of the most queues), send 50,000
+   each node but the victim (the owner of the most queues), send 25,000
    persistent 256 B messages at the main path's mix; the victim is
    SIGKILLed after the last confirm; the survivors must promote every
    queue it held, consumers on them drain every queue against the host
@@ -157,19 +158,43 @@ rehearse it; any failure exits non-zero:
    before and after the kill, and each process's card memory;
 17. shard: one sharded node, ``main`` in a child (``shard_child``) with
    ``chana.mq.shard.count`` 4, reuse-port, admin on, the router on the
-   card, ``cluster.streams`` 1; the supervisor spawns four workers of the
-   port's server module (each run as ``cluster_child``); the main path's
-   tables (transient queues) and 4 confirming publishers' 50,000
+   card, two data-plane streams a peer (the default); the supervisor
+   spawns four workers of the port's server module (each run as
+   ``cluster_child``); the main path's tables (transient queues) and 4
+   confirming publishers' 50,000
    transient 256 B messages, one publisher a worker; every queue's count
    at its owner's ``/admin/queues`` against the oracle, every queue
    drained against it, router batches on every worker, cross-shard pushes,
    each worker's kernels launched and replayed, nvidia-smi showing the
    four workers on the card and not the supervisor, and SIGTERM to the
    supervisor exiting 0 within 30 s with every worker gone;
-18. the kernels line (nine kernels, each with its launches in the
+18. bench-route: ``python -m chanamq_tpu_torch.bench --route``'s spec
+   (``run_route_spec``) in this process with the router on the card:
+   topic tables of 1,000, 10,000 and 100,000 bindings, 16,384 keys in
+   batches of 512 through the torch backend (warm and cold) and the numpy
+   body against the trie, every routed set against the trie's, the
+   1,000,000-binding compile and the key-shared fan-out; 0 parity
+   mismatches, the topic kernel launched, every router call kept and
+   replayed word for word;
+19. bench: the PerfTest specs ``transient_autoack_3p3c``,
+   ``persistent_ack_3p1c``, ``fanout_1p8c`` and ``topic_3p3c_wildcards``
+   through the port's bench harness (``run_spec``, 5 s each, every
+   producer and consumer a process), each broker ``main`` in a child
+   (``cluster_child``) on the card reporting its kernel launches and
+   router counters and replaying its kernel calls; no error and
+   deliveries above 0; delivered msg/s, p50/p99 and the broker's CPU µs
+   a message;
+20. soak: the nine soak runners of ``chaos/soak.py`` at the bench's seeds
+   and sizes plus the chaos soak over Unix sockets (the shard-crash
+   drill), every broker on the card, with the bench's gates (no
+   violation, the overload soak under its hard limit, the elastic soak's
+   two runs with one decision-log digest); each run's seconds and its
+   router launches counted from 0;
+21. the kernels line (nine kernels, each with its launches in the
    [node] phase's node as ``node_path``, the router's also in each
-   [cluster] survivor and [shard] worker as ``cluster_path``), the card
-   line, and the result line.
+   [cluster] survivor and [shard] worker as ``cluster_path``, on the
+   bench's paths as ``bench_path`` and in each soak run as
+   ``soak_path``), the card line, and the result line.
 
 Without a card, or without the repository beside it, it exits non-zero and
 prints no result.
@@ -702,18 +727,21 @@ def phase_kernels(device: torch.device, seed: int, n: int = KERNEL_N,
     return out
 
 
-def phase_path_kernels(calls: dict, iters: int = 100) -> dict:
-    """Every kernel call the main path made, replayed: the wrapper against
-    the plain version on the same inputs, word for word. The most common
-    shape's last call is timed and bounded, on a card also at each of
-    ``MSGS_PER_BLOCK`` messages a block; it stands for the kernel in the
-    kernels line. Returns {kernel name: row}."""
+def phase_path_kernels(calls: dict, iters: int = 100,
+                       tag: str = "path-kernels",
+                       path: str = "main-path") -> dict:
+    """Every kernel call a path made (the main path unless ``path`` says
+    otherwise), replayed: the wrapper against the plain version on the
+    same inputs, word for word. The most common shape's last call is
+    timed and bounded, on a card also at each of ``MSGS_PER_BLOCK``
+    messages a block; it stands for the kernel in the kernels line.
+    Returns {kernel name: row}."""
     from chanamq_tpu_torch.kernels import router_match as rm
 
     out = {}
     for name, recorded in calls.items():
         if not recorded:
-            raise AssertionError(f"the main path made no {name} call")
+            raise AssertionError(f"the {path} made no {name} call")
         shapes: dict = {}
         worst = 0.0
         for args in recorded:
@@ -725,15 +753,15 @@ def phase_path_kernels(calls: dict, iters: int = 100) -> dict:
         row = out[name] = hold(name, rep, iters=iters)
         row.update({"calls": len(recorded), "shapes": shapes,
                     "max_abs_err": max(worst, row["max_abs_err"])})
-        log(f"[path-kernels] {name}: {len(recorded)} main-path calls "
+        log(f"[{tag}] {name}: {len(recorded)} {path} calls "
             f"replayed, 0 differing words; shapes {shapes}")
-        _log_row("path-kernels", name, row)
+        _log_row(tag, name, row)
         if rep[1].is_cuda:
             row["split"] = wrapper_split(name, rep)
-            _log_split("path-kernels", name, common, row["split"])
+            _log_split(tag, name, common, row["split"])
             row["by_mb"] = {mb: hold(name, rep, iters=iters, mb=mb)["ms"]
                             for mb in rm.MSGS_PER_BLOCK}
-            log(f"[path-kernels] {name}: kernel us by messages a block "
+            log(f"[{tag}] {name}: kernel us by messages a block "
                 + ", ".join(f"{mb}: {ms * 1e3:.3f}"
                             for mb, ms in row["by_mb"].items()))
     return out
@@ -1037,7 +1065,6 @@ def phase_main(device: torch.device, seed: int, *, consumers: int = 16,
     ``torch.profiler`` for the device's busy time."""
     from chanamq_tpu_torch.broker.server import BrokerServer
     from chanamq_tpu_torch.config import Config
-    from chanamq_tpu_torch.kernels import router_match as rm
     from chanamq_tpu_torch.router import compile as rcompile
 
     t0 = time.perf_counter()
@@ -1062,12 +1089,6 @@ def phase_main(device: torch.device, seed: int, *, consumers: int = 16,
                                   "route_pending")
     real_route_batch = rcompile.route_batch
     rcompile.route_batch = _timed(real_route_batch, spent, "route_batch")
-    if calls is not None:
-        # the router reaches the wrappers through its module reference;
-        # the wrappers themselves (and their launch counts) stay as they are
-        rcompile.router_match = types.SimpleNamespace(**{
-            name: _recording(getattr(rm, name), calls.setdefault(name, []))
-            for name in ("topic_match", "headers_match")})
     trace = None
     if device.type == "cuda":
         trace = torch.profiler.profile(activities=[
@@ -1082,10 +1103,11 @@ def phase_main(device: torch.device, seed: int, *, consumers: int = 16,
             await server.stop()
 
     try:
-        res = asyncio.run(run())
+        with (recording_router(calls) if calls is not None
+              else contextlib.nullcontext()):
+            res = asyncio.run(run())
     finally:
         rcompile.route_batch = real_route_batch
-        rcompile.router_match = rm
     m = server.broker.metrics
     res.update({
         "route_pending_s": spent["route_pending"] / 1e9,
@@ -3414,16 +3436,12 @@ def log_node(res: dict, dev: dict) -> None:
 
 # -- 16. a replicated cluster -------------------------------------------------------
 
-# the [durable] phase's 50,000 persistent messages at the main path's mix
-CLUSTER_TOPIC, CLUSTER_HEADERS = DURABLE_TOPIC, DURABLE_HEADERS
+# half the [durable] phase's 50,000 persistent messages, at the main
+# path's mix: 25,000 keep the script inside its time limit with the bench
+# and soak phases after it (a sync confirm here runs at ~600-950 msg/s)
+CLUSTER_TOPIC, CLUSTER_HEADERS = DURABLE_TOPIC // 2, DURABLE_HEADERS // 2
 CLUSTER_NODES = 3
 ROUTER_KERNELS = ("topic_match", "headers_match")
-# the one key the [cluster] and [shard] phases move from its default (2):
-# a push record that fans out to several queues of one owner rides the
-# stream of its first queue, so over two streams one publisher's messages
-# can reach a queue out of order, in the reference's cluster as in the
-# port's; over one stream per peer every queue keeps publish order
-CLUSTER_STREAMS = 1
 # the [cluster] phase's replica ack timeout (default 1,000 ms). A sync
 # confirm waits for the followers' acks only this long, then is released
 # anyway (counted in repl_ack_timeouts): at the default the followers
@@ -3434,28 +3452,37 @@ CLUSTER_ACK_TIMEOUT_MS = 60_000
 
 
 def cluster_child(out: str, argv: list) -> None:
-    """A [cluster] node or a [shard] worker: the port's ``main()``
-    unchanged on ``argv``. Every router kernel call is kept (the router
-    reaches the wrappers through its module reference; the wrappers and
-    their launch counts stay as they are). After ``main()`` returns, the
-    JSON file ``out`` gets each wrapper's launches, read first, then every
-    kept call replayed against its plain version, word for word."""
+    """A [cluster] node, a [shard] worker or a [bench] broker: the port's
+    ``main()`` unchanged on ``argv``. Every router kernel call is kept
+    (``recording_router``). After ``main()`` returns, the JSON file
+    ``out`` gets each wrapper's launches, read first, the broker's router
+    counters, then every kept call replayed against its plain version,
+    word for word."""
     from chanamq_tpu_torch.broker import server
-    from chanamq_tpu_torch.kernels import router_match as rm
-    from chanamq_tpu_torch.router import compile as rcompile
+    from chanamq_tpu_torch.broker.broker import Broker
 
+    brokers: list = []
+    real_start = Broker.start
+
+    async def start(self) -> None:
+        brokers.append(self)
+        await real_start(self)
+
+    Broker.start = start
     calls: dict = {}
-    rcompile.router_match = types.SimpleNamespace(**{
-        name: _recording(getattr(rm, name), calls.setdefault(name, []))
-        for name in ROUTER_KERNELS})
     with open(out + ".pid", "w") as f:  # the parent watches this process
         f.write(str(os.getpid()))
     sys.argv = ["chanamq-server-torch", *argv]
-    server.main()
+    with recording_router(calls):
+        server.main()
     res: dict = {"main_returned": time.time(),
-                 "launches": {name: getattr(rm, name).launches
-                              for name in ROUTER_KERNELS},
-                 "replay": {}}
+                 "launches": _router_launches(), "replay": {}}
+    if brokers:
+        m = brokers[0].metrics
+        res["router"] = {"batches": m.router_batches,
+                         "batch_msgs": m.router_batch_msgs,
+                         "fallback_msgs": m.router_fallback_msgs,
+                         "device": str(brokers[0].router.device)}
     try:
         for name, recorded in calls.items():
             shapes: dict = {}
@@ -3803,7 +3830,6 @@ async def _cluster_run(wl: Workload, device: str, tmp: str, window: int,
                 "chana.mq.cluster.host": "127.0.0.1",
                 "chana.mq.cluster.port": cport[i],
                 "chana.mq.cluster.seeds": [names[0]] if i else [],
-                "chana.mq.cluster.streams": CLUSTER_STREAMS,
                 "chana.mq.replicate.factor": 2,
                 "chana.mq.replicate.sync": True,
                 "chana.mq.replicate.ack-timeout-ms": CLUSTER_ACK_TIMEOUT_MS,
@@ -3932,9 +3958,9 @@ def phase_cluster(device: torch.device, seed: int, *, window: int = 2048,
     replicated as the README's "Replication & failover" documents:
     ``replicate.factor`` 2, ``replicate.sync`` true, a private store each
     (the WAL at its defaults), admin on, the router on ``device``, nodes 2
-    and 3 seeded with node 1, every other key at its default but
-    ``cluster.streams`` (``CLUSTER_STREAMS``). Once ``/admin/cluster``
-    shows three members alive everywhere, the main path's tables, all
+    and 3 seeded with node 1, every other key at its default (two
+    data-plane streams a peer) but the replica ack timeout. Once
+    ``/admin/cluster`` shows three members alive everywhere, the main path's tables, all
     durable, are declared through node 1; the node owning the most queues
     is the victim, and no client connects to it. Two confirming
     publishers on each survivor send persistent 256 B messages at the main
@@ -3971,17 +3997,18 @@ def phase_cluster(device: torch.device, seed: int, *, window: int = 2048,
     return res
 
 
-def _hold_children(tag: str, children: list, device: torch.device) -> None:
-    """Each node process's router kernels launched (on a card; none on the
-    CPU, where the plain versions run) and every kept call replayed word
-    for word."""
+def _hold_children(tag: str, children: list, device: torch.device, *,
+                   need_launches: bool = True) -> None:
+    """Each node process's router kernels launched (on a card, unless
+    ``need_launches`` is false; none on the CPU, where the plain versions
+    run) and every kept call replayed word for word."""
     for child in children:
         launches = child["launches"]
         if "replay_error" in child:
             raise AssertionError(f"{tag}: {child['replay_error']}")
         if device.type == "cuda":
             idle = [k for k in ROUTER_KERNELS if launches[k] < 1]
-            if idle:
+            if idle and need_launches:
                 raise AssertionError(f"{tag}: {idle} never launched in a "
                                      f"node: {launches}")
             calls = {k: child["replay"].get(k, {}).get("calls", 0)
@@ -4000,7 +4027,7 @@ def log_cluster(res: dict, dev: dict) -> None:
                 f"replayed against the plain version, 0 differing words, "
                 f"shapes {row['shapes']}; card {dev['smi']}")
     log(f"[cluster] 3 port nodes (main in children), replicate.factor 2, "
-        f"sync, a private store each, cluster.streams {CLUSTER_STREAMS}: "
+        f"sync, a private store each, cluster.streams 2 (default): "
         f"membership converged {res['converge_s']:.3f} s after spawn; "
         f"{res['queues']} durable queues owned {res['owned']}, victim "
         f"node{res['victim']}; {res['messages']} persistent 256 B messages, "
@@ -4087,7 +4114,6 @@ async def _shard_run(wl: Workload, device: str, tmp: str, window: int,
         "chana.mq.admin.port": admin,
         "chana.mq.cluster.host": "127.0.0.1",
         "chana.mq.cluster.port": cluster,
-        "chana.mq.cluster.streams": CLUSTER_STREAMS,
         "chana.mq.shard.count": n,
         "chana.mq.shard.dir": os.path.join(tmp, "shards"),
         "chana.mq.router.device": device}, tmp, "supervisor")
@@ -4203,13 +4229,13 @@ async def _shard_run(wl: Workload, device: str, tmp: str, window: int,
 
 
 def phase_shard(device: torch.device, seed: int, *, window: int = 2048,
-                timeout_s: float = 300.0, n_topic: int = CLUSTER_TOPIC,
-                n_headers: int = CLUSTER_HEADERS, **sizes) -> dict:
+                timeout_s: float = 300.0, n_topic: int = DURABLE_TOPIC,
+                n_headers: int = DURABLE_HEADERS, **sizes) -> dict:
     """One sharded node as the README documents it: ``main`` in a child
     (``shard_child``) with ``chana.mq.shard.count`` 4, reuse-port at its
     default (true), admin on (a worker's admin port is the base + its
-    index), the router on ``device``, every other key at its default but
-    ``cluster.streams`` (``CLUSTER_STREAMS``). The supervisor spawns four
+    index), the router on ``device``, every other key at its default (two
+    data-plane streams a peer). The supervisor spawns four
     workers; the main path's tables (transient queues) and 4 confirming
     publishers' transient 256 B messages, one publisher on each worker.
     Every queue's count at its owner's ``/admin/queues`` must equal the
@@ -4267,7 +4293,7 @@ def log_shard(res: dict, dev: dict) -> None:
                 f"shapes {row['shapes']}; card {dev['smi']}")
     cross = sum(res["cross_pushes"])
     log(f"[shard] chana.mq.shard.count {SHARDS} through main in a child, "
-        f"reuse-port, cluster.streams {CLUSTER_STREAMS}: every worker "
+        f"reuse-port, cluster.streams 2 (default): every worker "
         f"listening {res['listen_s']:.3f} s after spawn, clustered "
         f"{res['converge_s']:.3f} s; {res['queues']} transient queues, "
         f"{res['messages']} transient 256 B messages, one confirming "
@@ -4286,6 +4312,277 @@ def log_shard(res: dict, dev: dict) -> None:
         f"workers left {res['workers_left']}; card {dev['smi']}")
 
 
+# -- 18-20. the bench harness and the soaks ------------------------------------
+
+# the PerfTest specs [bench] runs (the reference's perf specs: 3
+# producers and 3 consumers, the persistent single consumer, fan-out to 8
+# and the wildcard topic exchange), each for BENCH_SECONDS
+BENCH_SPECS = ("transient_autoack_3p3c", "persistent_ack_3p1c",
+               "fanout_1p8c", "topic_3p3c_wildcards")
+BENCH_SECONDS = 5.0
+# the soak runners at the bench's seeds and sizes (``--chaos``,
+# ``--overload``, ``--control``, ``--churn``, ``--elastic``,
+# ``--tenant``, ``--tenant-churn``, ``--semantics-soak``,
+# ``--federation``), plus the chaos soak over Unix sockets (the
+# shard-crash drill): (label, runner, positional argument, keywords,
+# the bench's time limit in s)
+SOAK_RUNS = (
+    ("chaos", "run_soak", 42, {"messages": 160, "wal": True}, 150),
+    ("shard-crash", "run_soak", 42, {"messages": 160, "uds": True}, 150),
+    ("overload", "run_overload_soak", 7, {"messages": 160}, 120),
+    ("control", "run_control_soak", 7, {}, 180),
+    ("churn", "run_connection_churn", 500, {}, 180),
+    ("elastic", "run_elastic_soak", 11, {}, 240),
+    ("tenant", "run_tenant_soak", 5, {}, 240),
+    ("tenant-churn", "run_tenant_churn", 10_000, {}, 240),
+    ("semantics", "run_semantics_soak", 42, {}, 240),
+    ("federation", "run_federation_soak", 42, {}, 240),
+)
+
+
+@contextlib.contextmanager
+def recording_router(calls: dict):
+    """While the block runs, every router kernel call made through
+    ``router/compile.py`` keeps its arguments in ``calls`` under the
+    kernel's name; the wrappers and their launch counts stay as they
+    are."""
+    from chanamq_tpu_torch.kernels import router_match as rm
+    from chanamq_tpu_torch.router import compile as rcompile
+
+    rcompile.router_match = types.SimpleNamespace(**{
+        name: _recording(getattr(rm, name), calls.setdefault(name, []))
+        for name in ROUTER_KERNELS})
+    try:
+        yield
+    finally:
+        rcompile.router_match = rm
+
+
+@contextlib.contextmanager
+def router_device_env(device: torch.device):
+    """``chana.mq.router.device`` set to ``device`` through the
+    environment, which the bench's in-process brokers read and its
+    spawned brokers inherit."""
+    old = os.environ.get("CHANAMQ_ROUTER_DEVICE")
+    os.environ["CHANAMQ_ROUTER_DEVICE"] = str(device)
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("CHANAMQ_ROUTER_DEVICE", None)
+        else:
+            os.environ["CHANAMQ_ROUTER_DEVICE"] = old
+
+
+def _router_launches(reset: bool = False) -> dict:
+    from chanamq_tpu_torch.kernels import router_match as rm
+
+    out = {}
+    for name in ROUTER_KERNELS:
+        out[name] = getattr(rm, name).launches
+        if reset:
+            getattr(rm, name).launches = 0
+    return out
+
+
+def phase_bench_route(device: torch.device, *, quick: bool = False) -> dict:
+    """``python -m chanamq_tpu_torch.bench --route``'s spec
+    (``run_route_spec``) in this process with the router on ``device``:
+    compiled topic tables over 1,000, 10,000 and 100,000 bindings (256
+    wildcard kernel rows above 25,600), 16,384 keys routed in batches of
+    512 by the torch backend (the kernels, warm and cold) and by the
+    numpy body against the trie, every routed set against the trie's
+    (``parity_mismatches``), the 1,000,000-binding compile and the
+    key-shared fan-out through a live broker (``quick``: the bench's
+    ``--quick`` sizes). Every router kernel call is kept and replayed
+    against its plain version, word for word (``phase_path_kernels``);
+    on a card the topic kernel must have launched, once a kept call."""
+    from chanamq_tpu_torch import bench
+
+    calls: dict = {}
+    _router_launches(reset=True)
+    t0 = time.perf_counter()
+    with router_device_env(device), recording_router(calls):
+        res = bench.run_route_spec(quick=quick)
+    launches = _router_launches()
+    res["phase_s"] = time.perf_counter() - t0
+    res["launches"] = launches
+    bad = {n: s["parity_mismatches"] for n, s in res["sizes"].items()
+           if s["parity_mismatches"]}
+    if bad:
+        raise AssertionError(f"bench-route: parity mismatches {bad}")
+    if "error" in res["key_shared_fanout"]:
+        raise AssertionError(
+            f"bench-route: key-shared fan-out {res['key_shared_fanout']}")
+    if device.type == "cuda":
+        if launches["topic_match"] < 1:
+            raise AssertionError("bench-route: topic_match never launched")
+        kept = {name: len(calls[name]) for name in ROUTER_KERNELS}
+        if kept != launches:
+            raise AssertionError(f"bench-route: {kept} calls kept for "
+                                 f"{launches} launches")
+    elif any(launches.values()):
+        raise AssertionError(f"bench-route on the CPU launched {launches}")
+    res["path"] = phase_path_kernels(
+        {name: c for name, c in calls.items() if c}, tag="bench-route",
+        path="bench --route")
+    return res
+
+
+def log_bench_route(res: dict, dev: dict) -> None:
+    for n, s in res["sizes"].items():
+        log(f"[bench-route] {s['bindings']} bindings, {s['kernel_rows']} "
+            f"kernel rows, {s['unique_keys']} unique of {res['msgs']} keys "
+            f"in batches of {res['batch']}: compile {s['compile_ms']} ms; "
+            f"trie {s['trie_us_per_msg']} us a message; batched torch "
+            f"{s['batched_torch_us_per_msg']} us a message warm, "
+            f"{s['batched_torch_cold_us_per_key']} us a key cold; numpy "
+            f"{s['batched_numpy_us_per_msg']} us a message; "
+            f"{s['speedup_vs_trie']}x the trie; parity mismatches "
+            f"{s['parity_mismatches']} (host clock); card {dev['smi']}")
+    fan = res["key_shared_fanout"]
+    log(f"[bench-route] 1,000,000 bindings compiled in "
+        f"{res.get('build_1m_bindings_s')} s, "
+        f"{res.get('build_1m_kernel_rows')} kernel rows; key-shared "
+        f"fan-out {fan['groups']} groups x {fan['records']} records, "
+        f"{fan['deliveries_per_s']} deliveries/s; kernel launches "
+        f"{res['launches']}, every call replayed word for word; phase "
+        f"{res['phase_s']:.1f} s; card {dev['smi']}")
+
+
+def phase_bench(device: torch.device, *, specs=BENCH_SPECS,
+                seconds: float = BENCH_SECONDS) -> dict:
+    """The PerfTest specs through the port's bench harness
+    (``run_spec``): every producer and consumer its own process, the
+    broker a child running ``main`` with the router on ``device``, started
+    here as ``chip_smoke.py --cluster-child <out.json> <the harness's
+    broker arguments>`` (the harness's spawn, with this wrapper in front,
+    so that the broker reports its kernel launches and router counters
+    when it exits, and replays its kernel calls). Gates: no error,
+    deliveries above 0, and on a card every launch kept and replayed word
+    for word."""
+    import tempfile
+
+    from chanamq_tpu_torch import bench
+
+    here = os.path.abspath(__file__)
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-bench-")
+    outs: list = []
+
+    def popen(args, *a, **k):
+        if list(args[1:3]) == ["-m", "chanamq_tpu_torch.broker.server"]:
+            outs.append(os.path.join(tmp, f"bench-broker{len(outs)}.json"))
+            args = [sys.executable, here, "--cluster-child", outs[-1],
+                    *args[3:]]
+        return subprocess.Popen(args, *a, **k)
+
+    real_sub, real_seconds = bench.subprocess, bench.BENCH_SECONDS
+    bench.subprocess = types.SimpleNamespace(
+        **{k: getattr(subprocess, k) for k in dir(subprocess)
+           if not k.startswith("__")})
+    bench.subprocess.Popen = popen
+    bench.BENCH_SECONDS = seconds
+    res: dict = {}
+    try:
+        for name in specs:
+            t0 = time.perf_counter()
+            row = bench.run_spec(name, extra_env={
+                "CHANAMQ_ROUTER_DEVICE": str(device)})
+            row["phase_s"] = time.perf_counter() - t0
+            if "error" in row:
+                raise AssertionError(f"bench {name}: {row}")
+            if not row["delivered"]:
+                raise AssertionError(f"bench {name}: nothing delivered")
+            with open(outs[-1]) as f:
+                row["broker"] = json.load(f)
+            if row["broker"]["router"]["device"] != str(device):
+                raise AssertionError(f"bench {name}: broker routed on "
+                                     f"{row['broker']['router']['device']}")
+            _hold_children(f"bench {name}", [row["broker"]], device,
+                           need_launches=False)
+            res[name] = row
+    finally:
+        bench.subprocess, bench.BENCH_SECONDS = real_sub, real_seconds
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    return res
+
+
+def log_bench(res: dict, dev: dict) -> None:
+    for name, row in res.items():
+        rb = row["broker"]["router"]
+        batches = (f"router batches {rb['batches']} ({rb['batch_msgs']} "
+                   f"msgs, {rb['fallback_msgs']} below min-batch)"
+                   if rb["batches"] else
+                   f"the traffic formed no router batch "
+                   f"({rb['fallback_msgs']} messages below min-batch)")
+        log(f"[bench] {name}: {row['delivered_per_s']} delivered msg/s, "
+            f"{row['published_per_s']} published msg/s, p50 "
+            f"{row['p50_us']} us, p99 {row['p99_us']} us (publish to "
+            f"deliver, client clocks); broker CPU {row['cpu_us_per_msg']} "
+            f"us a message; {batches}; kernel launches in the broker "
+            f"{row['broker']['launches']}; broker on {rb['device']}; "
+            f"{row['phase_s']:.1f} s; card {dev['smi']}")
+
+
+def phase_soak(device: torch.device, runs=SOAK_RUNS) -> dict:
+    """The port's soak runners (``chaos/soak.py``) in this process, every
+    broker they build on ``device``, each with the bench's time limit and
+    gates: no violation, the overload soak under its hard limit, the
+    elastic soak's two runs with one decision-log digest. Each runner's
+    router kernel launches are counted from 0 and every call it made is
+    replayed against the plain version, word for word."""
+    from chanamq_tpu_torch.chaos import soak
+
+    res: dict = {}
+    for label, runner, arg, kwargs, limit in runs:
+        calls: dict = {}
+        _router_launches(reset=True)
+        t0 = time.perf_counter()
+        with recording_router(calls):
+            report = asyncio.run(asyncio.wait_for(getattr(soak, runner)(
+                arg, device=str(device), **kwargs), timeout=limit))
+        row = {"runner": runner, "arg": arg, **kwargs,
+               "seconds": time.perf_counter() - t0,
+               "launches": _router_launches(),
+               "violations": report["violations"]}
+        if report["violations"]:
+            raise AssertionError(f"soak {label}: {report['violations']}")
+        if runner == "run_overload_soak":
+            row["under_hard_limit"] = report["under_hard_limit"]
+            row["peak_accounted_bytes"] = report["peak_accounted_bytes"]
+            if not report["under_hard_limit"]:
+                raise AssertionError(f"soak {label}: over the hard limit")
+        if runner == "run_elastic_soak":
+            digests = [r["log_sha256"] for r in report["runs"]]
+            row["log_sha256"] = digests
+            if len(set(digests)) != 1 or not digests[0]:
+                raise AssertionError(f"soak {label}: digests {digests}")
+        if runner == "run_soak":
+            row.update({k: report[k] for k in (
+                "fingerprint", "confirmed", "delivered_unique",
+                "promotions", "handoffs", "interconnect", "store")})
+        kept = {name: c for name, c in calls.items() if c}
+        row["replayed_calls"] = {name: len(c) for name, c in kept.items()}
+        if kept:
+            phase_path_kernels(kept, iters=10, tag="soak",
+                               path=f"{label} soak")
+        res[label] = row
+    return res
+
+
+def log_soak(res: dict, dev: dict) -> None:
+    for label, row in res.items():
+        extra = {k: v for k, v in row.items() if k not in (
+            "runner", "seconds", "launches", "violations",
+            "replayed_calls")}
+        log(f"[soak] {label} ({row['runner']}): {row['seconds']:.1f} s, "
+            f"violations {len(row['violations'])}, router kernel launches "
+            f"{row['launches']} (calls replayed {row['replayed_calls']}); "
+            f"{extra}; card {dev['smi']}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4296,8 +4593,8 @@ def main() -> int:
         node_child(sys.argv[2], sys.argv[3:])
         return 0
     if sys.argv[1:2] == ["--cluster-child"]:
-        # a [cluster] node or [shard] worker: --cluster-child <out.json>
-        # <main's args>
+        # a [cluster] node, [shard] worker or [bench] broker:
+        # --cluster-child <out.json> <main's args>
         cluster_child(sys.argv[2], sys.argv[3:])
         return 0
     if sys.argv[1:2] == ["--shard-child"]:
@@ -4513,6 +4810,35 @@ def main() -> int:
     shard = phase_shard(device, args.seed)
     log_shard(shard, dev)
 
+    # the bench harness: --route's spec in this process, then the
+    # PerfTest specs with each broker a child on the card; then the
+    # soak runners, every broker on the card
+    bench_route = phase_bench_route(device)
+    log_bench_route(bench_route, dev)
+    bench_specs = phase_bench(device)
+    log_bench(bench_specs, dev)
+    soaks = phase_soak(device)
+    log_soak(soaks, dev)
+
+    def bench_path(name: str) -> dict:
+        """A router kernel's launches on the bench harness's paths: the
+        route spec (its calls replayed) and each PerfTest spec's broker."""
+        row = {"route": {"launches": bench_route["launches"][name]}}
+        if name in bench_route["path"]:
+            r = bench_route["path"][name]
+            row["route"].update(replayed_calls=r["calls"],
+                                shapes=r["shapes"],
+                                max_abs_err=r["max_abs_err"], ms=r["ms"],
+                                plain_ms=r["plain_ms"],
+                                bound_ms=r["bound_ms"])
+        row["perftest"] = {spec: r["broker"]["launches"][name]
+                           for spec, r in bench_specs.items()}
+        return row
+
+    def soak_path(name: str) -> dict:
+        """A router kernel's launches in each soak run, from 0."""
+        return {label: r["launches"][name] for label, r in soaks.items()}
+
     def cluster_path(name: str) -> dict:
         """A router kernel's launches in each [cluster] survivor and each
         [shard] worker, and the replay of their calls."""
@@ -4569,6 +4895,7 @@ def main() -> int:
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": None, "node_path": node_path(name),
             "cluster_path": cluster_path(name),
+            "bench_path": bench_path(name), "soak_path": soak_path(name),
             "at_caps": {b: {k: caps[name][b][k] for k in (
                 "shape", "ms", "wrapper_ms", "plain_ms", "bound_ms",
                 "bound_by", "by_mb")} for b in caps[name]}})

@@ -14,6 +14,14 @@
   The reference's lets a request made just after the stream connected
   write before earlier ones still queued on the connect lock, so one
   publisher's first pushes to a peer could reach a queue out of order.
+- A fan-out push record is split by stream, each queue's part on that
+  queue's stream. The reference's rides the stream of its first queue, so
+  at the default two streams a later push to another of its queues could
+  reach that queue first.
+- A data stream that redials after a drop writes nothing on the new
+  connection until the old one is done, every request written on it
+  answered or failed. The reference's dialed and wrote at once, ahead of
+  frames still in flight on the dropped connection.
 - An RPC server's stop closes a connection whose handler starts after the
   stop began. The reference's handler then read forever while its peer
   kept the connection open, and ``stop()`` waited for it forever (the
@@ -40,7 +48,7 @@ from chanamq_tpu_torch.client import AMQPClient
 from chanamq_tpu_torch.cluster.membership import Membership
 from chanamq_tpu_torch.cluster import dataplane as dp
 from chanamq_tpu_torch.cluster.node import ClusterNode
-from chanamq_tpu_torch.cluster.rpc import RpcServer
+from chanamq_tpu_torch.cluster.rpc import RpcServer, TcpTransport
 from chanamq_tpu_torch.store.memory import MemoryStore
 
 pytestmark = pytest.mark.asyncio
@@ -298,3 +306,130 @@ async def test_rpc_server_stop_closes_a_connection_handled_late():
         await asyncio.wait_for(stopping, 5)
     finally:
         peer.close()
+
+
+def _names_on_two_streams(plane) -> tuple:
+    """Two queue names that ``plane`` stripes onto different streams."""
+    first = "fan.a"
+    for i in range(1000):
+        other = f"fan.b{i}"
+        if plane.stream_for("/", other) != plane.stream_for("/", first):
+            return first, other
+    raise AssertionError("no two names on different streams")
+
+
+async def test_fan_out_push_keeps_order_per_queue_across_streams():
+    """One publisher's pushes over two streams, alternating a fan-out to
+    queues A and B with a push to B alone, A's stream the slower: B
+    receives every message in publish order."""
+    server = RpcServer("127.0.0.1", 0)
+    got: dict = {}
+
+    async def push_many(view):
+        for _vh, queues, _ex, _rk, _props, body in dp.decode_push_many(view):
+            for q in queues:
+                got.setdefault(q, []).append(bytes(body))
+        return []
+
+    server.register_binary(dp.METHOD_PUSH_MANY, push_many)
+    await server.start()
+    plane = dp.PeerDataPlane("127.0.0.1", server.bound_port, streams=2)
+    qa, qb = _names_on_two_streams(plane)
+    slow = plane.streams[plane.stream_for("/", qa)]
+    fast_request = slow.request
+
+    async def slow_request(*args, **kwargs):
+        await asyncio.sleep(0.1)
+        return await fast_request(*args, **kwargs)
+
+    slow.request = slow_request
+    try:
+        futures = []
+        for i in range(20):
+            futures.append(plane.submit_push(
+                "/", [qa, qb], "x", "both", b"", b"%03d" % (2 * i)))
+            futures.append(plane.submit_push(
+                "/", [qb], "x", "b", b"", b"%03d" % (2 * i + 1)))
+            plane.flush_all(demand=True)
+            await asyncio.sleep(0.005)
+        await asyncio.wait_for(asyncio.gather(*futures), 10)
+        assert got[qb] == [b"%03d" % i for i in range(40)]
+        assert got[qa] == [b"%03d" % (2 * i) for i in range(20)]
+    finally:
+        await plane.close()
+        await server.stop()
+
+
+class _SlowLink:
+    """A writer whose frames take ``delay`` s to leave; ``close()`` lets
+    them go first, as a closing asyncio writer flushes its buffer."""
+
+    def __init__(self, writer, delay: float) -> None:
+        self._writer = writer
+        self._delay = delay
+        self._closing = False
+        self.transport = writer.transport
+
+    def writelines(self, parts) -> None:
+        data = b"".join(bytes(p) for p in parts)
+        asyncio.get_running_loop().call_later(
+            self._delay, self._writer.write, data)
+
+    async def drain(self) -> None:
+        return None
+
+    def is_closing(self) -> bool:
+        return self._closing or self._writer.is_closing()
+
+    def close(self) -> None:
+        self._closing = True
+        asyncio.get_running_loop().call_later(
+            2 * self._delay, self._writer.close)
+
+    async def wait_closed(self) -> None:
+        return None
+
+
+async def test_redial_waits_for_frames_in_flight():
+    """Three requests in flight on a slow connection, the connection
+    dropped, three more requests: they ride a new connection, and the
+    peer receives all six in the order they were made."""
+    server = RpcServer("127.0.0.1", 0)
+    got: list = []
+
+    async def record(view):
+        got.append(bytes(view))
+        return []
+
+    server.register_binary(7, record)
+    await server.start()
+    dials = []
+
+    class Link(TcpTransport):
+        async def dial(self):
+            reader, writer = await super().dial()
+            dials.append(writer)
+            if len(dials) == 1:
+                writer = _SlowLink(writer, 0.2)
+            return reader, writer
+
+    stream = dp.DataStream(Link("127.0.0.1", server.bound_port))
+    loop = asyncio.get_running_loop()
+    try:
+        before = [loop.create_task(stream.request(7, [b"%03d" % i]))
+                  for i in range(3)]
+        for _ in range(100):
+            if len(stream._waiters) == 3:
+                break
+            await asyncio.sleep(0.005)
+        assert len(stream._waiters) == 3 and not got
+        stream._writer.close()  # the drop, as a chaos disconnect does
+        after = [loop.create_task(stream.request(7, [b"%03d" % i]))
+                 for i in range(3, 6)]
+        await asyncio.wait_for(asyncio.gather(*after), 10)
+        await asyncio.gather(*before, return_exceptions=True)
+        assert len(dials) == 2
+        assert got == [b"%03d" % i for i in range(6)]
+    finally:
+        await stream.close()
+        await server.stop()

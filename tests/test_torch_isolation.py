@@ -96,6 +96,84 @@ def test_shard_supervisor_spawns_the_port(tmp_path, monkeypatch):
                            "chanamq_tpu_torch.broker.server")
 
 
+def test_bench_spawns_the_port(monkeypatch):
+    """The bench's broker is the port's server module and its producer
+    and consumer roles are the port's bench module, run by this Python."""
+    from chanamq_tpu_torch import bench
+
+    argv: list = []
+
+    def popen(args, *a, **k):
+        argv.append(list(args))
+        raise OSError("not spawned in this test")
+
+    monkeypatch.setattr(bench.subprocess, "Popen", popen)
+    with pytest.raises(OSError):
+        bench.run_spec("transient_autoack_3p3c")
+    with pytest.raises(OSError):
+        bench._spawn_store_broker(1, "x.db", {}, None)
+    assert argv[0][:3] == [sys.executable, "-m",
+                           "chanamq_tpu_torch.broker.server"]
+    assert argv[1][:3] == [sys.executable, "-m",
+                           "chanamq_tpu_torch.broker.server"]
+    with open(bench.__file__) as f:
+        tree = ast.parse(f.read())
+    roles = [node for node in ast.walk(tree) if isinstance(node, ast.List)
+             and any(isinstance(e, ast.Constant) and e.value == "--role"
+                     for e in node.elts)]
+    assert len(roles) >= 6
+    for node in roles:
+        head = [e.value if isinstance(e, ast.Constant) else None
+                for e in node.elts[1:4]]
+        assert head == ["-m", "chanamq_tpu_torch.bench", "--role"], head
+    assert os.path.dirname(bench.TRAJECTORY_PATH) == REPO
+    assert os.path.basename(bench.TRAJECTORY_PATH) \
+        != "BENCH_trajectory.jsonl"
+
+
+def test_every_soak_broker_takes_the_runners_device():
+    """Every ``Broker`` the soak builds is given the runner's device, and
+    every ``BrokerServer`` a broker so built."""
+    from chanamq_tpu_torch.chaos import soak
+
+    with open(soak.__file__) as f:
+        tree = ast.parse(f.read())
+    brokers = servers = 0
+    for node in ast.walk(tree):
+        if not isinstance(node, ast.Call) or not isinstance(
+                node.func, ast.Name):
+            continue
+        kwargs = {k.arg: k.value for k in node.keywords}
+        if node.func.id == "Broker":
+            brokers += 1
+            assert isinstance(kwargs.get("router_device"), ast.Name) \
+                and kwargs["router_device"].id == "device", node.lineno
+        elif node.func.id == "BrokerServer":
+            servers += 1
+            assert "broker" in kwargs and "store" not in kwargs, node.lineno
+    assert brokers >= 12 and servers >= 12
+
+
+def test_soak_runner_on_the_cpu_builds_no_cuda_broker(monkeypatch):
+    """A soak runner given ``device="cpu"`` builds every broker on the CPU
+    and creates no CUDA context."""
+    from chanamq_tpu_torch.broker.broker import Broker
+    from chanamq_tpu_torch.chaos import soak
+
+    devices: list = []
+    real_init = Broker.__init__
+
+    def init(self, *args, **kwargs):
+        devices.append(kwargs.get("router_device", "cuda"))
+        real_init(self, *args, **kwargs)
+
+    monkeypatch.setattr(Broker, "__init__", init)
+    report = asyncio.run(soak.run_connection_churn(4, device="cpu"))
+    assert report["violations"] == []
+    assert devices == ["cpu"]
+    assert not torch.cuda.is_initialized()
+
+
 def test_importing_the_port_loads_no_jax_or_reference():
     code = (
         "import sys\n"
@@ -125,6 +203,8 @@ def test_importing_the_port_loads_no_jax_or_reference():
         "import chanamq_tpu_torch.shard.handoff\n"
         "import chanamq_tpu_torch.federation\n"
         "import chanamq_tpu_torch.utils.logjson\n"
+        "import chanamq_tpu_torch.chaos.soak\n"
+        "import chanamq_tpu_torch.bench\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'chanamq_tpu'))\n"

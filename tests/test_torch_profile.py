@@ -10,12 +10,9 @@ alongside the telemetry ones, Prometheus export, and the pure
 ``regress_evaluate`` verdict on doctored trajectory records.
 
 The port's copy of ``tests/test_profile.py``: imports point at
-``chanamq_tpu_torch``, every broker's router on the CPU; the
-assertions are the reference's.
-
-Not carried over: the regression-verdict cases, which test the
-reference's ``bench.py`` (the port has no bench script yet). The
-folded-stack case names this file.
+``chanamq_tpu_torch`` (the verdict cases at the port's
+``chanamq_tpu_torch.bench``), every broker's router on the CPU; the
+assertions are the reference's. The folded-stack case names this file.
 """
 
 import asyncio
@@ -27,7 +24,7 @@ import time
 
 import pytest
 
-from chanamq_tpu_torch import profile
+from chanamq_tpu_torch import bench, profile
 from chanamq_tpu_torch.broker.server import BrokerServer
 from chanamq_tpu_torch.client import AMQPClient
 from chanamq_tpu_torch.profile.runtime import ProfileRuntime
@@ -409,3 +406,63 @@ async def test_prometheus_profile_series(profile_stack):
         assert f'stage="{name}"' in text, name
     assert "chanamq_profile_samples_total" in text
     assert "chanamq_profile_gc_pauses_total" in text
+
+
+# ---------------------------------------------------------------------------
+# regression verdict on doctored trajectory records
+# ---------------------------------------------------------------------------
+
+
+def _rec(wall, cpu, scenario="s"):
+    return {"scenario": scenario, "us_per_msg": wall, "cpu_us_per_msg": cpu}
+
+
+def test_regress_both_over_fails():
+    v = bench.regress_evaluate(_rec(130.0, 23.0), _rec(100.0, 20.0))
+    assert v["wall_over"] and v["cpu_over"] and v["regressed"]
+
+
+def test_regress_single_band_noise_passes():
+    # wall spiked (steal burst) but CPU held: not a regression
+    v = bench.regress_evaluate(_rec(130.0, 20.5), _rec(100.0, 20.0))
+    assert v["wall_over"] and not v["cpu_over"] and not v["regressed"]
+    # CPU crept but wall held: not a regression either
+    v = bench.regress_evaluate(_rec(105.0, 25.0), _rec(100.0, 20.0))
+    assert v["cpu_over"] and not v["wall_over"] and not v["regressed"]
+
+
+def test_regress_wall_only_fallback():
+    # old baseline without the CPU ledger: wall alone decides
+    v = bench.regress_evaluate(_rec(130.0, 23.0),
+                               {"scenario": "s", "us_per_msg": 100.0})
+    assert v["regressed"]
+    v = bench.regress_evaluate(_rec(115.0, 23.0),
+                               {"scenario": "s", "us_per_msg": 100.0})
+    assert not v["regressed"]
+
+
+def test_regress_boundary_is_strict():
+    # exactly at the band edge is NOT over — strictly greater regresses
+    v = bench.regress_evaluate(_rec(120.0, 22.0), _rec(100.0, 20.0))
+    assert not v["wall_over"] and not v["cpu_over"] and not v["regressed"]
+
+
+def test_trajectory_baseline_env_matching(tmp_path):
+    env = bench._env_fingerprint()
+    path = tmp_path / "traj.jsonl"
+    other = dict(env, cores=(env["cores"] or 0) + 64)
+    lines = [
+        {"scenario": "s", "us_per_msg": 10.0, "env": env, "ts": 1},
+        {"scenario": "s", "us_per_msg": 99.0, "env": other, "ts": 2},
+        {"scenario": "t", "us_per_msg": 55.0, "env": env, "ts": 3},
+        {"scenario": "s", "us_per_msg": 12.0, "env": env, "ts": 4},
+    ]
+    with open(path, "w") as f:
+        for rec in lines:
+            f.write(json.dumps(rec) + "\n")
+        f.write("not json\n")  # corrupt tail lines are skipped, not fatal
+    base = bench.trajectory_baseline("s", str(path))
+    # latest matching-env line for the scenario wins
+    assert base["ts"] == 4 and base["us_per_msg"] == 12.0
+    assert bench.trajectory_baseline("missing", str(path)) is None
+    assert bench.trajectory_baseline("s", str(tmp_path / "ghost")) is None

@@ -5,11 +5,8 @@ chaos data.* seams on UDS, fd handoff, the shard Prometheus label,
 shard-liveness readiness, and the UDS chaos soak invariants.
 
 The port's copy of ``tests/test_shard.py``: imports point at
-``chanamq_tpu_torch``, every broker's router on the CPU; the
-assertions are the reference's.
-
-Not carried over: ``test_soak_uds_no_loss_and_rehash_per_survivor``,
-which runs ``chaos/soak.py``'s ``run_soak`` (not in the port yet).
+``chanamq_tpu_torch``, every broker's router and the soak on the CPU;
+the assertions are the reference's.
 """
 
 import asyncio
@@ -460,3 +457,22 @@ async def test_readiness_flags_dead_shard_sibling():
             await b_srv.stop()
         await a_cl.stop()
         await a_srv.stop()
+
+
+# ---------------------------------------------------------------------------
+# chaos soak over UDS
+# ---------------------------------------------------------------------------
+
+
+async def test_soak_uds_no_loss_and_rehash_per_survivor():
+    """The seeded soak with the interconnect on Unix sockets: the default
+    plan's owner crash must cost zero confirmed messages and re-hash
+    ownership exactly once on each of the two survivors."""
+    from chanamq_tpu_torch.chaos.soak import run_soak
+
+    report = await asyncio.wait_for(
+        run_soak(42, messages=60, uds=True, device="cpu"), timeout=120)
+    assert report["violations"] == [], report["violations"]
+    assert report["interconnect"] == "uds"
+    assert report["handoffs"] == 2
+    assert report["confirmed"] > 0
