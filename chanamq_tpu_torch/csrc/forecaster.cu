@@ -1,7 +1,8 @@
 // Forecaster kernels for Hopper (sm_90a): layernorm, causal attention and
 // tanh-GELU, the three non-product steps of the telemetry forecaster's
 // forward pass. The products around them (embed, qkv, proj, w1, w2, head)
-// stay plain matrix products, as the reference leaves them to XLA.
+// are products.cu's; the forward path takes GELU in the w1 product's
+// epilogue, and this standalone kernel stays for the op set's gelu_tanh.
 //
 // What they replace. chanamq_tpu/models/forecaster.py::forward, the
 // XLA-jitted program the forecast service runs for every forecast:
@@ -40,6 +41,7 @@
 #include <stdint.h>
 
 #include "attention_tiles.cuh"
+#include "gelu.cuh"
 #include "layernorm_rows.cuh"
 
 #define CHANA_GELU_THREADS 256
@@ -321,15 +323,11 @@ __global__ void __launch_bounds__(chana_att::kWarps * 32, 4)
 // -- tanh-GELU --------------------------------------------------------------
 //
 // out = bf16(x * 0.5 * (1 + tanh(sqrt(2/pi) * (x + 0.044715 * x^3)))) in
-// float32, jax.nn.gelu's default (approximate=True) form. Each thread
-// takes 8 values with one 16-byte load and store; the tail that does not
-// fill 8 values is done one value at a time.
+// float32, jax.nn.gelu's default (approximate=True) form (gelu.cuh). Each
+// thread takes 8 values with one 16-byte load and store; the tail that
+// does not fill 8 values is done one value at a time.
 
-__device__ __forceinline__ float gelu_tanh_f(float x) {
-  const float k = 0.7978845608028654f;  // sqrt(2 / pi)
-  const float cdf = 0.5f * (1.0f + tanhf(k * (x + 0.044715f * (x * x * x))));
-  return x * cdf;
-}
+using chana_gelu::gelu_tanh_f;  // gelu.cuh, shared with the w1 product
 
 __global__ void __launch_bounds__(CHANA_GELU_THREADS) gelu_tanh_kernel(
     const __nv_bfloat16* __restrict__ x, __nv_bfloat16* __restrict__ out,

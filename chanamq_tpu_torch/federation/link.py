@@ -359,18 +359,24 @@ class FederationLink:
         while self.dirty_cursors:
             qname = next(iter(self.dirty_cursors))
             cursors = self.dirty_cursors.pop(qname)
+            # counted as the call is written: the receiver applies the
+            # commit before it replies, so a count taken after the reply
+            # lags a mirror that is already visible
+            metrics = self.service.metrics
+            metrics.federation_cursors_shipped += len(cursors)
             try:
                 await self.rpc.call("fed.cursor", {
                     "link": self.name, "vhost": self.vhost, "queue": qname,
                     "cursors": cursors, "token": self.token})
             except BaseException:
-                # stays dirty; re-merge (a commit may have landed since)
+                # not shipped: taken back, and the batch stays dirty;
+                # re-merge (a commit may have landed since)
+                metrics.federation_cursors_shipped -= len(cursors)
                 merged = self.dirty_cursors.setdefault(qname, {})
                 for name, offset in cursors.items():
                     if offset > merged.get(name, -1):
                         merged[name] = offset
                 raise
-            self.service.metrics.federation_cursors_shipped += len(cursors)
 
     async def _flush_outbox(self) -> None:
         while self.outbox:

@@ -116,6 +116,21 @@ def check_shape(name: str, t: torch.Tensor, shape: tuple) -> None:
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
 
 
+def cuda_device(name: str, t: torch.Tensor) -> torch.device:
+    """``t``'s device, which must be a card: a kernel runs nowhere else."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {t.device}")
+    return t.device
+
+
+def aligned(name: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor starts on 16 bytes."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: tensor not 16-byte aligned (the "
+                             "kernel reads 16 bytes at a time)")
+
+
 # the current stream's handle as an int, without making a Stream object
 # (what torch's own generated launchers call); the public API where a
 # build lacks it

@@ -26,9 +26,14 @@ wrappers launch what they return, and a timing loop can launch it again
 without the checks (and without counting). ``LayerNorm``,
 ``CausalAttention`` and ``GeluTanh`` are the differentiable ops: each
 forward launches the forward kernel, each backward the backward kernel.
-``KERNELS`` names them and the update kernel (``update.py``) as one set of
-ops, ``PLAIN`` the plain versions (torch autograd differentiates those),
-so a caller can run the same forward or train step through either.
+``KERNELS`` names them, the update kernel (``update.py``) and the matrix
+products (``products.py``'s ``Product`` and ``Head``, and ``ProductGelu``
+here, which joins the ``w1`` product's GELU epilogue to
+``gelu_tanh_bwd``) as one set of ops, ``PLAIN`` the plain versions (torch
+autograd differentiates those), so a caller can run the same forward or
+train step through either. The forward takes GELU in ``w1``'s epilogue
+and never calls ``gelu_tanh``; ``GeluTanh`` stays in the sets as GELU
+alone, forward and backward kernel.
 """
 
 from __future__ import annotations
@@ -40,10 +45,10 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from . import build, update
+from . import build, products, update
+from .gelu import GELU_K, gelu_tanh_ref
 
 EPS = 1e-6  # forecaster.py:81
-GELU_K = math.sqrt(2.0 / math.pi)
 
 _BF16 = torch.bfloat16
 _F32 = torch.float32
@@ -74,19 +79,6 @@ def library() -> ctypes.CDLL:
         lib.chana_cuda_error_string.restype = ctypes.c_char_p
         lib._chana_typed = True
     return lib
-
-
-def _cuda_device(name: str, t: torch.Tensor) -> torch.device:
-    if t.device.type != "cuda":
-        raise ValueError(f"{name}: no kernel for device {t.device}")
-    return t.device
-
-
-def _aligned(name: str, *tensors: torch.Tensor) -> None:
-    for t in tensors:
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}: tensor not 16-byte aligned (the "
-                             "kernel reads 16 bytes at a time)")
 
 
 # -- layernorm ---------------------------------------------------------------
@@ -160,7 +152,7 @@ def _layernorm_width(name: str, x: torch.Tensor) -> int:
 def prepare_layernorm(x: torch.Tensor, scale: torch.Tensor):
     """Check the layernorm kernel's CUDA inputs and bind its launch:
     ``(out, launch)``; ``launch`` is None when there is no row."""
-    device = _cuda_device("layernorm", x)
+    device = build.cuda_device("layernorm", x)
     build.check("x", x, _BF16, x.dim(), device)
     build.check("scale", scale, _F32, 1, device)
     d = _layernorm_width("layernorm", x)
@@ -169,7 +161,7 @@ def prepare_layernorm(x: torch.Tensor, scale: torch.Tensor):
     rows = x.numel() // d
     if rows == 0:
         return out, None
-    _aligned("layernorm", x, scale, out)
+    build.aligned("layernorm", x, scale, out)
     g = layernorm_geometry(rows, d)
     lib = library()
     return out, build.launcher(
@@ -323,7 +315,7 @@ def prepare_causal_attention(qkv: torch.Tensor, n_heads: int, *,
     writes each row's max and sum of exponentials into ``stats`` (float32,
     ``ATT_STATS`` planes of B * H * tiles * 16 rows; the backward's row
     pass fills the third)."""
-    device = _cuda_device("causal_attention", qkv)
+    device = build.cuda_device("causal_attention", qkv)
     build.check("qkv", qkv, _BF16, 3, device)
     b, t, hd = _attention_dims("causal_attention", qkv, n_heads)
     out = torch.empty((b, t, n_heads * hd), dtype=_BF16, device=device)
@@ -336,7 +328,7 @@ def prepare_causal_attention(qkv: torch.Tensor, n_heads: int, *,
     outs = (out, stats) if keep_stats else out
     if rows == 0:
         return outs, None
-    _aligned("causal_attention", qkv, out)
+    build.aligned("causal_attention", qkv, out)
     lib = library()
     return outs, build.launcher(
         lib, lib.chana_causal_attention, "causal_attention", device,
@@ -380,23 +372,15 @@ def causal_attention_with_stats(qkv: torch.Tensor, n_heads: int) -> tuple:
 # -- tanh-GELU ---------------------------------------------------------------
 
 
-def gelu_tanh_ref(x: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of the GELU kernel (any device), in
-    jax.nn.gelu's (approximate=True) order of operations."""
-    x32 = x.to(_F32)
-    cdf = 0.5 * (1.0 + torch.tanh(GELU_K * (x32 + 0.044715 * (x32 * x32 * x32))))
-    return (x32 * cdf).to(x.dtype)
-
-
 def prepare_gelu_tanh(x: torch.Tensor):
     """Check the GELU kernel's CUDA input and bind its launch:
     ``(out, launch)``; ``launch`` is None for an empty tensor."""
-    device = _cuda_device("gelu_tanh", x)
+    device = build.cuda_device("gelu_tanh", x)
     build.check("x", x, _BF16, x.dim(), device)
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out, None
-    _aligned("gelu_tanh", x, out)
+    build.aligned("gelu_tanh", x, out)
     lib = library()
     return out, build.launcher(
         lib, lib.chana_gelu_tanh, "gelu_tanh", device, x.data_ptr(),
@@ -500,7 +484,7 @@ def prepare_layernorm_bwd(dy: torch.Tensor, x: torch.Tensor,
     launch: ``((dx, dscale), launch)``; ``launch`` is None when there is no
     row (dscale is then 0). The launch takes its stream's scratch
     (``_layernorm_bwd_scratch``) and allocates nothing else."""
-    device = _cuda_device("layernorm_bwd", x)
+    device = build.cuda_device("layernorm_bwd", x)
     build.check("x", x, _BF16, x.dim(), device)
     build.check("dy", dy, _BF16, x.dim(), device)
     build.check_shape("dy", dy, tuple(x.shape))
@@ -512,7 +496,7 @@ def prepare_layernorm_bwd(dy: torch.Tensor, x: torch.Tensor,
     if rows == 0:
         return (dx, torch.zeros(d, dtype=_F32, device=device)), None
     dscale = torch.empty(d, dtype=_F32, device=device)
-    _aligned("layernorm_bwd", dy, x, scale, dx, dscale)
+    build.aligned("layernorm_bwd", dy, x, scale, dx, dscale)
     g = layernorm_geometry(rows, d)
     partial, counter = _layernorm_bwd_scratch(device, g.clusters * d)
     lib = train_library()
@@ -588,7 +572,7 @@ def prepare_causal_attention_bwd(qkv: torch.Tensor, dout: torch.Tensor,
     batch. ``stats`` is what ``causal_attention_with_stats`` returned for
     this ``qkv``: the row pass reads its max and sum and writes the third
     plane. ``warps`` (4 or 8) overrides ``attention_bwd_warps``."""
-    device = _cuda_device("causal_attention_bwd", qkv)
+    device = build.cuda_device("causal_attention_bwd", qkv)
     build.check("qkv", qkv, _BF16, 3, device)
     b, t, hd = _attention_dims("causal_attention_bwd", qkv, n_heads)
     build.check("dout", dout, _BF16, 3, device)
@@ -603,7 +587,7 @@ def prepare_causal_attention_bwd(qkv: torch.Tensor, dout: torch.Tensor,
     build.check("stats", stats, _F32, 1, device)
     build.check_shape("stats", stats,
                       (ATT_STATS * g.grid(b, n_heads) * ATT_TILE,))
-    _aligned("causal_attention_bwd", qkv, dout, dqkv)
+    build.aligned("causal_attention_bwd", qkv, dout, dqkv)
     lib = train_library()
     dims = (b, t, n_heads, hd, g.hd_pad, g.ld, g.tiles, g.copy_bytes,
             g.stage, g.slots)
@@ -659,14 +643,14 @@ def gelu_tanh_bwd_ref(dy: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 def prepare_gelu_tanh_bwd(dy: torch.Tensor, x: torch.Tensor):
     """Check the GELU backward kernel's CUDA inputs and bind its launch:
     ``(dx, launch)``; ``launch`` is None for an empty tensor."""
-    device = _cuda_device("gelu_tanh_bwd", x)
+    device = build.cuda_device("gelu_tanh_bwd", x)
     build.check("x", x, _BF16, x.dim(), device)
     build.check("dy", dy, _BF16, x.dim(), device)
     build.check_shape("dy", dy, tuple(x.shape))
     dx = torch.empty_like(x)
     if x.numel() == 0:
         return dx, None
-    _aligned("gelu_tanh_bwd", dy, x, dx)
+    build.aligned("gelu_tanh_bwd", dy, x, dx)
     lib = train_library()
     return dx, build.launcher(
         lib, lib.chana_gelu_tanh_bwd, "gelu_tanh_bwd", device, dy.data_ptr(),
@@ -740,6 +724,28 @@ class GeluTanh(torch.autograd.Function):
         return gelu_tanh_bwd(dy.contiguous(), x)
 
 
+class ProductGelu(torch.autograd.Function):
+    """``gelu(x @ w)`` through ``products.bf16_product``'s GELU epilogue,
+    keeping the rounded product when an input needs a gradient. Backward:
+    ``gelu_tanh_bwd`` on it, then dX and dW through the product kernel."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        keep = any(ctx.needs_input_grad)
+        got = products.bf16_product(products.rows(x), w, "nn", None, True,
+                                    keep)
+        out, preact = got if keep else (got, None)
+        ctx.save_for_backward(x, w, preact)
+        ctx.x_shape = x.shape
+        return out.reshape(*x.shape[:-1], w.shape[1])
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, preact = ctx.saved_tensors
+        du = gelu_tanh_bwd(products.rows(dy.contiguous()), preact)
+        return products.weight_grads(ctx, products.rows(x), w, du)
+
+
 # -- op sets -----------------------------------------------------------------
 
 
@@ -750,11 +756,18 @@ class Ops(NamedTuple):
     update: Callable  # clip + momentum + SGD, kernels/update.py
     sum_of_squares: Callable  # the update's two launches apart (sharded)
     momentum_sgd: Callable
+    # the matrix products, kernels/products.py: x @ w (plus a residual),
+    # gelu(x @ w), and the float32 head
+    product: Callable
+    product_gelu: Callable
+    head: Callable
 
 
 KERNELS = Ops(LayerNorm.apply, CausalAttention.apply, GeluTanh.apply,
               update.clip_momentum_sgd, update.sum_of_squares,
-              update.momentum_sgd)
+              update.momentum_sgd, products.Product.apply,
+              ProductGelu.apply, products.Head.apply)
 PLAIN = Ops(layernorm_ref, causal_attention_ref, gelu_tanh_ref,
             update.clip_momentum_sgd_ref, update.sum_of_squares_ref,
-            update.momentum_sgd_ref)
+            update.momentum_sgd_ref, products.product_ref,
+            products.product_gelu_ref, products.head_ref)

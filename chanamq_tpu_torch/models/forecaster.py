@@ -7,20 +7,21 @@ and capacity prediction, never on the message path; models/service.py runs
 the live loop.
 
 ``forward`` computes what the reference's ``forward`` computes, at its
-rounding points: activations in ``cfg.dtype`` (bf16 by default), the
-embed, the four products of each layer and the head as plain matrix
-products (``torch.matmul``, as the reference leaves them to XLA), and the
-layernorm, the attention core and the tanh-GELU through the hand-written
-kernels of ``kernels/forecaster.py`` (``ops``; on CPU tensors those run
-their plain versions). The bf16 activations need bf16 products that
-accumulate in float32, as the reference's do, and the float32 head needs
-float32 products, not TF32: ``set_matmul_precision`` sets both, and
-``forward`` refuses CUDA tensors while torch allows less.
+rounding points: activations in ``cfg.dtype`` (bf16 by default), and
+every step through the hand-written kernels of ``kernels/forecaster.py``
+and ``kernels/products.py`` (``ops``; on CPU tensors those run their
+plain versions): the embed, the four products of each layer (the residual
+adds in ``proj``'s and ``w2``'s epilogue, the tanh-GELU in ``w1``'s) and
+the float32 head, the layernorm and the attention core. The plain
+versions on a card take bf16 products that accumulate in float32, as the
+reference's do, and float32 products, not TF32: ``set_matmul_precision``
+sets both, and ``forward`` refuses CUDA tensors while torch allows less.
 
 ``make_train_step`` is the reference's SGD-with-momentum step: the MSE
-loss's gradients by torch autograd (the three ops' backward passes are
-kernels too, ``kernels.KERNELS``), then the global-norm clip, momentum and
-SGD update as two kernel launches (``kernels/update.py``), in place.
+loss's gradients by torch autograd (every op's backward pass is a kernel
+too, ``kernels.KERNELS``, the products' gradients among them), then the
+global-norm clip, momentum and SGD update as two kernel launches
+(``kernels/update.py``), in place.
 
 Parameters are the reference's flat ``{name: tensor}`` set, float32, in its
 ``[in, out]`` layout and under its names. ``init_params`` draws the
@@ -177,30 +178,39 @@ def forward(params: Params, x: torch.Tensor, cfg: ForecasterConfig, *,
             tp: Optional[TensorParallel] = None) -> torch.Tensor:
     """x: [batch, seq_len, n_features] float32 -> forecast [batch,
     n_features] float32. ``weights`` is ``cast_weights(params, cfg)``,
-    cast here when not given; ``ops`` the layernorm, attention and GELU to
-    run (the kernels' wrappers, or ``kernels.PLAIN`` to compare); ``tp``
-    this rank's part when the products are split over ranks (None: the
-    whole model here). On a card it raises unless
+    cast here when not given; ``ops`` the products, layernorm and
+    attention to run (the kernels' ops, or ``kernels.PLAIN`` to compare);
+    ``tp`` this rank's part when the products are split over ranks (None:
+    the whole model here). On a card it raises unless
     ``set_matmul_precision()`` holds."""
     if x.is_cuda:
         _check_matmul_precision()
     tp = tp or TensorParallel(cfg.n_heads, _same, _same)
     w = cast_weights(params, cfg) if weights is None else weights
     b, t, _ = x.shape
-    h = torch.matmul(x.to(cfg.dtype), w["embed/kernel"])
+
+    def residual(h: torch.Tensor, y: torch.Tensor, name: str):
+        """``h + y @ w[name]``: in the product's epilogue on one device; a
+        tp rank's row-split product is a partial sum, added up over the
+        ranks (``tp.leave``) before the add."""
+        if tp.leave is _same:
+            return ops.product(y, w[name], h)
+        return h + tp.leave(ops.product(y, w[name]))
+
+    h = ops.product(x.to(cfg.dtype), w["embed/kernel"])
     h = h + w["embed/bias"]
     h = h + w["pos"][None, :t]
     for layer in range(cfg.n_layers):
         pre = f"layer{layer}"
         a = tp.enter(ops.layernorm(h, params[f"{pre}/ln1/scale"]))
-        fused = torch.matmul(a, w[f"{pre}/attn/qkv"])
+        fused = ops.product(a, w[f"{pre}/attn/qkv"])
         att = ops.causal_attention(fused, tp.n_heads)
-        h = h + tp.leave(torch.matmul(att, w[f"{pre}/attn/proj"]))
+        h = residual(h, att, f"{pre}/attn/proj")
         m = tp.enter(ops.layernorm(h, params[f"{pre}/ln2/scale"]))
-        m = ops.gelu_tanh(torch.matmul(m, w[f"{pre}/mlp/w1"]))
-        h = h + tp.leave(torch.matmul(m, w[f"{pre}/mlp/w2"]))
+        m = ops.product_gelu(m, w[f"{pre}/mlp/w1"])
+        h = residual(h, m, f"{pre}/mlp/w2")
     last = h[:, -1, :].to(torch.float32)
-    return last @ params["out/kernel"] + params["out/bias"]
+    return ops.head(last, params["out/kernel"]) + params["out/bias"]
 
 
 def loss_fn(params: Params, batch: tuple, cfg: ForecasterConfig, *,

@@ -11,11 +11,12 @@ rehearse it; any failure exits non-zero:
 1. device: the card's name and power limit (``nvidia-smi``); float32
    products in full float32 (``allow_tf32 = False``) for the router's
    plain versions;
-2. build: ``csrc/router_match.cu``, ``csrc/forecaster.cu`` and
-   ``csrc/forecaster_train.cu``, one nvcc each, started together, for
-   sm_90a, with ptxas's register, shared-memory and spill report and the
-   count of tensor-core instructions (HMMA/HGMMA) in each attention
-   kernel's SASS (``cuobjdump``; "not available" without it);
+2. build: ``csrc/router_match.cu``, ``csrc/forecaster.cu``,
+   ``csrc/forecaster_train.cu`` and ``csrc/products.cu``, one nvcc each,
+   started together, for sm_90a, with ptxas's register, shared-memory and
+   spill report and the count of tensor-core instructions (HMMA/HGMMA) in
+   each attention kernel's and the bf16 product kernel's SASS
+   (``cuobjdump``; "not available" without it);
 3. kernels at the router's caps: both router match kernels at N=512
    rows, W=128 mask words and full token widths (topic P=S=8, headers
    R=8, H=16) against their plain PyTorch versions, word for word, at B in
@@ -30,11 +31,22 @@ rehearse it; any failure exits non-zero:
    their plain versions in bf16, each within its stated limit, with device
    times, the bound, and one PyTorch library call as a yardstick; then the
    floor under those times, an empty kernel launched and timed the same
-   way (``[floor]``);
+   way (``[floor]``); then the matrix products (``[products]``): both
+   product kernels against their plain versions at every site, layout
+   and epilogue of the flagship's forward (B in {1, 32}: the embed, qkv,
+   proj with the residual add, w1 with GELU, w2 with the residual add,
+   the float32 head) and of its gradients (B in {16, 32}: each dX and
+   dW, w1 keeping its pre-activation), within one bf16 step of the
+   output (two with an epilogue; the head 1e-5 of its terms), timed with
+   the cuBLAS call each replaced and the bound; held untimed at the
+   compact model's long window and a tp = 4 rank's shapes;
 5. forward at full width: ``ForecasterConfig()`` at B in {1, 32}, the
    kernel path against the plain path, with host-clock and CUDA-event ms,
-   under the reference's product precision (``set_matmul_precision``:
-   bf16 products accumulate in float32, float32 products avoid TF32);
+   under the reference's product precision for the plain path
+   (``set_matmul_precision``: bf16 products accumulate in float32, float32
+   products avoid TF32); one forward's launches (8 layernorm, 4
+   attention, 17 bf16 products, the head, no standalone GELU) and a
+   traced forward with no cuBLAS product;
 6. training kernels at the flagship width at B in {16, 32} (the service's
    training batch; ``__graft_entry__``'s): the layernorm, attention and
    GELU backward passes against their plain versions within their stated
@@ -53,9 +65,10 @@ rehearse it; any failure exits non-zero:
    against the same step through the plain versions under torch autograd,
    from one state on one ``synthetic_batch`` (B=16), 20 steps: every
    parameter and momentum tree within its stated limit after 1 and 20
-   steps, the loss falling, host-clock and CUDA-event ms of a step, and
-   each kernel's launches a step (8 / 4 / 4 forward, 8 / 8 / 4 backward,
-   2 for the update); then the flagship's default parameters (the
+   steps, the loss falling, host-clock and CUDA-event ms of a step, each
+   kernel's launches a step (8 / 4 forward, 8 / 8 / 4 backward, 50 bf16
+   products and 3 heads, 2 for the update) and a traced step with no
+   cuBLAS product; then the flagship's default parameters (the
    reference's ``PRNGKey(0)`` draw, made on the host) on the card, bit for
    bit the host's draw;
 8. main path: the port's ``BrokerServer`` on 127.0.0.1 with default
@@ -79,7 +92,8 @@ rehearse it; any failure exits non-zero:
    product precision is reset to torch's default first, so the service
    must set its own. The forecasts must be finite and non-negative, each
    kernel's launches must equal the forwards times its launches a
-   forward (8 layernorm, 4 attention, 4 GELU), the sampler must have seen
+   forward (8 layernorm, 4 attention, 17 bf16 products and the head, 0
+   standalone GELU), the sampler must have seen
    the load, and every forward's window is replayed through the plain
    path;
 11. training forecast path: the same with the reference's training
@@ -99,14 +113,16 @@ rehearse it; any failure exits non-zero:
    tensor-parallel ranks sharing the first card over gloo with CUDA
    tensors: the loss bit for bit on every rank, falling, and within one
    bf16 step of the one-device kernel step's on the same card after 1 and
-   5 steps; the gathered trees within ``tree_limits``; replicated leaves
+   5 steps (a tp rank adds the residual after its all-reduce, outside the
+   product's epilogue); the gathered trees within ``tree_limits``;
+   replicated leaves
    bit-equal on every rank; each kernel launched as often as a sharded
    step launches it; every kernel call of each rank's first step (its
    inputs copied before the call) replayed through the wrapper and its
    plain version at the kernel's own limits, at that rank's shapes (one
    head of 64 and 256 w1 columns at tp = 4); host-clock ms a step, one
-   traced step's device split and host ops, and one tp all-reduce's host
-   time;
+   traced step's device split (no cuBLAS product) and host ops, and one
+   tp all-reduce's host time;
 14. durable node: a port node from ``BrokerServer.from_config`` in a child
    process, every ``chana.mq.wal.*`` key at its default (fsync, flush-ms
    2), its router on the card, the main path's tables (512 topic patterns
@@ -134,8 +150,9 @@ rehearse it; any failure exits non-zero:
    least 3 rounds, finite loss and forecasts, no error; the forecast
    gauges on ``/metrics``; ``/admin/health`` 200; ``/admin/control``
    ticking; SIGTERM exit 0 within 30 s. The node reports every kernel's
-   launches in its own process (each of the nine at least once, the
-   update's two under their split names) and its last forecast replayed
+   launches in its own process (each of the path's at least once, the
+   update's two under their split names, the standalone GELU never) and
+   its last forecast replayed
    through the plain path on the parameters that made it, within
    FORWARD_LIMIT; seconds from spawn to listening and confirmed msg/s;
 16. cluster: three port nodes, each ``main`` in a child
@@ -190,8 +207,9 @@ rehearse it; any failure exits non-zero:
    violation, the overload soak under its hard limit, the elastic soak's
    two runs with one decision-log digest); each run's seconds and its
    router launches counted from 0;
-21. the kernels line (nine kernels, each with its launches in the
-   [node] phase's node as ``node_path``, the router's also in each
+21. the kernels line (eleven kernels, each with its launches in the
+   [node] phase's node as ``node_path``, the products' with every site's
+   row from [products] as ``sites``, the router's also in each
    [cluster] survivor and [shard] worker as ``cluster_path``, on the
    bench's paths as ``bench_path`` and in each soak run as
    ``soak_path``), the card line, and the result line.
@@ -274,10 +292,11 @@ def phase_device() -> dict:
 # -- 2. build ------------------------------------------------------------------
 
 
-SOURCES = ("router_match", "forecaster", "forecaster_train")
+SOURCES = ("router_match", "forecaster", "forecaster_train", "products")
 # the kernels whose tensor-core instructions the build reports
 MMA_KERNELS = {"forecaster": "causal_attention",
-               "forecaster_train": "causal_attention_bwd"}
+               "forecaster_train": "causal_attention_bwd",
+               "products": "bf16_product"}
 
 
 def sass_mma_count(lib_path: str, kernel: str):
@@ -1312,6 +1331,227 @@ def phase_floor(device: torch.device, iters: int = 100) -> dict:
     return out
 
 
+# -- 6b. matrix products -----------------------------------------------------------
+
+
+PRODUCT_KERNELS = ("bf16_product", "f32_product")
+# the service's feature count at chana.mq.forecast.queue-top-k 1: 8 + 2
+TOPK_FEATURES = 10
+# the float32 head against its plain version: both sum the same float32
+# products (K <= 256 terms) in another order, each sum within a few
+# float32 roundings of the exact one, so within 1e-5 of the sum of the
+# terms' magnitudes
+HEAD_RTOL = 1e-5
+
+
+def product_limit(name: str, args, want, plain_product=None) -> float:
+    """Max abs error allowed between a product kernel and its plain
+    version on the same inputs. The float32 head: ``HEAD_RTOL`` of the
+    largest sum of its terms' magnitudes. A bf16 product: both round the
+    same exact float32 products summed in another order, so an output can
+    land on the neighbouring bf16 value: one step at the largest output.
+    An epilogue rounds a second time, after GELU (slope at most 1.13) or
+    the residual add, from a product that may already be a step apart: two
+    steps at the larger of the largest output and the largest product
+    (``plain_product``, the plain version without the epilogue)."""
+    if name == "f32_product":
+        from chanamq_tpu_torch.kernels import products as pk
+
+        a, b, layout = args
+        x, w = pk._as_nn(layout, a, b)
+        return HEAD_RTOL * float(torch.matmul(x.abs(), w.abs()).max())
+    top = float(want.float().abs().max()) if want.numel() else 0.0
+    if plain_product is None:
+        return bf16_ulp(top)
+    return 2.0 * bf16_ulp(max(top, float(plain_product.float().abs().max())))
+
+
+def product_work(name: str, args) -> tuple[int, int, float]:
+    """(bytes, operations, least seconds for those operations) of one
+    product call: each operand read once, the residual read once, each
+    output (and the kept pre-activation) written once; 2 M N K on the
+    tensor cores (bf16) or the float32 units (the head), and the
+    epilogue's float32 operations, 9 a value for GELU (as
+    ``forecaster_work`` counts it) and one for the residual add."""
+    from chanamq_tpu_torch.kernels import products as pk
+
+    a, b, layout = args[:3]
+    m, n, k = pk.dims(layout, a, b)
+    if name == "f32_product":
+        ops = 2 * m * n * k
+        return 4 * (m * k + k * n + m * n), ops, ops / F32_FLOPS_PER_S
+    residual, gelu, keep = (tuple(args[3:]) + (None, False, False))[:3]
+    nbytes = 2 * (m * k + k * n + m * n)
+    nbytes += 2 * m * n * ((residual is not None) + bool(keep))
+    epi = 9 * m * n if gelu else m * n if residual is not None else 0
+    mma = 2 * m * n * k
+    return nbytes, mma + epi, mma / BF16_TC_FLOPS_PER_S + epi / F32_FLOPS_PER_S
+
+
+def _library_product(name: str, args):
+    """The one cuBLAS call the product replaced, as a yardstick the port
+    never calls: ``torch.matmul`` of the operands as stored (its epilogue,
+    a separate launch before, not included)."""
+    from chanamq_tpu_torch.kernels import products as pk
+
+    x, w = pk._as_nn(args[2], args[0], args[1])
+    return lambda: torch.matmul(x, w)
+
+
+def hold_product(name: str, args, *, timed: bool = True,
+                 iters: int = 100) -> dict:
+    """One product call through its wrapper and its plain version on the
+    same inputs, within ``product_limit`` (a kept pre-activation within
+    one step of its own), and the bound; with ``timed``, on a card, also
+    the kernel's device time, the wrapper's per-call time, and the plain
+    version's and the cuBLAS call's device times."""
+    from chanamq_tpu_torch.kernels import products as pk
+
+    kern, ref = getattr(pk, name), getattr(pk, f"{name}_ref")
+    got, want = kern(*args), ref(*args)
+    a, b, layout = args[:3]
+    residual, gelu = (tuple(args[3:]) + (None, False))[:2]
+    epilogue = name == "bf16_product" and (residual is not None or gelu)
+    row: dict = {"shape": "x".join(str(n) for n in a.shape) + f" {layout} "
+                 + "x".join(str(n) for n in b.shape)}
+    if isinstance(got, tuple):  # the GELU's kept pre-activation
+        (got, got_pre), (want, want_pre) = got, want
+        pre_err = _max_err(got_pre, want_pre)
+        pre_limit = product_limit(name, args, want_pre)
+        row.update(preact_err=pre_err, preact_limit=pre_limit)
+        if not pre_err <= pre_limit:
+            raise AssertionError(f"{name} [{row['shape']}]: pre-activation "
+                                 f"error {pre_err} over {pre_limit}")
+    plain_product = ref(a, b, layout) if epilogue else None
+    err = _max_err(got, want)
+    limit = product_limit(name, args, want, plain_product)
+    row.update(max_abs_err=err, limit=limit)
+    if not err <= limit or not torch.isfinite(got.float()).all():
+        raise AssertionError(f"{name} [{row['shape']}]: max abs error {err} "
+                             f"over the limit {limit}, or non-finite")
+    nbytes, ops, ops_s = product_work(name, args)
+    bytes_s = nbytes / HBM_BYTES_PER_S
+    row.update(bytes=nbytes, ops=ops, ops_ms=ops_s * 1e3,
+               bound_ms=max(bytes_s, ops_s) * 1e3,
+               bound_by="operations" if ops_s > bytes_s else "bytes")
+    if timed and got.is_cuda:
+        _, launch = getattr(pk, f"prepare_{name}")(*args)
+        row["ms"] = _time_ms(launch, iters, device_only=True)
+        row["wrapper_ms"] = _time_ms(lambda: kern(*args), iters,
+                                     device_only=False)
+        row["plain_ms"] = _time_ms(lambda: ref(*args), iters,
+                                   device_only=True)
+        row["library_ms"] = _time_ms(_library_product(name, args), iters,
+                                     device_only=True)
+    return row
+
+
+def product_sites(gen: torch.Generator, cfg, b: int, device: torch.device,
+                  *, tp: int = 1, grads: bool = False) -> dict:
+    """Seeded inputs at the shapes ``forward`` (``grads``: the train
+    step's backward) gives the product kernels at batch ``b``, for one
+    rank of ``tp`` (its columns of qkv and w1, its rows of proj and w2):
+    ``{site: (wrapper name, args)}``. Forward sites: the embed, qkv,
+    proj with the residual, w1 with GELU, w2 with the residual, the
+    float32 head; with ``grads`` each site's dX (``nt``) and dW (``tn``),
+    the embed's dW alone, and w1 with GELU keeping its pre-activation, as
+    the training forward calls it."""
+    rows, d, f, nf = b * cfg.seq_len, cfg.d_model, cfg.d_ff, cfg.n_features
+    bf16 = torch.bfloat16
+
+    def randn(*shape, std=1.0, dtype=bf16):
+        return (torch.randn(shape, generator=gen) * std).to(dtype).to(device)
+
+    def weight(k, n):
+        return randn(k, n, std=k ** -0.5)
+
+    # (site, K, N) of each bf16 product, for this rank
+    shapes = {"embed": (nf, d), "qkv": (d, 3 * d // tp),
+              "proj": (d // tp, d), "w1": (d, f // tp), "w2": (f // tp, d)}
+    out: dict = {}
+    for site, (k, n) in shapes.items():
+        x, w = randn(rows, k), weight(k, n)
+        if not grads:
+            extra = (() if site in ("embed", "qkv") else (None, True)
+                     if site == "w1" else (randn(rows, n),))
+            label = {"proj": "proj+residual", "w1": "w1+gelu",
+                     "w2": "w2+residual"}.get(site, site)
+            out[label] = ("bf16_product", (x, w, "nn", *extra))
+            continue
+        dy = randn(rows, n, std=0.01)
+        if site == "w1":
+            out["w1+gelu keeping preact"] = ("bf16_product",
+                                             (x, w, "nn", None, True, True))
+        if site != "embed":
+            out[f"{site} dX"] = ("bf16_product", (dy, w, "nt"))
+        out[f"{site} dW"] = ("bf16_product", (x, dy, "tn"))
+    f32 = torch.float32
+    last, w = randn(b, d, dtype=f32), randn(d, nf, std=d ** -0.5, dtype=f32)
+    if grads:
+        dy = randn(b, nf, std=0.1, dtype=f32)
+        out["head dX"] = ("f32_product", (dy, w, "nt"))
+        out["head dW"] = ("f32_product", (last, dy, "tn"))
+    else:
+        out["head"] = ("f32_product", (last, w, "nn"))
+    return out
+
+
+def phase_products(device: torch.device, seed: int, cfg=None,
+                   batches=FORECAST_BATCHES, grad_batches=None,
+                   iters: int = 100) -> dict:
+    """Both product kernels against their plain versions at every site,
+    layout and epilogue: the forward's sites at ``batches``, the
+    gradients' at ``grad_batches`` (the training batches), timed with the
+    cuBLAS call each replaced and the bound; then, held but not timed,
+    the compact default model's sites at its long window (B = 1 forward,
+    B = 16 gradients), a tp = 4 rank's at the flagship's training batch,
+    and the flagship's at ``TOPK_FEATURES`` features (the service at
+    queue-top-k 1: the embed's K and its dW's M not a multiple of 8).
+    Returns {(label, site, B): row} and raises on an error over its
+    limit."""
+    import dataclasses
+
+    from chanamq_tpu_torch.models.forecaster import ForecasterConfig
+
+    cfg = cfg or ForecasterConfig()
+    grad_batches = TRAIN_BATCHES if grad_batches is None else grad_batches
+    compact = ForecasterConfig(seq_len=WINDOW_T, **WINDOW_MODEL)
+    ragged = dataclasses.replace(cfg, n_features=TOPK_FEATURES)
+    gen = torch.Generator().manual_seed(seed + 2)
+    runs = ([("flagship", cfg, b, 1, False, True) for b in batches]
+            + [("flagship", cfg, b, 1, True, True) for b in grad_batches]
+            + [("compact", compact, 1, 1, False, False),
+               ("compact", compact, TRAIN_BATCHES[0], 1, True, False)]
+            + [("tp4", cfg, TRAIN_BATCHES[0], SHARDED_TP, g, False)
+               for g in (False, True)]
+            + [("topk1", ragged, 1, 1, False, False),
+               ("topk1", ragged, TRAIN_BATCHES[0], 1, True, False)])
+    out: dict = {}
+    nan = float("nan")
+    t0 = time.perf_counter()
+    for label, c, b, tp, grads, timed in runs:
+        sites = product_sites(gen, c, b, device, tp=tp, grads=grads)
+        for site, (name, args) in sites.items():
+            row = out[(label, site, b)] = hold_product(
+                name, args, timed=timed, iters=iters)
+            row["kernel"] = name
+            pre = (f", pre-activation err {row['preact_err']:.6g} (limit "
+                   f"{row['preact_limit']:.6g})" if "preact_err" in row
+                   else "")
+            log(f"[products] {label} {site} B={b} {name} [{row['shape']}]: "
+                f"max abs err {row['max_abs_err']:.6g} (limit "
+                f"{row['limit']:.6g}){pre}; kernel "
+                f"{row.get('ms', nan) * 1e3:.3f} us (wrapper call "
+                f"{row.get('wrapper_ms', nan) * 1e3:.3f} us), plain "
+                f"{row.get('plain_ms', nan) * 1e3:.3f} us, cuBLAS "
+                f"{row.get('library_ms', nan) * 1e3:.3f} us, bound "
+                f"{row['bound_ms'] * 1e3:.4f} us ({row['bound_by']}: "
+                f"{row['ops']} ops, {row['bytes']} B)")
+    log(f"[products] {len(out)} calls held in "
+        f"{time.perf_counter() - t0:.1f} s (host clock)")
+    return out
+
+
 # -- 7. forward at full width ----------------------------------------------------
 
 
@@ -1364,6 +1604,14 @@ def device_split(fn, names) -> dict:
         out[kind]["launches"] += 1
         out[kind]["us"] += e.time_range.elapsed_us()
     return out
+
+
+def no_library_products(what: str, traced: dict) -> None:
+    """Raise if a traced split (``device_split``) holds a library matrix
+    product: every product of the forward and the step is the port's."""
+    if traced["products"]["launches"]:
+        raise AssertionError(f"{what}: {traced['products']['launches']} "
+                             "cuBLAS products on the card")
 
 
 def products_work(cfg, b: int) -> tuple[int, float]:
@@ -1425,12 +1673,27 @@ def phase_forward(device: torch.device, seed: int, cfg=None,
         row.update({"products_bytes": nbytes,
                     "products_bound_ms": seconds * 1e3})
         if got.is_cuda:
+            counted = counted_wrappers()
+            before = {k: w.launches for k, w in counted.items()}
+            kern()
+            torch.cuda.synchronize()
+            row["launches"] = {k: w.launches - before[k]
+                               for k, w in counted.items()
+                               if w.launches != before[k]}
+            want_launches = {k: n for k, n in forward_launches(cfg).items()
+                             if n}
+            if row["launches"] != want_launches:
+                raise AssertionError(f"forward B={b}: launches "
+                                     f"{row['launches']}, want "
+                                     f"{want_launches}")
             row.update({
                 "host_ms": _host_ms(kern, iters),
                 "event_ms": _time_ms(kern, iters, device_only=False),
                 "plain_host_ms": _host_ms(plain, iters),
                 "plain_event_ms": _time_ms(plain, iters, device_only=False),
-                "traced": device_split(kern, FORECASTER_KERNELS)})
+                "traced": device_split(
+                    kern, FORECASTER_KERNELS + PRODUCT_KERNELS)})
+            no_library_products("forward", row["traced"])
         nan = float("nan")
         log(f"[forward] B={b} {cfg.n_layers} layers d_model {cfg.d_model}: "
             f"kernel path against plain path max abs err {err:.6g} (limit "
@@ -1438,7 +1701,8 @@ def phase_forward(device: torch.device, seed: int, cfg=None,
             f"forward {row.get('host_ms', nan):.4f} ms host clock, "
             f"{row.get('event_ms', nan):.4f} ms CUDA events (plain path "
             f"{row.get('plain_host_ms', nan):.4f} / "
-            f"{row.get('plain_event_ms', nan):.4f} ms); traced on the card: "
+            f"{row.get('plain_event_ms', nan):.4f} ms); launches "
+            f"{row.get('launches')}; traced on the card: "
             f"{row.get('traced')}; the products' bound "
             f"{row['products_bound_ms'] * 1e3:.4f} us "
             f"({row['products_bytes']} B)")
@@ -1952,8 +2216,10 @@ def phase_train(device: torch.device, seed: int, cfg=None, batch: int = 16,
         torch.cuda.synchronize()
         res["launches_per_step"] = {k: f.launches - before[k]
                                     for k, f in counted.items()}
-        res["traced"] = device_split(lambda: kern(p_k, m_k, data),
-                                     FORECASTER_KERNELS + TRAIN_KERNELS)
+        res["traced"] = device_split(
+            lambda: kern(p_k, m_k, data),
+            FORECASTER_KERNELS + TRAIN_KERNELS + PRODUCT_KERNELS)
+        no_library_products("train step", res["traced"])
         res.update({
             "host_ms": _host_ms(lambda: kern(p_k, m_k, data), iters),
             "event_ms": _time_ms(lambda: kern(p_k, m_k, data), iters,
@@ -2098,10 +2364,11 @@ def phase_forecast(device: torch.device, *,
                    interval_s: float = 0.02, train_interval_s: float = 0.03,
                    min_rounds: int = 200, timeout_s: float = 120.0,
                    steps_per_round: int = 0, batch: int = 16,
-                   lr: float = 1e-3) -> dict:
+                   lr: float = 1e-3, queue_top_k: int = 0) -> dict:
     """The forecast path end to end: a ForecastService on ``device``
     (``steps_per_round`` train steps a round at ``batch`` and ``lr``; 0
-    for none) beside the port's BrokerServer under a publishing load,
+    for none; ``queue_top_k`` queues' two columns each added to the 8
+    features) beside the port's BrokerServer under a publishing load,
     until ``min_rounds`` forecasts. Checks that the forecasts are finite
     and non-negative, the losses finite, and that the sampler saw the
     load; every forward's window is replayed through the plain path, on
@@ -2127,7 +2394,8 @@ def phase_forecast(device: torch.device, *,
     steps: list = []
     kwargs = {"interval_s": interval_s, "train_interval_s": train_interval_s,
               "seq_len": seq_len, "model_kwargs": model_kwargs,
-              "steps_per_round": steps_per_round, "batch": batch, "lr": lr}
+              "steps_per_round": steps_per_round, "batch": batch, "lr": lr,
+              "queue_top_k": queue_top_k}
     trace = None
     if device.type == "cuda":
         trace = torch.profiler.profile(activities=[
@@ -2172,7 +2440,8 @@ def phase_forecast(device: torch.device, *,
            "ms_first_forward": forwards[0]["s"] * 1e3,
            "ms_per_forward": {k: v for k, v in _ms_stats(
                [fw["s"] for fw in forwards]).items() if k != "first"},
-           "trace": (device_busy(trace, FORECASTER_KERNELS + TRAIN_KERNELS)
+           "trace": (device_busy(trace, FORECASTER_KERNELS + TRAIN_KERNELS
+                                 + PRODUCT_KERNELS)
                      if trace is not None else None)}
     if steps_per_round:
         if len(rounds) < 2 or len(steps) < 2:
@@ -2198,31 +2467,47 @@ TRAIN_ROUNDS = 20
 WINDOW_T = 1024
 WINDOW_MODEL = {"d_model": 64, "n_heads": 4, "d_ff": 256, "n_layers": 2}
 WINDOW_ROUNDS = 3
+TOPK_ROUNDS = 3
 
 
 def counted_wrappers() -> dict:
     """Every forecaster kernel wrapper with a launch count, by name."""
     from chanamq_tpu_torch.kernels import forecaster as fk
+    from chanamq_tpu_torch.kernels import products as pk
     from chanamq_tpu_torch.kernels import update as upd
 
     out = {name: getattr(fk, name)
            for name in FORECASTER_KERNELS + TRAIN_KERNELS[:3]}
     out["clip_momentum_sgd"] = upd.clip_momentum_sgd
+    out.update((name, getattr(pk, name)) for name in PRODUCT_KERNELS)
     return out
 
 
+def forward_launches(cfg) -> dict:
+    """Each kernel's launches in one forward: two layernorms and one
+    attention a layer, no standalone GELU (it rides in w1's epilogue),
+    the bf16 products (the embed, then qkv, proj, w1 and w2 a layer) and
+    the float32 head."""
+    return {"layernorm": 2 * cfg.n_layers, "causal_attention": cfg.n_layers,
+            "gelu_tanh": 0, "bf16_product": 1 + 4 * cfg.n_layers,
+            "f32_product": 1}
+
+
 def train_per_step(cfg) -> dict:
-    """Each kernel's launches in one train step: the forward's (two
-    layernorms, one attention and one GELU a layer), as many backward
-    passes (attention's two launches each: row pass, then gradients), and
+    """Each kernel's launches in one train step: the forward's, as many
+    backward passes of layernorm and attention (attention's two launches
+    each: row pass, then gradients), GELU's backward once a layer, each
+    product's dX and dW (the embed's dW alone: its input is the data), and
     the update's two (sum of squares, then update)."""
     from chanamq_tpu_torch.kernels import forecaster as fk
 
-    fwd = {"layernorm": 2 * cfg.n_layers, "causal_attention": cfg.n_layers,
-           "gelu_tanh": cfg.n_layers}
-    per_call = {"causal_attention": fk.ATT_BWD_LAUNCHES}
-    return {**fwd, **{f"{k}_bwd": n * per_call.get(k, 1)
-                      for k, n in fwd.items()},
+    fwd = forward_launches(cfg)
+    bwd = {"layernorm_bwd": fwd["layernorm"],
+           "causal_attention_bwd": fwd["causal_attention"]
+           * fk.ATT_BWD_LAUNCHES,
+           "gelu_tanh_bwd": cfg.n_layers,
+           "bf16_product": 1 + 2 * 4 * cfg.n_layers, "f32_product": 2}
+    return {**{k: n + bwd.pop(k, 0) for k, n in fwd.items()}, **bwd,
             "clip_momentum_sgd": 2}
 
 
@@ -2289,7 +2574,7 @@ SHARDED_TP = 4
 # once more (tests/test_torch_parallel.py)
 SHARDED_LOSS_RTOL = 2.0 ** -8
 SHARDED_KERNELS = FORECASTER_KERNELS + TRAIN_KERNELS[:3] + (
-    "sum_of_squares", "momentum_sgd")
+    "sum_of_squares", "momentum_sgd") + PRODUCT_KERNELS
 
 
 def sharded_per_step(cfg) -> dict:
@@ -2356,7 +2641,9 @@ def run_processes(target, world: int, args: tuple, *, start: str = "spawn",
 
 
 # the forecaster wrappers a train step's forward and backward call (in
-# training the forward attention keeps its row statistics)
+# training the forward attention keeps its row statistics), on
+# kernels/forecaster.py; the products' are PRODUCT_KERNELS, on
+# kernels/products.py
 STEP_WRAPPERS = ("layernorm", "causal_attention_with_stats", "gelu_tanh",
                  "layernorm_bwd", "causal_attention_bwd", "gelu_tanh_bwd")
 
@@ -2384,25 +2671,29 @@ def _keeping(fn, calls: list):
 
 @contextlib.contextmanager
 def keeping_step_wrappers(calls: dict):
-    """While it is open, every ``STEP_WRAPPERS`` call that the autograd
-    Functions make (they look the wrappers up on ``kernels/forecaster``'s
-    module names) also keeps a copy of its arguments in
-    ``calls[name]``. A wrapper counts its launches on the module's name
-    for it, so the stand-in carries the count and hands it back."""
+    """While it is open, every ``STEP_WRAPPERS`` and ``PRODUCT_KERNELS``
+    call that the autograd Functions make (they look the wrappers up on
+    ``kernels/forecaster``'s and ``kernels/products``' module names) also
+    keeps a copy of its arguments in ``calls[name]``. A wrapper counts its
+    launches on the module's name for it, so the stand-in carries the
+    count and hands it back."""
     from chanamq_tpu_torch.kernels import forecaster as fk
+    from chanamq_tpu_torch.kernels import products as pk
 
-    real = {name: getattr(fk, name) for name in STEP_WRAPPERS}
+    home = {**{name: fk for name in STEP_WRAPPERS},
+            **{name: pk for name in PRODUCT_KERNELS}}
+    real = {name: getattr(mod, name) for name, mod in home.items()}
     stand_in = {name: _keeping(fn, calls.setdefault(name, []))
                 for name, fn in real.items()}
     for name, fn in real.items():
         if hasattr(fn, "launches"):
             stand_in[name].launches = fn.launches
-        setattr(fk, name, stand_in[name])
+        setattr(home[name], name, stand_in[name])
     try:
         yield
     finally:
         for name, fn in real.items():
-            setattr(fk, name, fn)
+            setattr(home[name], name, fn)
             if hasattr(fn, "launches"):
                 fn.launches = stand_in[name].launches
 
@@ -2419,6 +2710,8 @@ def hold_step_call(wrapper: str, args) -> dict:
 
     if wrapper in FORECASTER_KERNELS:
         return hold_forecaster(wrapper, args, timed=False)
+    if wrapper in PRODUCT_KERNELS:
+        return hold_product(wrapper, args, timed=False)
     if wrapper == "causal_attention_with_stats":
         return hold_forecaster(
             "causal_attention", args, timed=False,
@@ -2573,6 +2866,7 @@ def sharded_rank(rank: int, world: int, tp: int | None, init: str,
             out["host_ms"] = _host_ms(lambda: step(params, momentum, part), 5)
             out["traced"] = device_split(
                 lambda: step(params, momentum, part), SHARDED_KERNELS)
+            no_library_products(f"sharded step, rank {rank}", out["traced"])
             # where a step's host time goes: the ops of most host time in
             # one step, and one tp all-reduce of an activation alone
             out["host_ops"] = host_ops(lambda: step(params, momentum, part))
@@ -3016,8 +3310,11 @@ NODE_CADENCE = {"chana.mq.forecast.interval": "100ms",
                 "chana.mq.forecast.train-interval": "2s",
                 "chana.mq.telemetry.interval": "250ms"}
 NODE_ROUNDS = 3
-NODE_KERNELS = ("topic_match", "headers_match") + FORECASTER_KERNELS \
-    + TRAIN_KERNELS[:3] + ("sum_of_squares", "momentum_sgd")
+# every kernel the node's path launches (GELU's forward rides in w1's
+# epilogue: its standalone kernel launches 0 times there)
+NODE_KERNELS = ("topic_match", "headers_match", "layernorm",
+                "causal_attention") + TRAIN_KERNELS[:3] + (
+    "sum_of_squares", "momentum_sgd") + PRODUCT_KERNELS
 
 
 def node_config(device: str) -> dict:
@@ -3377,8 +3674,10 @@ def phase_node(device: torch.device, seed: int, *, window: int = 2048,
     launches = child["launches"]
     if device.type == "cuda":
         idle = [k for k in NODE_KERNELS if launches[k] < 1]
-        if idle:
-            raise AssertionError(f"node path: {idle} never launched")
+        if idle or launches["gelu_tanh"]:
+            raise AssertionError(f"node path: {idle} never launched, or "
+                                 f"{launches['gelu_tanh']} standalone GELU "
+                                 "launches")
         if (launches["clip_momentum_sgd"] != launches["sum_of_squares"]
                 + launches["momentum_sgd"]):
             raise AssertionError(f"node path: update launches {launches}")
@@ -4611,6 +4910,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     from chanamq_tpu_torch.kernels import router_match as rm
+    from chanamq_tpu_torch.models.forecaster import ForecasterConfig
 
     t_run = time.perf_counter()
     dev = phase_device()
@@ -4620,6 +4920,7 @@ def main() -> int:
     fc_kernels = phase_forecaster_kernels(
         device, args.seed, layernorm_batches=LAYERNORM_BATCHES)
     floor = phase_floor(device)
+    products = phase_products(device, args.seed)
     phase_forward(device, args.seed)
     train_kernels = phase_train_kernels(device, args.seed)
     bwd_warps = phase_bwd_warps(device, args.seed)
@@ -4675,21 +4976,19 @@ def main() -> int:
     for wrapper in counted.values():
         wrapper.launches = 0
     fc = phase_forecast(device)
-    for name in FORECASTER_KERNELS + TRAIN_KERNELS:
+    for name in counted:
         launches[name] = counted[name].launches
     cfg = fc["cfg"]
     ms_stats = ", ".join(f"{k} {v:.4f}" for k, v in
                          fc["ms_per_forward"].items() if k != "n")
-    per_forward = {"layernorm": 2 * cfg.n_layers,
-                   "causal_attention": cfg.n_layers,
-                   "gelu_tanh": cfg.n_layers}
+    per_forward = forward_launches(cfg)
     log(f"[forecast] {fc['rounds']} rounds, {fc['forwards']} forwards at "
         f"d_model {cfg.d_model}, {cfg.n_layers} layers, window "
         f"{cfg.seq_len}, on the card in {fc['run_s']:.3f} s; ms per "
         f"forward (host clock, synchronized) over forwards 2-"
         f"{fc['forwards']}: {ms_stats}; the first "
         f"{fc['ms_first_forward']:.4f}; kernel launches "
-        f"{ {k: launches[k] for k in FORECASTER_KERNELS} }; replay against "
+        f"{ {k: launches[k] for k in per_forward} }; replay against "
         f"the plain path max abs err {fc['replay_max_abs_err']:.6g}; "
         f"{fc['samples']} samples, publish rate up to "
         f"{fc['max_publish_rate']:.1f}/s, {fc['published']} published; "
@@ -4715,8 +5014,7 @@ def main() -> int:
     train_launches = {name: w.launches for name, w in counted.items()}
     per_step = train_per_step(ft["cfg"])
     want = {name: per_step.get(name, 0) * ft["steps"]
-            + per_forward.get(name, 0) * ft["forwards"]
-            for name in FORECASTER_KERNELS + TRAIN_KERNELS}
+            + per_forward.get(name, 0) * ft["forwards"] for name in counted}
     stats = {kind: ", ".join(f"{k} {v:.4f}" for k, v in ft[kind].items()
                              if k not in ("n", "first"))
              for kind in ("ms_per_round", "ms_per_step", "ms_per_forward")}
@@ -4736,22 +5034,26 @@ def main() -> int:
         raise AssertionError(f"training path: launches {train_launches}, "
                              f"want {want} for {ft['steps']} steps")
 
-    # the service's compact default model at a window of 1,024, training
-    # at its defaults: every round must train and forecast on the card
-    for wrapper in counted.values():
-        wrapper.launches = 0
-    fw = phase_forecast(device, model_kwargs=dict(WINDOW_MODEL),
-                        seq_len=WINDOW_T, interval_s=0.005,
-                        steps_per_round=STEPS_PER_ROUND, batch=16, lr=1e-3,
-                        min_rounds=WINDOW_ROUNDS, timeout_s=300.0)
-    window_launches = {name: w.launches for name, w in counted.items()}
-    per_step = train_per_step(fw["cfg"])
-    fw_per_forward = {"layernorm": 2 * fw["cfg"].n_layers,
-                      "causal_attention": fw["cfg"].n_layers,
-                      "gelu_tanh": fw["cfg"].n_layers}
-    want = {name: per_step.get(name, 0) * fw["steps"]
-            + fw_per_forward.get(name, 0) * fw["forwards"]
-            for name in FORECASTER_KERNELS + TRAIN_KERNELS}
+    def compact_trained(**kw) -> tuple:
+        """The service's compact default model training at its defaults,
+        every round training and forecasting on the card: the run, its
+        launches counted from 0, and the launches its steps and forwards
+        make."""
+        for wrapper in counted.values():
+            wrapper.launches = 0
+        res = phase_forecast(device, model_kwargs=dict(WINDOW_MODEL),
+                             interval_s=0.005,
+                             steps_per_round=STEPS_PER_ROUND, batch=16,
+                             lr=1e-3, **kw)
+        per_step, per_fw = train_per_step(res["cfg"]), forward_launches(
+            res["cfg"])
+        return res, {name: w.launches for name, w in counted.items()}, {
+            name: per_step.get(name, 0) * res["steps"]
+            + per_fw.get(name, 0) * res["forwards"] for name in counted}
+
+    # at a window of 1,024
+    fw, window_launches, want = compact_trained(
+        seq_len=WINDOW_T, min_rounds=WINDOW_ROUNDS, timeout_s=300.0)
     log(f"[forecast-window] window {fw['cfg'].seq_len}, d_model "
         f"{fw['cfg'].d_model}, {fw['cfg'].n_heads} heads, "
         f"{fw['cfg'].n_layers} layers: {fw['rounds']} rounds of "
@@ -4767,6 +5069,25 @@ def main() -> int:
         raise AssertionError(f"window {WINDOW_T}: launches "
                              f"{window_launches}, want {want}, loss "
                              f"{fw['loss']}")
+
+    # at queue-top-k 1: 10 features, so the embed's product takes K = 10
+    # and its dW M = 10
+    fk1, topk_launches, want = compact_trained(
+        queue_top_k=1, min_rounds=TOPK_ROUNDS, timeout_s=120.0)
+    log(f"[forecast-topk] queue-top-k 1: {fk1['cfg'].n_features} "
+        f"features, d_model {fk1['cfg'].d_model}: {fk1['rounds']} rounds "
+        f"of {STEPS_PER_ROUND} steps, {fk1['steps']} steps and "
+        f"{fk1['forwards']} forwards on the card in {fk1['run_s']:.3f} s; "
+        f"last loss {fk1['loss']:.6g}; forecasts finite and non-negative; "
+        f"replay against the plain path max abs err "
+        f"{fk1['replay_max_abs_err']:.6g}; kernel launches {topk_launches} "
+        f"(want {want}); card {dev['smi']}")
+    if topk_launches != want or fk1["steps"] < STEPS_PER_ROUND \
+            or fk1["cfg"].n_features != TOPK_FEATURES \
+            or not np.isfinite(fk1["loss"]):
+        raise AssertionError(f"queue-top-k 1: launches {topk_launches}, "
+                             f"want {want}, {fk1['cfg'].n_features} "
+                             f"features, loss {fk1['loss']}")
 
     # the sharded train step: (a) over NCCL, one rank a card; (b) tp ranks
     # sharing the first card over gloo with CUDA tensors
@@ -4946,6 +5267,43 @@ def main() -> int:
                 if name == "clip_momentum_sgd" else sharded_path(name)),
             "node_path": node_path(name),
             **(floor_ms if name == "layernorm_bwd" else {})})
+    # the products: each kernel's row sums one flagship forward's launches
+    # at the service's batch (every layer's qkv, proj, w1 and w2, the
+    # embed; the head), its bound from their bytes and operations
+    # together; every site's row held and timed in [products] beside it
+    layers = ForecasterConfig().n_layers
+    for name, where in (
+            ("bf16_product", "chanamq_tpu/models/forecaster.py:106"),
+            ("f32_product", "chanamq_tpu/models/forecaster.py:120")):
+        rows = {key: row for key, row in products.items()
+                if row["kernel"] == name}
+        fwd = [(row, 1 if site in ("embed", "head") else layers)
+               for (label, site, b), row in rows.items()
+               if label == "flagship" and b == FORECAST_BATCHES[0]]
+        total = {k: sum(row[k] * n for row, n in fwd)
+                 for k in ("ms", "wrapper_ms", "plain_ms", "library_ms",
+                           "bytes", "ops_ms")}
+        bytes_ms = total["bytes"] / HBM_BYTES_PER_S * 1e3
+        line.append({
+            "name": name, "route": "cuda",
+            "source": "chanamq_tpu_torch/csrc/products.cu",
+            "replaces": where, "launches": launches[name],
+            "launches_training_path": train_launches[name],
+            "shape": f"one forward's {sum(n for _, n in fwd)} launches at "
+                     f"B={FORECAST_BATCHES[0]}",
+            "max_abs_err": max(row["max_abs_err"] for row in rows.values()),
+            "of_limit": max(row["max_abs_err"] / row["limit"]
+                            for row in rows.values()),
+            **{k: total[k] for k in ("ms", "wrapper_ms", "plain_ms",
+                                     "library_ms")},
+            "bound_ms": max(bytes_ms, total["ops_ms"]),
+            "bound_by": ("operations" if total["ops_ms"] > bytes_ms
+                         else "bytes"),
+            "sites": {f"{label} {site} B={b}": {k: row[k] for k in keys
+                                                 if k in row}
+                      for (label, site, b), row in rows.items()},
+            **({"hmma": hmma[name]} if name in hmma else {}),
+            "sharded_path": sharded_path(name), "node_path": node_path(name)})
     log(f"[time] every phase in {time.perf_counter() - t_run:.1f} s (host "
         f"clock, builds included); card {dev['smi']}")
     print(json.dumps({"kernels": line}))

@@ -26,6 +26,11 @@
   stop began. The reference's handler then read forever while its peer
   kept the connection open, and ``stop()`` waited for it forever (the
   membership tests hung under load).
+- A federation link counts a cursor batch as shipped when it writes the
+  ``fed.cursor`` call, and takes the count back if the call fails. The
+  reference's counted it after the reply, which the receiver sends after
+  it applied the commit, so a mirror could be visible while its shipper
+  still read 0 (``test_cursor_commits_mirror_to_remote`` failed).
 - The WAL's read barrier yields on a finished drain. The reference's
   spins on it (awaiting a finished task does not yield, so the drain's
   creator never resumes to clear it), which hung a follower's event loop
@@ -37,6 +42,7 @@ import os
 import socket
 import subprocess
 import sys
+import types
 
 import pytest
 import torch
@@ -48,8 +54,10 @@ from chanamq_tpu_torch.client import AMQPClient
 from chanamq_tpu_torch.cluster.membership import Membership
 from chanamq_tpu_torch.cluster import dataplane as dp
 from chanamq_tpu_torch.cluster.node import ClusterNode
-from chanamq_tpu_torch.cluster.rpc import RpcServer, TcpTransport
+from chanamq_tpu_torch.cluster.rpc import RpcError, RpcServer, TcpTransport
+from chanamq_tpu_torch.federation.link import FederationLink
 from chanamq_tpu_torch.store.memory import MemoryStore
+from chanamq_tpu_torch.utils.metrics import Metrics
 
 pytestmark = pytest.mark.asyncio
 
@@ -433,3 +441,68 @@ async def test_redial_waits_for_frames_in_flight():
     finally:
         await stream.close()
         await server.stop()
+
+
+class _HeldRpc:
+    """An RPC client whose calls wait for ``release``, then answer, or
+    raise when ``fail``."""
+
+    def __init__(self, fail: bool = False) -> None:
+        self.calls: list = []
+        self.release = asyncio.Event()
+        self.fail = fail
+
+    async def call(self, method: str, params: dict):
+        self.calls.append((method, params))
+        await self.release.wait()
+        if self.fail:
+            raise RpcError("down", "the link dropped")
+        return {}
+
+    async def close(self) -> None:
+        return None
+
+
+async def test_cursor_batch_counts_when_written():
+    """A cursor batch counts as shipped while its ``fed.cursor`` call is
+    in flight (the receiver may have applied it already); a call that
+    fails takes its count back, and its cursors are dirty again, merged
+    with a commit made meanwhile."""
+    svc = types.SimpleNamespace(window=4, retry_s=0.1, auth_token="",
+                                metrics=Metrics())
+    link = FederationLink(svc, {"name": "l", "host": "127.0.0.1",
+                                "port": 1})
+    loop = asyncio.get_running_loop()
+
+    async def in_flight(rpc):
+        link.rpc = rpc
+        task = loop.create_task(link._flush_cursors())
+        for _ in range(200):
+            if rpc.calls:
+                break
+            await asyncio.sleep(0.005)
+        assert [m for m, _ in rpc.calls] == ["fed.cursor"]
+        return task
+
+    try:
+        rpc = _HeldRpc()
+        link.dirty_cursors = {"fq": {"group-1": 10, "group-2": 4}}
+        task = await in_flight(rpc)
+        assert svc.metrics.federation_cursors_shipped == 2
+        rpc.release.set()
+        await asyncio.wait_for(task, 5)
+        assert svc.metrics.federation_cursors_shipped == 2
+        assert link.dirty_cursors == {}
+
+        rpc = _HeldRpc(fail=True)
+        link.dirty_cursors = {"fq": {"group-1": 12}}
+        task = await in_flight(rpc)
+        assert svc.metrics.federation_cursors_shipped == 3
+        link.dirty_cursors["fq"] = {"group-1": 11, "group-3": 1}
+        rpc.release.set()
+        with pytest.raises(RpcError):
+            await asyncio.wait_for(task, 5)
+        assert svc.metrics.federation_cursors_shipped == 2
+        assert link.dirty_cursors == {"fq": {"group-1": 12, "group-3": 1}}
+    finally:
+        await link.data.close()

@@ -570,10 +570,13 @@ def test_chip_smoke_train_phase_rehearsal():
     assert "host_ms" not in res
     per_step = chip_smoke.train_per_step(cfg)
     # attention's backward is two launches a call: its row pass and its
-    # main kernel
+    # main kernel; GELU's forward rides in w1's epilogue; the bf16
+    # products are the forward's 1 + 4 a layer, then a dX and a dW each
+    # but the embed's dX (its input is the data); the head, its dX and dW
     assert per_step == {"layernorm": 4, "causal_attention": 2,
-                        "gelu_tanh": 2, "layernorm_bwd": 4,
+                        "gelu_tanh": 0, "layernorm_bwd": 4,
                         "causal_attention_bwd": 4, "gelu_tanh_bwd": 2,
+                        "bf16_product": 9 + 17, "f32_product": 3,
                         "clip_momentum_sgd": 2}
 
 
@@ -593,6 +596,20 @@ def test_chip_smoke_forecast_train_phase_rehearsal():
         assert stats["first"] > 0 and stats["n"] >= 2
         assert 0 < stats["median"] <= stats["p99"] <= stats["max"]
     assert res["ms_per_step"]["n"] <= res["steps"] - 1
+
+
+def test_chip_smoke_forecast_topk_phase_rehearsal():
+    """chip_smoke's ``[forecast-topk]`` on the CPU at a tiny width: the
+    service at queue-top-k 1 trains and forecasts on 10 features (the
+    embed's K not a multiple of 8), every forward replayed."""
+    res = chip_smoke.phase_forecast(
+        torch.device("cpu"), model_kwargs=TINY_MODEL, seq_len=8,
+        min_rounds=2, steps_per_round=2, batch=4, queue_top_k=1)
+    assert res["cfg"].n_features == chip_smoke.TOPK_FEATURES
+    assert res["rounds"] >= 2 and res["steps"] >= 2 * res["rounds"]
+    assert np.isfinite(res["loss"])
+    assert res["replay_max_abs_err"] <= chip_smoke.FORWARD_LIMIT
+    assert len(res["forecast"]) == chip_smoke.TOPK_FEATURES
 
 
 def test_chip_smoke_products_work_by_hand():

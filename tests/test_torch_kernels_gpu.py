@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card: the router match kernels, the forecaster's layernorm, causal
-attention and tanh-GELU, their backward passes and the train step's
-clipped momentum update. Marked ``gpu``; skipped where no CUDA device is
+attention, tanh-GELU and matrix products (forward, gradients, the GELU
+and residual epilogues, the float32 head), their backward passes and the
+train step's clipped momentum update. Marked ``gpu``; skipped where no CUDA device is
 present. Run on a machine with a card:
 
     python -m pytest tests/test_torch_kernels_gpu.py -m gpu -q
@@ -52,6 +53,7 @@ import torch
 import chip_smoke
 from chanamq_tpu.router import compile as ref_compile
 from chanamq_tpu_torch.kernels import forecaster as fk
+from chanamq_tpu_torch.kernels import products as pk
 from chanamq_tpu_torch.kernels import router_match as rm
 from chanamq_tpu_torch.kernels import update as upd
 from chanamq_tpu_torch.models import forecaster as port_fc
@@ -293,13 +295,15 @@ def test_forecaster_forward_matches_plain(cuda, b):
     cfg = port_fc.ForecasterConfig()
     params = port_fc.init_params(0, cfg, cuda)
     x, _ = port_fc.synthetic_batch(np.random.default_rng(b), cfg, b, cuda)
-    before = (fk.layernorm.launches, fk.causal_attention.launches,
-              fk.gelu_tanh.launches)
+    counted = (fk.layernorm, fk.causal_attention, fk.gelu_tanh,
+               pk.bf16_product, pk.f32_product)
+    before = tuple(w.launches for w in counted)
     got = port_fc.forward(params, x, cfg)
     torch.cuda.synchronize()
-    assert (fk.layernorm.launches, fk.causal_attention.launches,
-            fk.gelu_tanh.launches) == tuple(
-                n + k for n, k in zip(before, (8, 4, 4)))
+    # GELU rides in w1's epilogue: no standalone GELU launch; 17 bf16
+    # products (the embed, four a layer) and the float32 head
+    assert tuple(w.launches for w in counted) == tuple(
+        n + k for n, k in zip(before, (8, 4, 0, 17, 1)))
     want = port_fc.forward(params, x, cfg, ops=fk.PLAIN)
     assert got.shape == (b, 8) and torch.isfinite(got).all()
     assert float((got - want).abs().max()) <= chip_smoke.FORWARD_LIMIT
@@ -474,6 +478,93 @@ def test_forward_refuses_reduced_precision_products(cuda):
     finally:
         port_fc.set_matmul_precision()
     assert torch.isfinite(port_fc.forward(params, x, cfg)).all()
+
+
+# -- the matrix products ----------------------------------------------------------
+
+
+COMPACT = {"d_model": 64, "n_heads": 4, "d_ff": 256, "n_layers": 2}
+# (config, batch, tp ranks): the flagship's forward batches (M = 64 and
+# 2,048) and training batch, a tp = 4 rank's shapes (qkv 192 columns,
+# proj K = 64, w1 256 columns, w2 K = 256), the compact default model at
+# its long window (M = 1,024) and at B = 64 there (M = 65,536), rows
+# that are not whole tiles (M = 15, 1), and feature counts that are not a
+# multiple of 8 (the embed's K and its dW's M: 10 at queue-top-k 1, 14 at
+# 3, 3)
+PRODUCT_CASES = [({}, 1, 1), ({}, 32, 1), ({}, 16, 1), ({}, 16, 4),
+                 ({**COMPACT, "seq_len": 1024}, 1, 1),
+                 ({**COMPACT, "seq_len": 1024}, 64, 1),
+                 ({"seq_len": 5}, 3, 1), ({"seq_len": 1}, 1, 1),
+                 ({"n_features": 10}, 1, 1), ({"n_features": 10}, 16, 1),
+                 ({**COMPACT, "n_features": 14, "seq_len": 5}, 3, 1),
+                 ({**COMPACT, "n_features": 3}, 2, 1)]
+
+
+@pytest.mark.parametrize("grads", [False, True])
+@pytest.mark.parametrize("kw,b,tp", PRODUCT_CASES)
+def test_products_match_plain(cuda, kw, b, tp, grads):
+    """Every product site, layout and epilogue (``chip_smoke.product_sites``:
+    the forward's, or the gradients' with w1's GELU keeping its
+    pre-activation) against its plain version within
+    ``chip_smoke.product_limit``, one launch a call, and the same bits
+    from a second launch."""
+    cfg = port_fc.ForecasterConfig(**kw)
+    gen = torch.Generator().manual_seed(b * 10 + tp)
+    sites = chip_smoke.product_sites(gen, cfg, b, cuda, tp=tp, grads=grads)
+    for site, (name, args) in sites.items():
+        kern = getattr(pk, name)
+        before = kern.launches
+        chip_smoke.hold_product(name, args, timed=False)
+        torch.cuda.synchronize()
+        assert kern.launches == before + 1, site
+        first, again = kern(*args), kern(*args)
+        for x, y in zip(*(o if isinstance(o, tuple) else (o,)
+                          for o in (first, again))):
+            assert torch.equal(x, y), site
+
+
+def test_products_reject_bad_input(cuda):
+    bf16 = torch.bfloat16
+    a = torch.zeros(64, 256, dtype=bf16, device=cuda)
+    w = torch.zeros(256, 768, dtype=bf16, device=cuda)
+    with pytest.raises(TypeError):  # bf16 only
+        pk.bf16_product(a.float(), w.float())
+    with pytest.raises(TypeError):  # float32 only
+        pk.f32_product(a, w)
+    with pytest.raises(ValueError):  # not contiguous
+        pk.bf16_product(a, w.t().contiguous().t())
+    with pytest.raises(ValueError):  # N not a multiple of 8
+        pk.bf16_product(a, w[:, :12].contiguous())
+    with pytest.raises(ValueError):  # a layout the kernel lacks
+        pk.bf16_product(a, w.t().contiguous(), "tt")
+    with pytest.raises(ValueError):  # an epilogue in another layout
+        pk.bf16_product(a, w.t().contiguous(), "nt", None, True)
+    with pytest.raises(ValueError):  # a residual of another shape
+        pk.bf16_product(a, w, "nn", a)
+    with pytest.raises(ValueError):  # not 16-byte aligned
+        pk.bf16_product(torch.zeros(64 * 256 + 1, dtype=bf16,
+                                    device=cuda)[1:].view(64, 256), w)
+    with pytest.raises(ValueError):  # operands that do not meet
+        pk.f32_product(torch.zeros(2, 256, device=cuda),
+                       torch.zeros(255, 8, device=cuda))
+    with pytest.raises(ValueError):  # on the CPU a kernel's own path
+        pk.prepare_bf16_product(a.cpu(), w.cpu())
+
+
+def test_forecast_service_at_queue_top_k_1(cuda):
+    """The service at queue-top-k 1 (10 features: the embed's K and its
+    dW's M not a multiple of 8) trains and forecasts on the card through
+    the product kernels, every forward replayed against the plain path
+    (``chip_smoke.py``'s ``[forecast-topk]``, at fewer rounds)."""
+    before = pk.bf16_product.launches
+    res = chip_smoke.phase_forecast(
+        cuda, model_kwargs=dict(COMPACT), interval_s=0.005,
+        steps_per_round=4, batch=4, min_rounds=2, queue_top_k=1,
+        timeout_s=120.0)
+    assert res["cfg"].n_features == chip_smoke.TOPK_FEATURES
+    assert res["steps"] >= 4 and np.isfinite(res["loss"])
+    assert res["replay_max_abs_err"] <= chip_smoke.FORWARD_LIMIT
+    assert pk.bf16_product.launches > before
 
 
 # -- the training kernels --------------------------------------------------------
@@ -915,10 +1006,13 @@ def test_train_step_matches_jax(cuda, record_property):
         record_property(f"{kind}_of_limit", ratio)
         record_property(f"{kind}_worst", f"{name} after {step}")
     # 5 steps, and the bias bound's two gradient passes (forward and
-    # backward kernels, no update)
+    # backward kernels, no update); the second asks for no weight's
+    # gradient, so its products compute no dW (the embed's, four a
+    # layer's, the head's)
     per_step = chip_smoke.train_per_step(tcfg)
+    no_dw = {"bf16_product": 1 + 4 * tcfg.n_layers, "f32_product": 1}
     for name, w in counted.items():
         n = per_step[name] * 5
         if name != "clip_momentum_sgd":
-            n += 2 * per_step[name]
+            n += 2 * per_step[name] - no_dw.get(name, 0)
         assert w.launches - before[name] == n, name
