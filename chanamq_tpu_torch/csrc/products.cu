@@ -1,7 +1,7 @@
 // The forecaster's matrix products for Hopper (sm_90a), forward and
-// gradients: kernel 1 the bf16 products on the tensor cores, with the
-// GELU and residual adds in their epilogue, kernel 2 the float32 head on
-// the CUDA cores.
+// gradients: kernel 1 the bf16 products on the tensor cores (wgmma), with
+// the GELU and residual adds in their epilogue, kernel 2 the float32 head
+// on the CUDA cores.
 //
 // What they replace. chanamq_tpu/models/forecaster.py's einsums, which the
 // reference leaves to XLA inside its jitted forward and step: the embed
@@ -18,8 +18,8 @@
 // rounded value is also written out for the backward); or a residual add
 // (the rounded value plus a bf16 residual, added in float32 and rounded
 // again), as the reference's bf16 einsum and `h +` round. Kernel 2: the
-// same product in float32 on float32 operands, one fused multiply-add a
-// term in k order, no TF32 (the reference's head is a float32 product).
+// same product in float32 on float32 operands with fused multiply-adds, no
+// TF32 (the reference's head is a float32 product).
 //
 // Layouts. The forward is (A, B): A [M][K], B [K][N] (the weights' [in,
 // out] layout). dX = dY W^T is (A, B^T): B stored [N][K]. dW = X^T dY is
@@ -27,271 +27,752 @@
 // template instance of one kernel, the layout a pair of flags.
 //
 // What bounds them on this card. At the forecaster's shapes (T = 64,
-// d_model 256, d_ff 1024, batch 1 to 32) a product does 2 K multiply-adds
-// an output from at most K + N loads a row: 64 to 512 operations a byte
-// at batch 32, around the ~295 at which the tensor cores and not the
-// memory become the limit; at batch 1 (M = 64 rows) every product's bound
-// (0.16 us for qkv, by bytes) lies under the ~1.7 us of an empty launch,
-// so launch latency and parallelism set the time. The head is a
-// [B, 256] x [256, 8] float32 product: a few hundred nanoseconds of work.
+// d_model 256, d_ff 1024, batch 1 to 32) every site is bound by bytes:
+// 0.01 to 3 us of reads and writes at 3.35 TB/s, under or near the
+// 1.846 us of an empty launch at batch 1 (chip_smoke.py's [floor]). A
+// first version (mma.sync on 64 x 64 tiles, one block walking all of K
+// through two cp.async slots 32 deep) took about 2.6 us plus 0.33 us for
+// every 32-deep step, whatever the grid: each step waited for one round
+// trip to L2 or device memory with one tile in flight, and most SMs were
+// idle (4 blocks for w2 at batch 1, 48 to 64 for the weight gradients,
+// whose K is the batch's B * T rows). The head's forward gave each of its
+// B * 8 outputs to one thread: a chain of 256 dependent loads and FMAs.
 //
-// What the design does about it. Kernel 1 fuses what the forward did in
-// separate launches after the product (GELU, the two residual adds), so a
-// forward makes 12 launches fewer and writes no unactivated or unsummed
-// product to device memory. One block of four warps takes a 64 x 64
-// output tile, each warp 32 x 32 as 2 x 4 mma.sync.m16n8k16 tiles; the K
-// tiles (32 deep) are staged through a two-slot cp.async ring (16-byte
-// copies, or a value at a time where a stored row's length is not a
-// multiple of 8; zeros past the edges of M, N and K), so the next tile's
-// copies are in flight while the tensor cores work on this one; the fragments
-// are loaded with ldmatrix (.trans for an operand stored the other way),
-// rows padded by 16 bytes so that its eight rows fall in distinct bank
-// groups. mma.sync, not wgmma: 64-row tiles at M = 64 already leave most
-// SMs idle, and right and simple comes first (attention_tiles.cuh's
-// building blocks: cp_async, the fragment loaders, mma_bf16, round_bf16,
-// pack_bf16). Kernel 2 is one output a thread, a plain FMA loop.
+// What this design does about it. Kernel 1 keeps several K tiles in
+// flight and spreads K over the card:
+// - The tile product is wgmma.mma_async.m64n64k16.f32.bf16.bf16 with both
+//   operands in shared memory: one consumer warpgroup takes a 64 x 64
+//   output tile, or two take a 128 x 128 tile (kWG; the wrapper's
+//   tile_rows takes the larger only where its tiles alone nearly fill the
+//   card, for the reuse of each loaded stage). The layouts are wgmma's
+//   operand-major bits: A stored [K][M] is M-major (transpose-A), B stored
+//   [K][N] is N-major (transpose-B), the others K-major.
+// - K arrives 64 deep (128 bytes: one swizzle row) through a ring of
+//   kStages stages, each stage's A and B loaded by the tensor memory
+//   accelerator (cp.async.bulk.tensor.2d, 128-byte swizzle, zeros past
+//   every edge of M, N and K, the embed's K = 8 included) onto the stage's
+//   full mbarrier (expect_tx). One producer warp sets up the barriers and
+//   issues the first stages before the block barrier, then refills a slot
+//   once the consumers release it on its empty mbarrier; the consumers run
+//   wgmma on each stage as it lands, leaving one wgmma group in flight.
+//   TMA needs rows whose length is a multiple of 16 bytes: an operand
+//   stored in rows of a length that is not a multiple of 8 (the embed's K,
+//   or its dW's M, at 10 features) is written into the same swizzled
+//   layout a value at a time by the producer warp (stage_panel).
+// - Split-K over a thread-block cluster. Where the output tiles alone
+//   leave the card idle, the S blocks of one tile (S = 2, 4 or 8, chosen
+//   by the wrapper's split_k from the shape) form a cluster, each taking a
+//   contiguous 1/S of K. Their float32 partial tiles meet in distributed
+//   shared memory: rank r owns rows [r T / S, (r + 1) T / S) of the tile,
+//   every rank stores those rows of its partial into rank r's receive area
+//   (beside the ring, so no rank waits for another's main loop to end
+//   before storing), and after one cluster barrier rank r adds the S
+//   slices in rank order 0..S-1 and runs the epilogue. No float atomics
+//   and no workspace: the same inputs give the same bits. The embed's dW
+//   (M = the feature count, 8) takes the same route: its time is in reading
+//   B * T rows of dY, not in the tensor cores' work on the padded rows, and
+//   split-K spreads those reads over 32 blocks.
+// - The epilogue takes 8 columns a thread from the receive area (the whole
+//   tile's with S = 1) and stores 16 bytes at a time; an unsplit 64 x 64
+//   tile without GELU stores straight from the accumulators instead, a
+//   pair at a time, which measured faster there.
+// Kernel 2 gives each output of the head's forward (K = d_model) a warp, or
+// a group of 8 or 16 lanes at K under 256: lane l sums terms l, l + G, ...
+// with fmaf, then a fixed butterfly of __shfl_xor_sync adds the group; the
+// gradients' K (8, and the batch) stays one short chain a thread.
 
+#include <cooperative_groups.h>
+#include <cuda.h>  // CUtensorMap; the encoder comes through the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 #include "attention_tiles.cuh"
 #include "gelu.cuh"
 
 namespace {
 
-using chana_att::cp_async;
-using chana_att::cp_async_commit;
-using chana_att::cp_async_wait;
-using chana_att::load_a;
-using chana_att::load_a_trans;
-using chana_att::load_b_kn;
-using chana_att::load_b_nk;
-using chana_att::mma_bf16;
+namespace cg = cooperative_groups;
 using chana_att::pack_bf16;
 using chana_att::round_bf16;
 using chana_att::unpack_bf16;
 
-constexpr int kBM = 64;        // output rows a block
-constexpr int kBN = 64;        // output columns a block
-constexpr int kBK = 32;        // depth of a ring slot
-constexpr int kWarpM = 32;     // output rows a warp (2 m16 tiles)
-constexpr int kWarpN = 32;     // output columns a warp (4 n8 tiles)
-constexpr int kThreads = 128;  // four warps, 2 x 2 over the block's tile
-constexpr int kPad = 8;        // bf16 padding a shared-memory row (16 B)
-constexpr int kChunk = 8;      // bf16 values a 16-byte copy
+constexpr int kBK = 64;        // depth of a ring stage: one 128-byte row
+constexpr int kAtom = 64;      // rows (or columns) of a swizzle atom
+constexpr int kAtomBytes = kAtom * kBK * 2;  // 8 KB: 64 rows of 128 bytes
+constexpr int kMaxSplits = 8;  // blocks in a cluster (the portable limit)
+constexpr int kChunk = 8;      // bf16 values in 16 bytes
 
 // the operands' layouts, as the Python wrapper names them
 enum Layout { kNN = 0, kNT = 1, kTN = 2 };
 enum Epilogue { kNone = 0, kGelu = 1, kResidual = 2 };
 
-// A slot of one operand: `rows` x `cols` bf16 at `ld` apart. A is [kBM][kBK]
-// as stored [M][K], [kBK][kBM] as stored [K][M]; B is [kBK][kBN] as stored
-// [K][N], [kBN][kBK] as stored [N][K].
-template <int kRows, int kCols>
-struct Slot {
-  static constexpr int rows = kRows;
-  static constexpr int cols = kCols;
-  static constexpr int ld = kCols + kPad;
-  static constexpr int elems = kRows * ld;
+// A block's tile with kWG consumer warpgroups: (64 kWG) x (64 kWG) outputs,
+// one producer warp after the consumers.
+template <int kWG>
+struct Tile {
+  static constexpr int kM = 64 * kWG;
+  static constexpr int kN = 64 * kWG;
+  static constexpr int kNB = kN / 64;  // n64 wgmma column blocks
+  static constexpr int kConsumers = 128 * kWG;
+  static constexpr int kThreads = kConsumers + 32;
+  static constexpr int kStages = kWG == 1 ? 5 : 4;
+  static constexpr int kABytes = kM * kBK * 2;
+  static constexpr int kBBytes = kN * kBK * 2;
+  static constexpr int kStageBytes = kABytes + kBBytes;
+  static constexpr int kRingBytes = kStages * kStageBytes;
+  static constexpr int kLd = kN + 8;  // floats a row of a partial slice
+  // S slices of up to ceil(kM / S) rows each
+  static constexpr int kRecvBytes = (kM + kMaxSplits) * kLd * 4;
+  // + 1024 bytes to align the ring: two small blocks an SM, one large
+  static constexpr int kSmem = kRingBytes + kRecvBytes + 1024;
+  // (each block also holds 1 KB of static and 1 KB of reserved memory)
+  static_assert(kSmem + 2048 <= (kWG == 1 ? 233472 / 2 : 232448),
+                "the blocks an SM takes fit its shared memory");
 };
 
-// Rows [r0, r0 + rows) and columns [c0, c0 + cols) of a row-major
-// [src_rows][src_cols] matrix into dst (ld apart), zeros where the tile
-// passes the matrix's last row or column. When src_cols is a multiple of
-// 8, each run of 8 values is one 16-byte cp.async, wholly in or wholly
-// out. Otherwise (a ragged row: the embed's K, or its dW's M, is the
-// feature count, 8 + 2 per tracked queue) the rows do not start on 16
-// bytes, and each value is loaded alone and stored with its run. Every
-// thread of the block takes part; the caller commits.
-template <class S>
-__device__ __forceinline__ void stage(__nv_bfloat16* dst,
-                                      const __nv_bfloat16* src,
-                                      int src_rows, int src_cols, int r0,
-                                      int c0) {
-  constexpr int kPerRow = S::cols / kChunk;
-  constexpr int kCopies = S::rows * kPerRow;
-  static_assert(kCopies % kThreads == 0, "a slot is whole copies a thread");
-  const bool whole = src_cols % kChunk == 0;
-#pragma unroll
-  for (int i = 0; i < kCopies / kThreads; ++i) {
-    const int idx = threadIdx.x + i * kThreads;
-    const int r = idx / kPerRow;
-    const int c = (idx - r * kPerRow) * kChunk;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// -- mbarriers and the tensor memory accelerator -----------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(count));
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// Wait (acquire) until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// The box at (c0 along the rows, c1 rows down) of the matrix `map`
+// describes into dst, counted on bar's transaction bytes.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
+      "l"((uint64_t)map), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_prefetch(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];" ::"l"((uint64_t)map) : "memory");
+}
+
+// Rows [r0, r0 + rows) and columns [c0, c0 + 64) of a row-major
+// [src_rows][src_cols] matrix into dst in the layout TMA's 128-byte
+// swizzle writes (16-byte chunk c of row r at r * 128 + (c ^ r % 8) * 16),
+// zeros past the matrix's edges. For a matrix whose rows are not a
+// multiple of 16 bytes long, which TMA cannot describe: each value is
+// loaded alone. The producer warp's 32 lanes take a chunk each in turn.
+__device__ __forceinline__ void stage_panel(uint8_t* dst,
+                                            const __nv_bfloat16* src,
+                                            int src_rows, int src_cols, int r0,
+                                            int c0, int rows, int lane) {
+  const auto* s16 = reinterpret_cast<const unsigned short*>(src);
+  for (int idx = lane; idx < rows * 8; idx += 32) {
+    const int r = idx >> 3;
+    const int ch = idx & 7;
     const int row = r0 + r;
-    const int col = c0 + c;
-    __nv_bfloat16* d = dst + r * S::ld + c;
-    if (whole && row < src_rows && col < src_cols) {
-      cp_async(d, src + (size_t)row * src_cols + col, 16);
-    } else if (whole || row >= src_rows) {
-      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
-    } else {
-      const auto* from = reinterpret_cast<const unsigned short*>(src) +
-                         (size_t)row * src_cols;
-      uint32_t w[kChunk / 2];
+    const int col = c0 + ch * kChunk;
+    uint32_t w[4] = {0u, 0u, 0u, 0u};
+    if (row < src_rows && col < src_cols) {
+      const unsigned short* from = s16 + (size_t)row * src_cols;
 #pragma unroll
       for (int e = 0; e < kChunk; e += 2) {
         const uint32_t lo = col + e < src_cols ? from[col + e] : 0u;
         const uint32_t hi = col + e + 1 < src_cols ? from[col + e + 1] : 0u;
-        w[e / 2] = lo | (hi << 16);
+        w[e >> 1] = lo | (hi << 16);
       }
-      *reinterpret_cast<uint4*>(d) = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+    *reinterpret_cast<uint4*>(dst + r * 128 + ((ch ^ (r & 7)) << 4)) =
+        make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+// The cluster barrier in two halves: arrive (relaxed) early, wait
+// (acquire) where the peers are needed.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;" ::: "memory");
+}
+
+// -- wgmma -------------------------------------------------------------------
+
+// The shared-memory descriptor of a 128-byte-swizzled operand at addr:
+// 8-row groups 1,024 bytes apart (SBO). The leading offset is unused by
+// these layouts (a K-major k16 slice lies in one 128-byte row; an M- or
+// N-major operand here is one 64-wide atom) and set to the same.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  constexpr uint64_t k1024 = 1024 >> 4;
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (k1024 << 16) | (k1024 << 32) |
+         (1ull << 62);
+}
+
+// Keeps the compiler from moving accumulator accesses across the wgmma
+// fences and waits.
+__device__ __forceinline__ void fence_acc(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(kPending)
+               : "memory");
+}
+
+// d [64 x 64] += A [64 x 16] B [16 x 64], both from shared memory; kTA: A
+// is M-major, kTB: B is N-major. Lane l of warp w (of the warpgroup) holds
+// d[4 j + 2 h + c] at row 16 w + l / 4 + 8 h, column 8 j + 2 (l % 4) + c.
+template <int kTA, int kTB>
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da,
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, %32, %33, p, 1, 1, %35, %36;\n}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1), "n"(kTA), "n"(kTB));
+}
+
+// -- kernel 1: the bf16 product ----------------------------------------------
+
+// The epilogue on kV (2 or 8) neighbouring float32 sums of row-major
+// output [.][N] at element o (2 kV bytes aligned): rounded to bf16; then
+// GELU (the rounded values also to `preact` when it is not null) or the
+// residual added and rounded again (kEpi); one store of 2 kV bytes each.
+template <int kW>
+__device__ __forceinline__ void load_words(uint32_t (&w)[kW],
+                                           const __nv_bfloat16* from) {
+  if constexpr (kW == 4) {
+    const uint4 q = *reinterpret_cast<const uint4*>(from);
+    w[0] = q.x;
+    w[1] = q.y;
+    w[2] = q.z;
+    w[3] = q.w;
+  } else {
+    w[0] = *reinterpret_cast<const uint32_t*>(from);
+  }
+}
+
+template <int kW>
+__device__ __forceinline__ void store_words(__nv_bfloat16* to,
+                                            const uint32_t (&w)[kW]) {
+  if constexpr (kW == 4) {
+    *reinterpret_cast<uint4*>(to) = make_uint4(w[0], w[1], w[2], w[3]);
+  } else {
+    *reinterpret_cast<uint32_t*>(to) = w[0];
+  }
+}
+
+template <int kEpi, int kV>
+__device__ __forceinline__ void epilogue(const float (&v)[kV], size_t o,
+                                         __nv_bfloat16* __restrict__ out,
+                                         const __nv_bfloat16* __restrict__ res,
+                                         __nv_bfloat16* __restrict__ preact) {
+  constexpr int kW = kV / 2;
+  static_assert(kW == 1 || kW == 4, "pairs or 8 values");
+  uint32_t h[kW], w[kW], p[kW];
+  if (kEpi == kResidual) load_words<kW>(h, res + o);
+#pragma unroll
+  for (int i = 0; i < kW; ++i) {
+    const float r0 = round_bf16(v[2 * i]);
+    const float r1 = round_bf16(v[2 * i + 1]);
+    if (kEpi == kGelu) {
+      p[i] = pack_bf16(r0, r1);
+      w[i] = pack_bf16(chana_gelu::gelu_tanh_f(r0),
+                       chana_gelu::gelu_tanh_f(r1));
+    } else if (kEpi == kResidual) {
+      const float2 x = unpack_bf16(h[i]);
+      w[i] = pack_bf16(x.x + r0, x.y + r1);
+    } else {
+      w[i] = pack_bf16(r0, r1);
     }
   }
+  store_words<kW>(out + o, w);
+  if (kEpi == kGelu && preact != nullptr) store_words<kW>(preact + o, p);
 }
 
 // C [M][N] = op(A) op(B), bf16 out, with the epilogue kEpi (kNN only):
 // kGelu writes gelu(bf16(C)) and, when `preact` is not null, bf16(C) to
-// it; kResidual writes bf16(residual + bf16(C)). One block a 64 x 64 tile:
-// blockIdx.x over M, blockIdx.y over N.
-template <bool kTransA, bool kTransB, int kEpi>
-__global__ void __launch_bounds__(kThreads) bf16_product_kernel(
-    const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __restrict__ b,
-    __nv_bfloat16* __restrict__ out,
-    const __nv_bfloat16* __restrict__ residual,
-    __nv_bfloat16* __restrict__ preact, int M, int N, int K) {
-  using SA = Slot<kTransA ? kBK : kBM, kTransA ? kBM : kBK>;
-  using SB = Slot<kTransB ? kBN : kBK, kTransB ? kBK : kBN>;
-  __shared__ __align__(16) __nv_bfloat16 s_a[2][SA::elems];
-  __shared__ __align__(16) __nv_bfloat16 s_b[2][SB::elems];
+// it; kResidual writes bf16(residual + bf16(C)). Grid: x over M tiles
+// times `splits` (the blocks of one tile adjacent, a cluster when splits >
+// 1), y over N tiles. tma_a / tma_b: the operand comes by TMA through its
+// map, else through stage_panel.
+template <bool kTransA, bool kTransB, int kEpi, int kWG>
+__global__ void __launch_bounds__(Tile<kWG>::kThreads, 1)
+    bf16_product_kernel(const __grid_constant__ CUtensorMap map_a,
+                        const __grid_constant__ CUtensorMap map_b,
+                        const __nv_bfloat16* __restrict__ a,
+                        const __nv_bfloat16* __restrict__ b,
+                        __nv_bfloat16* __restrict__ out,
+                        const __nv_bfloat16* __restrict__ residual,
+                        __nv_bfloat16* __restrict__ preact, int M, int N,
+                        int K, int splits, int tma_a, int tma_b) {
+  using T = Tile<kWG>;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[T::kStages];
+  __shared__ __align__(8) uint64_t empty[T::kStages];
+  uint8_t* const ring =
+      smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
 
-  const int m0 = blockIdx.x * kBM;
-  const int n0 = blockIdx.y * kBN;
-  const int warp = threadIdx.x >> 5;
-  const int wm = (warp >> 1) * kWarpM;  // the warp's rows in the tile
-  const int wn = (warp & 1) * kWarpN;   // and its columns
+  const int split = (int)blockIdx.x % splits;
+  const int m0 = ((int)blockIdx.x / splits) * T::kM;
+  const int n0 = (int)blockIdx.y * T::kN;
+  const int k_tiles = (K + kBK - 1) / kBK;
+  const int t0 = split * k_tiles / splits;
+  const int count = (split + 1) * k_tiles / splits - t0;
+  const int warp = (int)threadIdx.x >> 5;
+  const int lane = (int)threadIdx.x & 31;
+  const bool producer = warp == 4 * kWG;
 
-  float acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  // K tile t into slot s: A's rows m0.. (or its rows t * kBK.. when it is
-  // stored [K][M]), B's columns n0.. (or its rows n0.. when stored [N][K])
-  auto issue = [&](int t, int s) {
-    const int k0 = t * kBK;
-    if (kTransA) {
-      stage<SA>(s_a[s], a, K, M, k0, m0);
-    } else {
-      stage<SA>(s_a[s], a, M, K, m0, k0);
+  // stage i of this block's K range into slot i % kStages (the producer
+  // warp; for i >= kStages once the consumers have released the slot)
+  auto produce = [&](int i) {
+    const int slot = i % T::kStages;
+    uint8_t* const sa = ring + slot * T::kStageBytes;
+    uint8_t* const sb = sa + T::kABytes;
+    const int k0 = (t0 + i) * kBK;
+    if (!tma_a || !tma_b) {
+      if (!tma_a) {
+        if (kTransA) {  // [K][M]: a 64-column atom a warpgroup
+          for (int w = 0; w < kWG; ++w) {
+            stage_panel(sa + w * kAtomBytes, a, K, M, k0, m0 + kAtom * w,
+                        kAtom, lane);
+          }
+        } else {  // [M][K]
+          stage_panel(sa, a, M, K, m0, k0, T::kM, lane);
+        }
+      }
+      if (!tma_b) {
+        if (kTransB) {  // [N][K]
+          stage_panel(sb, b, N, K, n0, k0, T::kN, lane);
+        } else {  // [K][N]: a 64-column atom a column block
+          for (int nb = 0; nb < T::kNB; ++nb) {
+            stage_panel(sb + nb * kAtomBytes, b, K, N, k0, n0 + kAtom * nb,
+                        kAtom, lane);
+          }
+        }
+      }
+      // the generic proxy's writes, visible to wgmma's async proxy
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      __syncwarp();
     }
-    if (kTransB) {
-      stage<SB>(s_b[s], b, N, K, n0, k0);
-    } else {
-      stage<SB>(s_b[s], b, K, N, k0, n0);
+    if (lane == 0) {
+      const uint32_t tx =
+          (tma_a ? T::kABytes : 0) + (tma_b ? T::kBBytes : 0);
+      if (tx == 0) {
+        mbar_arrive(&full[slot]);
+      } else {
+        mbar_expect_tx(&full[slot], tx);
+      }
+      if (tma_a) {
+        if (kTransA) {
+          for (int w = 0; w < kWG; ++w) {
+            tma_load(sa + w * kAtomBytes, &map_a, &full[slot],
+                     m0 + kAtom * w, k0);
+          }
+        } else {
+          tma_load(sa, &map_a, &full[slot], k0, m0);
+        }
+      }
+      if (tma_b) {
+        if (kTransB) {
+          tma_load(sb, &map_b, &full[slot], k0, n0);
+        } else {
+          for (int nb = 0; nb < T::kNB; ++nb) {
+            tma_load(sb + nb * kAtomBytes, &map_b, &full[slot],
+                     n0 + kAtom * nb, k0);
+          }
+        }
+      }
     }
-    cp_async_commit();
+    __syncwarp();
   };
 
-  const int tiles = (K + kBK - 1) / kBK;
-  issue(0, 0);
-  for (int t = 0; t < tiles; ++t) {
-    if (t + 1 < tiles) {
-      issue(t + 1, (t + 1) & 1);  // into the slot the last tile is done with
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  if (splits > 1) cluster_arrive_relaxed();  // waited for before the sums
+
+  // the producer sets up the barriers and fills the ring's first stages
+  // while the consumers wait at the block barrier
+  const int first = count < T::kStages ? count : T::kStages;
+  if (producer) {
+    if (lane == 0) {
+      if (tma_a) tma_prefetch(&map_a);
+      if (tma_b) tma_prefetch(&map_b);
+      for (int s = 0; s < T::kStages; ++s) {
+        mbar_init(&full[s], 1);
+        mbar_init(&empty[s], 4 * kWG);  // one arrival a consumer warp
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     }
-    __syncthreads();
-    const __nv_bfloat16* sa = s_a[t & 1];
-    const __nv_bfloat16* sb = s_b[t & 1];
+    __syncwarp();
+    for (int i = 0; i < first; ++i) produce(i);
+  }
+  __syncthreads();
+
+  float acc[T::kNB][32];
 #pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      uint32_t fa[2][4], fb[2][4];
+  for (int nb = 0; nb < T::kNB; ++nb)
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int r = wm + 16 * i;
-        if (kTransA) {
-          load_a_trans(fa[i], sa + kk * SA::ld + r, SA::ld);
-        } else {
-          load_a(fa[i], sa + r * SA::ld + kk, SA::ld);
+    for (int i = 0; i < 32; ++i) acc[nb][i] = 0.f;
+
+  if (producer) {
+    for (int i = first; i < count; ++i) {
+      mbar_wait(&empty[i % T::kStages], ((i / T::kStages) - 1) & 1);
+      produce(i);
+    }
+  } else {
+    // a consumer warpgroup: rows [64 wg, 64 wg + 64) of the tile
+    const int wg = warp >> 2;
+    for (int i = 0; i < count; ++i) {
+      const int slot = i % T::kStages;
+      mbar_wait(&full[slot], (i / T::kStages) & 1);
+      __syncwarp();
+      const uint32_t sa = smem_u32(ring + slot * T::kStageBytes);
+      const uint32_t sb = sa + T::kABytes;
+#pragma unroll
+      for (int nb = 0; nb < T::kNB; ++nb) fence_acc(acc[nb]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+        // a k16 slice: 32 bytes along a K-major row, 16 rows down an M- or
+        // N-major atom (past K the stage holds zeros)
+        const uint64_t da = sw128_desc(sa + wg * kAtomBytes +
+                                       kk * (kTransA ? 16 * 128 : 32));
+#pragma unroll
+        for (int nb = 0; nb < T::kNB; ++nb) {
+          const uint64_t db = sw128_desc(sb + nb * kAtomBytes +
+                                         kk * (kTransB ? 32 : 16 * 128));
+          wgmma_m64n64k16<kTransA ? 1 : 0, kTransB ? 0 : 1>(acc[nb], da, db);
         }
       }
+      wgmma_commit();
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int c = wn + 16 * j;
-        if (kTransB) {
-          load_b_nk(fb[j], sb + c * SB::ld + kk, SB::ld);
-        } else {
-          load_b_kn(fb[j], sb + kk * SB::ld + c, SB::ld);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          mma_bf16(acc[i][2 * j], fa[i], fb[j][0], fb[j][1]);
-          mma_bf16(acc[i][2 * j + 1], fa[i], fb[j][2], fb[j][3]);
-        }
+      for (int nb = 0; nb < T::kNB; ++nb) fence_acc(acc[nb]);
+      wgmma_wait<1>();  // the stage before is read: release its slot
+      if (i > 0 && lane == 0) mbar_arrive(&empty[(i - 1) % T::kStages]);
     }
-    __syncthreads();  // the slot is refilled two tiles on
+    wgmma_wait<0>();
+#pragma unroll
+    for (int nb = 0; nb < T::kNB; ++nb) fence_acc(acc[nb]);
   }
 
-  // the epilogue, straight from the C fragments: lane 4 g + c holds rows
-  // g and g + 8 of each m16n8 tile at columns 2c and 2c + 1, a pair that
-  // is one 4-byte store (N is a multiple of 8, so a pair is wholly in)
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int c2 = 2 * (lane & 3);
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + wn + 8 * j + c2;
-      if (col >= N) continue;
+  // lane l of warp w holds rows 16 w + l / 4 (+ 8) of the tile, columns
+  // 64 nb + 8 j + 2 (l % 4) (+ 1)
+  const int row0 = 16 * warp + (lane >> 2);
+  const int col0 = 2 * (lane & 3);
+  if (kWG == 1 && kEpi != kGelu && splits == 1) {
+    // a 64 x 64 tile whole in its block, no GELU: the epilogue straight
+    // from the accumulators, a pair a store (measured faster there than
+    // through shared memory; with GELU, or 128 x 128, slower)
+    if (!producer) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int row = m0 + wm + 16 * i + g + 8 * h;
+        const int row = m0 + row0 + 8 * h;
         if (row >= M) continue;
-        const size_t at = (size_t)row * N + col;
-        const float v0 = round_bf16(acc[i][j][2 * h]);
-        const float v1 = round_bf16(acc[i][j][2 * h + 1]);
-        uint32_t word;
-        if (kEpi == kGelu) {
-          if (preact != nullptr) {
-            *reinterpret_cast<uint32_t*>(preact + at) = pack_bf16(v0, v1);
-          }
-          word = pack_bf16(chana_gelu::gelu_tanh_f(v0),
-                           chana_gelu::gelu_tanh_f(v1));
-        } else if (kEpi == kResidual) {
-          const float2 r =
-              unpack_bf16(*reinterpret_cast<const uint32_t*>(residual + at));
-          word = pack_bf16(r.x + v0, r.y + v1);
-        } else {
-          word = pack_bf16(v0, v1);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = n0 + 8 * j + col0;
+          if (col >= N) continue;
+          const float v[2] = {acc[0][4 * j + 2 * h],
+                              acc[0][4 * j + 2 * h + 1]};
+          epilogue<kEpi, 2>(v, (size_t)row * N + col, out, residual, preact);
         }
-        *reinterpret_cast<uint32_t*>(out + at) = word;
       }
     }
+    return;
+  }
+
+  // The partial tiles meet in the receive area after the ring: rank q of
+  // S owns tile rows [q kM / S, (q + 1) kM / S), and each rank stores the
+  // rows of its partial that rank q owns into q's receive area (slice
+  // `split` of its [S][rows][kLd] floats; with S = 1 the whole tile into
+  // its own). After a barrier (the cluster's, with S > 1) each rank adds
+  // the S slices of its rows in rank order 0..S-1 and runs the epilogue, 8
+  // columns a thread at a time (N is a multiple of 8, so 8 columns are
+  // wholly in or out).
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rows = (T::kM + splits - 1) / splits;  // a slice's row stride
+  float* const recv = reinterpret_cast<float*>(ring + T::kRingBytes);
+  if (splits > 1) cluster_wait();  // every rank has started: recv exists
+  if (!producer) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = row0 + 8 * h;
+      const int owner = ((r + 1) * splits - 1) / T::kM;
+      const int local = r - owner * T::kM / splits;
+      float* const to =
+          (splits > 1 ? cluster.map_shared_rank(recv, owner) : recv) +
+          (split * rows + local) * T::kLd;
+#pragma unroll
+      for (int nb = 0; nb < T::kNB; ++nb)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          *reinterpret_cast<float2*>(to + 64 * nb + 8 * j + col0) =
+              make_float2(acc[nb][4 * j + 2 * h], acc[nb][4 * j + 2 * h + 1]);
+        }
+    }
+  }
+  if (splits > 1) {
+    cluster.sync();  // every slice written; no rank reads another's after
+  } else {
+    __syncthreads();
+  }
+  const int r0 = split * T::kM / splits;
+  const int r1 = (split + 1) * T::kM / splits;
+  constexpr int kGroups = T::kN / 8;
+  for (int g = (int)threadIdx.x; g < (r1 - r0) * kGroups;
+       g += T::kThreads) {
+    const int local = g / kGroups;
+    const int c = (g % kGroups) * 8;
+    const int row = m0 + r0 + local;
+    const int col = n0 + c;
+    if (row >= M || col >= N) continue;
+    const float* from = recv + local * T::kLd + c;
+    float4 lo = *reinterpret_cast<const float4*>(from);
+    float4 hi = *reinterpret_cast<const float4*>(from + 4);
+    for (int q = 1; q < splits; ++q) {
+      const float* slice = from + q * rows * T::kLd;
+      const float4 x = *reinterpret_cast<const float4*>(slice);
+      const float4 y = *reinterpret_cast<const float4*>(slice + 4);
+      lo.x += x.x;
+      lo.y += x.y;
+      lo.z += x.z;
+      lo.w += x.w;
+      hi.x += y.x;
+      hi.y += y.y;
+      hi.z += y.z;
+      hi.w += y.w;
+    }
+    const float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+    epilogue<kEpi, 8>(v, (size_t)row * N + col, out, residual, preact);
+  }
 }
 
-// C [M][N] = op(A) op(B) in float32: one output a thread, its K terms
-// fused multiply-added in k order.
+// -- kernel 2: the float32 product -------------------------------------------
+
+// C [M][N] = op(A) op(B) in float32: kLanes lanes an output (a power of
+// two up to 32, chosen from K); lane l of a group sums terms l, l + kLanes,
+// ... with fmaf, and a butterfly of shuffles adds the group in a fixed
+// order.
 constexpr int kF32Threads = 256;
 
-template <bool kTransA, bool kTransB>
+template <bool kTransA, bool kTransB, int kLanes>
 __global__ void __launch_bounds__(kF32Threads) f32_product_kernel(
     const float* __restrict__ a, const float* __restrict__ b,
     float* __restrict__ out, int M, int N, int K) {
-  const long long idx = (long long)blockIdx.x * kF32Threads + threadIdx.x;
-  if (idx >= (long long)M * N) return;
-  const int m = (int)(idx / N);
-  const int n = (int)(idx - (long long)m * N);
+  const int sub = (int)threadIdx.x & (kLanes - 1);
+  const long long idx =
+      ((long long)blockIdx.x * kF32Threads + threadIdx.x) / kLanes;
+  const bool live = idx < (long long)M * N;
   float acc = 0.f;
-  for (int k = 0; k < K; ++k) {
-    const float x = kTransA ? a[(size_t)k * M + m] : a[(size_t)m * K + k];
-    const float y = kTransB ? b[(size_t)n * K + k] : b[(size_t)k * N + n];
-    acc = fmaf(x, y, acc);
+  if (live) {
+    const int m = (int)(idx / N);
+    const int n = (int)(idx - (long long)m * N);
+    auto term = [&](int k) {
+      const float x = kTransA ? a[(size_t)k * M + m] : a[(size_t)m * K + k];
+      const float y = kTransB ? b[(size_t)n * K + k] : b[(size_t)k * N + n];
+      acc = fmaf(x, y, acc);
+    };
+    if (kLanes == 1) {
+      for (int k = 0; k < K; ++k) term(k);
+    } else {
+#pragma unroll 8
+      for (int k = sub; k < K; k += kLanes) term(k);
+    }
   }
-  out[idx] = acc;
+#pragma unroll
+  for (int o = kLanes >> 1; o > 0; o >>= 1) {
+    acc += __shfl_xor_sync(0xffffffffu, acc, o);
+  }
+  if (live && sub == 0) out[idx] = acc;
+}
+
+template <int kLanes>
+void launch_f32(const float* a, const float* b, float* out, int M, int N,
+                int K, int layout, unsigned blocks, cudaStream_t s) {
+  if (layout == kNT) {
+    f32_product_kernel<false, true, kLanes>
+        <<<blocks, kF32Threads, 0, s>>>(a, b, out, M, N, K);
+  } else if (layout == kTN) {
+    f32_product_kernel<true, false, kLanes>
+        <<<blocks, kF32Threads, 0, s>>>(a, b, out, M, N, K);
+  } else {
+    f32_product_kernel<false, false, kLanes>
+        <<<blocks, kF32Threads, 0, s>>>(a, b, out, M, N, K);
+  }
+}
+
+// -- host side ---------------------------------------------------------------
+
+// cuTensorMapEncodeTiled, taken from the driver through the runtime: the
+// library links the runtime only.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
+      fn = (EncodeTiled)p;
+    }
+  }
+  return fn;
+}
+
+// TMA takes a matrix whose rows are a multiple of 16 bytes apart.
+bool tma_ok(int cols) { return cols % kChunk == 0; }
+
+// The map of a row-major [rows][cols] bf16 matrix at base, boxes of
+// box_rows rows of 64 values, 128-byte swizzled, zeros past its edges.
+cudaError_t encode(CUtensorMap* map, const void* base, int rows, int cols,
+                   int box_rows) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)kBK, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                        const_cast<void*>(base), dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+struct Call {
+  const __nv_bfloat16* a;
+  const __nv_bfloat16* b;
+  __nv_bfloat16* out;
+  const __nv_bfloat16* residual;
+  __nv_bfloat16* preact;
+  int M, N, K, splits;
+  cudaStream_t stream;
+};
+
+template <bool kTransA, bool kTransB, int kEpi, int kWG>
+cudaError_t launch(const Call& c) {
+  using T = Tile<kWG>;
+  // A's rows: K values ([M][K]) or M ([K][M]); B's: N ([K][N]) or K
+  const int a_cols = kTransA ? c.M : c.K;
+  const int b_cols = kTransB ? c.K : c.N;
+  const bool tma_a = tma_ok(a_cols);
+  const bool tma_b = tma_ok(b_cols);
+  CUtensorMap map_a, map_b;
+  memset(&map_a, 0, sizeof(map_a));
+  memset(&map_b, 0, sizeof(map_b));
+  cudaError_t err = cudaSuccess;
+  if (tma_a) {
+    err = kTransA ? encode(&map_a, c.a, c.K, c.M, kAtom)
+                  : encode(&map_a, c.a, c.M, c.K, T::kM);
+    if (err != cudaSuccess) return err;
+  }
+  if (tma_b) {
+    err = kTransB ? encode(&map_b, c.b, c.N, c.K, T::kN)
+                  : encode(&map_b, c.b, c.K, c.N, kAtom);
+    if (err != cudaSuccess) return err;
+  }
+  auto* fn = bf16_product_kernel<kTransA, kTransB, kEpi, kWG>;
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             T::kSmem);
+  if (err != cudaSuccess) return err;
+  const long long m_tiles = ((long long)c.M + T::kM - 1) / T::kM;
+  const long long n_tiles = ((long long)c.N + T::kN - 1) / T::kN;
+  if (m_tiles * c.splits > 0x7fffffffLL || n_tiles > 65535) {
+    return cudaErrorInvalidValue;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)c.splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(m_tiles * c.splits), (unsigned)n_tiles);
+  cfg.blockDim = dim3(T::kThreads);
+  cfg.dynamicSmemBytes = (size_t)T::kSmem;
+  cfg.stream = c.stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = c.splits > 1 ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, fn, map_a, map_b, c.a, c.b, c.out,
+                            c.residual, c.preact, c.M, c.N, c.K, c.splits,
+                            (int)tma_a, (int)tma_b);
+}
+
+template <int kWG>
+cudaError_t launch_layout(const Call& c, int layout, int epilogue) {
+  if (layout == kNT) return launch<false, true, kNone, kWG>(c);
+  if (layout == kTN) return launch<true, false, kNone, kWG>(c);
+  if (epilogue == kGelu) return launch<false, false, kGelu, kWG>(c);
+  if (epilogue == kResidual) return launch<false, false, kResidual, kWG>(c);
+  return launch<false, false, kNone, kWG>(c);
 }
 
 // The shapes both kernels take: M, N, K positive; the bf16 kernel also
-// needs N a multiple of 8, so that each output pair is one 4-byte store
-// and B's rows, stored [K][N], are whole 16-byte copies.
+// needs N a multiple of 8, so that 4 outputs of a row are wholly in or out
+// and one 8-byte store.
 bool bf16_shape_ok(int M, int N, int K) {
   return M > 0 && N > 0 && K > 0 && N % kChunk == 0;
 }
@@ -302,51 +783,34 @@ extern "C" {
 
 // Each launcher runs on the caller's stream and returns cudaGetLastError()
 // (0 = launched). The Python wrapper (kernels/products.py) checks dtypes,
-// shapes, contiguity and 16-byte alignment; the checks here refuse what
-// the kernels cannot take.
+// shapes, contiguity and 16-byte alignment, and chooses the tile and the
+// split; the checks here refuse what the kernels cannot take.
 
 // out = op(a) op(b) (layout 0: a [M][K], b [K][N]; 1: a [M][K], b [N][K];
 // 2: a [K][M], b [K][N]), bf16; epilogue 0 none, 1 GELU (preact, or null,
 // gets the product), 2 the residual [M][N] added. Epilogues only with
-// layout 0.
+// layout 0. tile: 64 (64 x 64 outputs a block, one warpgroup) or 128 (128 x
+// 128, two); splits: the blocks (1 to 8, a cluster) that share K.
 int chana_bf16_product(const void* a, const void* b, void* out,
                        const void* residual, void* preact, int M, int N,
-                       int K, int layout, int epilogue, void* stream) {
+                       int K, int layout, int epilogue, int tile, int splits,
+                       void* stream) {
   if (!bf16_shape_ok(M, N, K) || layout < kNN || layout > kTN ||
       epilogue < kNone || epilogue > kResidual ||
       (epilogue != kNone && layout != kNN) ||
       (epilogue == kResidual) != (residual != nullptr) ||
-      (preact != nullptr && epilogue != kGelu)) {
+      (preact != nullptr && epilogue != kGelu) ||
+      (tile != 64 && tile != 128) || splits < 1 || splits > kMaxSplits) {
     return (int)cudaErrorInvalidValue;
   }
-  const long long m_tiles = ((long long)M + kBM - 1) / kBM;
-  const long long n_tiles = ((long long)N + kBN - 1) / kBN;
-  if (m_tiles > 0x7fffffffLL || n_tiles > 65535) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const dim3 grid((unsigned)m_tiles, (unsigned)n_tiles);
-  const cudaStream_t s = (cudaStream_t)stream;
-  const auto* pa = (const __nv_bfloat16*)a;
-  const auto* pb = (const __nv_bfloat16*)b;
-  auto* po = (__nv_bfloat16*)out;
-  const auto* pr = (const __nv_bfloat16*)residual;
-  auto* pp = (__nv_bfloat16*)preact;
-  if (layout == kNT) {
-    bf16_product_kernel<false, true, kNone>
-        <<<grid, kThreads, 0, s>>>(pa, pb, po, pr, pp, M, N, K);
-  } else if (layout == kTN) {
-    bf16_product_kernel<true, false, kNone>
-        <<<grid, kThreads, 0, s>>>(pa, pb, po, pr, pp, M, N, K);
-  } else if (epilogue == kGelu) {
-    bf16_product_kernel<false, false, kGelu>
-        <<<grid, kThreads, 0, s>>>(pa, pb, po, pr, pp, M, N, K);
-  } else if (epilogue == kResidual) {
-    bf16_product_kernel<false, false, kResidual>
-        <<<grid, kThreads, 0, s>>>(pa, pb, po, pr, pp, M, N, K);
-  } else {
-    bf16_product_kernel<false, false, kNone>
-        <<<grid, kThreads, 0, s>>>(pa, pb, po, pr, pp, M, N, K);
-  }
+  const Call c = {(const __nv_bfloat16*)a, (const __nv_bfloat16*)b,
+                  (__nv_bfloat16*)out,     (const __nv_bfloat16*)residual,
+                  (__nv_bfloat16*)preact,  M,
+                  N,                       K,
+                  splits,                  (cudaStream_t)stream};
+  const cudaError_t err = tile == 64 ? launch_layout<1>(c, layout, epilogue)
+                                     : launch_layout<2>(c, layout, epilogue);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -356,22 +820,25 @@ int chana_f32_product(const void* a, const void* b, void* out, int M, int N,
   if (M <= 0 || N <= 0 || K <= 0 || layout < kNN || layout > kTN) {
     return (int)cudaErrorInvalidValue;
   }
+  // lanes an output: one under K = 64 (the gradients' K, 8 and the
+  // batch: one short chain a thread), else 8 to 32, 8 terms a lane or more
+  const int lanes = K < 64 ? 1 : K < 128 ? 8 : K < 256 ? 16 : 32;
   const long long blocks =
-      ((long long)M * N + kF32Threads - 1) / kF32Threads;
+      ((long long)M * N * lanes + kF32Threads - 1) / kF32Threads;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   const auto* pa = (const float*)a;
   const auto* pb = (const float*)b;
   auto* po = (float*)out;
-  if (layout == kNT) {
-    f32_product_kernel<false, true>
-        <<<(unsigned)blocks, kF32Threads, 0, s>>>(pa, pb, po, M, N, K);
-  } else if (layout == kTN) {
-    f32_product_kernel<true, false>
-        <<<(unsigned)blocks, kF32Threads, 0, s>>>(pa, pb, po, M, N, K);
+  const unsigned g = (unsigned)blocks;
+  if (lanes == 1) {
+    launch_f32<1>(pa, pb, po, M, N, K, layout, g, s);
+  } else if (lanes == 8) {
+    launch_f32<8>(pa, pb, po, M, N, K, layout, g, s);
+  } else if (lanes == 16) {
+    launch_f32<16>(pa, pb, po, M, N, K, layout, g, s);
   } else {
-    f32_product_kernel<false, false>
-        <<<(unsigned)blocks, kF32Threads, 0, s>>>(pa, pb, po, M, N, K);
+    launch_f32<32>(pa, pb, po, M, N, K, layout, g, s);
   }
   return (int)cudaGetLastError();
 }

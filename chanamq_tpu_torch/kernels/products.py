@@ -24,7 +24,10 @@ On CUDA tensors they launch the kernels of ``csrc/products.cu`` (built on
 first use, see ``build.py``) or raise: the bf16 kernel takes bf16, N a
 multiple of 8 (M and K any: the embed's K is the feature count),
 16-byte aligned contiguous 2-D tensors, and epilogues only with
-``"nn"``. On CPU tensors they run the
+``"nn"``. Its launch plan is a pure function of the shape, computed
+here and passed to the launcher: ``tile_rows`` (64 x 64 or 128 x 128
+outputs a block) and ``split_k`` (the blocks, a thread-block cluster,
+that share one tile's K). On CPU tensors they run the
 plain versions (``*_ref``), in any float dtype: ``torch.matmul`` in
 float32 on the operands as float32, rounded to the input's dtype at the
 kernel's points. Nothing falls back from one to the other. Each wrapper's
@@ -58,14 +61,17 @@ _int = ctypes.c_int
 
 LAYOUTS = {"nn": 0, "nt": 1, "tn": 2}  # csrc/products.cu's Layout
 _NONE, _GELU, _RESIDUAL = 0, 1, 2     # its Epilogue
-CHUNK = 8  # bf16 values a 16-byte copy: B's [K][N] rows must be whole
+CHUNK = 8  # bf16 values in 16 bytes: N a multiple of it
+SMS = 132        # the H100's streaming multiprocessors: one wave of blocks
+K_STAGE = 64     # K depth of a ring stage (csrc/products.cu's kBK)
+MAX_SPLITS = 8   # blocks of a cluster (the portable limit)
 
 
 def library() -> ctypes.CDLL:
     """The built ``csrc/products.cu`` with its C signatures declared."""
     lib, _ = build.load("products")
     if not getattr(lib, "_chana_typed", False):
-        lib.chana_bf16_product.argtypes = [_ptr] * 5 + [_int] * 5 + [_ptr]
+        lib.chana_bf16_product.argtypes = [_ptr] * 5 + [_int] * 7 + [_ptr]
         lib.chana_bf16_product.restype = _int
         lib.chana_f32_product.argtypes = [_ptr] * 3 + [_int] * 4 + [_ptr]
         lib.chana_f32_product.restype = _int
@@ -102,6 +108,38 @@ def _as_nn(layout: str, a: torch.Tensor, b: torch.Tensor) -> tuple:
 # -- the bf16 product ----------------------------------------------------------
 
 
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def tile_rows(m: int, n: int, k: int) -> int:
+    """Output rows (and columns) of one block of the bf16 kernel: 128 (two
+    consumer warpgroups) where those tiles alone number at least 96 (about
+    three quarters of a wave, so K is not split) and K spans more than one
+    ring stage, so each loaded stage feeds twice the outputs; else 64."""
+    if _cdiv(m, 128) * _cdiv(n, 128) >= 96 and k > K_STAGE:
+        return 128
+    return 64
+
+
+def split_k(m: int, n: int, k: int) -> int:
+    """Blocks (1, 2, 4 or 8: one cluster) that share each output tile's
+    K, each a contiguous 1/S of it and at least two ring stages: the most
+    that keep the grid within one wave of ``SMS`` blocks for S = 2, and
+    within half a wave for S = 4 or 8 (a cluster of 4 or 8 costs more to
+    schedule and to sum, which a fuller card does not repay); 1 where the
+    tiles already fill the card."""
+    tile = tile_rows(m, n, k)
+    tiles = _cdiv(m, tile) * _cdiv(n, tile)
+    stages = _cdiv(k, K_STAGE)
+    s = 1
+    for cand in (2, 4, MAX_SPLITS):
+        grid = SMS if cand == 2 else SMS // 2
+        if tiles * cand <= grid and stages // cand >= 2:
+            s = cand
+    return s
+
+
 def bf16_product_ref(a: torch.Tensor, b: torch.Tensor, layout: str = "nn",
                      residual: Optional[torch.Tensor] = None,
                      gelu: bool = False, keep_preact: bool = False):
@@ -121,10 +159,13 @@ def bf16_product_ref(a: torch.Tensor, b: torch.Tensor, layout: str = "nn",
 def prepare_bf16_product(a: torch.Tensor, b: torch.Tensor,
                          layout: str = "nn",
                          residual: Optional[torch.Tensor] = None,
-                         gelu: bool = False, keep_preact: bool = False):
+                         gelu: bool = False, keep_preact: bool = False,
+                         splits: Optional[int] = None):
     """Check the bf16 product kernel's CUDA inputs and bind its launch:
     ``(out, launch)``, ``out`` being ``(out, preact)`` with
-    ``keep_preact``; ``launch`` is None when the product is empty."""
+    ``keep_preact``; ``launch`` is None when the product is empty.
+    ``splits`` overrides ``split_k`` (1 to ``MAX_SPLITS``), for tests of
+    the kernel at every split; ``bf16_product`` never passes it."""
     device = build.cuda_device("bf16_product", a)
     build.check("a", a, _BF16, 2, device)
     build.check("b", b, _BF16, 2, device)
@@ -145,6 +186,9 @@ def prepare_bf16_product(a: torch.Tensor, b: torch.Tensor,
         raise ValueError(
             f"bf16_product ({layout}): M={m}, N={n}, K={k}; the kernel "
             f"takes K > 0 and N a multiple of {CHUNK}")
+    if splits is not None and not 1 <= splits <= MAX_SPLITS:
+        raise ValueError(f"bf16_product: splits={splits}; the kernel takes "
+                         f"1 to {MAX_SPLITS}")
     out = torch.empty((m, n), dtype=_BF16, device=device)
     preact = torch.empty_like(out) if keep_preact else None
     outs = (out, preact) if keep_preact else out
@@ -158,7 +202,8 @@ def prepare_bf16_product(a: torch.Tensor, b: torch.Tensor,
         b.data_ptr(), out.data_ptr(),
         None if residual is None else residual.data_ptr(),
         None if preact is None else preact.data_ptr(), m, n, k,
-        LAYOUTS[layout], epilogue)
+        LAYOUTS[layout], epilogue, tile_rows(m, n, k),
+        split_k(m, n, k) if splits is None else splits)
 
 
 def bf16_product(a: torch.Tensor, b: torch.Tensor, layout: str = "nn",

@@ -16,7 +16,9 @@ rehearse it; any failure exits non-zero:
    started together, for sm_90a, with ptxas's register, shared-memory and
    spill report and the count of tensor-core instructions (HMMA/HGMMA) in
    each attention kernel's and the bf16 product kernel's SASS
-   (``cuobjdump``; "not available" without it);
+   (``cuobjdump``; "not available" without it); it raises if the bf16
+   product kernel spills or, where ``cuobjdump`` is there, has no HGMMA
+   (wgmma);
 3. kernels at the router's caps: both router match kernels at N=512
    rows, W=128 mask words and full token widths (topic P=S=8, headers
    R=8, H=16) against their plain PyTorch versions, word for word, at B in
@@ -37,7 +39,9 @@ rehearse it; any failure exits non-zero:
    proj with the residual add, w1 with GELU, w2 with the residual add,
    the float32 head) and of its gradients (B in {16, 32}: each dX and
    dW, w1 keeping its pre-activation), within one bf16 step of the
-   output (two with an epilogue; the head 1e-5 of its terms), timed with
+   output (two with an epilogue; the head 1e-5 of its terms), every call
+   launched a second time for the same bits, each bf16 site's tile and
+   split of K (``products.tile_rows``, ``split_k``) logged, timed with
    the cuBLAS call each replaced and the bound; held untimed at the
    compact model's long window and a tp = 4 rank's shapes;
 5. forward at full width: ``ForecasterConfig()`` at B in {1, 32}, the
@@ -302,7 +306,8 @@ MMA_KERNELS = {"forecaster": "causal_attention",
 def sass_mma_count(lib_path: str, kernel: str):
     """HMMA and HGMMA instructions (the tensor cores' mma.sync and wgmma)
     in ``kernel``'s SASS in a built library, by ``cuobjdump -sass`` from
-    nvcc's toolkit; the string "not available" where it has none."""
+    nvcc's toolkit: ``{"HMMA": n, "HGMMA": n}``, or the string "not
+    available" where it has none."""
     from chanamq_tpu_torch.kernels import build
 
     tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
@@ -310,19 +315,36 @@ def sass_mma_count(lib_path: str, kernel: str):
         return "not available"
     sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
                           text=True, timeout=120, check=True).stdout
-    count, inside = 0, False
+    count, inside = {"HMMA": 0, "HGMMA": 0}, False
     for line in sass.splitlines():
         if "Function :" in line:
             inside = f"{kernel}_kernel" in line
-        elif inside and re.search(r"\bHG?MMA\b", line):
-            count += 1
+        elif inside:
+            for op in re.findall(r"\b(HG?MMA)\b", line):
+                count[op] += 1
     return count
+
+
+def ptxas_spills(log: str, kernel: str) -> int:
+    """The most spill bytes (stores plus loads) ptxas reports for any
+    instance of ``kernel``'s kernel in a build log."""
+    worst, inside = 0, False
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            inside = f"{kernel}_kernel" in line
+        elif inside and "spill" in line:
+            stores, loads = (int(n) for n in re.findall(
+                r"(\d+) bytes spill (?:stores|loads)", line))
+            worst = max(worst, stores + loads)
+    return worst
 
 
 def phase_build() -> dict:
     """Every CUDA source of the port, one nvcc each, all started together;
     raises if any build fails. Reports ptxas's registers, shared memory
-    and spills, and the attention kernels' tensor-core instructions."""
+    and spills, and the tensor-core instructions of the attention kernels
+    and the bf16 product kernel; raises if the product kernel spills or,
+    where ``cuobjdump`` is available, has no wgmma (HGMMA)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from chanamq_tpu_torch.kernels import build
@@ -333,7 +355,8 @@ def phase_build() -> dict:
     out = {}
     for name, b in built.items():
         ptxas = [ln.strip() for ln in b.log.splitlines()
-                 if re.search(r"registers|spill|Compiling entry", ln)]
+                 if re.search(r"registers|spill|Compiling entry|Performance",
+                              ln)]
         log(f"[build] {b.path} in {b.seconds:.2f} s"
             f"{' (already built)' if b.seconds == 0.0 else ''}")
         for ln in ptxas:
@@ -341,9 +364,19 @@ def phase_build() -> dict:
         out[name] = {"seconds": b.seconds, "ptxas": ptxas}
         if name in MMA_KERNELS:
             kernel = MMA_KERNELS[name]
-            out[name]["hmma"] = sass_mma_count(b.path, kernel)
-            log(f"[build] sass: {kernel}_kernel has {out[name]['hmma']} "
-                "HMMA/HGMMA instructions")
+            counts = sass_mma_count(b.path, kernel)
+            out[name]["hmma"] = counts
+            log(f"[build] sass: {kernel}_kernel has {counts} HMMA/HGMMA "
+                "instructions")
+    spills = ptxas_spills(built["products"].log, "bf16_product")
+    hgmma = out["products"]["hmma"]
+    log(f"[build] bf16_product_kernel: {spills} bytes of spills, HGMMA "
+        f"{hgmma if isinstance(hgmma, str) else hgmma['HGMMA']}")
+    if spills:
+        raise AssertionError(f"bf16_product_kernel spills {spills} bytes")
+    if not isinstance(hgmma, str) and hgmma["HGMMA"] == 0:
+        raise AssertionError("bf16_product_kernel has no HGMMA (wgmma) "
+                             "instruction")
     log(f"[build] {len(SOURCES)} sources in "
         f"{time.perf_counter() - t0:.2f} s (wall)")
     return out
@@ -1402,7 +1435,9 @@ def hold_product(name: str, args, *, timed: bool = True,
                  iters: int = 100) -> dict:
     """One product call through its wrapper and its plain version on the
     same inputs, within ``product_limit`` (a kept pre-activation within
-    one step of its own), and the bound; with ``timed``, on a card, also
+    one step of its own), and the bound; on a card a second call must give
+    the same bits. A bf16 row names the kernel's plan: its tile and split
+    (``products.tile_rows``, ``split_k``). With ``timed``, on a card, also
     the kernel's device time, the wrapper's per-call time, and the plain
     version's and the cuBLAS call's device times."""
     from chanamq_tpu_torch.kernels import products as pk
@@ -1414,6 +1449,18 @@ def hold_product(name: str, args, *, timed: bool = True,
     epilogue = name == "bf16_product" and (residual is not None or gelu)
     row: dict = {"shape": "x".join(str(n) for n in a.shape) + f" {layout} "
                  + "x".join(str(n) for n in b.shape)}
+    if name == "bf16_product":
+        m, n, k = pk.dims(layout, a, b)
+        row.update(tile=pk.tile_rows(m, n, k), splits=pk.split_k(m, n, k))
+    if a.is_cuda:  # a second launch, not through the counting wrapper
+        again, launch = getattr(pk, f"prepare_{name}")(*args)
+        launch()
+        for x, y in zip(*(o if isinstance(o, tuple) else (o,)
+                          for o in (got, again))):
+            if not torch.equal(x, y):
+                raise AssertionError(f"{name} [{row['shape']}]: two "
+                                     "launches gave different bits")
+        row["bit_equal"] = True
     if isinstance(got, tuple):  # the GELU's kept pre-activation
         (got, got_pre), (want, want_pre) = got, want
         pre_err = _max_err(got_pre, want_pre)
@@ -1538,9 +1585,12 @@ def phase_products(device: torch.device, seed: int, cfg=None,
             pre = (f", pre-activation err {row['preact_err']:.6g} (limit "
                    f"{row['preact_limit']:.6g})" if "preact_err" in row
                    else "")
-            log(f"[products] {label} {site} B={b} {name} [{row['shape']}]: "
-                f"max abs err {row['max_abs_err']:.6g} (limit "
-                f"{row['limit']:.6g}){pre}; kernel "
+            plan = (f" tile {row['tile']} S={row['splits']}"
+                    if "splits" in row else "")
+            same = ", two launches bit-equal" if row.get("bit_equal") else ""
+            log(f"[products] {label} {site} B={b} {name} [{row['shape']}]"
+                f"{plan}: max abs err {row['max_abs_err']:.6g} (limit "
+                f"{row['limit']:.6g}){pre}{same}; kernel "
                 f"{row.get('ms', nan) * 1e3:.3f} us (wrapper call "
                 f"{row.get('wrapper_ms', nan) * 1e3:.3f} us), plain "
                 f"{row.get('plain_ms', nan) * 1e3:.3f} us, cuBLAS "
@@ -1587,13 +1637,18 @@ def device_split(fn, names) -> dict:
     out = {k: {"launches": 0, "us": 0.0}
            for k in ("products", "port_kernels", "collectives", "other")}
     out["other"]["fills"] = 0  # of them torch's fills (zeros, zero_)
+    by_kernel = out["port_kernels"]["by_kernel"] = {}  # the port's, by name
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
         low = e.name.lower()
-        if any(any(sym in e.name for sym in KERNEL_SYMBOLS.get(
-                n, (f"{n}_kernel",))) for n in names):
+        mine = [n for n in names if any(
+            sym in e.name for sym in KERNEL_SYMBOLS.get(n, (f"{n}_kernel",)))]
+        if mine:
             kind = "port_kernels"
+            one = by_kernel.setdefault(mine[0], {"launches": 0, "us": 0.0})
+            one["launches"] += 1
+            one["us"] += e.time_range.elapsed_us()
         elif any(m in low for m in GEMM_MARKERS):
             kind = "products"
         elif "nccl" in low:
@@ -5299,8 +5354,8 @@ def main() -> int:
             "bound_ms": max(bytes_ms, total["ops_ms"]),
             "bound_by": ("operations" if total["ops_ms"] > bytes_ms
                          else "bytes"),
-            "sites": {f"{label} {site} B={b}": {k: row[k] for k in keys
-                                                 if k in row}
+            "sites": {f"{label} {site} B={b}": {
+                k: row[k] for k in keys + ("tile", "splits") if k in row}
                       for (label, site, b), row in rows.items()},
             **({"hmma": hmma[name]} if name in hmma else {}),
             "sharded_path": sharded_path(name), "node_path": node_path(name)})

@@ -523,6 +523,86 @@ def test_products_match_plain(cuda, kw, b, tp, grads):
             assert torch.equal(x, y), site
 
 
+# The bf16 kernel's edges: rows around its 64- and 128-row tiles (one,
+# eight, ten, 63, 65, 2,048), columns under and over a 64-wide block, K
+# under one 16-deep wgmma step, under and over its 64-deep stages and
+# splits; rows of 10, 63 and 65 values (not a multiple of 16 bytes) come
+# through the staging the kernel does by hand in place of TMA
+EDGE_M = [1, 8, 10, 63, 65, 2048]
+EDGE_N = [8, 24, 768]
+EDGE_K = [8, 10, 16, 1000, 2048]
+# (layout, epilogue arguments after the layout) of every instance
+EDGE_CALLS = [("nn", ()), ("nn", ("residual",)), ("nn", (None, True)),
+              ("nn", (None, True, True)), ("nt", ()), ("tn", ())]
+
+
+@pytest.mark.parametrize("splits", [1, 2, 8, None])
+@pytest.mark.parametrize("m", EDGE_M)
+def test_products_at_the_design_edges(cuda, m, splits):
+    """Every layout and epilogue of the bf16 kernel at M = ``m`` over
+    ``EDGE_N`` x ``EDGE_K``, with K split over 1, 2 or 8 blocks of a
+    cluster (``prepare_bf16_product``'s test-only ``splits``) or as the
+    wrapper plans it (None): within ``chip_smoke.product_limit`` of the
+    plain version, and two launches give the same bits."""
+    port_fc.set_matmul_precision()  # the plain versions in float32
+    gen = torch.Generator().manual_seed(m * 10 + (splits or 0))
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen).to(torch.bfloat16).to(cuda)
+
+    for n in EDGE_N:
+        for k in EDGE_K:
+            for layout, extra in EDGE_CALLS:
+                a = randn(k, m) if layout == "tn" else randn(m, k)
+                b = randn(n, k) if layout == "nt" else randn(k, n)
+                extra = tuple(randn(m, n) if e == "residual" else e
+                              for e in extra)
+                args = (a, b, layout, *extra)
+                what = f"M={m} N={n} K={k} {layout} {extra[1:]} S={splits}"
+                outs, launch = pk.prepare_bf16_product(*args, splits=splits)
+                outs = outs if isinstance(outs, tuple) else (outs,)
+                launch()
+                first = [o.clone() for o in outs]
+                launch()
+                torch.cuda.synchronize()
+                for x, y in zip(first, outs):
+                    assert torch.equal(x, y), what
+                want = pk.bf16_product_ref(*args)
+                want = want if isinstance(want, tuple) else (want,)
+                plain = (pk.bf16_product_ref(a, b, layout)
+                         if extra and extra[0] is not None or len(extra) > 1
+                         else None)
+                err = (first[0].float() - want[0].float()).abs().max()
+                limit = chip_smoke.product_limit("bf16_product", args,
+                                                 want[0], plain)
+                assert float(err) <= limit, (what, float(err), limit)
+                if len(want) == 2:  # the kept pre-activation
+                    err = (first[1].float() - want[1].float()).abs().max()
+                    assert float(err) <= chip_smoke.product_limit(
+                        "bf16_product", args, want[1]), what
+
+
+@pytest.mark.parametrize("layout", ["nn", "nt", "tn"])
+@pytest.mark.parametrize("k", [1, 8, 33, 64, 100, 128, 256, 300])
+def test_head_kernel_sums_over_lanes(cuda, k, layout):
+    """The float32 kernel at every lane group K gives (one lane under 64,
+    groups of 8 and 16, a whole warp; a lane's last terms short at 100 and
+    300): within
+    ``chip_smoke.product_limit`` of the plain version, the same bits from
+    two launches."""
+    port_fc.set_matmul_precision()
+    gen = torch.Generator().manual_seed(k)
+    m, n = 5, 8
+    a = torch.randn((k, m) if layout == "tn" else (m, k), generator=gen)
+    b = torch.randn((n, k) if layout == "nt" else (k, n), generator=gen)
+    args = (a.to(cuda), b.to(cuda), layout)
+    got, again = pk.f32_product(*args), pk.f32_product(*args)
+    assert torch.equal(got, again)
+    want = pk.f32_product_ref(*args)
+    assert float((got - want).abs().max()) <= chip_smoke.product_limit(
+        "f32_product", args, want)
+
+
 def test_products_reject_bad_input(cuda):
     bf16 = torch.bfloat16
     a = torch.zeros(64, 256, dtype=bf16, device=cuda)

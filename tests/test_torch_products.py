@@ -32,6 +32,7 @@ Tolerances, max abs error:
 """
 
 import math
+import re
 
 import numpy as np
 import pytest
@@ -492,5 +493,79 @@ def test_chip_smoke_products_phase_rehearsal():
     for row in res.values():
         assert row["max_abs_err"] == 0.0 and row["bound_ms"] > 0
         assert "ms" not in row  # times come from a card only
+        if row["kernel"] == "bf16_product":  # each site's plan
+            a0, a1, layout, b0, b1 = re.match(
+                r"(\d+)x(\d+) (\w+) (\d+)x(\d+)", row["shape"]).groups()
+            m, k = (int(a1), int(a0)) if layout[0] == "t" else (int(a0),
+                                                                 int(a1))
+            n = int(b0) if layout[1] == "t" else int(b1)
+            assert (row["tile"], row["splits"]) == (pk.tile_rows(m, n, k),
+                                                    pk.split_k(m, n, k))
     tp4 = res[("tp4", "qkv", chip_smoke.TRAIN_BATCHES[0])]
     assert tp4["shape"].endswith(f"32x{3 * 32 // 4}")
+
+
+# -- the bf16 kernel's launch plan ----------------------------------------------
+
+
+def _flagship_sites(b: int) -> dict:
+    """{site: (M, N, K)} of every flagship bf16 product at batch ``b``:
+    the forward's (nn) and the gradients' dX (nt) and dW (tn)."""
+    cfg = port.ForecasterConfig()
+    rows, d, f, nf = b * cfg.seq_len, cfg.d_model, cfg.d_ff, cfg.n_features
+    out = {}
+    for site, (k, n) in {"embed": (nf, d), "qkv": (d, 3 * d),
+                         "proj": (d, d), "w1": (d, f), "w2": (f, d)}.items():
+        out[site] = (rows, n, k)
+        if site != "embed":
+            out[f"{site} dX"] = (rows, k, n)
+        out[f"{site} dW"] = (k, n, rows)
+    return out
+
+
+PLAN_SHAPES = sorted({(m, n, k) for b in (1, 16, 32)
+                      for m, n, k in _flagship_sites(b).values()}
+                     | {(m, n, k) for m in (1, 8, 10, 63, 65, 2048)
+                        for n in (8, 24, 768)
+                        for k in (8, 10, 16, 1000, 2048)})
+
+
+@pytest.mark.parametrize("m,n,k", PLAN_SHAPES)
+def test_split_k_is_a_plan_of_the_shape(m, n, k):
+    """``split_k`` and ``tile_rows`` are pure functions of the shape: the
+    same answer twice, a 64- or 128-row tile, 1 to ``MAX_SPLITS`` blocks,
+    and, when K is split, every block's share at least two 64-deep ring
+    stages."""
+    s, tile = pk.split_k(m, n, k), pk.tile_rows(m, n, k)
+    assert (s, tile) == (pk.split_k(m, n, k), pk.tile_rows(m, n, k))
+    assert tile in (64, 128) and 1 <= s <= pk.MAX_SPLITS
+    stages = -(-k // pk.K_STAGE)
+    if s > 1:
+        assert stages // s >= 2, (m, n, k, s)
+        # the split never takes the tiles past one wave of the card
+        assert -(-m // tile) * -(-n // tile) * s <= pk.SMS
+
+
+@pytest.mark.parametrize("b", [1, 16, 32])
+def test_split_k_fills_the_card_where_the_tiles_do_not(b):
+    """At the flagship's shapes: no split where the output tiles alone
+    fill the card; K split for w2 at B = 1 (four 64 x 64 tiles, K =
+    1,024) and for every weight gradient at the training batches (K = B
+    * T rows)."""
+    for site, (m, n, k) in _flagship_sites(b).items():
+        tile = pk.tile_rows(m, n, k)
+        tiles = -(-m // tile) * -(-n // tile)
+        s = pk.split_k(m, n, k)
+        if tiles >= pk.SMS:
+            assert s == 1, site
+        if (b == 1 and site == "w2") or (b > 1 and site.endswith("dW")):
+            assert s > 1, (site, b, s)
+
+
+def test_prepare_refuses_a_split_the_kernel_lacks(checks_on_the_cpu):
+    bf = torch.bfloat16
+    for s in (0, pk.MAX_SPLITS + 1):
+        with pytest.raises(ValueError, match="splits"):
+            pk.prepare_bf16_product(torch.zeros(64, 256, dtype=bf),
+                                    torch.zeros(256, 64, dtype=bf),
+                                    splits=s)
