@@ -21,7 +21,8 @@ to the input's dtype, as the reference's bf16 einsums do, and its backward
 the cotangents of those two einsums.
 
 Each wrapper's ``launches`` attribute counts its kernel launches, and only
-those. ``prepare_*`` check a call's CUDA inputs and bind its launch; the
+those (``launch_count`` sums them, with the products' and the update's).
+``prepare_*`` check a call's CUDA inputs and bind its launch; the
 wrappers launch what they return, and a timing loop can launch it again
 without the checks (and without counting). ``LayerNorm``,
 ``CausalAttention`` and ``GeluTanh`` are the differentiable ops: each
@@ -669,6 +670,18 @@ def gelu_tanh_bwd(dy: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 gelu_tanh_bwd.launches = 0
+
+
+def launch_count() -> int:
+    """Kernel launches of every forecaster wrapper so far: the forward's
+    and backward's kernels here, the products' (``products.py``) and the
+    update's (``update.py``), the sum of their ``launches``."""
+    return (layernorm.launches + causal_attention.launches
+            + gelu_tanh.launches + layernorm_bwd.launches
+            + causal_attention_bwd.launches + gelu_tanh_bwd.launches
+            + products.bf16_product.launches + products.f32_product.launches
+            + update.clip_momentum_sgd.launches
+            + update.sum_of_squares.launches + update.momentum_sgd.launches)
 
 
 # -- differentiable ops ----------------------------------------------------------

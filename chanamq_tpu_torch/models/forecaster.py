@@ -42,6 +42,7 @@ from typing import Any, Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from .. import profile
 from ..kernels import forecaster as kernels
 from . import prng
 
@@ -243,15 +244,23 @@ def make_train_step(cfg: ForecasterConfig, lr: float = 1e-3,
     buffers, and returned; ``loss`` is the step's loss before the update,
     a float32 tensor on the device (reading it is the caller's sync).
     ``ops`` picks the kernels (``kernels.KERNELS``) or the plain versions
-    under torch autograd (``kernels.PLAIN``)."""
+    under torch autograd (``kernels.PLAIN``). With profiling on, the step
+    and its forward, backward and update are the ``train-*`` stages
+    (``profile.span``)."""
     names = sorted(param_shapes(cfg))
 
     def step(params: Params, momentum: Params, batch: tuple) -> tuple:
-        leaves = {n: params[n].detach().requires_grad_() for n in names}
-        loss = loss_fn(leaves, batch, cfg, ops=ops)
-        grads = torch.autograd.grad(loss, [leaves[n] for n in names])
-        ops.update([params[n] for n in names], [momentum[n] for n in names],
-                   [g.contiguous() for g in grads], lr, clip_norm)
+        with profile.span(profile.TRAIN_STEP):
+            leaves = {n: params[n].detach().requires_grad_() for n in names}
+            with profile.span(profile.TRAIN_FORWARD):
+                loss = loss_fn(leaves, batch, cfg, ops=ops)
+            with profile.span(profile.TRAIN_BACKWARD):
+                grads = torch.autograd.grad(loss,
+                                            [leaves[n] for n in names])
+            with profile.span(profile.TRAIN_UPDATE):
+                ops.update([params[n] for n in names],
+                           [momentum[n] for n in names],
+                           [g.contiguous() for g in grads], lr, clip_norm)
         return params, momentum, loss.detach()
 
     return step

@@ -15,7 +15,11 @@ metrics, never on the message path:
   next-tick forecast, denormalized back to real units. The event loop
   never blocks: torch runs entirely on the worker thread, and at most one
   round is in flight;
-- the latest forecast is read with ``snapshot()``.
+- the latest forecast is read with ``snapshot()``, beside the rounds,
+  train steps and kernel launches so far.
+
+With profiling on (``chana.mq.profile.enabled``), each round's parts are
+the profile ledger's ``forecast`` stages (``profile/runtime.py``).
 
 The round keeps the reference's order (normalization, training batch,
 train steps, forward, divergence check, de-normalize, clamp at 0) and its
@@ -37,6 +41,7 @@ from typing import TYPE_CHECKING, Any, Optional
 
 import numpy as np
 
+from .. import profile
 from .telemetry import (
     FEATURES, TelemetryRing, TopKSlots, counter_state, normalization,
     sample, training_batch,
@@ -118,6 +123,9 @@ class ForecastService:
         self.loss: Optional[float] = None
         self.trained_steps = 0
         self.rounds = 0
+        # the forecaster wrappers' kernel launches in every round so far
+        # (the worker writes it)
+        self.kernel_launches = 0
         self.updated_at: Optional[float] = None
         self.last_error: Optional[str] = None
         # forecast accuracy: each realized tick is scored against the
@@ -313,20 +321,37 @@ class ForecastService:
     def _round(
         self, history: np.ndarray
     ) -> tuple[int, Optional[float], Optional[dict[str, float]]]:
-        """One off-path round: K train steps + next-tick forecast."""
+        """One off-path round: K train steps + next-tick forecast. Adds
+        the round's kernel launches to ``kernel_launches``; with profiling
+        on, the round and its parts are the ``forecast`` stages
+        (``profile.span``)."""
+        from ..kernels.forecaster import launch_count
+
+        launches = launch_count()
+        try:
+            with profile.span(profile.FORECAST_ROUND):
+                return self._train_and_forecast(history)
+        finally:
+            self.kernel_launches += launch_count() - launches
+
+    def _train_and_forecast(
+        self, history: np.ndarray
+    ) -> tuple[int, Optional[float], Optional[dict[str, float]]]:
         import torch
 
         if self._torch_state is None:
             self._torch_state = self._torch_setup()
         state = self._torch_state
-        mean, std = normalization(history)
-        normed = (history - mean) / std
-        pairs = training_batch(normed, self.seq_len, self.batch, self._np_rng)
+        with profile.span(profile.FORECAST_BATCH):
+            mean, std = normalization(history)
+            normed = (history - mean) / std
+            pairs = training_batch(normed, self.seq_len, self.batch,
+                                   self._np_rng)
+            batch = None if pairs is None else tuple(
+                torch.from_numpy(a).to(state["device"]) for a in pairs)
         steps = 0
         loss = None
-        if pairs is not None:
-            batch = tuple(torch.from_numpy(a).to(state["device"])
-                          for a in pairs)
+        if batch is not None:
             for _ in range(self.steps_per_round):
                 if self._stopping:
                     return steps, loss, None
@@ -334,25 +359,29 @@ class ForecastService:
                                              state["momentum"], batch)
                 steps += 1
             if steps:  # steps_per_round == 0 leaves loss_t unbound
-                loss = float(loss_t)
+                with profile.span(profile.FORECAST_WAIT):
+                    loss = float(loss_t)
+        with profile.span(profile.FORECAST_PREDICT):
+            if steps:
                 # the forecast must see the trained weights
                 state["recast"]()
-        if self._stopping:
-            return steps, loss, None
-        window = normed[-self.seq_len:][None, ...].astype(np.float32)
-        pred = state["forward"](window)[0]
-        if (loss is not None and not np.isfinite(loss)) \
-                or not np.isfinite(pred).all():
-            # diverged despite clipping: drop the poisoned state and start
-            # clean next round rather than serving NaN forecasts
-            self._torch_state = None
-            raise RuntimeError(
-                f"forecaster diverged (loss={loss}); reinitializing")
-        real = pred * std + mean
-        # rates/gauges cannot be negative; the model can briefly overshoot
-        real = np.maximum(real, 0.0)
-        forecast = {name: float(v)
-                    for name, v in zip(self.feature_names, real)}
+            if self._stopping:
+                return steps, loss, None
+            window = normed[-self.seq_len:][None, ...].astype(np.float32)
+            pred = state["forward"](window)[0]
+            if (loss is not None and not np.isfinite(loss)) \
+                    or not np.isfinite(pred).all():
+                # diverged despite clipping: drop the poisoned state and
+                # start clean next round rather than serving NaN forecasts
+                self._torch_state = None
+                raise RuntimeError(
+                    f"forecaster diverged (loss={loss}); reinitializing")
+            real = pred * std + mean
+            # rates/gauges cannot be negative; the model can briefly
+            # overshoot
+            real = np.maximum(real, 0.0)
+            forecast = {name: float(v)
+                        for name, v in zip(self.feature_names, real)}
         return steps, loss, forecast
 
     # -- introspection -----------------------------------------------------
@@ -366,6 +395,7 @@ class ForecastService:
             "window": self.seq_len,
             "rounds": self.rounds,
             "trained_steps": self.trained_steps,
+            "kernel_launches": self.kernel_launches,
             "loss": self.loss,
             "queue_top_k": self.queue_top_k,
             "observed": (

@@ -19,24 +19,45 @@ Three coupled parts, all always-cheap enough to leave on in production:
   and a ``gc.callbacks`` hook attributes collector pauses.
 - the aggregate view at ``GET /admin/profile``: µs/msg by stage and by
   subsystem plus the fraction of process CPU the ledger attributes.
+- the forecast service's worker thread (subsystem ``forecast``): a
+  round, its batch build, train steps (forward, backward, update), the
+  wait on the card and the forecast, through ``span``; each also opens a
+  torch profiler range of its name (``record_function``'s C form), and
+  the last
+  ``ring_size`` rounds' spans are kept for ``GET /admin/profile``.
 
 Like ``trace`` and ``chaos``: disabled (the default) costs one module
-attribute load + ``is None`` per seam.
+attribute load + ``is None`` per seam (``span``: a call besides, and a
+shared no-op context).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 from .runtime import (  # noqa: F401 — re-exported page for the seams
-    CLUSTER_PUSH, DELIVER, DISPATCH, ENQUEUE, FLOW_THROTTLE, GC,
-    INGRESS_CYCLE, INGRESS_PARSE, ROUTE, SETTLE, STAGES, SUBSYSTEMS,
-    TOP_LEVEL, TX_COMMIT, WAL_APPEND, WAL_COMMIT, ProfileRuntime,
+    CLUSTER_PUSH, DELIVER, DISPATCH, ENQUEUE, FLOW_THROTTLE,
+    FORECAST_BATCH, FORECAST_PREDICT, FORECAST_ROUND, FORECAST_WAIT, GC,
+    INGRESS_CYCLE, INGRESS_PARSE, PARENT, ROUTE, SETTLE, STAGES,
+    SUBSYSTEMS, TOP_LEVEL, TRAIN_BACKWARD, TRAIN_FORWARD, TRAIN_STEP,
+    TRAIN_UPDATE, TX_COMMIT, WAL_APPEND, WAL_COMMIT, ProfileRuntime, Span,
 )
 
 # The gate. Hot-path seams do `prof = profile.ACTIVE` then
 # `if prof is not None:` — one module attribute load when disabled.
 ACTIVE: Optional[ProfileRuntime] = None
+
+
+_OFF = contextlib.nullcontext()
+
+
+def span(stage: int):
+    """The seam of a forecast stage, ``with profile.span(stage): ...``:
+    the active runtime's ``Span`` (ledger, profiler range, round ring), or
+    a shared no-op context when profiling is off."""
+    prof = ACTIVE
+    return _OFF if prof is None else Span(prof, stage)
 
 
 def install(runtime: ProfileRuntime) -> ProfileRuntime:

@@ -18,14 +18,29 @@ history on a scrape boundary). Two granularities coexist:
 
 Fine stages nest inside top-level ones by design (route happens inside
 an ingress cycle); only top-level stages are summed for attribution.
+
+The ``forecast`` subsystem's stages are the forecast service's worker
+thread, not the event loop: a round (``forecast-round``), inside it the
+batch build, each train step, the wait on the card for the round's loss
+and the forecast, and inside each step its forward, backward and update.
+They are fine stages, wall time (``perf_counter_ns``), and their
+``stage_calls`` count calls (rounds or steps), not messages. Their seam is
+``span`` (``profile.span``): besides the ledger it opens a torch
+profiler range of the stage's name (``record_function``'s C form), so a
+profiler's trace carries the same names on its own clock, and it keeps
+the last ``ring_size`` rounds' spans (``snapshot()["forecast"]``). Only
+``forecast-round`` enters the subsystem rollup (its children lie inside
+it).
 """
 
 from __future__ import annotations
 
 import asyncio
 import gc
+import itertools
 import threading
 import time
+from collections import deque
 from typing import Optional
 
 import numpy as np
@@ -44,20 +59,109 @@ STAGES = (
     "ingress-cycle",   # 10 whole read-chunk consume cycle (top-level)
     "gc",              # 11 collector pauses (gc.callbacks)
     "tx-commit",       # 12 Tx.Commit staged replay: scope open -> sealed
+    "forecast-round",  # 13 ForecastService._round (worker thread, a round)
+    "forecast-batch",  # 14 normalization, training batch, copy to the card
+    "train-step",      # 15 one train step
+    "train-forward",   # 16 the step's loss (forward)
+    "train-backward",  # 17 the step's gradients (autograd)
+    "train-update",    # 18 the step's clipped momentum update
+    "forecast-wait",   # 19 reading the round's loss: waits for the card
+    "forecast-predict",  # 20 recast, forward, readback, de-normalization
 )
 (INGRESS_PARSE, ROUTE, ENQUEUE, WAL_APPEND, WAL_COMMIT, CLUSTER_PUSH,
  DELIVER, SETTLE, FLOW_THROTTLE, DISPATCH, INGRESS_CYCLE, GC,
- TX_COMMIT) = range(13)
+ TX_COMMIT, FORECAST_ROUND, FORECAST_BATCH, TRAIN_STEP, TRAIN_FORWARD,
+ TRAIN_BACKWARD, TRAIN_UPDATE, FORECAST_WAIT,
+ FORECAST_PREDICT) = range(21)
 
 SUBSYSTEMS = (
     "broker", "router", "broker", "wal", "wal", "cluster",
     "broker", "broker", "flow", "broker", "broker", "runtime",
-    "broker",
+    "broker", "forecast", "forecast", "forecast", "forecast", "forecast",
+    "forecast", "forecast", "forecast",
 )
+
+# the stage each forecast stage runs inside (a round's spans nest so)
+PARENT = {
+    FORECAST_BATCH: FORECAST_ROUND, TRAIN_STEP: FORECAST_ROUND,
+    TRAIN_FORWARD: TRAIN_STEP, TRAIN_BACKWARD: TRAIN_STEP,
+    TRAIN_UPDATE: TRAIN_STEP, FORECAST_WAIT: FORECAST_ROUND,
+    FORECAST_PREDICT: FORECAST_ROUND,
+}
+# the stages whose spans carry their train step's index
+_IN_STEP = frozenset({TRAIN_STEP, TRAIN_FORWARD, TRAIN_BACKWARD,
+                      TRAIN_UPDATE})
 
 # stages whose windows tile the event loop without overlapping: their sum
 # is the measured busy time the attribution ratio divides by process CPU
 TOP_LEVEL = frozenset({INGRESS_CYCLE, DISPATCH, CLUSTER_PUSH})
+
+
+_range_type = None
+
+
+def _profiler_range(name: str):
+    """A profiler range named ``name`` (a context): torch's C range, what
+    its own generated code opens (no dispatcher op; it records only while
+    a profiler runs), or the public ``record_function`` where a build
+    lacks it."""
+    global _range_type
+    if _range_type is None:
+        import torch
+
+        _range_type = getattr(torch._C._profiler, "_RecordFunctionFast",
+                              None) or torch.profiler.record_function
+    return _range_type(name)
+
+
+class _OpenRound(threading.local):
+    """The round open on this thread: ``(id, spans)`` or None, and the
+    index of its current train step."""
+
+    round = None
+    step = -1
+
+
+class Span:
+    """A forecast stage's seam (``profile.span``): times its body
+    into the ledger, opens a profiler range of the stage's name around it,
+    and files ``[stage, step, start_ns, end_ns]`` in the round open on its
+    thread (a ``forecast-round`` span opens and closes the round)."""
+
+    __slots__ = ("prof", "stage", "rec", "range")
+
+    def __init__(self, prof: "ProfileRuntime", stage: int) -> None:
+        self.prof = prof
+        self.stage = stage
+
+    def __enter__(self) -> "Span":
+        stage, open_ = self.stage, self.prof._open
+        if stage == FORECAST_ROUND:
+            open_.round = (next(self.prof._round_ids), [])
+            open_.step = -1
+        elif stage == TRAIN_STEP:
+            open_.step += 1
+        self.rec = [stage, open_.step if stage in _IN_STEP else None,
+                    time.perf_counter_ns(), 0]
+        if open_.round is not None:
+            open_.round[1].append(self.rec)
+        # the range opens and closes inside the span's own stamps
+        self.range = _profiler_range(STAGES[stage])
+        self.range.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.range.__exit__(*exc)
+        t1 = time.perf_counter_ns()
+        rec, prof, stage = self.rec, self.prof, self.stage
+        rec[3] = t1
+        prof.stage_ns[stage] += t1 - rec[2]
+        prof.stage_calls[stage] += 1
+        if stage == FORECAST_ROUND:
+            round_id, spans = prof._open.round
+            prof._open.round = None
+            prof.forecast_rounds.append(
+                (round_id, tuple(tuple(r) for r in spans)))
 
 
 class ProfileRuntime:
@@ -109,6 +213,11 @@ class ProfileRuntime:
         self.gc_pause_ns = 0
         self.gc_max_pause_ns = 0
         self._started = False
+        # the last ring_size forecast rounds: (id, ((stage, step, start_ns,
+        # end_ns), ...)) in start order, appended whole when a round ends
+        self.forecast_rounds: deque = deque(maxlen=self.ring_size)
+        self._round_ids = itertools.count(1)
+        self._open = _OpenRound()
 
     # -- lifecycle ----------------------------------------------------------
 
@@ -215,10 +324,11 @@ class ProfileRuntime:
             }
             if top:
                 busy_ns += n
-            if not top and i != GC:
+            if not top and i != GC and i not in PARENT:
                 # subsystem rollup from the fine stages only (the
-                # top-level windows contain them; summing both would
-                # double-count the same microseconds)
+                # top-level windows contain them, and a forecast round
+                # its children; summing both would double-count the same
+                # microseconds)
                 sub = subsystems.setdefault(
                     SUBSYSTEMS[i], {"ns": 0, "calls": 0})
                 sub["ns"] += n
@@ -242,6 +352,14 @@ class ProfileRuntime:
                 "pause_ns": self.gc_pause_ns,
                 "max_pause_ns": self.gc_max_pause_ns,
             },
+            "forecast": {"rounds": [
+                {"round": round_id, "spans": [
+                    {"stage": STAGES[stage], "step": step,
+                     "parent": (STAGES[PARENT[stage]]
+                                if stage in PARENT else None),
+                     "start_ns": t0, "end_ns": t1}
+                    for stage, step, t0, t1 in spans]}
+                for round_id, spans in list(self.forecast_rounds)]},
         }
         sampler = self.sampler
         if sampler is not None:

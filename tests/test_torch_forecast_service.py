@@ -18,7 +18,13 @@
 - the reference's observed-traffic test on the port's BrokerServer,
   client and admin API with ``device="cpu"``, training with the
   reference's ``steps_per_round=5``, and its disabled-forecaster case;
-- the defaults are the reference's (20 steps a round, lr 1e-3).
+- the defaults are the reference's (20 steps a round, lr 1e-3);
+- with a profile runtime installed, a round records its ``forecast``
+  stages once each and the ``train-*`` stages once a step, spans nested
+  in their parents under one round id, each with a profiler range of its
+  name in a torch profiler's trace; with none installed it
+  records nothing and returns the same numbers bit for bit; the
+  service's ``kernel_launches`` gains the forecaster wrappers' launches.
 """
 
 import asyncio
@@ -35,6 +41,7 @@ import chip_smoke
 from chanamq_tpu.models import forecaster as ref_fc
 from chanamq_tpu.models import telemetry as ref_tm
 from chanamq_tpu.models.service import ForecastService as RefService
+from chanamq_tpu_torch import profile
 from chanamq_tpu_torch.broker.broker import Broker as PortBroker
 from chanamq_tpu_torch.broker.server import BrokerServer as PortServer
 from chanamq_tpu_torch.client import AMQPClient as PortClient
@@ -293,6 +300,160 @@ def test_default_device_is_the_card():
         with pytest.raises((RuntimeError, AssertionError)):
             svc._round(_history(40, 0))
         assert svc._torch_state is None
+
+
+# -- the round's spans (profile/) and launch count ---------------------------
+
+ROUND_STAGES = ("forecast-round", "forecast-batch", "forecast-wait",
+                "forecast-predict")
+STEP_STAGES = ("train-step", "train-forward", "train-backward",
+               "train-update")
+
+
+def _tiny_service(steps: int = 3) -> PortService:
+    svc = PortService(types.SimpleNamespace(), seq_len=8, history=64,
+                      batch=4, steps_per_round=steps,
+                      model_kwargs=TINY_MODEL, device="cpu")
+    svc._torch_state = svc._torch_setup()
+    return svc
+
+
+@pytest.fixture
+def runtime():
+    rt = profile.install(profile.ProfileRuntime(gc_hook=False))
+    yield rt
+    profile.clear()
+
+
+def test_round_records_its_stages_and_spans(runtime):
+    """One round with a runtime installed: each round stage once, each
+    step stage once a step, in the ledger and in one ring entry whose
+    spans share its id and lie inside their parents."""
+    svc = _tiny_service(steps=3)
+    svc._round(_history(40, 0))
+    calls = {name: int(runtime.stage_calls[profile.STAGES.index(name)])
+             for name in ROUND_STAGES + STEP_STAGES}
+    assert calls == {**dict.fromkeys(ROUND_STAGES, 1),
+                     **dict.fromkeys(STEP_STAGES, 3)}
+    snap = runtime.snapshot()
+    assert snap["subsystems"]["forecast"] == {
+        "ns": snap["stages"]["forecast-round"]["ns"], "calls": 1}
+    (entry,) = snap["forecast"]["rounds"]
+    spans = entry["spans"]
+    assert [s["stage"] for s in spans] == (
+        ["forecast-round", "forecast-batch"] + list(STEP_STAGES) * 3
+        + ["forecast-wait", "forecast-predict"])
+    for s in spans:
+        ns = snap["stages"][s["stage"]]["ns"]
+        assert 0 < s["end_ns"] - s["start_ns"] <= ns
+    (whole,) = [s for s in spans if s["parent"] is None]
+    assert whole["stage"] == "forecast-round" and whole["step"] is None
+    for s in spans:
+        if s["parent"] is None:
+            continue
+        (parent,) = [p for p in spans if p["stage"] == s["parent"]
+                     and p["step"] == (s["step"] if s["parent"]
+                                       == "train-step" else None)]
+        assert parent["start_ns"] <= s["start_ns"] <= s["end_ns"] \
+            <= parent["end_ns"], (s, parent)
+    assert [s["step"] for s in spans if s["stage"] in STEP_STAGES] == \
+        [i for i in range(3) for _ in STEP_STAGES]
+    # the next round's spans come under a new id
+    svc._round(_history(40, 1))
+    ids = [e["round"] for e in runtime.snapshot()["forecast"]["rounds"]]
+    assert len(ids) == len(set(ids)) == 2
+
+
+def test_round_ring_keeps_the_last_rounds():
+    rt = profile.install(profile.ProfileRuntime(gc_hook=False, ring_size=2))
+    try:
+        svc = _tiny_service(steps=1)
+        for seed in range(3):
+            svc._round(_history(40, seed))
+    finally:
+        profile.clear()
+    rounds = rt.snapshot()["forecast"]["rounds"]
+    assert [e["round"] for e in rounds] == [2, 3]
+    assert int(rt.stage_calls[profile.FORECAST_ROUND]) == 3
+
+
+def test_round_without_profile_records_nothing_and_matches():
+    """With the runtime cleared a round records nothing (ledger, ring,
+    profiler ranges) and gives bit for bit what the traced round gives
+    from the same state."""
+    rt = profile.install(profile.ProfileRuntime(gc_hook=False))
+    traced = _tiny_service()
+    want = traced._round(_history(40, 0))
+    profile.clear()
+    before = (rt.stage_ns.copy(), rt.stage_calls.copy())
+    plain = _tiny_service()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        got = plain._round(_history(40, 0))
+    assert profile.ACTIVE is None
+    assert (rt.stage_ns == before[0]).all()
+    assert (rt.stage_calls == before[1]).all()
+    assert len(rt.snapshot()["forecast"]["rounds"]) == 1
+    assert not [e for e in prof.events() if e.name in profile.STAGES]
+    assert got[0] == want[0] == 3
+    assert np.float32(got[1]).tobytes() == np.float32(want[1]).tobytes()
+    assert list(got[2]) == list(want[2])
+    assert all(np.float64(got[2][k]).tobytes()
+               == np.float64(want[2][k]).tobytes() for k in want[2])
+    for name, p in traced._torch_state["params"].items():
+        assert torch.equal(plain._torch_state["params"][name], p), name
+
+
+def test_round_spans_match_the_profiler_ranges(runtime):
+    """Under ``torch.profiler`` each ring span has a host event of its
+    stage's name (the span's profiler range), in the same order and
+    nesting, lasting as long within 5% or 50 µs."""
+    svc = _tiny_service(steps=2)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        svc._round(_history(40, 0))  # warms the profiler's first ranges
+        svc._round(_history(40, 1))
+    first, entry = runtime.snapshot()["forecast"]["rounds"]
+    spans = entry["spans"]
+    events = sorted((e for e in prof.events() if e.name in profile.STAGES),
+                    key=lambda e: e.time_range.start)[len(first["spans"]):]
+    assert [e.name for e in events] == [s["stage"] for s in spans]
+    for e, s in zip(events, spans):
+        parent = e.cpu_parent
+        while parent is not None and parent.name not in profile.STAGES:
+            parent = parent.cpu_parent
+        assert (parent.name if parent is not None else None) == s["parent"]
+        ring_us = (s["end_ns"] - s["start_ns"]) / 1e3
+        traced_us = e.time_range.end - e.time_range.start
+        assert abs(traced_us - ring_us) <= max(0.05 * ring_us, 50.0), \
+            (s["stage"], traced_us, ring_us)
+
+
+def test_round_counts_the_wrappers_launches(monkeypatch):
+    """``kernel_launches`` gains the change in the forecaster wrappers'
+    ``launches`` over each round (on the CPU the plain versions launch
+    nothing, so the step here counts as the card's wrappers would)."""
+    svc = _tiny_service(steps=2)
+    wrappers = (fk.layernorm, fk.causal_attention, fk.layernorm_bwd,
+                fk.causal_attention_bwd, fk.gelu_tanh_bwd,
+                fk.products.bf16_product, fk.products.f32_product,
+                fk.update.clip_momentum_sgd)
+    step = svc._torch_state["step"]
+
+    def counted_step(*args):
+        for i, w in enumerate(wrappers):
+            monkeypatch.setattr(w, "launches", w.launches + i + 1)
+        return step(*args)
+
+    svc._torch_state["step"] = counted_step
+    assert svc.snapshot()["kernel_launches"] == 0
+    before = fk.launch_count()
+    svc._round(_history(40, 0))
+    per_step = sum(range(1, len(wrappers) + 1))
+    assert fk.launch_count() - before == 2 * per_step
+    assert svc.snapshot()["kernel_launches"] == 2 * per_step
+    svc._round(_history(40, 1))
+    assert svc.snapshot()["kernel_launches"] == 4 * per_step
 
 
 # -- end to end: the port's broker under load -> forecast ---------------------

@@ -12,8 +12,11 @@
   the CPU), booted from the same config file beside it and given the same
   traffic, returns the same key sets from ``/admin/forecast``,
   ``/admin/health``, ``/admin/overview``, ``/admin/control`` and every
-  other admin view a single node serves (``ADMIN_VIEWS``), the same
-  metric names in the same order on ``/metrics``, and, after the same
+  other admin view a single node serves (``ADMIN_VIEWS``), but for the
+  port's own additions (``PORT_ONLY``: the forecast service's kernel
+  launch count and its profile stages and round ring), the same
+  metric names in the same order on ``/metrics`` (the forecast stages'
+  series after the reference's stages), and, after the same
   scripted declares, identical JSON from ``/admin/queues/<vhost>`` and
   ``/admin/exchanges/<vhost>``;
 - the cluster, federation and shard layers boot from config: a one-node
@@ -81,6 +84,21 @@ ADMIN_VIEWS = ("/admin/forecast", "/admin/health", "/admin/overview",
                "/admin/cluster", "/admin/federation", "/admin/replication",
                "/admin/drain")
 ENTITY_VIEWS = ("/admin/queues/%2F", "/admin/exchanges/%2F")
+# the key paths the port adds to the reference's views: the forecaster
+# wrappers' launches on /admin/forecast, and on /admin/profile the
+# forecast service's stages, their subsystem and the ring of its rounds
+FORECAST_STAGES = ("forecast-round", "forecast-batch", "train-step",
+                   "train-forward", "train-backward", "train-update",
+                   "forecast-wait", "forecast-predict")
+PORT_ONLY = {
+    "/admin/forecast": {"/kernel_launches"},
+    "/admin/profile": {
+        f"/stages/{stage}{key}" for stage in FORECAST_STAGES
+        for key in ("", "/subsystem", "/ns", "/calls", "/us_per_call",
+                    "/top_level")}
+    | {"/subsystems/forecast", "/subsystems/forecast/ns",
+       "/subsystems/forecast/calls", "/forecast", "/forecast/rounds"},
+}
 BOOT_TIMEOUT_S = 60.0
 FORECAST_TIMEOUT_S = 120.0
 
@@ -279,15 +297,22 @@ def test_port_node_exits_zero_on_sigterm(nodes):
 def test_admin_key_sets_match_reference(nodes, path):
     port = json.loads(nodes["chanamq_tpu_torch"][path])
     ref = json.loads(nodes["chanamq_tpu"][path])
-    assert _key_paths(port) == _key_paths(ref)
+    assert _key_paths(port) == _key_paths(ref) | PORT_ONLY.get(path, set())
     assert (nodes["chanamq_tpu_torch"]["status " + path]
             == nodes["chanamq_tpu"]["status " + path])
 
 
 def test_metric_names_match_reference(nodes):
+    """The reference's names in its order; the port's profile stage
+    series carry its forecast stages after the reference's stages."""
     port = _metric_names(nodes["chanamq_tpu_torch"]["/metrics"])
     ref = _metric_names(nodes["chanamq_tpu"]["/metrics"])
-    assert port == ref
+    stages_end = 1 + max(i for i, name in enumerate(ref)
+                         if name == "chanamq_profile_stage_calls_total")
+    assert port == ref[:stages_end] + [
+        "chanamq_profile_stage_ns_total",
+        "chanamq_profile_stage_calls_total"] * len(FORECAST_STAGES) \
+        + ref[stages_end:]
     assert "chanamq_forecast_loss" in port
 
 

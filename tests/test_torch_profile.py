@@ -7,7 +7,10 @@ disabled path, folded-stack sampling of a synthetic busy loop, the
 event-loop stall watchdog (capture + ring + counter + structured log
 line), GC pause attribution, the /admin/profile route conventions
 alongside the telemetry ones, Prometheus export, and the pure
-``regress_evaluate`` verdict on doctored trajectory records.
+``regress_evaluate`` verdict on doctored trajectory records; and the
+port's own forecast stages: their place in the stage table, the
+``profile.span`` seam (off, on, the round ring) and a forecast round's
+stages and spans on ``/admin/profile``.
 
 The port's copy of ``tests/test_profile.py``: imports point at
 ``chanamq_tpu_torch`` (the verdict cases at the port's
@@ -146,6 +149,70 @@ def test_stage_table_shape():
     assert len(profile.STAGES) == len(profile.SUBSYSTEMS)
     assert profile.TOP_LEVEL <= set(range(len(profile.STAGES)))
     assert profile.GC not in profile.TOP_LEVEL
+
+
+def test_forecast_stages_follow_the_broker_stages():
+    # the forecast service's stages are appended after the first 13, under
+    # their own subsystem, fine (never top-level), each nested in a round
+    names = ("forecast-round", "forecast-batch", "train-step",
+             "train-forward", "train-backward", "train-update",
+             "forecast-wait", "forecast-predict")
+    assert profile.STAGES[13:] == names
+    assert profile.STAGES.index("tx-commit") == profile.TX_COMMIT == 12
+    assert [profile.STAGES[i] for i in (
+        profile.FORECAST_ROUND, profile.FORECAST_BATCH, profile.TRAIN_STEP,
+        profile.TRAIN_FORWARD, profile.TRAIN_BACKWARD, profile.TRAIN_UPDATE,
+        profile.FORECAST_WAIT, profile.FORECAST_PREDICT)] == list(names)
+    assert profile.SUBSYSTEMS[13:] == ("forecast",) * len(names)
+    assert not profile.TOP_LEVEL & set(range(13, len(profile.STAGES)))
+    for stage in range(14, len(profile.STAGES)):
+        root = stage
+        while root in profile.PARENT:
+            root = profile.PARENT[root]
+        assert root == profile.FORECAST_ROUND, profile.STAGES[stage]
+
+
+def test_span_ledger_ring_and_off_path():
+    """``profile.span``: off, a shared no-op context that records nothing;
+    on, each span adds its wall time and one call, and only spans inside
+    a ``forecast-round`` span reach the ring, as one entry when the round
+    closes."""
+    assert profile.ACTIVE is None
+    with profile.span(profile.TRAIN_STEP):
+        pass
+    assert profile.span(profile.FORECAST_ROUND) is \
+        profile.span(profile.TRAIN_STEP)
+    rt = profile.install(ProfileRuntime(gc_hook=False))
+    try:
+        with profile.span(profile.TRAIN_STEP):  # no round open
+            _busy_ms(1)
+        assert int(rt.stage_calls[profile.TRAIN_STEP]) == 1
+        assert int(rt.stage_ns[profile.TRAIN_STEP]) >= 1_000_000
+        assert rt.snapshot()["forecast"] == {"rounds": []}
+        with profile.span(profile.FORECAST_ROUND):
+            for _ in range(2):
+                with profile.span(profile.TRAIN_STEP):
+                    with profile.span(profile.TRAIN_UPDATE):
+                        pass
+            assert rt.snapshot()["forecast"] == {"rounds": []}
+        with pytest.raises(ValueError):
+            with profile.span(profile.FORECAST_ROUND):
+                with profile.span(profile.FORECAST_PREDICT):
+                    raise ValueError("a round that fails is still kept")
+    finally:
+        profile.clear()
+    first, failed = rt.snapshot()["forecast"]["rounds"]
+    assert failed["round"] == first["round"] + 1
+    assert [(s["stage"], s["step"], s["parent"]) for s in first["spans"]] \
+        == [("forecast-round", None, None),
+            ("train-step", 0, "forecast-round"),
+            ("train-update", 0, "train-step"),
+            ("train-step", 1, "forecast-round"),
+            ("train-update", 1, "train-step")]
+    assert [s["stage"] for s in failed["spans"]] == [
+        "forecast-round", "forecast-predict"]
+    assert int(rt.stage_calls[profile.TRAIN_STEP]) == 3
+    assert int(rt.stage_calls[profile.FORECAST_ROUND]) == 2
 
 
 # ---------------------------------------------------------------------------
@@ -338,6 +405,44 @@ async def test_admin_profile_get_and_405(profile_stack):
     status, body = await http_req(
         admin.bound_port, "/admin/profile/stage/nope")
     assert status == 404 and "unknown stage" in body["error"]
+
+
+async def test_admin_profile_forecast_stages_and_rounds(profile_stack):
+    """A forecast round run with the runtime installed shows on
+    ``/admin/profile`` under subsystem ``forecast``: its stages' totals,
+    the subsystem's rollup (the round alone) and the round's spans."""
+    import types
+
+    import numpy as np
+
+    from chanamq_tpu_torch.models.service import ForecastService
+
+    server, admin, rt = profile_stack
+    svc = ForecastService(types.SimpleNamespace(), seq_len=8, history=64,
+                          batch=4, steps_per_round=2, device="cpu",
+                          model_kwargs={"d_model": 16, "n_heads": 2,
+                                        "d_ff": 32, "n_layers": 1})
+    history = np.abs(np.random.default_rng(0).normal(
+        size=(40, 8))).astype(np.float32)
+    await asyncio.to_thread(svc._round, history)
+    status, snap = await http_req(admin.bound_port, "/admin/profile")
+    assert status == 200
+    forecast = {name: stage for name, stage in snap["stages"].items()
+                if stage["subsystem"] == "forecast"}
+    assert list(forecast) == list(profile.STAGES[13:])
+    assert {name: stage["calls"] for name, stage in forecast.items()} == {
+        "forecast-round": 1, "forecast-batch": 1, "train-step": 2,
+        "train-forward": 2, "train-backward": 2, "train-update": 2,
+        "forecast-wait": 1, "forecast-predict": 1}
+    assert not any(stage["top_level"] for stage in forecast.values())
+    assert snap["subsystems"]["forecast"] == {
+        "ns": forecast["forecast-round"]["ns"], "calls": 1}
+    (entry,) = snap["forecast"]["rounds"]
+    assert len(entry["spans"]) == 4 + 2 * 4
+    status, det = await http_req(admin.bound_port,
+                                 "/admin/profile/stage/train-backward")
+    assert status == 200 and det["subsystem"] == "forecast" \
+        and det["calls"] == 2
 
 
 async def test_admin_profile_stacks_text(profile_stack):
