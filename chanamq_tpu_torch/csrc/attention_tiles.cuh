@@ -41,10 +41,16 @@
 // every pass and whatever the ring's size, so the sums run in the same
 // order as when the prefix was held whole.
 //
-// mma.sync, not wgmma: the tiles are 16 x 16 per warp at the forecaster's
-// T = 64, head_dim = 64, far under the 64 x N x 16 warpgroup tile's best
-// use, and the kernels are bound by launch latency and parallelism (more
-// than 20x from either roof), not by the tensor cores' rate.
+// Which shapes each design serves. These 16-row tiles on mma.sync serve the
+// backward at every shape, and the forward up to windows of 127 rows (the
+// service's default window 64, run_node's compact model at its window) and
+// at head widths that are not multiples of 16 or are over 128: at T = 64 a
+// forward is bound by launch latency and parallelism (more than 20x from
+// either roof), and a 64-row warpgroup tile would leave most of the card
+// idle. From 128 rows the 16-row forward re-reads a query tile's whole key
+// prefix three times for every 16 rows; there the forward is forecaster.cu's
+// causal_attention_warpgroup_kernel (64 query rows a block, wgmma, a TMA
+// key ring, two passes), which writes the same row statistics.
 
 #pragma once
 

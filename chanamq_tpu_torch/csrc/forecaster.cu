@@ -29,20 +29,28 @@
 // the reference's splits, reshapes and transposes become indexing; GELU is
 // one pass of 16-byte loads and stores. Nothing is fused across kernels.
 //
-// Attention is the tensor-core design of attention_tiles.cuh: both of its
-// products (q . k^T and W . V) on mma.sync, its softmax on the accumulator
-// fragments in registers, one block of four warps per (batch, head, 16-row
-// query tile), so that the service's batch of 1 runs on 16 blocks at
-// T = 64, in one launch a call; key and value tiles stream through a ring
-// in shared memory, so any window fits.
+// Attention has two designs, one launch a call either way, chosen by the
+// wrapper from the shape. Up to windows of 127 rows, and at head widths the
+// second does not take, the tensor-core design of attention_tiles.cuh: both
+// of its products (q . k^T and W . V) on mma.sync, its softmax on the
+// accumulator fragments in registers, one block of four warps per (batch,
+// head, 16-row query tile), so that the service's batch of 1 runs on 16
+// blocks at T = 64; key and value tiles stream through a ring in shared
+// memory, so any window fits. From 128 rows at head widths that are
+// multiples of 16 up to 128, causal_attention_warpgroup_kernel: 64 query
+// rows a block on wgmma, 64-key tiles on a TMA ring, two passes over the
+// keys (its note is below).
 
+#include <cuda.h>  // CUtensorMap; the encoder comes through the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 #include "attention_tiles.cuh"
 #include "gelu.cuh"
 #include "layernorm_rows.cuh"
+#include "tma_wgmma.cuh"
 
 #define CHANA_GELU_THREADS 256
 
@@ -320,6 +328,462 @@ __global__ void __launch_bounds__(chana_att::kWarps * 32, 4)
   }
 }
 
+// -- causal attention for long windows: a warpgroup on a TMA key ring -------
+//
+// The same function as causal_attention_kernel, for windows of 128 rows and
+// more at head widths that are multiples of 16 up to 128 (the wrapper's
+// attention_warpgroup_geometry; every other shape takes the kernel above).
+//
+// What bounds it. Two bf16 products over the causal pairs, 4 HD operations
+// a pair (the flagship's training call, B = 16, T = 2,048, 4 heads of 64:
+// 3.4e10, 35 us at 989 TFLOP/s), and the softmax: each pair's exponential
+// twice, once a pass, on the special function units (16 a clock an SM:
+// ~75 us at that shape), pass 2's division, and some ten more float32
+// instructions a pair. The second pass computes Q K^T again and 64 x 64
+// tiles take the diagonal whole, so the tensor cores do ~5.5e10 operations
+// (~55 us). The 16-row kernel above spends ~1.3 ms there: each 16-row
+// query tile streams its whole key prefix three times through a two-slot
+// cp.async ring (~4.3 GB of L2 reads a call), a block barrier every 2 KB
+// tile. Here a key or value tile serves 64 query rows and the prefix is
+// read twice (~0.83 GB), so the tensor cores' and the softmax's work bound
+// it; they overlap within a warpgroup, and three blocks an SM overlap one
+// block's softmax with another's products.
+//
+// The design:
+// - A block takes 64 query rows of one (b, h) on one consumer warpgroup
+//   (wgmma's m64), plus one producer warp. Blocks go longest rows first.
+//   Up to head width 64 an SM holds three blocks.
+// - One 4-d tensor map views qkv [B, T, 3D] as [B][T][3H][HD] and gives
+//   every operand as a box of 64 rows of one head, 64 columns (128 bytes,
+//   128-byte swizzle; two boxes at widths over 64). Rows past T and
+//   columns past HD arrive as zeros, never from the next batch or head,
+//   so q . k runs over whole boxes and W . V's extra columns are zeros.
+// - The producer warp loads the block's q rows once, then streams 64-key
+//   tiles through a ring of kStages stages (full and empty mbarriers): the
+//   key tiles of the block's prefix for pass 1, then key and value tiles
+//   again for pass 2.
+// - Pass 1: S = Q K^T on wgmma m64n64k16 (both from shared memory);
+//   logit = float(bf16(S)) / sqrt(HD), -inf past the row or past T, as the
+//   16-row kernel forms it; each row's max and sum of exponentials in one
+//   online pass, a running max that rescales the running sum.
+// - Pass 2: S again (the same bits), W = bf16(expf(logit - m) / l), the
+//   reference's rounding of the weights and, from the statistics written
+//   out, the backward's W bit for bit; the division by each row's
+//   reciprocal and two correction steps (quotient_rn) where the row's
+//   logits span under kQuotientSpan (pass 1 finds each row's least), the
+//   division itself elsewhere. W is packed in registers as the A operand
+//   of O += W . V on wgmma (V from shared memory, N-major).
+// - The tensor cores' work overlaps the softmax's: in pass 1 the second of
+//   two key tiles' S runs while the first is worked on, in pass 2 a tile's
+//   W is worked out while the last tile's W . V runs. No wgmma is in
+//   flight across a loop's back edge, and no accumulator is read before
+//   the wait that retires it; otherwise the compiler serializes every
+//   wgmma.
+// - out = bf16(O); with `stats`, each row's max and sum go to the first two
+//   planes at the rows the 16-row kernel writes (rows < stat_rows of each
+//   (b, h)), for the backward, which takes either forward's statistics.
+
+namespace wg_att {
+
+constexpr int kRows = 64;  // query rows of a block: wgmma's m64
+constexpr int kKeys = 64;  // keys of a ring tile: the n64 of Q K^T
+constexpr int kAtomBytes = 64 * 128;  // a box: 64 rows of 64 bf16
+
+// Heads of up to 64 kAtoms.
+template <int kAtoms>
+struct Shape {
+  static constexpr int kThreads = 128 + 32;  // consumers, the producer
+  // blocks an SM holds: three up to width 64 (136 registers a thread,
+  // 3 x 74,752 bytes of shared memory), one above (its output's registers
+  // and stages of twice the bytes)
+  static constexpr int kBlocksPerSM = kAtoms == 1 ? 3 : 1;
+  static constexpr int kTileBytes = kAtoms * kAtomBytes;  // a k or v tile
+  static constexpr int kStageBytes = 2 * kTileBytes;
+  // ring stages (a pass-2 stage is released a stage late, once its W . V
+  // is done)
+  static constexpr int kStages = 4;
+  static constexpr int kQBytes = kAtoms * kAtomBytes;
+  // + 1024 bytes to align the boxes for the swizzle
+  static constexpr int kSmem = kQBytes + kStages * kStageBytes + 1024;
+};
+
+// x / d, correctly rounded, from r = 1 / d correctly rounded (one
+// correction step, Markstein's) for x a bf16 logit of 2^-100 or more in
+// magnitude and d = sqrt(HD): every such bf16 value at every width that
+// takes it (32, 48, 80, 96, 112, 128) gives the division's bits, while
+// some under 2^-118 do not, their residuals underflowing.
+__device__ __forceinline__ float quotient(float x, float d, float r) {
+  const float q = x * r;
+  return fmaf(fmaf(-q, d, x), r, q);
+}
+
+// x / d with the bits of the division (correctly rounded, as
+// chana_att::divide gives it) for 0 <= x <= 1 and d >= 1/2 where the
+// quotient is 0 or a normal float (2^-126 or more), from r = 1 / d
+// correctly rounded, without the division's reciprocal and branches for
+// each x: at x 2^100, so that every residual is exact, a product within
+// two ulp, a correction step that leaves it within one and Markstein's
+// step that rounds it correctly, scaled back exactly. (Under 2^-126 the
+// scaling back would round a second time.)
+__device__ __forceinline__ float quotient_rn(float x, float d, float r) {
+  const float xs = x * 0x1p100f;
+  float q = xs * r;
+  q = fmaf(fmaf(-q, d, xs), r, q);
+  return fmaf(fmaf(-q, d, xs), r, q) * 0x1p-100f;
+}
+
+// The widest span of a row's logits (max - min, at their true scale) under
+// which every weight exp(logit - m) / l is 0 or a normal float, l being at
+// most T < 2^31: e^-64 / 2^31 > 2^-124.
+constexpr float kQuotientSpan = 64.f;
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x by the special function unit (relative error ~2^-22; 2^-inf = 0).
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+}  // namespace wg_att
+
+template <int kAtoms>
+__global__ void __launch_bounds__(wg_att::Shape<kAtoms>::kThreads,
+                                  wg_att::Shape<kAtoms>::kBlocksPerSM)
+    causal_attention_warpgroup_kernel(const __grid_constant__ CUtensorMap map,
+                                      __nv_bfloat16* __restrict__ out,
+                                      float* __restrict__ stats, int T, int H,
+                                      int HD, int BH, int stat_rows,
+                                      float scale_div) {
+  using namespace chana_tma;
+  using namespace wg_att;
+  using S = Shape<kAtoms>;
+  using chana_att::neg_inf;
+  using chana_att::pack_bf16;
+  using chana_att::unpack_bf16;
+  extern __shared__ __align__(1024) uint8_t wg_smem[];
+  __shared__ __align__(8) uint64_t full[S::kStages];
+  __shared__ __align__(8) uint64_t empty[S::kStages];
+  __shared__ __align__(8) uint64_t q_full;
+  uint8_t* const q_smem =
+      wg_smem + ((1024u - (smem_u32(wg_smem) & 1023u)) & 1023u);
+  uint8_t* const ring = q_smem + S::kQBytes;
+
+  const int qb = (int)gridDim.x / BH - 1 - (int)blockIdx.x / BH;
+  const int bh = (int)blockIdx.x % BH;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int D = H * HD;
+  const int r0 = qb * kRows;
+  // key tiles the block's rows see, rounded up to even (a tile past them
+  // is masked whole) so that each pass is whole pairs of stages
+  int n = (min(r0 + kRows, T) + kKeys - 1) / kKeys;
+  n += n & 1;
+  const int warp = (int)threadIdx.x >> 5;
+  const int lane = (int)threadIdx.x & 31;
+
+  if (threadIdx.x == 128) {
+    tma_prefetch(&map);
+    for (int s = 0; s < S::kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);  // one arrival a consumer warp
+    }
+    mbar_init(&q_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4) {  // the producer
+    if (lane == 0) {
+      mbar_expect_tx(&q_full, S::kQBytes);
+      for (int a = 0; a < kAtoms; ++a) {
+        tma_load_4d(q_smem + a * kAtomBytes, &map, &q_full, 64 * a, h, r0,
+                    b);
+      }
+      // stage i: key tile i (pass 1), then key and value tile i - n
+      for (int i = 0; i < 2 * n; ++i) {
+        const int slot = i % S::kStages;
+        if (i >= S::kStages) {
+          mbar_wait(&empty[slot], ((i / S::kStages) - 1) & 1);
+        }
+        const bool second = i >= n;
+        const int key0 = (second ? i - n : i) * kKeys;
+        uint8_t* const st = ring + slot * S::kStageBytes;
+        mbar_expect_tx(&full[slot], (second ? 2 : 1) * S::kTileBytes);
+        for (int a = 0; a < kAtoms; ++a) {
+          tma_load_4d(st + a * kAtomBytes, &map, &full[slot], 64 * a, H + h,
+                      key0, b);
+          if (second) {
+            tma_load_4d(st + S::kTileBytes + a * kAtomBytes, &map,
+                        &full[slot], 64 * a, 2 * H + h, key0, b);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumer warpgroup: lane l of warp w holds rows
+  // row_a = r0 + 16 w + l / 4 and row_a + 8
+  const int row_a = r0 + 16 * warp + (lane >> 2);
+  const int c = lane & 3;
+  const uint32_t q_base = smem_u32(q_smem);
+  // 1 / sqrt(HD), correctly rounded. Where sqrt(HD) is a power of two the
+  // logits are kept as float(bf16(S)) and the exact scale sc rides in the
+  // exponent's multiplier and in the max written out; elsewhere each logit
+  // is divided (quotient) and sc is 1.
+  const float inv_scale = __frcp_rn(scale_div);
+  const bool pow2_scale = (__float_as_uint(scale_div) & 0x007fffffu) == 0u;
+  const float sc = pow2_scale ? inv_scale : 1.f;
+  const float scl = sc * kLog2e;  // exp(sc (x - m)) = 2^(x scl - m scl)
+  mbar_wait(&q_full, 0);
+
+  // stage i's S = Q K^T into d (its key tile i, or i - n in pass 2)
+  auto issue_qk = [&](float (&d)[32], int i) {
+    const int slot = i % S::kStages;
+    mbar_wait(&full[slot], (i / S::kStages) & 1);
+    const uint32_t k_base = smem_u32(ring + slot * S::kStageBytes);
+    fence_acc(d);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4 * kAtoms; ++kk) {  // columns past HD are zeros
+      const uint32_t off = (kk >> 2) * kAtomBytes + (kk & 3) * 32;
+      wgmma_m64n64k16<0, 0>(d, sw128_desc(q_base + off),
+                            sw128_desc(k_base + off), kk > 0);
+    }
+    wgmma_commit();
+  };
+  // S to logits (over sc) in place: float(bf16(S)), divided by sqrt(HD)
+  // where that is not a power of two, with the 16-row kernel's bits
+  // (quotient, or the division where the tile holds a logit under
+  // 2^-100); -inf past the row or past T (only a
+  // tile that reaches past its first row or past T is masked key by key).
+  // With `low` (pass 1), each row's least logit before the mask goes into
+  // lo: a bound on its span that holds the masked keys too.
+  float lo[2] = {-neg_inf(), -neg_inf()};
+  auto to_logits = [&](float (&x)[32], int key0, bool low) {
+#pragma unroll
+    for (int e = 0; e < 32; e += 2) {  // one conversion a pair
+      const float2 p = unpack_bf16(pack_bf16(x[e], x[e + 1]));
+      x[e] = p.x;
+      x[e + 1] = p.y;
+    }
+    if (!pow2_scale) {
+      int tiny = 0;  // a logit too small for quotient: the tile divides
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        tiny |= fabsf(x[e]) < 0x1p-100f && x[e] != 0.f;
+      }
+      if (tiny) {
+#pragma unroll
+        for (int e = 0; e < 32; ++e) x[e] = chana_att::divide(x[e], scale_div);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          x[e] = quotient(x[e], scale_div, inv_scale);
+        }
+      }
+    }
+    if (low) {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        lo[(e >> 1) & 1] = fminf(lo[(e >> 1) & 1], x[e]);
+      }
+    }
+    if (key0 + kKeys - 1 > r0 || key0 + kKeys > T) {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int key = key0 + 8 * (e >> 2) + 2 * c + (e & 1);
+        if (key > row_a + 8 * ((e >> 1) & 1) || key >= T) x[e] = neg_inf();
+      }
+    }
+  };
+
+  // pass 1: each row's max and sum of exponentials, online (a new max
+  // rescales the sum); pass 2: W = bf16(expf(logit - m) / l), O += W . V
+  float m[2] = {neg_inf(), neg_inf()}, l[2] = {0.f, 0.f};  // m over sc
+  float mt[2], rl[2];  // pass 2: the true max, m sc (exact: sc is 1 or
+                      // 2^-k), and 1 / l correctly rounded
+  float o[kAtoms][32];  // zeroed after pass 1, where it starts to live
+  // a row's 16 values a thread go to four partial maxima and sums (value
+  // e to partial (e / 4) % 4), so that the chains are short
+  auto pass1 = [&](float (&x)[32]) {
+    float top[2][4], part[2][4];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        top[r][q] = m[r];
+        part[r][q] = 0.f;
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      float& t = top[(e >> 1) & 1][(e >> 2) & 3];
+      t = fmaxf(t, x[e]);
+    }
+    float mx[2], nml[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = chana_att::quad_max(fmaxf(fmaxf(top[r][0], top[r][1]),
+                                        fmaxf(top[r][2], top[r][3])));
+      nml[r] = -mx[r] * scl;
+    }
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      part[(e >> 1) & 1][(e >> 2) & 3] +=
+          exp2_approx(fmaf(x[e], scl, nml[(e >> 1) & 1]));
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] = l[r] * exp2_approx((m[r] - mx[r]) * scl) +
+             chana_att::quad_sum((part[r][0] + part[r][1]) +
+                                 (part[r][2] + part[r][3]));
+      m[r] = mx[r];
+    }
+  };
+  // pass 2's work on a tile of logits: W = expf(logit - m) / l in float32,
+  // in place, with the bits the 16-row kernel and the backward give it
+  // from the same m and l (logit = x sc exactly, so fmaf(x, sc, -m sc) is
+  // their rounded logit - m; expf is theirs; the division theirs, as
+  // quotient_rn where both of the thread's rows span under
+  // kQuotientSpan, l being a sum that holds the max's own exp(0)); then
+  // W's k16 slices, rounded to bf16, into w (the A operands of O += W . V,
+  // issued for a stage's value tile without a wait)
+  uint32_t w[4][4];
+  int narrow = 0;  // set after pass 1
+  auto weights = [&](float (&x)[32]) {
+    int fast = narrow;
+    asm volatile("" : "+r"(fast));  // a branch here, not two pass-2 loops
+    if (fast) {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int r = (e >> 1) & 1;
+        x[e] = quotient_rn(expf(fmaf(x[e], sc, -mt[r])), l[r], rl[r]);
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int r = (e >> 1) & 1;
+        x[e] = chana_att::divide(expf(fmaf(x[e], sc, -mt[r])), l[r]);
+      }
+    }
+  };
+  auto pack_w = [&](const float (&x)[32]) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        w[kk][p] = pack_bf16(x[8 * kk + 2 * p], x[8 * kk + 2 * p + 1]);
+      }
+    }
+  };
+  auto issue_pv = [&](int i) {
+    const uint32_t v_base =
+        smem_u32(ring + (i % S::kStages) * S::kStageBytes) + S::kTileBytes;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int a = 0; a < kAtoms; ++a) {
+        wgmma_m64n64k16_rs<1>(
+            o[a], w[kk],
+            sw128_desc(v_base + a * kAtomBytes + kk * 16 * 128));
+      }
+    }
+    wgmma_commit();
+  };
+
+  // Stage i is key tile i in pass 1 and tile i - n in pass 2. No wgmma is
+  // in flight across a loop's back edge, and none is read before the
+  // wait that retires it, which lets the compiler keep them in flight
+  // within an iteration. Pass 1 takes two tiles an iteration: the second
+  // tile's S runs on the tensor cores while the first's is worked on.
+  // Pass 2 takes one: stage i's S and stage i - 1's W . V are issued
+  // together, stage i's W is worked out in float32 while that W . V runs,
+  // and is packed into w once it has finished.
+  const int stages = 2 * n;
+  float sa[32], sb[32];
+  for (int i = 0; i < n; i += 2) {  // pass 1 (n is even)
+    issue_qk(sa, i);
+    issue_qk(sb, i + 1);
+    wgmma_wait<1>();
+    fence_acc(sa);
+    if (lane == 0) mbar_arrive(&empty[i % S::kStages]);  // key tile read
+    to_logits(sa, i * kKeys, true);
+    pass1(sa);
+    wgmma_wait<0>();
+    fence_acc(sb);
+    if (lane == 0) mbar_arrive(&empty[(i + 1) % S::kStages]);
+    to_logits(sb, (i + 1) * kKeys, true);
+    pass1(sb);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mt[r] = m[r] * sc;
+    rl[r] = __frcp_rn(l[r]);
+  }
+  narrow = (m[0] - lo[0]) * sc < kQuotientSpan &&
+           (m[1] - lo[1]) * sc < kQuotientSpan;
+#pragma unroll
+  for (int a = 0; a < kAtoms; ++a) {
+#pragma unroll
+    for (int e = 0; e < 32; ++e) o[a][e] = 0.f;
+  }
+  issue_qk(sa, n);  // pass 2
+  wgmma_wait<0>();
+  fence_acc(sa);
+  to_logits(sa, 0, false);
+  weights(sa);
+  pack_w(sa);
+  for (int i = n + 1; i < stages; ++i) {
+    issue_qk(sa, i);
+    issue_pv(i - 1);
+    wgmma_wait<1>();
+    fence_acc(sa);
+    to_logits(sa, (i - n) * kKeys, false);
+    weights(sa);
+    wgmma_wait<0>();
+    // stage i - 1's key and value tiles are read
+    if (lane == 0) mbar_arrive(&empty[(i - 1) % S::kStages]);
+    pack_w(sa);
+  }
+  issue_pv(stages - 1);
+  wgmma_wait<0>();
+#pragma unroll
+  for (int a = 0; a < kAtoms; ++a) fence_acc(o[a]);
+
+  __nv_bfloat16* const dst = out + (size_t)b * T * D + h * HD;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_a + 8 * r;
+    if (row >= T) continue;
+#pragma unroll
+    for (int a = 0; a < kAtoms; ++a) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = 64 * a + 8 * j + 2 * c;
+        if (col < HD) {
+          *reinterpret_cast<uint32_t*>(dst + (size_t)row * D + col) =
+              pack_bf16(o[a][4 * j + 2 * r], o[a][4 * j + 2 * r + 1]);
+        }
+      }
+    }
+  }
+  if (stats != nullptr && c == 0) {
+    const size_t plane = (size_t)BH * stat_rows;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row_a + 8 * r;
+      if (row < stat_rows) {
+        stats[(size_t)bh * stat_rows + row] = mt[r];
+        stats[plane + (size_t)bh * stat_rows + row] = l[r];
+      }
+    }
+  }
+}
+
 // -- tanh-GELU --------------------------------------------------------------
 //
 // out = bf16(x * 0.5 * (1 + tanh(sqrt(2/pi) * (x + 0.044715 * x^3)))) in
@@ -349,6 +813,62 @@ __global__ void __launch_bounds__(CHANA_GELU_THREADS) gelu_tanh_kernel(
       out[n] = __float2bfloat16_rn(gelu_tanh_f(__bfloat162float(x[n])));
     }
   }
+}
+
+// -- host side of the long-window attention kernel ---------------------------
+
+// Shared memory of the instance for head width HD; 0 where the kernel
+// takes no such width.
+size_t warpgroup_smem(int HD) {
+  if (HD < 16 || HD > 128 || HD % 16 != 0) return 0;
+  return HD > 64 ? wg_att::Shape<2>::kSmem : wg_att::Shape<1>::kSmem;
+}
+
+// The map of qkv [B, T, 3 H HD] as [B][T][3 H][HD] (q heads, then k's,
+// then v's): boxes of 64 rows of one head of one batch, 64 values of it a
+// row, 128-byte swizzled, zeros past every edge (past HD, past T).
+cudaError_t encode_qkv(CUtensorMap* map, const void* qkv, int B, int T, int H,
+                       int HD) {
+  const chana_tma::EncodeTiled fn = chana_tma::encoder();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t row = (cuuint64_t)3 * H * HD * 2;  // bytes
+  const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)3 * H,
+                              (cuuint64_t)T, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)HD * 2, row,
+                                 row * (cuuint64_t)T};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)wg_att::kKeys, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<void*>(qkv), dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+struct WarpgroupCall {
+  CUtensorMap map;
+  __nv_bfloat16* out;
+  float* stats;
+  int T, H, HD, BH, stat_rows, blocks;
+  float scale_div;
+  cudaStream_t stream;
+};
+
+template <int kAtoms>
+cudaError_t launch_warpgroup(const WarpgroupCall& c) {
+  using S = wg_att::Shape<kAtoms>;
+  static size_t allowed[chana_att::kMaxDevices] = {};
+  const cudaError_t err = chana_att::allow_smem(
+      (const void*)causal_attention_warpgroup_kernel<kAtoms>, S::kSmem,
+      allowed);
+  if (err != cudaSuccess) return err;
+  causal_attention_warpgroup_kernel<kAtoms>
+      <<<c.blocks, S::kThreads, S::kSmem, c.stream>>>(
+          c.map, c.out, c.stats, c.T, c.H, c.HD, c.BH, c.stat_rows,
+          c.scale_div);
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -422,6 +942,50 @@ int chana_causal_attention(const void* qkv, void* out, void* stats, int B,
                             (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)qkv, (__nv_bfloat16*)out, (float*)stats, T, H,
       HD, HDP, ld, tiles, bytes, stage, slots, scale_div);
+  return (int)cudaGetLastError();
+}
+
+// Dynamic shared memory the long-window attention kernel needs at head
+// width HD (a multiple of 16 up to 128); 0 when the width is refused.
+size_t chana_causal_attention_warpgroup_smem(int HD) {
+  return warpgroup_smem(HD);
+}
+
+// The long-window kernel: B * H * ceil(T / 64) blocks of 64 query rows.
+// The wrapper passes its geometry (kernels/forecaster.py's
+// attention_warpgroup_geometry); shared memory that differs from this
+// file's is refused. `stats`, as for chana_causal_attention, with
+// stat_rows = the 16-row tiles' rows of a (b, h) (T rounded up to 16).
+int chana_causal_attention_warpgroup(const void* qkv, void* out, void* stats,
+                                     int B, int T, int H, int HD,
+                                     int stat_rows, size_t smem,
+                                     float scale_div, void* stream) {
+  const size_t need = warpgroup_smem(HD);
+  const int rows = wg_att::kRows;
+  if (B <= 0 || T <= 0 || H <= 0 || need == 0 || smem != need ||
+      stat_rows != (T + chana_att::kTile - 1) / chana_att::kTile *
+                       chana_att::kTile ||
+      (long long)B * H * ((T + rows - 1) / rows) > 0x7fffffffLL ||
+      (long long)T * 3 * H * HD * 2 >= (1ll << 40)) {  // TMA's batch stride
+    return (int)cudaErrorInvalidValue;
+  }
+  CUtensorMap map;
+  memset(&map, 0, sizeof(map));
+  cudaError_t err = encode_qkv(&map, qkv, B, T, H, HD);
+  if (err != cudaSuccess) return (int)err;
+  const WarpgroupCall call = {map,
+                              (__nv_bfloat16*)out,
+                              (float*)stats,
+                              T,
+                              H,
+                              HD,
+                              B * H,
+                              stat_rows,
+                              B * H * ((T + rows - 1) / rows),
+                              scale_div,
+                              (cudaStream_t)stream};
+  err = HD > 64 ? launch_warpgroup<2>(call) : launch_warpgroup<1>(call);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

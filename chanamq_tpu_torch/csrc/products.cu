@@ -90,10 +90,12 @@
 
 #include "attention_tiles.cuh"
 #include "gelu.cuh"
+#include "tma_wgmma.cuh"
 
 namespace {
 
 namespace cg = cooperative_groups;
+using namespace chana_tma;
 using chana_att::pack_bf16;
 using chana_att::round_bf16;
 using chana_att::unpack_bf16;
@@ -131,61 +133,6 @@ struct Tile {
   static_assert(kSmem + 2048 <= (kWG == 1 ? 233472 / 2 : 232448),
                 "the blocks an SM takes fit its shared memory");
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// -- mbarriers and the tensor memory accelerator -----------------------------
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(count));
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-// Wait (acquire) until the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// The box at (c0 along the rows, c1 rows down) of the matrix `map`
-// describes into dst, counted on bar's transaction bytes.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
-      "l"((uint64_t)map), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_prefetch(const CUtensorMap* map) {
-  asm volatile("prefetch.tensormap [%0];" ::"l"((uint64_t)map) : "memory");
-}
 
 // Rows [r0, r0 + rows) and columns [c0, c0 + 64) of a row-major
 // [src_rows][src_cols] matrix into dst in the layout TMA's 128-byte
@@ -226,61 +173,6 @@ __device__ __forceinline__ void cluster_arrive_relaxed() {
 
 __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait;" ::: "memory");
-}
-
-// -- wgmma -------------------------------------------------------------------
-
-// The shared-memory descriptor of a 128-byte-swizzled operand at addr:
-// 8-row groups 1,024 bytes apart (SBO). The leading offset is unused by
-// these layouts (a K-major k16 slice lies in one 128-byte row; an M- or
-// N-major operand here is one 64-wide atom) and set to the same.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  constexpr uint64_t k1024 = 1024 >> 4;
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | (k1024 << 16) | (k1024 << 32) |
-         (1ull << 62);
-}
-
-// Keeps the compiler from moving accumulator accesses across the wgmma
-// fences and waits.
-__device__ __forceinline__ void fence_acc(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(kPending)
-               : "memory");
-}
-
-// d [64 x 64] += A [64 x 16] B [16 x 64], both from shared memory; kTA: A
-// is M-major, kTB: B is N-major. Lane l of warp w (of the warpgroup) holds
-// d[4 j + 2 h + c] at row 16 w + l / 4 + 8 h, column 8 j + 2 (l % 4) + c.
-template <int kTA, int kTB>
-__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da,
-                                                uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, %32, %33, p, 1, 1, %35, %36;\n}"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1), "n"(kTA), "n"(kTB));
 }
 
 // -- kernel 1: the bf16 product ----------------------------------------------
@@ -652,34 +544,6 @@ void launch_f32(const float* a, const float* b, float* out, int M, int N,
 }
 
 // -- host side ---------------------------------------------------------------
-
-// cuTensorMapEncodeTiled, taken from the driver through the runtime: the
-// library links the runtime only.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
-      fn = (EncodeTiled)p;
-    }
-  }
-  return fn;
-}
 
 // TMA takes a matrix whose rows are a multiple of 16 bytes apart.
 bool tma_ok(int cols) { return cols % kChunk == 0; }

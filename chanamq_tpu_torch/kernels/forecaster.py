@@ -21,7 +21,9 @@ to the input's dtype, as the reference's bf16 einsums do, and its backward
 the cotangents of those two einsums.
 
 Each wrapper's ``launches`` attribute counts its kernel launches, and only
-those (``launch_count`` sums them, with the products' and the update's).
+those (``launch_count`` sums them, with the products' and the update's);
+``causal_attention.warpgroup_launches`` counts the forwards that took the
+long-window (warpgroup) kernel, which ``launches`` also counts.
 ``prepare_*`` check a call's CUDA inputs and bind its launch; the
 wrappers launch what they return, and a timing loop can launch it again
 without the checks (and without counting). ``LayerNorm``,
@@ -74,6 +76,11 @@ def library() -> ctypes.CDLL:
         lib.chana_causal_attention.restype = _int
         lib.chana_causal_attention_smem.argtypes = [_int, _int]
         lib.chana_causal_attention_smem.restype = ctypes.c_size_t
+        lib.chana_causal_attention_warpgroup.argtypes = [_ptr] * 3 + [
+            _int] * 5 + [ctypes.c_size_t, ctypes.c_float, _ptr]
+        lib.chana_causal_attention_warpgroup.restype = _int
+        lib.chana_causal_attention_warpgroup_smem.argtypes = [_int]
+        lib.chana_causal_attention_warpgroup_smem.restype = ctypes.c_size_t
         lib.chana_gelu_tanh.argtypes = [_ptr, _ptr, ctypes.c_int64, _ptr]
         lib.chana_gelu_tanh.restype = _int
         lib.chana_cuda_error_string.argtypes = [_int]
@@ -282,6 +289,55 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+# -- causal attention for long windows ----------------------------------------
+#
+# From a window of ``WG_MIN_T`` rows at head widths that are multiples of
+# 16 up to ``WG_MAX_HD``, the forward takes ``csrc/forecaster.cu``'s
+# warpgroup kernel: a block of 64 query rows (one warpgroup, wgmma's m64),
+# a ring of 64-key tiles filled by TMA, and two passes over the keys. Every
+# other shape keeps the 16-row kernel: at T <= 64 it is bound by launch
+# latency, and a 64-row block would leave most of the card idle. Both write
+# the same row statistics for the backward. ``attention_warpgroup_geometry``
+# is the rule, from the shape alone.
+
+WG_MIN_T = 128   # the shortest window the warpgroup kernel takes
+WG_MAX_HD = 128  # its widest head (a multiple of 16)
+WG_ROWS = 64     # query rows a block: one warpgroup
+WG_KEYS = 64     # keys a ring tile
+WG_STAGES = 4    # ring stages
+WG_BOX = 64 * 128  # bytes of a TMA box: 64 rows of 64 bf16
+
+
+class WarpgroupGeometry(NamedTuple):
+    blocks: int  # B * H * ceil(T / 64), longest rows first
+    smem: int    # dynamic shared memory: the block's q rows and the ring's
+                 # four stages of a key and a value tile, each in boxes of
+                 # 64 columns, and 1 KB to align them
+
+    @staticmethod
+    def of(b: int, t: int, hd: int, n_heads: int) -> "WarpgroupGeometry":
+        boxes = -(-hd // 64)  # 64-column boxes a row
+        return WarpgroupGeometry(
+            blocks=b * n_heads * -(-t // WG_ROWS),
+            smem=(1 + 2 * WG_STAGES) * boxes * WG_BOX + 1024)
+
+
+def _warpgroup_width(hd: int) -> bool:
+    """Whether the warpgroup kernel takes head width ``hd`` (at any
+    window): a multiple of 16 up to ``WG_MAX_HD``."""
+    return hd % 16 == 0 and 0 < hd <= WG_MAX_HD
+
+
+def attention_warpgroup_geometry(b: int, t: int, hd: int, n_heads: int):
+    """The warpgroup kernel's geometry for ``b`` windows of ``t`` rows of
+    ``n_heads`` heads of width ``hd``, or None where the 16-row kernel
+    runs: a window under ``WG_MIN_T`` rows, or a head width the warpgroup
+    kernel does not take."""
+    if t < WG_MIN_T or not _warpgroup_width(hd):
+        return None
+    return WarpgroupGeometry.of(b, t, hd, n_heads)
+
+
 def causal_attention_ref(qkv: torch.Tensor, n_heads: int) -> torch.Tensor:
     """Plain PyTorch version of the attention kernel (any device):
     forecaster.py:89-99 without the two projections."""
@@ -309,34 +365,54 @@ def _attention_dims(name: str, qkv: torch.Tensor, n_heads: int) -> tuple:
 
 
 def prepare_causal_attention(qkv: torch.Tensor, n_heads: int, *,
-                             keep_stats: bool = False):
+                             keep_stats: bool = False,
+                             warpgroup: bool | None = None):
     """Check the attention kernel's CUDA input and bind its launch:
     ``(out, launch)``; ``launch`` is None for an empty batch. With
     ``keep_stats``, ``(out, stats)`` in place of ``out``: the launch also
     writes each row's max and sum of exponentials into ``stats`` (float32,
     ``ATT_STATS`` planes of B * H * tiles * 16 rows; the backward's row
-    pass fills the third)."""
+    pass fills the third). The kernel is the shape's
+    (``attention_warpgroup_geometry``); ``launch.warpgroup`` says which.
+    ``warpgroup`` forces one, for the GPU tests and timing only."""
     device = build.cuda_device("causal_attention", qkv)
     build.check("qkv", qkv, _BF16, 3, device)
     b, t, hd = _attention_dims("causal_attention", qkv, n_heads)
     out = torch.empty((b, t, n_heads * hd), dtype=_BF16, device=device)
-    rows = 0
+    stat_rows = 0  # rows of the statistics: the 16-row tiles' rows
     if b and t:
         g = attention_geometry(t, hd)
-        rows = g.grid(b, n_heads) * ATT_TILE
-    stats = torch.empty(ATT_STATS * rows, dtype=_F32,
+        stat_rows = g.grid(b, n_heads) * ATT_TILE
+    stats = torch.empty(ATT_STATS * stat_rows, dtype=_F32,
                         device=device) if keep_stats else None
     outs = (out, stats) if keep_stats else out
-    if rows == 0:
+    if stat_rows == 0:
         return outs, None
     build.aligned("causal_attention", qkv, out)
+    if warpgroup is None:
+        wg = attention_warpgroup_geometry(b, t, hd, n_heads)
+    elif not warpgroup:
+        wg = None
+    elif _warpgroup_width(hd):
+        wg = WarpgroupGeometry.of(b, t, hd, n_heads)
+    else:
+        raise ValueError(f"causal_attention: the warpgroup kernel does not "
+                         f"take head width {hd}")
     lib = library()
-    return outs, build.launcher(
-        lib, lib.chana_causal_attention, "causal_attention", device,
-        qkv.data_ptr(), out.data_ptr(),
-        stats.data_ptr() if keep_stats else None, b, t, n_heads, hd,
-        g.hd_pad, g.ld, g.tiles, g.copy_bytes, g.stage, g.slots, g.fwd_smem,
-        math.sqrt(hd))
+    stats_ptr = stats.data_ptr() if keep_stats else None
+    if wg is None:
+        launch = build.launcher(
+            lib, lib.chana_causal_attention, "causal_attention", device,
+            qkv.data_ptr(), out.data_ptr(), stats_ptr, b, t, n_heads, hd,
+            g.hd_pad, g.ld, g.tiles, g.copy_bytes, g.stage, g.slots,
+            g.fwd_smem, math.sqrt(hd))
+    else:
+        launch = build.launcher(
+            lib, lib.chana_causal_attention_warpgroup, "causal_attention",
+            device, qkv.data_ptr(), out.data_ptr(), stats_ptr, b, t,
+            n_heads, hd, g.tiles * ATT_TILE, wg.smem, math.sqrt(hd))
+    launch.warpgroup = wg is not None
+    return outs, launch
 
 
 def causal_attention(qkv: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -347,12 +423,20 @@ def causal_attention(qkv: torch.Tensor, n_heads: int) -> torch.Tensor:
         return causal_attention_ref(qkv, n_heads)
     out, launch = prepare_causal_attention(qkv, n_heads)
     if launch is not None:
-        launch()
-        causal_attention.launches += 1
+        _launch_attention(launch)
     return out
 
 
+def _launch_attention(launch) -> None:
+    """Launch a bound attention forward and count it: ``launches`` counts
+    both kernels, ``warpgroup_launches`` the warpgroup kernel's."""
+    launch()
+    causal_attention.launches += 1
+    causal_attention.warpgroup_launches += launch.warpgroup
+
+
 causal_attention.launches = 0
+causal_attention.warpgroup_launches = 0
 
 
 def causal_attention_with_stats(qkv: torch.Tensor, n_heads: int) -> tuple:
@@ -365,8 +449,7 @@ def causal_attention_with_stats(qkv: torch.Tensor, n_heads: int) -> tuple:
     (out, stats), launch = prepare_causal_attention(qkv, n_heads,
                                                     keep_stats=True)
     if launch is not None:
-        launch()
-        causal_attention.launches += 1
+        _launch_attention(launch)
     return out, stats
 
 

@@ -123,9 +123,11 @@ class ForecastService:
         self.loss: Optional[float] = None
         self.trained_steps = 0
         self.rounds = 0
-        # the forecaster wrappers' kernel launches in every round so far
-        # (the worker writes it)
+        # the forecaster wrappers' kernel launches in every round so far,
+        # and of those the attention forwards on the long-window
+        # (warpgroup) kernel (the worker writes both)
         self.kernel_launches = 0
+        self.warpgroup_launches = 0
         self.updated_at: Optional[float] = None
         self.last_error: Optional[str] = None
         # forecast accuracy: each realized tick is scored against the
@@ -322,17 +324,21 @@ class ForecastService:
         self, history: np.ndarray
     ) -> tuple[int, Optional[float], Optional[dict[str, float]]]:
         """One off-path round: K train steps + next-tick forecast. Adds
-        the round's kernel launches to ``kernel_launches``; with profiling
-        on, the round and its parts are the ``forecast`` stages
+        the round's kernel launches to ``kernel_launches`` (its attention
+        forwards on the warpgroup kernel to ``warpgroup_launches``); with
+        profiling on, the round and its parts are the ``forecast`` stages
         (``profile.span``)."""
-        from ..kernels.forecaster import launch_count
+        from ..kernels.forecaster import causal_attention, launch_count
 
         launches = launch_count()
+        warpgroup = causal_attention.warpgroup_launches
         try:
             with profile.span(profile.FORECAST_ROUND):
                 return self._train_and_forecast(history)
         finally:
             self.kernel_launches += launch_count() - launches
+            self.warpgroup_launches += \
+                causal_attention.warpgroup_launches - warpgroup
 
     def _train_and_forecast(
         self, history: np.ndarray
@@ -396,6 +402,7 @@ class ForecastService:
             "rounds": self.rounds,
             "trained_steps": self.trained_steps,
             "kernel_launches": self.kernel_launches,
+            "warpgroup_launches": self.warpgroup_launches,
             "loss": self.loss,
             "queue_top_k": self.queue_top_k,
             "observed": (

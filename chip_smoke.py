@@ -64,7 +64,11 @@ rehearse it; any failure exits non-zero:
    and at the compact default, the same bits (``[bwd-warps]``); then both
    attention kernels at long windows, T in {400, 1024, 2048} at head
    widths 16 and 64 (the forward at B = 1, the backward at B = 16), within
-   the same limits and twice for the same bits;
+   the same limits and twice for the same bits; and the forward's two
+   kernels (``[fc-warpgroup]``: the flagship's training call and forecast
+   at T = 2,048, B = 1 at T = 1,024 at widths 64 and 16, and T in {64,
+   128, 256} on both sides of the wrapper's choice), timed beside the plain
+   version, the library call and the bound, both held and timed alone;
 7. train step at full width: ``make_train_step`` through the kernels
    against the same step through the plain versions under torch autograd,
    from one state on one ``synthetic_batch`` (B=16), 20 steps: every
@@ -2066,6 +2070,109 @@ def phase_long_windows(device: torch.device, seed: int,
                     f"{row.get('plain_ms', nan) * 1e3:.3f} us, library "
                     f"{row.get('library_ms', nan) * 1e3:.3f} us, bound "
                     f"{row['bound_ms'] * 1e3:.4f} us ({row['bound_by']})")
+    return out
+
+
+# (B, T, head width) the attention forward's warpgroup kernel is timed at:
+# the flagship's training call, its forecast, and the compact default's
+# and the flagship's widths at a window of 1,024 (B = 1); then windows of
+# 64, 128 and 256 rows at widths 16 and 64, B = 1 and 16, on both sides of
+# the wrapper's WG_MIN_T; four heads each
+WARPGROUP_TIMED = ((16, 2048, 64), (1, 2048, 64), (1, 1024, 64),
+                   (1, 1024, 16)) + tuple(
+    (b, t, hd) for t in (64, 128, 256) for hd in (16, 64) for b in (1, 16))
+WARPGROUP_ROUNDS = 3  # each kernel timed alone this many times, in turn
+
+
+def warpgroup_weights_moved(qkv: torch.Tensor, n_heads: int,
+                            stats: dict) -> dict:
+    """From the row statistics each forward kernel kept for ``qkv``
+    (``stats``: {"16-row"|"warpgroup": [ATT_STATS, rows]}), the share of
+    rows whose max differs and the share of the causal weights W =
+    bf16(exp(logit - m) / l) that differ between the two kernels' m and l
+    (logits float(bf16(q . k)) / sqrt(HD) by torch, one exponential for
+    both): what the warpgroup kernel's running sum moves."""
+    b, t, d3 = qkv.shape
+    hd = d3 // 3 // n_heads
+    tiles = -(-t // 16) * 16
+    ms, ls = ({k: v[i].view(b, n_heads, tiles)[:, :, :t]
+               for k, v in stats.items()} for i in (0, 1))
+    q, k, _ = (z.reshape(b, t, n_heads, hd).transpose(1, 2).float()
+               for z in qkv.split(d3 // 3, dim=-1))
+    mask = torch.ones(t, t, dtype=torch.bool, device=qkv.device).tril()
+    moved = 0
+    for i in range(b):
+        x = (q[i] @ k[i].transpose(-1, -2)).to(torch.bfloat16).float() \
+            / math.sqrt(hd)
+        w = {name: (torch.exp(x - ms[name][i, :, :, None])
+                    / ls[name][i, :, :, None]).to(torch.bfloat16)
+             for name in stats}
+        moved += int(((w["16-row"] != w["warpgroup"]) & mask).sum())
+    return {"m_moved": float((ms["16-row"] != ms["warpgroup"]).float()
+                             .mean()),
+            "w_moved": moved / (b * n_heads * t * (t + 1) // 2)}
+
+
+def phase_warpgroup_attention(device: torch.device, seed: int,
+                              shapes=WARPGROUP_TIMED,
+                              iters: int = 20) -> dict:
+    """The attention forward at long and short windows: each shape through
+    the wrapper against the plain version within ``forecaster_limit``,
+    timed beside the plain version, the library call and the bound
+    (``hold_forecaster``); then both kernels (``prepare_causal_attention``'s
+    ``warpgroup``) held to the same limit and timed alone,
+    ``WARPGROUP_ROUNDS`` times in turn, and the share of weights their
+    statistics set apart (``warpgroup_weights_moved``) at the first shape.
+    Returns {"B,T,HD": row}, the row's ``warpgroup`` whether the wrapper
+    takes the warpgroup kernel and ``by_kernel`` {"16-row"|"warpgroup":
+    [kernel ms, a round each]}."""
+    from chanamq_tpu_torch.kernels import forecaster as fk
+
+    gen = torch.Generator().manual_seed(seed + 3)
+    out: dict = {}
+    nan = float("nan")
+    for n, (b, t, hd) in enumerate(shapes):
+        qkv = torch.randn(b, t, 3 * LONG_HEADS * hd, generator=gen).to(
+            torch.bfloat16).to(device)
+        args = (qkv, LONG_HEADS)
+        row = hold_forecaster("causal_attention", args, iters=iters)
+        want = fk.causal_attention_ref(*args)
+        row["warpgroup"] = fk.attention_warpgroup_geometry(
+            b, t, hd, LONG_HEADS) is not None
+        launches, stats = {}, {}
+        for name in ("16-row", "warpgroup"):
+            (got, kept), launch = fk.prepare_causal_attention(
+                *args, keep_stats=True, warpgroup=name == "warpgroup")
+            launch()
+            err = float((got.float() - want.float()).abs().max())
+            if not err <= row["limit"]:
+                raise AssertionError(f"causal_attention [{row['shape']}] "
+                                     f"{name}: max abs error {err} over the "
+                                     f"limit {row['limit']}")
+            launches[name] = launch
+            stats[name] = kept.view(fk.ATT_STATS, -1)
+        if n == 0:
+            row.update(warpgroup_weights_moved(qkv, LONG_HEADS, stats))
+        row["by_kernel"] = {name: [] for name in launches}
+        for _ in range(WARPGROUP_ROUNDS):
+            for name, launch in launches.items():
+                row["by_kernel"][name].append(
+                    _time_ms(launch, iters, device_only=True))
+        out[f"{b},{t},{hd}"] = row
+        log(f"[fc-warpgroup] causal_attention B={b} T={t} head width {hd} "
+            f"[{row['shape']}]: the wrapper takes the "
+            f"{'warpgroup' if row['warpgroup'] else '16-row'} kernel; max "
+            f"abs err {row['max_abs_err']:.6g} (limit {row['limit']:.6g}); "
+            f"kernel {row.get('ms', nan) * 1e3:.3f} us (wrapper call "
+            f"{row.get('wrapper_ms', nan) * 1e3:.3f} us), "
+            + ", ".join(f"{name} "
+                        + "/".join(f"{ms * 1e3:.3f}" for ms in times)
+                        + " us" for name, times in row["by_kernel"].items())
+            + f" (with statistics); plain {row.get('plain_ms', nan) * 1e3:.3f}"
+            f" us, library {row.get('library_ms', nan) * 1e3:.3f} us, bound "
+            f"{row['bound_ms'] * 1e3:.4f} us ({row['bound_by']})"
+            + (f"; rows whose max moved {row['m_moved']:.3g}, weights moved "
+               f"{row['w_moved']:.4g}" if "w_moved" in row else ""))
     return out
 
 
@@ -4980,6 +5087,7 @@ def main() -> int:
     train_kernels = phase_train_kernels(device, args.seed)
     bwd_warps = phase_bwd_warps(device, args.seed)
     long_windows = phase_long_windows(device, args.seed)
+    warpgroup = phase_warpgroup_attention(device, args.seed)
     train = phase_train(device, args.seed)
     log_train(train, dev)
     phase_init(device)
@@ -5300,6 +5408,10 @@ def main() -> int:
             **({"hmma": hmma[name]} if name in hmma else {}),
             **({"long_windows": long_rows[name]} if name in long_rows
                else {}),
+            **({"warpgroup": {
+                shape: {k: r[k] for k in lw_keys + ("warpgroup", "by_kernel")}
+                for shape, r in warpgroup.items()}}
+               if name == "causal_attention" else {}),
             "sharded_path": sharded_path(name), "node_path": node_path(name),
             **(floor_ms if name == "layernorm" else {})})
     for name in TRAIN_KERNELS:

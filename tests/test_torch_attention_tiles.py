@@ -355,20 +355,26 @@ def _logits(q_rows, k_rows, row0: int, key0: int, t: int, hd: int,
 
 
 def _row_pass(q, k, v, do, i: int, t: int, hd: int, dtype,
-              stage: int) -> tuple:
+              stage: int, kept=None) -> tuple:
     """Query tile i's max, sum of exponentials and (with ``do``) sum of
     y dW, over its key prefix slot by slot, each sum added in slot order:
     the forward's passes (the max and the sum, which it keeps for
-    training) and the backward's row pass (the sum of y dW)."""
+    training) and the backward's row pass (the sum of y dW). ``kept``: the
+    max and sum a forward kept for every row ([B, H, rows, 1] each), read
+    in place of the first two."""
     rows = slice(i * TILE, (i + 1) * TILE)
     keys = [slice(a * TILE, b * TILE) for a, b in _slots(0, i + 1, stage)]
     s = [_logits(q[:, :, rows], k[:, :, ks], i * TILE, ks.start, t, hd,
                  dtype) for ks in keys]
-    m = s[0].amax(-1, keepdim=True)
-    for x in s[1:]:
-        m = torch.maximum(m, x.amax(-1, keepdim=True))
-    e = [torch.exp(x - m) for x in s]
-    l = sum(x.sum(-1, keepdim=True) for x in e)
+    if kept is not None:
+        m, l = (z[:, :, rows] for z in kept)
+        e = [torch.exp(x - m) for x in s]
+    else:
+        m = s[0].amax(-1, keepdim=True)
+        for x in s[1:]:
+            m = torch.maximum(m, x.amax(-1, keepdim=True))
+        e = [torch.exp(x - m) for x in s]
+        l = sum(x.sum(-1, keepdim=True) for x in e)
     if do is None:
         return m, l, e, keys
     su = sum(((x / l) * _mma(do[:, :, rows], v[:, :, ks].transpose(
@@ -411,9 +417,10 @@ def _dlog(q_rows, k_rows, do_rows, v_rows, row0: int, key0: int, stats,
 
 
 def attention_bwd_stream(qkv: torch.Tensor, dout: torch.Tensor,
-                         n_heads: int) -> torch.Tensor:
+                         n_heads: int, kept=None) -> torch.Tensor:
     """The backward kernels' streamed order: the row pass's max, sum and
-    sum of y dW of every query tile; then for each tile t, dk and dv over
+    sum of y dW of every query tile (the max and sum from ``kept``, what
+    a forward kept, when given); then for each tile t, dk and dv over
     the query tiles >= t and dq over the key tiles <= t, a ring slot at a
     time, dlog and W rebuilt from the statistics, the slots' partial
     products added in order and rounded once."""
@@ -423,7 +430,7 @@ def attention_bwd_stream(qkv: torch.Tensor, dout: torch.Tensor,
     g = fk.attention_geometry(t, hd)
     q, k, v = (_heads(z, n_heads, g) for z in qkv.split(d3 // 3, dim=-1))
     do = _heads(dout, n_heads, g)
-    stats = [_row_pass(q, k, v, do, i, t, hd, dtype, g.stage)
+    stats = [_row_pass(q, k, v, do, i, t, hd, dtype, g.stage, kept)
              for i in range(g.tiles)]
     dq, dk, dv = (torch.zeros_like(q) for _ in range(3))
     for tt in range(g.tiles):
@@ -584,6 +591,192 @@ def test_plain_attention_matches_jax_past_the_old_limit(dtype):
                        torch.from_numpy(eye).to(tcfg.dtype))
     want = np.asarray(out, np.float32)
     assert_close(got, want, op_tol(dtype, "attention", want), "out")
+    da, dw = torch.autograd.grad(got, (ta, tw),
+                                 torch.from_numpy(dy).to(tcfg.dtype))
+    assert_close(da, want_da, op_tol(dtype, "attention", want_da), "da")
+    assert_close(dw, want_dw, op_tol(dtype, "attention", want_dw), "dw")
+
+
+# -- the long-window (warpgroup) kernel: its shape rule and its order -----------
+
+
+# (case, B, T, d_model, heads, whether the warpgroup kernel takes it): the
+# flagship's training call and its forecast at window 2,048, the service's
+# default window 64 (training and forecast), run_node's compact model (4
+# heads of 16) at its window 64 and at 1,024, a tensor-parallel rank of the
+# flagship (one head of four at tp = 4; two at tp = 2), the shortest window
+# and one short of it, and widths the warpgroup kernel does not take (not
+# a multiple of 16, or over 128)
+SHAPE_RULE = [
+    ("flagship-train-w2048", 16, 2048, 256, 4, True),
+    ("flagship-forecast-w2048", 1, 2048, 256, 4, True),
+    ("flagship-train-w64", 16, 64, 256, 4, False),
+    ("flagship-forecast-w64", 1, 64, 256, 4, False),
+    ("node-compact-w64", 16, 64, 64, 4, False),
+    ("node-compact-train-w1024", 16, 1024, 64, 4, True),
+    ("node-compact-forecast-w1024", 1, 1024, 64, 4, True),
+    ("tp4-rank-train-w2048", 16, 2048, 64, 1, True),
+    ("tp4-rank-forecast-w2048", 1, 2048, 64, 1, True),
+    ("tp2-rank-train-w1024", 16, 1024, 128, 2, True),
+    ("shortest-window", 16, 128, 256, 4, True),
+    ("one-short", 16, 127, 256, 4, False),
+    ("width-24", 16, 2048, 96, 4, False),
+    ("width-128", 16, 2048, 256, 2, True),
+    ("width-144", 16, 2048, 288, 2, False),
+]
+
+
+@pytest.mark.parametrize("case,b,t,d,heads,taken", SHAPE_RULE,
+                         ids=[c[0] for c in SHAPE_RULE])
+def test_warpgroup_shape_rule(case, b, t, d, heads, taken):
+    """Which forward kernel a shape takes, and the warpgroup kernel's
+    blocks (64 query rows each) and shared memory."""
+    hd = d // heads
+    g = fk.attention_warpgroup_geometry(b, t, hd, heads)
+    assert (g is not None) == taken
+    if g is None:
+        return
+    assert g.blocks == b * heads * -(-t // 64)
+    # the q rows of the block and four stages of a key and a value tile,
+    # in 8 KB boxes of 64 columns, and 1 KB to align them: three blocks an
+    # SM up to width 64 (228 KB, 1 KB of it reserved a block), else one
+    boxes = -(-hd // 64)
+    assert g.smem == (1 + 2 * 4) * boxes * 8192 + 1024
+    assert (3 if hd <= 64 else 1) * (g.smem + 1024) <= 228 * 1024
+
+
+@pytest.mark.parametrize("t", [1, 64, 127, 128, 129, 4096])
+def test_warpgroup_rule_at_the_window_edges(t):
+    """The rule reads the window: under ``WG_MIN_T`` rows the 16-row
+    kernel runs at any batch, from it the warpgroup kernel in a block of
+    64 rows for every 64 rows or part of them."""
+    for b in (1, 16):
+        g = fk.attention_warpgroup_geometry(b, t, 64, 4)
+        if t < fk.WG_MIN_T:
+            assert g is None
+        else:
+            assert g.blocks == b * 4 * -(-t // 64)
+
+
+def attention_warpgroup(qkv: torch.Tensor, n_heads: int) -> tuple:
+    """The warpgroup kernel's order: blocks of 64 query rows, each over the
+    64-key tiles its rows see, in order; pass 1 a running max of the
+    logits and a running sum of exponentials it rescales at every new max
+    (the kernel takes these exponentials as 2^(x log2 e) on its special
+    function unit); pass 2 the kernel's W = exp(logit - m) / l in float32,
+    rounded to qkv's dtype, and O += W . V a tile at a time, rounded once.
+    Returns ``(out, (m, l))``, m and l of every row of the 16-row tiles
+    ([B, H, tiles * 16, 1], the rows the kernel writes)."""
+    b, t, d3 = qkv.shape
+    hd = d3 // 3 // n_heads
+    rows, keys = fk.WG_ROWS, fk.WG_KEYS
+    dtype = qkv.dtype
+    padded = -(-t // rows) * rows
+    q, k, v = (F.pad(z.reshape(b, t, n_heads, hd).transpose(1, 2),
+                     (0, 0, 0, padded - t))
+               for z in qkv.split(d3 // 3, dim=-1))
+    out = torch.zeros_like(q)
+    m_all = torch.zeros(b, n_heads, padded, 1)
+    l_all = torch.zeros_like(m_all)
+    for r0 in range(0, padded, rows):  # a block's rows
+        own = slice(r0, r0 + rows)
+        tiles = [slice(j * keys, (j + 1) * keys)
+                 for j in range(-(-min(r0 + rows, t) // keys))]
+        m = torch.full((b, n_heads, rows, 1), float("-inf"))
+        l = torch.zeros_like(m)
+        for ks in tiles:
+            s = _logits(q[:, :, own], k[:, :, ks], r0, ks.start, t, hd,
+                        dtype)
+            top = torch.maximum(m, s.amax(-1, keepdim=True))
+            l = l * torch.exp(m - top) + torch.exp(s - top).sum(
+                -1, keepdim=True)
+            m = top
+        o = 0
+        for ks in tiles:
+            s = _logits(q[:, :, own], k[:, :, ks], r0, ks.start, t, hd,
+                        dtype)
+            o = o + _mma((torch.exp(s - m) / l).to(dtype), v[:, :, ks])
+        out[:, :, own] = o.to(dtype)
+        m_all[:, :, own], l_all[:, :, own] = m, l
+    stat_rows = -(-t // TILE) * TILE
+    out = out[:, :, :t].transpose(1, 2).reshape(b, t, n_heads * hd)
+    return out, (m_all[:, :, :stat_rows], l_all[:, :, :stat_rows])
+
+
+class WarpgroupTileAttention(torch.autograd.Function):
+    """``attention_warpgroup`` whose backward is ``attention_bwd_stream``
+    reading the max and sum the forward kept, as the backward kernels read
+    the warpgroup kernel's statistics."""
+
+    @staticmethod
+    def forward(ctx, qkv, n_heads):
+        out, ctx.kept = attention_warpgroup(qkv, n_heads)
+        ctx.save_for_backward(qkv)
+        ctx.n_heads = n_heads
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        (qkv,) = ctx.saved_tensors
+        return attention_bwd_stream(qkv, dout.contiguous(), ctx.n_heads,
+                                    ctx.kept), None
+
+
+# (B, T, d_model, heads): a ragged window of four blocks at width 16; the
+# shortest window at width 32; a window of 64 (one block, which the timing
+# forces) at width 32; a ragged last block at widths 48 and 64; the widest
+# head, 128 (two 64-column boxes), ragged; width 80 (two boxes, the second
+# mostly zeros); and a window of 257 (a last block of one row)
+WG_SHAPES = [(2, 200, 32, 2), (1, 128, 64, 2), (1, 64, 64, 2),
+             (1, 192, 48, 1), (1, 400, 128, 2), (1, 150, 256, 2),
+             (1, 160, 80, 1), (2, 257, 64, 1)]
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("b,t,d,heads", WG_SHAPES)
+def test_warpgroup_model_matches_plain(b, t, d, heads, dtype):
+    qkv_np, _ = _inputs(b, t, d, 700 + t)
+    qkv = torch.from_numpy(qkv_np).to(DTYPES[dtype])
+    got, (m, l) = attention_warpgroup(qkv, heads)
+    want = fk.causal_attention_ref(qkv, heads)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert_close(got, want.float(), op_tol(dtype, "attention", _np(want)))
+    # its statistics are the 16-row tiles' (the backward reads either):
+    # the same max, the sum within float32 rounding of the rescales
+    g = fk.attention_geometry(t, d // heads)
+    q, k, _ = (_heads(z, heads, g) for z in qkv.split(d, dim=-1))
+    for i in range(g.tiles):
+        rows_i = slice(i * TILE, (i + 1) * TILE)
+        m16, l16, _, _ = _row_pass(q, k, None, None, i, t, d // heads,
+                                   qkv.dtype, g.stage)
+        assert torch.equal(m[:, :, rows_i], m16)
+        torch.testing.assert_close(l[:, :, rows_i], l16, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("t,d,heads", [(200, 32, 2), (130, 64, 2)])
+def test_warpgroup_model_matches_jax_vjp(t, d, heads, dtype):
+    """qkv product -> the warpgroup order (its backward the streamed
+    backward on the statistics it kept) -> identity proj against jax.vjp
+    of the reference's ``_attention`` with an identity ``proj``."""
+    jcfg, tcfg = configs(dtype, seq_len=t, d_model=d, n_heads=heads,
+                         d_ff=4 * d, n_layers=1)
+    rng = np.random.default_rng(800 + t)
+    a = rng.normal(size=(2, t, d)).astype(np.float32)
+    w = (rng.normal(size=(d, 3 * d)) / math.sqrt(d)).astype(np.float32)
+    dy = rng.normal(size=(2, t, d)).astype(np.float32)
+    eye = np.eye(d, dtype=np.float32)
+    out, vjp = jax.vjp(lambda a, w: ref._attention(a, w, eye, jcfg),
+                       jnp.asarray(a, jcfg.dtype), jnp.asarray(w))
+    want_da, want_dw = vjp(jnp.asarray(dy, jcfg.dtype))
+    ta = torch.from_numpy(a).to(tcfg.dtype).requires_grad_()
+    tw = torch.from_numpy(w).requires_grad_()
+    fused = torch.matmul(ta, tw.to(tcfg.dtype))
+    got = torch.matmul(WarpgroupTileAttention.apply(fused, heads),
+                       torch.from_numpy(eye).to(tcfg.dtype))
+    assert_close(got, np.asarray(out, np.float32),
+                 op_tol(dtype, "attention", np.asarray(out, np.float32)),
+                 "out")
     da, dw = torch.autograd.grad(got, (ta, tw),
                                  torch.from_numpy(dy).to(tcfg.dtype))
     assert_close(da, want_da, op_tol(dtype, "attention", want_da), "da")

@@ -456,6 +456,26 @@ def test_round_counts_the_wrappers_launches(monkeypatch):
     assert svc.snapshot()["kernel_launches"] == 4 * per_step
 
 
+
+def test_round_counts_the_warpgroup_launches(monkeypatch):
+    """``warpgroup_launches`` gains the change in the attention wrapper's
+    ``warpgroup_launches`` over each round (the forwards the long-window
+    kernel ran), beside ``kernel_launches``."""
+    svc = _tiny_service(steps=2)
+    step = svc._torch_state["step"]
+
+    def counted_step(*args):
+        monkeypatch.setattr(fk.causal_attention, "warpgroup_launches",
+                            fk.causal_attention.warpgroup_launches + 3)
+        return step(*args)
+
+    svc._torch_state["step"] = counted_step
+    assert svc.snapshot()["warpgroup_launches"] == 0
+    svc._round(_history(40, 0))
+    assert svc.snapshot()["warpgroup_launches"] == 6
+    svc._round(_history(40, 1))
+    assert svc.snapshot()["warpgroup_launches"] == 12
+
 # -- end to end: the port's broker under load -> forecast ---------------------
 
 

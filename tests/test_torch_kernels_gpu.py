@@ -22,6 +22,12 @@ for attention: the same float32 math summed in another order), and the
 whole forward through the kernels to the forward through the plain
 versions within ``chip_smoke.FORWARD_LIMIT``.
 
+The attention forward's warpgroup kernel, which its wrapper takes from
+T = 128 at head widths that are multiples of 16 up to 128, is held at the
+flagship's training call and forecast, ragged windows and widths 16, 32
+and 128, its row statistics fed to the unchanged backward, and its launch
+counter at T = 2,048 and T = 64.
+
 Both attention kernels and the layernorm backward are also launched twice
 on the same inputs and must give the same bits, the attention kernels also
 at windows past the limits they had when they held a head whole (T = 400,
@@ -809,6 +815,128 @@ def test_attention_geometry_matches_launchers(cuda):
             g.bwd_smem
         assert tlib.chana_causal_attention_bwd_stats_smem(t, d // heads) \
             == g.stats_smem
+
+
+# (B, T, head width, heads) the warpgroup kernel takes: the flagship's
+# training call and its forecast (B = 1), ragged windows of 400 and 897
+# rows, and head widths 16, 32 and 128
+WARPGROUP_SHAPES = [(16, 2048, 64, 4), (1, 2048, 64, 4), (2, 400, 64, 4),
+                    (2, 897, 64, 4), (16, 1024, 16, 4), (4, 600, 32, 4),
+                    (2, 1000, 128, 2)]
+
+
+@pytest.mark.parametrize("b,t,hd,heads", WARPGROUP_SHAPES)
+def test_warpgroup_attention_matches_plain(cuda, b, t, hd, heads):
+    """The long-window forward, which the wrapper takes from the shape,
+    against ``causal_attention_ref`` within ``chip_smoke``'s attention
+    limit; two launches and the launch that keeps the statistics give the
+    same bits; those statistics, fed to the unchanged backward, give dqkv
+    within its limit of ``causal_attention_bwd_ref``. Each call counts as
+    one launch of the forward and one of the warpgroup kernel."""
+    g = fk.attention_warpgroup_geometry(b, t, hd, heads)
+    assert g is not None and g.blocks == b * heads * -(-t // fk.WG_ROWS)
+    cfg = port_fc.ForecasterConfig(seq_len=t, d_model=heads * hd,
+                                   n_heads=heads, d_ff=8)
+    gen = torch.Generator().manual_seed(t * 10 + hd + b)
+    qkv, _ = args = chip_smoke.forecaster_inputs(gen, cfg, b, cuda)[
+        "causal_attention"]
+    before = (fk.causal_attention.launches,
+              fk.causal_attention.warpgroup_launches)
+    chip_smoke.hold_forecaster("causal_attention", args, timed=False)
+    assert (fk.causal_attention.launches,
+            fk.causal_attention.warpgroup_launches) == tuple(
+                n + 1 for n in before)
+    first, second = fk.causal_attention(*args), fk.causal_attention(*args)
+    out, stats = fk.causal_attention_with_stats(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second) and torch.equal(first, out)
+    dout = torch.randn(b, t, heads * hd, generator=gen).to(
+        torch.bfloat16).to(cuda)
+    chip_smoke.hold_train_kernel("causal_attention_bwd",
+                                 (qkv, dout, heads, stats), timed=False)
+
+
+@pytest.mark.parametrize("hd,heads", [(64, 4), (32, 4), (128, 2)])
+def test_warpgroup_attention_keeps_the_16_row_statistics(cuda, hd, heads):
+    """At a window both kernels take (forced through ``warpgroup``), the
+    warpgroup kernel's row maxima equal the 16-row kernel's and its sums
+    lie within float32 rounding of theirs (a running sum, rescaled at
+    every new max), rows past T included; the outputs agree within the
+    attention limit. Widths 32 and 128 divide the logits by sqrt(HD), not
+    a power of two."""
+    b, t = 2, 400
+    gen = torch.Generator().manual_seed(17 + hd)
+    qkv = torch.randn(b, t, 3 * heads * hd, generator=gen).to(
+        torch.bfloat16).to(cuda)
+    got = {}
+    for warpgroup in (False, True):
+        (out, stats), launch = fk.prepare_causal_attention(
+            qkv, heads, keep_stats=True, warpgroup=warpgroup)
+        assert launch.warpgroup == warpgroup
+        launch()
+        got[warpgroup] = out, stats.view(fk.ATT_STATS, -1)[:2]
+    torch.cuda.synchronize()
+    want = fk.causal_attention_ref(qkv, heads)
+    out, (m, l) = got[True]
+    assert torch.equal(m, got[False][1][0])
+    torch.testing.assert_close(l, got[False][1][1], rtol=1e-5, atol=0)
+    err = float((out.float() - want.float()).abs().max())
+    assert err <= chip_smoke.forecaster_limit("causal_attention", want)
+
+
+def test_warpgroup_attention_wide_logit_spans(cuda):
+    """Rows whose logits span more than ``kQuotientSpan`` (64) form their
+    weights with the division itself, the others with the row's
+    reciprocal: with every other row's q scaled by 40 (logits spanning
+    hundreds there), both within every warp, the kernel holds to the plain
+    version within the attention limit, and its row maxima equal the
+    16-row kernel's."""
+    b, t, hd, heads = 2, 300, 64, 2
+    gen = torch.Generator().manual_seed(23)
+    qkv = torch.randn(b, t, 3 * heads * hd, generator=gen)
+    qkv[:, ::2, :heads * hd] *= 40
+    qkv = qkv.to(torch.bfloat16).to(cuda)
+    got = {}
+    for warpgroup in (False, True):
+        (out, stats), launch = fk.prepare_causal_attention(
+            qkv, heads, keep_stats=True, warpgroup=warpgroup)
+        launch()
+        got[warpgroup] = out, stats.view(fk.ATT_STATS, -1)[:2]
+    torch.cuda.synchronize()
+    want = fk.causal_attention_ref(qkv, heads)
+    out, (m, l) = got[True]
+    assert torch.equal(m, got[False][1][0])
+    torch.testing.assert_close(l, got[False][1][1], rtol=1e-5, atol=0)
+    err = float((out.float() - want.float()).abs().max())
+    assert err <= chip_smoke.forecaster_limit("causal_attention", want)
+
+
+def test_warpgroup_launches_count_only_long_windows(cuda):
+    """``warpgroup_launches`` rises with a forward at T = 2,048 and stays
+    where it is at T = 64, where the 16-row kernel runs; ``launches``
+    counts both."""
+    bf16 = torch.bfloat16
+    for t, taken in ((2048, 1), (64, 0)):
+        qkv = torch.zeros(1, t, 3 * 256, dtype=bf16, device=cuda)
+        before = (fk.causal_attention.launches,
+                  fk.causal_attention.warpgroup_launches)
+        fk.causal_attention(qkv, 4)
+        fk.causal_attention_with_stats(qkv, 4)
+        assert (fk.causal_attention.launches,
+                fk.causal_attention.warpgroup_launches) == (
+                    before[0] + 2, before[1] + 2 * taken)
+
+
+def test_warpgroup_geometry_matches_launcher(cuda):
+    """The shared memory ``attention_warpgroup_geometry`` gives is what
+    the C library computes, at every head width it takes; a width it does
+    not take gives 0."""
+    lib = fk.library()
+    for hd in range(16, fk.WG_MAX_HD + 1, 16):
+        assert lib.chana_causal_attention_warpgroup_smem(hd) == \
+            fk.WarpgroupGeometry.of(1, 2048, hd, 4).smem
+    for hd in (8, 24, 144):
+        assert lib.chana_causal_attention_warpgroup_smem(hd) == 0
 
 
 # (rows, width) for the layernorm kernels: one row and 7 rows (a single

@@ -85,13 +85,14 @@ ADMIN_VIEWS = ("/admin/forecast", "/admin/health", "/admin/overview",
                "/admin/drain")
 ENTITY_VIEWS = ("/admin/queues/%2F", "/admin/exchanges/%2F")
 # the key paths the port adds to the reference's views: the forecaster
-# wrappers' launches on /admin/forecast, and on /admin/profile the
+# wrappers' launches (and of those the attention forwards on the
+# warpgroup kernel) on /admin/forecast, and on /admin/profile the
 # forecast service's stages, their subsystem and the ring of its rounds
 FORECAST_STAGES = ("forecast-round", "forecast-batch", "train-step",
                    "train-forward", "train-backward", "train-update",
                    "forecast-wait", "forecast-predict")
 PORT_ONLY = {
-    "/admin/forecast": {"/kernel_launches"},
+    "/admin/forecast": {"/kernel_launches", "/warpgroup_launches"},
     "/admin/profile": {
         f"/stages/{stage}{key}" for stage in FORECAST_STAGES
         for key in ("", "/subsystem", "/ns", "/calls", "/us_per_call",
