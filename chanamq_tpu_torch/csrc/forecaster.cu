@@ -332,7 +332,10 @@ __global__ void __launch_bounds__(chana_att::kWarps * 32, 4)
 //
 // The same function as causal_attention_kernel, for windows of 128 rows and
 // more at head widths that are multiples of 16 up to 128 (the wrapper's
-// attention_warpgroup_geometry; every other shape takes the kernel above).
+// attention_warpgroup_geometry; every other shape takes the kernel above),
+// and for latent attention's heads: q and k 192 wide (three boxes), v read
+// to its first 128 columns (two boxes a ring stage, two output atoms; the
+// operand's v heads are 192 wide, zeros past 128), out [B, T, H 128].
 //
 // What bounds it. Two bf16 products over the causal pairs, 4 HD operations
 // a pair (the flagship's training call, B = 16, T = 2,048, 4 heads of 64:
@@ -389,16 +392,17 @@ constexpr int kRows = 64;  // query rows of a block: wgmma's m64
 constexpr int kKeys = 64;  // keys of a ring tile: the n64 of Q K^T
 constexpr int kAtomBytes = 64 * 128;  // a box: 64 rows of 64 bf16
 
-// Heads of up to 64 kAtoms.
-template <int kAtoms>
+// Heads of up to 64 kAtoms (q and k), values of up to 64 kVAtoms.
+template <int kAtoms, int kVAtoms = kAtoms>
 struct Shape {
   static constexpr int kThreads = 128 + 32;  // consumers, the producer
   // blocks an SM holds: three up to width 64 (136 registers a thread,
   // 3 x 74,752 bytes of shared memory), one above (its output's registers
   // and stages of twice the bytes)
   static constexpr int kBlocksPerSM = kAtoms == 1 ? 3 : 1;
-  static constexpr int kTileBytes = kAtoms * kAtomBytes;  // a k or v tile
-  static constexpr int kStageBytes = 2 * kTileBytes;
+  static constexpr int kTileBytes = kAtoms * kAtomBytes;    // a k tile
+  static constexpr int kVTileBytes = kVAtoms * kAtomBytes;  // a v tile
+  static constexpr int kStageBytes = kTileBytes + kVTileBytes;
   // ring stages (a pass-2 stage is released a stage late, once its W . V
   // is done)
   static constexpr int kStages = 4;
@@ -448,17 +452,17 @@ __device__ __forceinline__ float exp2_approx(float x) {
 
 }  // namespace wg_att
 
-template <int kAtoms>
-__global__ void __launch_bounds__(wg_att::Shape<kAtoms>::kThreads,
-                                  wg_att::Shape<kAtoms>::kBlocksPerSM)
+template <int kAtoms, int kVAtoms>
+__global__ void __launch_bounds__(wg_att::Shape<kAtoms, kVAtoms>::kThreads,
+                                  wg_att::Shape<kAtoms, kVAtoms>::kBlocksPerSM)
     causal_attention_warpgroup_kernel(const __grid_constant__ CUtensorMap map,
                                       __nv_bfloat16* __restrict__ out,
                                       float* __restrict__ stats, int T, int H,
-                                      int HD, int BH, int stat_rows,
+                                      int HD, int HDV, int BH, int stat_rows,
                                       float scale_div) {
   using namespace chana_tma;
   using namespace wg_att;
-  using S = Shape<kAtoms>;
+  using S = Shape<kAtoms, kVAtoms>;
   using chana_att::neg_inf;
   using chana_att::pack_bf16;
   using chana_att::unpack_bf16;
@@ -474,7 +478,7 @@ __global__ void __launch_bounds__(wg_att::Shape<kAtoms>::kThreads,
   const int bh = (int)blockIdx.x % BH;
   const int b = bh / H;
   const int h = bh % H;
-  const int D = H * HD;
+  const int D = H * HDV;  // the output's row
   const int r0 = qb * kRows;
   // key tiles the block's rows see, rounded up to even (a tile past them
   // is masked whole) so that each pass is whole pairs of stages
@@ -510,11 +514,12 @@ __global__ void __launch_bounds__(wg_att::Shape<kAtoms>::kThreads,
         const bool second = i >= n;
         const int key0 = (second ? i - n : i) * kKeys;
         uint8_t* const st = ring + slot * S::kStageBytes;
-        mbar_expect_tx(&full[slot], (second ? 2 : 1) * S::kTileBytes);
+        mbar_expect_tx(&full[slot],
+                       second ? S::kStageBytes : S::kTileBytes);
         for (int a = 0; a < kAtoms; ++a) {
           tma_load_4d(st + a * kAtomBytes, &map, &full[slot], 64 * a, H + h,
                       key0, b);
-          if (second) {
+          if (second && a < kVAtoms) {
             tma_load_4d(st + S::kTileBytes + a * kAtomBytes, &map,
                         &full[slot], 64 * a, 2 * H + h, key0, b);
           }
@@ -605,7 +610,7 @@ __global__ void __launch_bounds__(wg_att::Shape<kAtoms>::kThreads,
   float m[2] = {neg_inf(), neg_inf()}, l[2] = {0.f, 0.f};  // m over sc
   float mt[2], rl[2];  // pass 2: the true max, m sc (exact: sc is 1 or
                       // 2^-k), and 1 / l correctly rounded
-  float o[kAtoms][32];  // zeroed after pass 1, where it starts to live
+  float o[kVAtoms][32];  // zeroed after pass 1, where it starts to live
   // a row's 16 values a thread go to four partial maxima and sums (value
   // e to partial (e / 4) % 4), so that the chains are short
   auto pass1 = [&](float (&x)[32]) {
@@ -686,7 +691,7 @@ __global__ void __launch_bounds__(wg_att::Shape<kAtoms>::kThreads,
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
-      for (int a = 0; a < kAtoms; ++a) {
+      for (int a = 0; a < kVAtoms; ++a) {
         wgmma_m64n64k16_rs<1>(
             o[a], w[kk],
             sw128_desc(v_base + a * kAtomBytes + kk * 16 * 128));
@@ -727,7 +732,7 @@ __global__ void __launch_bounds__(wg_att::Shape<kAtoms>::kThreads,
   narrow = (m[0] - lo[0]) * sc < kQuotientSpan &&
            (m[1] - lo[1]) * sc < kQuotientSpan;
 #pragma unroll
-  for (int a = 0; a < kAtoms; ++a) {
+  for (int a = 0; a < kVAtoms; ++a) {
 #pragma unroll
     for (int e = 0; e < 32; ++e) o[a][e] = 0.f;
   }
@@ -752,19 +757,19 @@ __global__ void __launch_bounds__(wg_att::Shape<kAtoms>::kThreads,
   issue_pv(stages - 1);
   wgmma_wait<0>();
 #pragma unroll
-  for (int a = 0; a < kAtoms; ++a) fence_acc(o[a]);
+  for (int a = 0; a < kVAtoms; ++a) fence_acc(o[a]);
 
-  __nv_bfloat16* const dst = out + (size_t)b * T * D + h * HD;
+  __nv_bfloat16* const dst = out + (size_t)b * T * D + h * HDV;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row_a + 8 * r;
     if (row >= T) continue;
 #pragma unroll
-    for (int a = 0; a < kAtoms; ++a) {
+    for (int a = 0; a < kVAtoms; ++a) {
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int col = 64 * a + 8 * j + 2 * c;
-        if (col < HD) {
+        if (col < HDV) {
           *reinterpret_cast<uint32_t*>(dst + (size_t)row * D + col) =
               pack_bf16(o[a][4 * j + 2 * r], o[a][4 * j + 2 * r + 1]);
         }
@@ -817,10 +822,12 @@ __global__ void __launch_bounds__(CHANA_GELU_THREADS) gelu_tanh_kernel(
 
 // -- host side of the long-window attention kernel ---------------------------
 
-// Shared memory of the instance for head width HD; 0 where the kernel
-// takes no such width.
-size_t warpgroup_smem(int HD) {
-  if (HD < 16 || HD > 128 || HD % 16 != 0) return 0;
+// Shared memory of the instance for q and k heads of width HD and v
+// heads of width HDV; 0 where the kernel takes no such widths: one width
+// up to 128, or latent attention's 192 and 128.
+size_t warpgroup_smem(int HD, int HDV) {
+  if (HD == 192 && HDV == 128) return wg_att::Shape<3, 2>::kSmem;
+  if (HDV != HD || HD < 16 || HD > 128 || HD % 16 != 0) return 0;
   return HD > 64 ? wg_att::Shape<2>::kSmem : wg_att::Shape<1>::kSmem;
 }
 
@@ -851,22 +858,22 @@ struct WarpgroupCall {
   CUtensorMap map;
   __nv_bfloat16* out;
   float* stats;
-  int T, H, HD, BH, stat_rows, blocks;
+  int T, H, HD, HDV, BH, stat_rows, blocks;
   float scale_div;
   cudaStream_t stream;
 };
 
-template <int kAtoms>
+template <int kAtoms, int kVAtoms = kAtoms>
 cudaError_t launch_warpgroup(const WarpgroupCall& c) {
-  using S = wg_att::Shape<kAtoms>;
+  using S = wg_att::Shape<kAtoms, kVAtoms>;
   static size_t allowed[chana_att::kMaxDevices] = {};
   const cudaError_t err = chana_att::allow_smem(
-      (const void*)causal_attention_warpgroup_kernel<kAtoms>, S::kSmem,
-      allowed);
+      (const void*)causal_attention_warpgroup_kernel<kAtoms, kVAtoms>,
+      S::kSmem, allowed);
   if (err != cudaSuccess) return err;
-  causal_attention_warpgroup_kernel<kAtoms>
+  causal_attention_warpgroup_kernel<kAtoms, kVAtoms>
       <<<c.blocks, S::kThreads, S::kSmem, c.stream>>>(
-          c.map, c.out, c.stats, c.T, c.H, c.HD, c.BH, c.stat_rows,
+          c.map, c.out, c.stats, c.T, c.H, c.HD, c.HDV, c.BH, c.stat_rows,
           c.scale_div);
   return cudaSuccess;
 }
@@ -948,7 +955,7 @@ int chana_causal_attention(const void* qkv, void* out, void* stats, int B,
 // Dynamic shared memory the long-window attention kernel needs at head
 // width HD (a multiple of 16 up to 128); 0 when the width is refused.
 size_t chana_causal_attention_warpgroup_smem(int HD) {
-  return warpgroup_smem(HD);
+  return warpgroup_smem(HD, HD);
 }
 
 // The long-window kernel: B * H * ceil(T / 64) blocks of 64 query rows.
@@ -956,11 +963,14 @@ size_t chana_causal_attention_warpgroup_smem(int HD) {
 // attention_warpgroup_geometry); shared memory that differs from this
 // file's is refused. `stats`, as for chana_causal_attention, with
 // stat_rows = the 16-row tiles' rows of a (b, h) (T rounded up to 16).
+// q, k and v are each H heads HD wide in qkv; the kernel reads the first
+// HDV columns of each v head (HDV = HD, or 128 at HD = 192) and writes out
+// [B, T, H HDV].
 int chana_causal_attention_warpgroup(const void* qkv, void* out, void* stats,
-                                     int B, int T, int H, int HD,
+                                     int B, int T, int H, int HD, int HDV,
                                      int stat_rows, size_t smem,
                                      float scale_div, void* stream) {
-  const size_t need = warpgroup_smem(HD);
+  const size_t need = warpgroup_smem(HD, HDV);
   const int rows = wg_att::kRows;
   if (B <= 0 || T <= 0 || H <= 0 || need == 0 || smem != need ||
       stat_rows != (T + chana_att::kTile - 1) / chana_att::kTile *
@@ -979,15 +989,19 @@ int chana_causal_attention_warpgroup(const void* qkv, void* out, void* stats,
                               T,
                               H,
                               HD,
+                              HDV,
                               B * H,
                               stat_rows,
                               B * H * ((T + rows - 1) / rows),
                               scale_div,
                               (cudaStream_t)stream};
-  err = HD > 64 ? launch_warpgroup<2>(call) : launch_warpgroup<1>(call);
+  err = HDV != HD  ? launch_warpgroup<3, 2>(call)
+        : HD > 64 ? launch_warpgroup<2>(call)
+                  : launch_warpgroup<1>(call);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
+
 
 int chana_gelu_tanh(const void* x, void* out, long long N, void* stream) {
   if (N <= 0) return (int)cudaErrorInvalidValue;

@@ -44,7 +44,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -77,7 +77,7 @@ def library() -> ctypes.CDLL:
         lib.chana_causal_attention_smem.argtypes = [_int, _int]
         lib.chana_causal_attention_smem.restype = ctypes.c_size_t
         lib.chana_causal_attention_warpgroup.argtypes = [_ptr] * 3 + [
-            _int] * 5 + [ctypes.c_size_t, ctypes.c_float, _ptr]
+            _int] * 6 + [ctypes.c_size_t, ctypes.c_float, _ptr]
         lib.chana_causal_attention_warpgroup.restype = _int
         lib.chana_causal_attention_warpgroup_smem.argtypes = [_int]
         lib.chana_causal_attention_warpgroup_smem.restype = ctypes.c_size_t
@@ -308,6 +308,9 @@ WG_STAGES = 4    # ring stages
 WG_BOX = 64 * 128  # bytes of a TMA box: 64 rows of 64 bf16
 
 
+WG_KV_WIDTHS = (192, 128)  # latent attention's q and k width, v width
+
+
 class WarpgroupGeometry(NamedTuple):
     blocks: int  # B * H * ceil(T / 64), longest rows first
     smem: int    # dynamic shared memory: the block's q rows and the ring's
@@ -315,44 +318,55 @@ class WarpgroupGeometry(NamedTuple):
                  # 64 columns, and 1 KB to align them
 
     @staticmethod
-    def of(b: int, t: int, hd: int, n_heads: int) -> "WarpgroupGeometry":
-        boxes = -(-hd // 64)  # 64-column boxes a row
+    def of(b: int, t: int, hd: int, n_heads: int,
+           hdv: Optional[int] = None) -> "WarpgroupGeometry":
+        boxes = -(-hd // 64)  # 64-column boxes a q or k row
+        vboxes = boxes if hdv is None else -(-hdv // 64)
         return WarpgroupGeometry(
             blocks=b * n_heads * -(-t // WG_ROWS),
-            smem=(1 + 2 * WG_STAGES) * boxes * WG_BOX + 1024)
+            smem=(boxes + WG_STAGES * (boxes + vboxes)) * WG_BOX + 1024)
 
 
-def _warpgroup_width(hd: int) -> bool:
-    """Whether the warpgroup kernel takes head width ``hd`` (at any
-    window): a multiple of 16 up to ``WG_MAX_HD``."""
+def _warpgroup_width(hd: int, hdv: Optional[int] = None) -> bool:
+    """Whether the warpgroup kernel takes q and k heads of width ``hd``
+    and v heads of width ``hdv`` (``hd`` when None), at any window: one
+    width, a multiple of 16 up to ``WG_MAX_HD``, or ``WG_KV_WIDTHS``."""
+    if hdv is not None and hdv != hd:
+        return (hd, hdv) == WG_KV_WIDTHS
     return hd % 16 == 0 and 0 < hd <= WG_MAX_HD
 
 
-def attention_warpgroup_geometry(b: int, t: int, hd: int, n_heads: int):
+def attention_warpgroup_geometry(b: int, t: int, hd: int, n_heads: int,
+                                 hdv: Optional[int] = None):
     """The warpgroup kernel's geometry for ``b`` windows of ``t`` rows of
-    ``n_heads`` heads of width ``hd``, or None where the 16-row kernel
-    runs: a window under ``WG_MIN_T`` rows, or a head width the warpgroup
-    kernel does not take."""
-    if t < WG_MIN_T or not _warpgroup_width(hd):
+    ``n_heads`` heads, q and k of width ``hd`` and v of ``hdv`` (``hd``
+    when None), or None where the 16-row kernel runs: a window under
+    ``WG_MIN_T`` rows, or widths the warpgroup kernel does not take."""
+    if t < WG_MIN_T or not _warpgroup_width(hd, hdv):
         return None
-    return WarpgroupGeometry.of(b, t, hd, n_heads)
+    return WarpgroupGeometry.of(b, t, hd, n_heads, hdv)
 
 
-def causal_attention_ref(qkv: torch.Tensor, n_heads: int) -> torch.Tensor:
+def causal_attention_ref(qkv: torch.Tensor, n_heads: int,
+                         v_width: Optional[int] = None) -> torch.Tensor:
     """Plain PyTorch version of the attention kernel (any device):
-    forecaster.py:89-99 without the two projections."""
+    forecaster.py:89-99 without the two projections. With ``v_width``,
+    each v head is read to its first ``v_width`` columns (the rest is
+    padding) and the output is ``[B, T, n_heads * v_width]``."""
     b, t, d3 = qkv.shape
     d = d3 // 3
     hd = d // n_heads
     q, k, v = (z.reshape(b, t, n_heads, hd).transpose(1, 2)
                for z in qkv.split(d, dim=-1))                 # [B,H,T,hd]
+    if v_width is not None:
+        v = v[..., :v_width]
     logits = torch.matmul(q, k.transpose(-1, -2)).to(_F32) / math.sqrt(hd)
     causal = torch.ones(t, t, dtype=torch.bool, device=qkv.device).tril()
     logits = torch.where(causal, logits, torch.full_like(logits, -1e30))
     e = torch.exp(logits - logits.amax(-1, keepdim=True))
     weights = (e / e.sum(-1, keepdim=True)).to(qkv.dtype)
     out = torch.matmul(weights, v)                            # [B,H,T,hd]
-    return out.transpose(1, 2).reshape(b, t, d)
+    return out.transpose(1, 2).reshape(b, t, n_heads * v.shape[-1])
 
 
 def _attention_dims(name: str, qkv: torch.Tensor, n_heads: int) -> tuple:
@@ -366,7 +380,8 @@ def _attention_dims(name: str, qkv: torch.Tensor, n_heads: int) -> tuple:
 
 def prepare_causal_attention(qkv: torch.Tensor, n_heads: int, *,
                              keep_stats: bool = False,
-                             warpgroup: bool | None = None):
+                             warpgroup: bool | None = None,
+                             v_width: Optional[int] = None):
     """Check the attention kernel's CUDA input and bind its launch:
     ``(out, launch)``; ``launch`` is None for an empty batch. With
     ``keep_stats``, ``(out, stats)`` in place of ``out``: the launch also
@@ -374,11 +389,22 @@ def prepare_causal_attention(qkv: torch.Tensor, n_heads: int, *,
     ``ATT_STATS`` planes of B * H * tiles * 16 rows; the backward's row
     pass fills the third). The kernel is the shape's
     (``attention_warpgroup_geometry``); ``launch.warpgroup`` says which.
-    ``warpgroup`` forces one, for the GPU tests and timing only."""
+    ``warpgroup`` forces one, for the GPU tests and timing only.
+    ``v_width`` (below the head width: latent attention's values, padded
+    in ``qkv``) reads each v head to its first ``v_width`` columns and
+    gives ``[B, T, n_heads * v_width]``; only the warpgroup kernel takes
+    it, at ``WG_KV_WIDTHS``."""
     device = build.cuda_device("causal_attention", qkv)
     build.check("qkv", qkv, _BF16, 3, device)
     b, t, hd = _attention_dims("causal_attention", qkv, n_heads)
-    out = torch.empty((b, t, n_heads * hd), dtype=_BF16, device=device)
+    hdv = hd if v_width is None else v_width
+    if hdv != hd and (warpgroup is False or t < WG_MIN_T
+                      or not _warpgroup_width(hd, hdv)):
+        raise ValueError(
+            f"causal_attention: q and k width {hd}, v width {hdv} at T={t}; "
+            f"differing widths take the warpgroup kernel alone, at widths "
+            f"{WG_KV_WIDTHS} and T >= {WG_MIN_T}")
+    out = torch.empty((b, t, n_heads * hdv), dtype=_BF16, device=device)
     stat_rows = 0  # rows of the statistics: the 16-row tiles' rows
     if b and t:
         g = attention_geometry(t, hd)
@@ -390,14 +416,14 @@ def prepare_causal_attention(qkv: torch.Tensor, n_heads: int, *,
         return outs, None
     build.aligned("causal_attention", qkv, out)
     if warpgroup is None:
-        wg = attention_warpgroup_geometry(b, t, hd, n_heads)
+        wg = attention_warpgroup_geometry(b, t, hd, n_heads, hdv)
     elif not warpgroup:
         wg = None
-    elif _warpgroup_width(hd):
-        wg = WarpgroupGeometry.of(b, t, hd, n_heads)
+    elif _warpgroup_width(hd, hdv):
+        wg = WarpgroupGeometry.of(b, t, hd, n_heads, hdv)
     else:
         raise ValueError(f"causal_attention: the warpgroup kernel does not "
-                         f"take head width {hd}")
+                         f"take q and k width {hd} with v width {hdv}")
     lib = library()
     stats_ptr = stats.data_ptr() if keep_stats else None
     if wg is None:
@@ -410,18 +436,20 @@ def prepare_causal_attention(qkv: torch.Tensor, n_heads: int, *,
         launch = build.launcher(
             lib, lib.chana_causal_attention_warpgroup, "causal_attention",
             device, qkv.data_ptr(), out.data_ptr(), stats_ptr, b, t,
-            n_heads, hd, g.tiles * ATT_TILE, wg.smem, math.sqrt(hd))
+            n_heads, hd, hdv, g.tiles * ATT_TILE, wg.smem, math.sqrt(hd))
     launch.warpgroup = wg is not None
     return outs, launch
 
 
-def causal_attention(qkv: torch.Tensor, n_heads: int) -> torch.Tensor:
+def causal_attention(qkv: torch.Tensor, n_heads: int,
+                     v_width: Optional[int] = None) -> torch.Tensor:
     """Causal self-attention core: the fused ``qkv [B, T, 3D]`` product
     (q | k | v, heads contiguous in each third) to ``[B, T, D]``, heads
-    contiguous, the layout the output projection takes."""
+    contiguous, the layout the output projection takes (``[B, T, n_heads
+    * v_width]`` with ``v_width``: see ``prepare_causal_attention``)."""
     if qkv.device.type == "cpu":
-        return causal_attention_ref(qkv, n_heads)
-    out, launch = prepare_causal_attention(qkv, n_heads)
+        return causal_attention_ref(qkv, n_heads, v_width)
+    out, launch = prepare_causal_attention(qkv, n_heads, v_width=v_width)
     if launch is not None:
         _launch_attention(launch)
     return out
@@ -439,15 +467,17 @@ causal_attention.launches = 0
 causal_attention.warpgroup_launches = 0
 
 
-def causal_attention_with_stats(qkv: torch.Tensor, n_heads: int) -> tuple:
+def causal_attention_with_stats(qkv: torch.Tensor, n_heads: int,
+                                v_width: Optional[int] = None) -> tuple:
     """``causal_attention`` for training: ``(out, stats)``, where
     ``stats`` holds each row's softmax max and sum for
     ``causal_attention_bwd`` (None on the CPU, whose backward recomputes
     them). One launch of the forward kernel, counted as its launches."""
     if qkv.device.type == "cpu":
-        return causal_attention_ref(qkv, n_heads), None
+        return causal_attention_ref(qkv, n_heads, v_width), None
     (out, stats), launch = prepare_causal_attention(qkv, n_heads,
-                                                    keep_stats=True)
+                                                    keep_stats=True,
+                                                    v_width=v_width)
     if launch is not None:
         _launch_attention(launch)
     return out, stats

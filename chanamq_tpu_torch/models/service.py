@@ -54,6 +54,10 @@ if TYPE_CHECKING:  # pragma: no cover
 
 log = logging.getLogger("chanamq.forecast")
 
+# the models a service can train: the forecaster (models/forecaster.py)
+# and Moonlight-16B-A3B's block (models/moonlight.py)
+BACKBONES = ("forecaster", "moonlight")
+
 
 class ForecastService:
     """Samples broker telemetry and maintains a next-tick forecast."""
@@ -96,12 +100,20 @@ class ForecastService:
         self.lr = lr
         self.device = device
         # compact model by default: 8 features need nowhere near the
-        # flagship dims, and the worker thread shares cores with the broker
+        # flagship dims, and the worker thread shares cores with the broker.
+        # model_kwargs["backbone"] = "moonlight" takes Moonlight-16B-A3B's
+        # block instead (models/moonlight.py; the other keys override its
+        # MoonlightConfig)
         self.model_kwargs = dict(model_kwargs or {})
-        self.model_kwargs.setdefault("d_model", 64)
-        self.model_kwargs.setdefault("n_heads", 4)
-        self.model_kwargs.setdefault("d_ff", 256)
-        self.model_kwargs.setdefault("n_layers", 2)
+        self.backbone = self.model_kwargs.pop("backbone", "forecaster")
+        if self.backbone not in BACKBONES:
+            raise ValueError(f"forecast backbone {self.backbone!r}; known: "
+                             f"{BACKBONES}")
+        if self.backbone == "forecaster":
+            self.model_kwargs.setdefault("d_model", 64)
+            self.model_kwargs.setdefault("n_heads", 4)
+            self.model_kwargs.setdefault("d_ff", 256)
+            self.model_kwargs.setdefault("n_layers", 2)
         if history < seq_len + 1:
             # the train gate needs seq_len+1 retained vectors; a smaller
             # ring would silently never train
@@ -128,6 +140,15 @@ class ForecastService:
         # (warpgroup) kernel (the worker writes both)
         self.kernel_launches = 0
         self.warpgroup_launches = 0
+        # the Moonlight backbone: its own kernels' launches (beside the
+        # forecaster kernels it shares, counted above), and its routing
+        # counters over every train step so far (read at each round's end):
+        # token-expert rows, the sum over layers and steps of the largest
+        # expert group, and the largest group
+        self.moonlight_launches = 0
+        self.moe_routed_rows = 0
+        self.moe_max_rows_sum = 0
+        self.moe_max_expert_rows = 0
         self.updated_at: Optional[float] = None
         self.last_error: Optional[str] = None
         # forecast accuracy: each realized tick is scored against the
@@ -147,9 +168,9 @@ class ForecastService:
         self._task.add_done_callback(self._on_run_done)
         log.info(
             "forecast service on: interval=%.3gs train-interval=%.3gs "
-            "window=%d model=%s device=%s", self.interval_s,
-            self.train_interval_s, self.seq_len, self.model_kwargs,
-            self.device)
+            "window=%d backbone=%s model=%s device=%s", self.interval_s,
+            self.train_interval_s, self.seq_len, self.backbone,
+            self.model_kwargs, self.device)
 
     async def stop(self) -> None:
         # cooperative cancel: concurrent.futures joins worker threads at
@@ -287,8 +308,14 @@ class ForecastService:
         to the [n_features] forecast through ``weights``, the parameters
         cast once (``recast`` casts them again after the parameters
         change). On a card it sets the process's matrix-product precision
-        to the reference's (``set_matmul_precision``)."""
+        to the reference's (``set_matmul_precision``). The state's
+        ``backbone`` names the model built; with the Moonlight backbone
+        (``_moonlight_setup``) ``params`` default to ``init_params(0)``
+        and the state also holds the routing ``counters``."""
         import torch
+
+        if self.backbone == "moonlight":
+            return self._moonlight_setup(params)
 
         from .forecaster import (
             ForecasterConfig, cast_weights, forward, init_momentum,
@@ -306,7 +333,7 @@ class ForecastService:
         state = {"cfg": cfg, "params": params,
                  "momentum": init_momentum(params),
                  "step": make_train_step(cfg, lr=self.lr),
-                 "device": device}
+                 "device": device, "backbone": self.backbone}
 
         def recast() -> None:
             state["weights"] = cast_weights(state["params"], cfg)
@@ -320,17 +347,55 @@ class ForecastService:
         state.update(recast=recast, forward=predict)
         return state
 
+    def _moonlight_setup(self, params: Optional[dict]) -> dict[str, Any]:
+        """``_torch_setup`` for the Moonlight backbone: the same state, the
+        weights cast inside ``forward`` on each forecast rather than kept
+        (``recast`` does nothing), and ``counters``, the routing counters
+        every train step adds to on the device."""
+        import torch
+
+        from .moonlight import (
+            MoonlightConfig, forward, init_momentum, init_params,
+            make_train_step, new_counters, rope_table, set_matmul_precision,
+        )
+
+        cfg = MoonlightConfig(n_features=self.n_features,
+                              seq_len=self.seq_len, **self.model_kwargs)
+        device = torch.device(self.device)
+        if device.type == "cuda":
+            set_matmul_precision()
+        if params is None:
+            params = init_params(0, cfg, device)
+        counters = new_counters(device)
+        cs = rope_table(cfg, self.seq_len, device)
+        state = {"cfg": cfg, "params": params,
+                 "momentum": init_momentum(params),
+                 "step": make_train_step(cfg, lr=self.lr, counters=counters),
+                 "device": device, "backbone": self.backbone,
+                 "counters": counters, "weights": None}
+
+        def predict(window: np.ndarray) -> np.ndarray:
+            x = torch.from_numpy(window).to(device)
+            return forward(state["params"], x, cfg, cs=cs).cpu().numpy()
+
+        state.update(recast=lambda: None, forward=predict)
+        return state
+
     def _round(
         self, history: np.ndarray
     ) -> tuple[int, Optional[float], Optional[dict[str, float]]]:
         """One off-path round: K train steps + next-tick forecast. Adds
         the round's kernel launches to ``kernel_launches`` (its attention
-        forwards on the warpgroup kernel to ``warpgroup_launches``); with
-        profiling on, the round and its parts are the ``forecast`` stages
-        (``profile.span``)."""
+        forwards on the warpgroup kernel to ``warpgroup_launches``, and
+        the Moonlight kernels' to ``moonlight_launches``) and, with the
+        Moonlight backbone, reads its routing counters once the forecast
+        has waited on the card; with profiling on, the round and its parts
+        are the ``forecast`` stages (``profile.span``)."""
+        from ..kernels import moonlight
         from ..kernels.forecaster import causal_attention, launch_count
 
         launches = launch_count()
+        moon = moonlight.launch_count()
         warpgroup = causal_attention.warpgroup_launches
         try:
             with profile.span(profile.FORECAST_ROUND):
@@ -339,6 +404,13 @@ class ForecastService:
             self.kernel_launches += launch_count() - launches
             self.warpgroup_launches += \
                 causal_attention.warpgroup_launches - warpgroup
+            self.moonlight_launches += moonlight.launch_count() - moon
+            state = self._torch_state
+            if state is not None and "counters" in state:
+                rows, max_sum, top = state["counters"].tolist()
+                self.moe_routed_rows = rows
+                self.moe_max_rows_sum = max_sum
+                self.moe_max_expert_rows = top
 
     def _train_and_forecast(
         self, history: np.ndarray
@@ -403,6 +475,10 @@ class ForecastService:
             "trained_steps": self.trained_steps,
             "kernel_launches": self.kernel_launches,
             "warpgroup_launches": self.warpgroup_launches,
+            "backbone": self.backbone,
+            "moonlight_launches": self.moonlight_launches,
+            "moe_routed_rows": self.moe_routed_rows,
+            "moe_max_expert_rows": self.moe_max_expert_rows,
             "loss": self.loss,
             "queue_top_k": self.queue_top_k,
             "observed": (

@@ -21,9 +21,10 @@ Three coupled parts, all always-cheap enough to leave on in production:
   subsystem plus the fraction of process CPU the ledger attributes.
 - the forecast service's worker thread (subsystem ``forecast``): a
   round, its batch build, train steps (forward, backward, update), the
-  wait on the card and the forecast, through ``span``; each also opens a
-  torch profiler range of its name (``record_function``'s C form), and
-  the last
+  wait on the card and the forecast, and with the Moonlight backbone each
+  layer's ``mla-attention`` and ``moe-route`` / ``-dispatch`` /
+  ``-experts`` / ``-combine``, through ``span``; each also opens a torch
+  profiler range of its name (``record_function``'s C form), and the last
   ``ring_size`` rounds' spans are kept for ``GET /admin/profile``.
 
 Like ``trace`` and ``chaos``: disabled (the default) costs one module
@@ -39,7 +40,8 @@ from typing import Optional
 from .runtime import (  # noqa: F401 — re-exported page for the seams
     CLUSTER_PUSH, DELIVER, DISPATCH, ENQUEUE, FLOW_THROTTLE,
     FORECAST_BATCH, FORECAST_PREDICT, FORECAST_ROUND, FORECAST_WAIT, GC,
-    INGRESS_CYCLE, INGRESS_PARSE, PARENT, ROUTE, SETTLE, STAGES,
+    INGRESS_CYCLE, INGRESS_PARSE, MLA_ATTENTION, MOE_COMBINE, MOE_DISPATCH,
+    MOE_EXPERTS, MOE_ROUTE, PARENT, ROUTE, SETTLE, STAGES,
     SUBSYSTEMS, TOP_LEVEL, TRAIN_BACKWARD, TRAIN_FORWARD, TRAIN_STEP,
     TRAIN_UPDATE, TX_COMMIT, WAL_APPEND, WAL_COMMIT, ProfileRuntime, Span,
 )

@@ -67,18 +67,26 @@ STAGES = (
     "train-update",    # 18 the step's clipped momentum update
     "forecast-wait",   # 19 reading the round's loss: waits for the card
     "forecast-predict",  # 20 recast, forward, readback, de-normalization
+    # the Moonlight backbone's layers, in its forward (models/moonlight.py)
+    "mla-attention",   # 21 a layer's latent attention, norm to residual add
+    "moe-route",       # 22 a mixture layer's router, top-k and weights
+    "moe-dispatch",    # 23 its sort into expert groups and row gather
+    "moe-experts",     # 24 its grouped expert products and shared experts
+    "moe-combine",     # 25 its weighted combine and residual add
 )
 (INGRESS_PARSE, ROUTE, ENQUEUE, WAL_APPEND, WAL_COMMIT, CLUSTER_PUSH,
  DELIVER, SETTLE, FLOW_THROTTLE, DISPATCH, INGRESS_CYCLE, GC,
  TX_COMMIT, FORECAST_ROUND, FORECAST_BATCH, TRAIN_STEP, TRAIN_FORWARD,
  TRAIN_BACKWARD, TRAIN_UPDATE, FORECAST_WAIT,
- FORECAST_PREDICT) = range(21)
+ FORECAST_PREDICT, MLA_ATTENTION, MOE_ROUTE, MOE_DISPATCH, MOE_EXPERTS,
+ MOE_COMBINE) = range(26)
 
 SUBSYSTEMS = (
     "broker", "router", "broker", "wal", "wal", "cluster",
     "broker", "broker", "flow", "broker", "broker", "runtime",
     "broker", "forecast", "forecast", "forecast", "forecast", "forecast",
     "forecast", "forecast", "forecast",
+    "forecast", "forecast", "forecast", "forecast", "forecast",
 )
 
 # the stage each forecast stage runs inside (a round's spans nest so)
@@ -87,6 +95,11 @@ PARENT = {
     TRAIN_FORWARD: TRAIN_STEP, TRAIN_BACKWARD: TRAIN_STEP,
     TRAIN_UPDATE: TRAIN_STEP, FORECAST_WAIT: FORECAST_ROUND,
     FORECAST_PREDICT: FORECAST_ROUND,
+    # a forward's layer stages: in a train step's forward (in a forecast
+    # they run inside forecast-predict)
+    MLA_ATTENTION: TRAIN_FORWARD, MOE_ROUTE: TRAIN_FORWARD,
+    MOE_DISPATCH: TRAIN_FORWARD, MOE_EXPERTS: TRAIN_FORWARD,
+    MOE_COMBINE: TRAIN_FORWARD,
 }
 # the stages whose spans carry their train step's index
 _IN_STEP = frozenset({TRAIN_STEP, TRAIN_FORWARD, TRAIN_BACKWARD,

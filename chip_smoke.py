@@ -12,7 +12,8 @@ rehearse it; any failure exits non-zero:
    products in full float32 (``allow_tf32 = False``) for the router's
    plain versions;
 2. build: ``csrc/router_match.cu``, ``csrc/forecaster.cu``,
-   ``csrc/forecaster_train.cu`` and ``csrc/products.cu``, one nvcc each,
+   ``csrc/forecaster_train.cu``, ``csrc/products.cu`` and
+   ``csrc/moonlight.cu`` (its grouped product's HMMA counted), one nvcc each,
    started together, for sm_90a, with ptxas's register, shared-memory and
    spill report and the count of tensor-core instructions (HMMA/HGMMA) in
    each attention kernel's and the bf16 product kernel's SASS
@@ -69,6 +70,16 @@ rehearse it; any failure exits non-zero:
    at T = 2,048, B = 1 at T = 1,024 at widths 64 and 16, and T in {64,
    128, 256} on both sides of the wrapper's choice), timed beside the plain
    version, the library call and the bound, both held and timed alone;
+   then the Moonlight backbone (``[moonlight]``, ``models/moonlight.py``
+   at moonlight-forecaster.w2048's shapes: 4 windows of 2,048, d_model
+   2,048, 16 heads of q and k 192 and v 128, the dense layer and four
+   layers of 64 experts, top 6): one train step with every launch count
+   at 0, each wrapper's calls and launches against ``moonlight_per_step``,
+   the first call of each shape of every ``kernels/moonlight.py`` wrapper,
+   of attention (forward at v width 128 and backward) and of the products
+   kept and held against its plain version (the expert groups as that
+   step routed them; the forecast's attention at one window too), each
+   timed, with the bound from its inputs; the step's ms and memory peak;
 7. train step at full width: ``make_train_step`` through the kernels
    against the same step through the plain versions under torch autograd,
    from one state on one ``synthetic_batch`` (B=16), 20 steps: every
@@ -216,6 +227,9 @@ rehearse it; any failure exits non-zero:
    two runs with one decision-log digest); each run's seconds and its
    router launches counted from 0;
 21. the kernels line (eleven kernels, each with its launches in the
+   Moonlight step as ``moonlight_step`` where it takes them, and the
+   fifteen of ``kernels/moonlight.py`` from [moonlight]; the eleven with
+   their launches in the
    [node] phase's node as ``node_path``, the products' with every site's
    row from [products] as ``sites``, the router's also in each
    [cluster] survivor and [shard] worker as ``cluster_path``, on the
@@ -300,11 +314,12 @@ def phase_device() -> dict:
 # -- 2. build ------------------------------------------------------------------
 
 
-SOURCES = ("router_match", "forecaster", "forecaster_train", "products")
+SOURCES = ("router_match", "forecaster", "forecaster_train", "products",
+           "moonlight")
 # the kernels whose tensor-core instructions the build reports
 MMA_KERNELS = {"forecaster": "causal_attention",
                "forecaster_train": "causal_attention_bwd",
-               "products": "bf16_product"}
+               "products": "bf16_product", "moonlight": "grouped_product"}
 
 
 def sass_mma_count(lib_path: str, kernel: str):
@@ -1231,7 +1246,8 @@ def forecaster_work(name: str, args) -> tuple[int, int, float]:
     written once. Layernorm does 7 float32 operations a value (sum; sub,
     square, add; sub, two multiplies), GELU 9 (tanh counted as one);
     attention two bf16 products over the causal pairs (2 * head_dim a
-    pair each, on the tensor cores) and 5 float32 softmax operations a
+    pair each, on the tensor cores; the second 2 * v width where a third
+    argument gives the v heads' width) and 5 float32 softmax operations a
     pair (divide, subtract, exp, add, divide)."""
     if name == "layernorm":
         x, scale = args
@@ -1242,12 +1258,13 @@ def forecaster_work(name: str, args) -> tuple[int, int, float]:
         (x,) = args
         ops = 9 * x.numel()
         return 2 * x.numel() * x.element_size(), ops, ops / F32_FLOPS_PER_S
-    qkv, heads = args
+    qkv, heads = args[:2]
     b, t, d3 = qkv.shape
     hd = d3 // 3 // heads
+    vd = args[2] if len(args) > 2 and args[2] else hd  # the v heads' width
     pairs = b * heads * t * (t + 1) // 2
-    mma, soft = 2 * 2 * hd * pairs, 5 * pairs
-    nbytes = qkv.numel() * qkv.element_size() * 4 // 3  # qkv + [B,T,D] out
+    mma, soft = 2 * (hd + vd) * pairs, 5 * pairs
+    nbytes = _nbytes(qkv) + 2 * b * t * heads * vd  # qkv + [B, T, H*v] out
     return (nbytes, mma + soft,
             mma / BF16_TC_FLOPS_PER_S + soft / F32_FLOPS_PER_S)
 
@@ -2176,6 +2193,502 @@ def phase_warpgroup_attention(device: torch.device, seed: int,
     return out
 
 
+# -- the Moonlight backbone at the cell's shapes --------------------------------
+
+
+# moonlight-forecaster.w2048's windows a train step (each of 2,048 ticks)
+MOON_BATCH = 4
+# the forecaster's wrappers the backbone also takes, besides the products
+MOON_SHARED = ("causal_attention_with_stats", "causal_attention_bwd")
+# what each Moonlight kernel computes, in transformers' deepseek_v3 modeling
+# file (4.57)
+MOON_FILE = "transformers/models/deepseek_v3/modeling_deepseek_v3.py"
+MOON_REPLACES = {
+    "rmsnorm": 48, "rmsnorm_bwd": 48, "mla_qkv": 283, "mla_qkv_bwd": 283,
+    "pad_heads": 445, "swiglu": 104, "swiglu_bwd": 104,
+    "route_weights": 148, "route_weights_bwd": 148, "gather_rows": 191,
+    "token_sum": 191, "combine": 194, "combine_bwd": 194,
+    "grouped_product": 192, "router_product": 145}
+# float32 outputs against their plain versions, of the largest value: the
+# routing weights (one division and a sum of six), their gradient, and the
+# combine's weight gradient (a float32 sum over d_model terms)
+MOON_RTOL = {"route_weights": 1e-6, "route_weights_bwd": 1e-5,
+             "combine_bwd": 1e-4}
+
+
+def moonlight_per_step(cfg, b: int) -> dict:
+    """Each wrapper's calls and kernel launches in one Moonlight train step
+    at batch ``b``: ``{name: (calls, launches)}``. A layer's forward: three
+    RMSNorms (its input, the latent, the MLP's input), the fused operand,
+    attention, four bf16 products (q, the latent's, kv_b, the output) and
+    either the dense SwiGLU (two products) or the mixture: the float32
+    router, its weights, the gather, two grouped products, two SwiGLUs
+    (the experts' and the shared experts') between the shared experts'
+    two products, the combine. Then the final norm and the head. The
+    backward: each norm (two launches), the operand, the padding of
+    attention's gradient and its backward (two launches), each SwiGLU,
+    the weights, the gather's token sum, the combine, each grouped
+    product's dX and dW, each product's dX and dW (the embed's dW alone),
+    the router's dX and dW (``router_splits`` decides one or two launches
+    a call); and the update's two."""
+    from chanamq_tpu_torch.kernels import forecaster as fk
+    from chanamq_tpu_torch.kernels import moonlight as mk
+
+    layers, dense = cfg.n_layers, cfg.first_dense
+    moe = layers - dense
+    r, d, e = b * cfg.seq_len, cfg.d_model, cfg.n_experts
+    norms = 3 * layers + 1
+    fwd_products = 1 + 4 * layers + 2 * dense + 2 * moe
+    router = [1 + (mk.router_splits(m, n, k) > 1)
+              for m, n, k in ((r, e, d), (r, d, e), (d, e, r))]
+    one = {"rmsnorm": norms, "mla_qkv": layers, "mla_qkv_bwd": layers,
+           "pad_heads": layers, "swiglu": dense + 2 * moe,
+           "swiglu_bwd": dense + 2 * moe, "route_weights": moe,
+           "route_weights_bwd": moe, "gather_rows": moe, "token_sum": moe,
+           "combine": moe, "combine_bwd": moe, "grouped_product": 6 * moe,
+           "causal_attention_with_stats": layers,
+           "bf16_product": 2 * fwd_products - 1 + fwd_products,
+           "f32_product": 3}
+    out = {name: (n, n) for name, n in one.items()}
+    out["rmsnorm_bwd"] = (norms, 2 * norms)
+    out["causal_attention_bwd"] = (layers, fk.ATT_BWD_LAUNCHES * layers)
+    out["router_product"] = (3 * moe, sum(router) * moe)
+    out["clip_momentum_sgd"] = (1, 2)
+    return out
+
+
+def _signature(args) -> tuple:
+    """A call's tensors' shapes and dtypes and its other arguments: two
+    calls that differ only in their tensors' values share it."""
+    def one(a):
+        if isinstance(a, torch.Tensor):
+            return ("tensor", tuple(a.shape), str(a.dtype))
+        if isinstance(a, (list, tuple)):
+            return tuple(one(x) for x in a)
+        return a
+    return tuple(one(a) for a in args)
+
+
+def _keeping_first(fn, kept: dict):
+    """``fn`` that also keeps a copy of the arguments of its first call of
+    each signature (``_signature``), made before the call, and counts its
+    calls: ``kept[signature] = [args, calls]``."""
+    def wrapper(*args):
+        sig = _signature(args)
+        if sig in kept:
+            kept[sig][1] += 1
+        else:
+            kept[sig] = [_copied(args), 1]
+        return fn(*args)
+    return wrapper
+
+
+def _ulps(steps: float):
+    return lambda want: steps * bf16_ulp(
+        float(want.float().abs().max()) if want.numel() else 0.0)
+
+
+def _of_largest(rel: float):
+    return lambda want: rel * (float(want.float().abs().max())
+                               if want.numel() else 0.0)
+
+
+def moonlight_plain(name: str, args) -> tuple:
+    """A kept Moonlight call's plain result and the limit of each output:
+    ``(wrapper, outputs, limits)``, each limit a function of the plain
+    output (0: the same bits). Copies and rounds as the kernel does: one
+    bf16 step at the largest output where a value is summed in another
+    order (two for attention's forward, four for its backward, as
+    ``forecaster_limit`` and ``TRAIN_STEPS`` give); RMSNorm's float32
+    weight gradient within the float32 error of a sum over its rows; the
+    float32 router product within ``HEAD_RTOL`` of the sum of its terms'
+    magnitudes, against float64; ``MOON_RTOL`` for the routing's float32
+    outputs."""
+    from chanamq_tpu_torch.kernels import forecaster as fk
+    from chanamq_tpu_torch.kernels import moonlight as mk
+    from chanamq_tpu_torch.kernels import products as pk
+
+    exact, one = (lambda want: 0.0), _ulps(1.0)
+    if name == "causal_attention":  # the forecast's: no statistics
+        return fk.causal_attention, (fk.causal_attention_ref(*args),), (
+            _ulps(2.0),)
+    if name in MOON_SHARED:
+        wrapper = getattr(fk, name)
+        if name == "causal_attention_with_stats":
+            return ((lambda *a: wrapper(*a)[0]),
+                    (fk.causal_attention_ref(*args),), (_ulps(2.0),))
+        qkv, dout, heads, _ = args
+        return (wrapper, (fk.causal_attention_bwd_ref(qkv, dout, heads),),
+                (_ulps(TRAIN_STEPS[name]),))
+    wrapper = getattr(mk, name)
+    if name == "rmsnorm":
+        x, w, eps = args
+        return wrapper, (mk.rmsnorm_ref(x[:, :w.shape[0]], w, eps),), (one,)
+    if name == "rmsnorm_bwd":
+        dy, x, w, eps, _ = args
+        width = w.shape[0]
+        want = mk._vjp(lambda a, b: mk.rmsnorm_ref(a[..., :width], b, eps),
+                       (x, w), dy)
+        xf = x[:, :width].float()
+        xn = (xf * torch.rsqrt(xf.pow(2).mean(-1, keepdim=True) + eps)).to(
+            x.dtype).float()
+        terms = float((dy.float() * xn).abs().sum(0).max())
+        return wrapper, want, (one, lambda _: x.shape[0] * 2.0 ** -24
+                               * terms)
+    if name == "mla_qkv":
+        return wrapper, (mk.mla_qkv_ref(*args),), (exact,)
+    if name == "mla_qkv_bwd":
+        dqkv, cs, dims = args
+        b, t = dqkv.shape[:2]
+        h = dims.n_heads
+        zeros = (dqkv.new_zeros(b, t, h * dims.qk),
+                 dqkv.new_zeros(b, t, h * (dims.nope + dims.v)),
+                 dqkv.new_zeros(b, t, dims.latent + dims.rope))
+        return wrapper, mk._vjp(
+            lambda q, kv, kva: mk.mla_qkv_ref(q, kv, kva, cs, dims), zeros,
+            dqkv), (one,) * 3
+    if name == "pad_heads":
+        x, heads, width = args
+        b, t, hw = x.shape
+        want = torch.cat([x.reshape(b, t, heads, hw // heads),
+                          x.new_zeros(b, t, heads, width - hw // heads)],
+                         dim=-1).reshape(b, t, heads * width)
+        return wrapper, (want,), (exact,)
+    if name == "swiglu":
+        return wrapper, (mk.swiglu_ref(*args),), (one,)
+    if name == "swiglu_bwd":
+        dy, gu = args
+        return wrapper, mk._vjp(mk.swiglu_ref, (gu,), dy), (one,)
+    if name == "route_weights":
+        return wrapper, (mk.route_weights_ref(*args),), (
+            _of_largest(MOON_RTOL[name]),)
+    if name == "route_weights_bwd":
+        dw, scores, idx, scale = args
+        return wrapper, mk._vjp(
+            lambda s: mk.route_weights_ref(s, idx, scale), (scores,), dw), (
+            _of_largest(MOON_RTOL[name]),)
+    if name == "gather_rows":
+        x, src = args
+        return wrapper, (x[src.long()],), (exact,)
+    if name == "token_sum":
+        rows, pos, k = args
+        want = rows[pos.long()].float().reshape(pos.shape[0] // k, k, -1).sum(
+            1).to(rows.dtype)
+        return wrapper, (want,), (one,)
+    if name == "combine":
+        return wrapper, (mk._combine_pos(*args),), (one,)
+    if name == "combine_bwd":
+        dout, ys, w, pos = args
+        zero = torch.zeros_like(dout)
+        return wrapper, mk._vjp(
+            lambda y, v: mk._combine_pos(y, v, pos, zero, zero), (ys, w),
+            dout), (one, _of_largest(MOON_RTOL[name]))
+    if name == "grouped_product":
+        return wrapper, (mk.grouped_product_ref(*args),), (one,)
+    a, b, layout = args  # router_product
+    limit = product_limit("f32_product", args, None)
+    return wrapper, (pk.f32_product_ref(a.double(), b.double(), layout),), (
+        lambda _: limit,)
+
+
+def moonlight_work(name: str, args) -> tuple[int, int, float]:
+    """(bytes, operations, least seconds for those operations) of one
+    Moonlight kernel call: each input read once and each output written
+    once. RMSNorm 5 float32 operations a value (square, sum, scale,
+    round, weight), its backward 12; the rotation 3 a rotated value (two
+    multiplies and an add); SwiGLU 5 a value (exp, add, divide, two
+    multiplies), its backward 10; the weights 3 a chosen score; the token
+    sum and combine one add (two with the weight) a row's value; the
+    grouped products 2 M N K on the tensor cores; the router's product 2
+    M N K in float32."""
+    from chanamq_tpu_torch.kernels import products as pk
+
+    if name in ("rmsnorm", "rmsnorm_bwd"):
+        x, w = (args[0], args[1]) if name == "rmsnorm" else args[1:3]
+        r, width = x.shape[0], w.shape[0]
+        vals = r * width
+        ops = (5 if name == "rmsnorm" else 12) * vals
+        nbytes = 2 * 2 * vals + _nbytes(w) if name == "rmsnorm" else \
+            2 * 2 * vals + 2 * r * x.shape[1] + 2 * _nbytes(w)
+        return nbytes, ops, ops / F32_FLOPS_PER_S
+    if name in ("mla_qkv", "mla_qkv_bwd"):
+        cs, dims = args[-2:]
+        b, t = args[0].shape[:2]
+        out = 2 * b * t * 3 * dims.n_heads * dims.qk
+        ins = _nbytes(*args[:3]) if name == "mla_qkv" else _nbytes(args[0])
+        ops = 3 * b * t * (dims.n_heads + 1) * dims.rope
+        nbytes = ins + _nbytes(cs) + (out if name == "mla_qkv" else 2 * b * t
+                                      * (dims.n_heads * (2 * dims.qk
+                                                         + dims.v)
+                                         + dims.latent + dims.rope))
+        return nbytes, ops, ops / F32_FLOPS_PER_S
+    if name == "pad_heads":
+        x, heads, width = args
+        return _nbytes(x) + 2 * x.shape[0] * x.shape[1] * heads * width, 0, 0.0
+    if name in ("swiglu", "swiglu_bwd"):
+        gu = args[-1]
+        f = gu.numel() // 2
+        ops = (5 if name == "swiglu" else 10) * f
+        return (_nbytes(gu) + 2 * f if name == "swiglu" else
+                2 * _nbytes(gu) + 2 * f), ops, ops / F32_FLOPS_PER_S
+    if name in ("route_weights", "route_weights_bwd"):
+        scores, idx = (args[0], args[1]) if name == "route_weights" else \
+            args[1:3]
+        chosen = idx.numel()
+        nbytes = 4 * chosen + _nbytes(idx) + 4 * chosen + (
+            _nbytes(scores) if name == "route_weights_bwd" else 0)
+        return nbytes, 3 * chosen, 3 * chosen / F32_FLOPS_PER_S
+    if name == "gather_rows":
+        x, src = args
+        return 2 * 2 * src.shape[0] * x.shape[1] + _nbytes(src), 0, 0.0
+    if name == "token_sum":
+        rows, pos, k = args
+        ops = rows.numel()
+        return (_nbytes(rows, pos) + 2 * rows.numel() // k, ops,
+                ops / F32_FLOPS_PER_S)
+    if name in ("combine", "combine_bwd"):
+        ys, w, pos = (args[0], args[1], args[2]) if name == "combine" else \
+            args[1:4]
+        t = w.shape[0]
+        tok = 2 * t * ys.shape[1]  # one bf16 [T, D]
+        ops = 2 * ys.numel() + (2 * t * ys.shape[1] if name == "combine"
+                                else ys.numel())
+        nbytes = _nbytes(ys, w, pos) + (3 * tok if name == "combine" else
+                                        tok + _nbytes(ys, w))
+        return nbytes, ops, ops / F32_FLOPS_PER_S
+    if name == "grouped_product":
+        a, b, offsets, layout = args
+        if layout == "tn":
+            rs, m, n = a.shape[0], a.shape[1], b.shape[1]
+            out, ops = 2 * b.numel() // rs * m * (offsets.numel() - 1), \
+                2 * rs * m * n
+        else:
+            rs, k = a.shape
+            n = b.shape[2] if layout == "nn" else b.shape[1]
+            out, ops = 2 * rs * n, 2 * rs * n * k
+        return _nbytes(a, b, offsets) + out, ops, ops / BF16_TC_FLOPS_PER_S
+    a, b, layout = args  # router_product
+    m, n, k = pk.dims(layout, a, b)
+    ops = 2 * m * n * k
+    return 4 * (m * k + k * n + m * n), ops, ops / F32_FLOPS_PER_S
+
+
+def hold_moonlight_call(name: str, args) -> dict:
+    """One kept call of a Moonlight step's wrapper through the wrapper,
+    twice on fresh copies of its inputs (the same bits both times), and
+    through its plain version (``moonlight_plain``), each output within
+    its limit; the bound from its inputs (``moonlight_work``,
+    ``train_work`` and ``forecaster_work`` for attention). The products
+    are held by ``hold_product``."""
+    if name in PRODUCT_KERNELS:
+        return hold_product(name, args, timed=False)
+    wrapper, want, limits = moonlight_plain(name, args)
+    got = [wrapper(*_copied(args)) for _ in range(2)]
+    got = [g if isinstance(g, tuple) else (g,) for g in got]
+    shape = " ".join("x".join(str(n) for n in a.shape)
+                     if isinstance(a, torch.Tensor) else a for a in args
+                     if isinstance(a, (torch.Tensor, str)))
+    row: dict = {"shape": shape, "max_abs_err": 0.0, "limit": 0.0,
+                 "of_limit": 0.0}
+    for i, (g, again, w, lim) in enumerate(zip(*got, want, limits)):
+        if not torch.equal(g, again):
+            raise AssertionError(f"{name} [{shape}]: output {i} differs "
+                                 "between two calls")
+        err, limit = _max_err(g, w), lim(w)
+        if not err <= limit or not torch.isfinite(g.float()).all():
+            raise AssertionError(f"{name} [{shape}]: output {i} max abs "
+                                 f"error {err} over the limit {limit}, or "
+                                 "non-finite")
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row["limit"] = max(row["limit"], limit)
+        if limit:
+            row["of_limit"] = max(row["of_limit"], err / limit)
+    if name in ("causal_attention", "causal_attention_with_stats"):
+        nbytes, ops, ops_s = forecaster_work("causal_attention", args)
+    elif name == "causal_attention_bwd":
+        nbytes, ops, ops_s = train_work(name, args)
+    else:
+        nbytes, ops, ops_s = moonlight_work(name, args)
+    bytes_s = nbytes / HBM_BYTES_PER_S
+    row.update(bytes=nbytes, ops=ops, bound_ms=max(bytes_s, ops_s) * 1e3,
+               bound_by="operations" if ops_s > bytes_s else "bytes")
+    return row
+
+
+def _moon_wrapper(name: str):
+    from chanamq_tpu_torch.kernels import forecaster as fk
+    from chanamq_tpu_torch.kernels import moonlight as mk
+    from chanamq_tpu_torch.kernels import products as pk
+
+    mod = pk if name in PRODUCT_KERNELS else fk if name in MOON_SHARED \
+        else mk
+    return getattr(mod, name)
+
+
+def phase_moonlight(device: torch.device, seed: int, cfg=None,
+                    batch: int = MOON_BATCH, iters: int = 10) -> dict:
+    """The Moonlight backbone's train step at the cell's shapes
+    (``MoonlightConfig()``: d_model 2,048, 16 heads of q and k 192 and v
+    128, the dense layer and four layers of 64 experts, top 6; ``batch``
+    windows of 2,048): a warm step, then one step with every launch count
+    at 0 and every wrapper's first call of each shape kept
+    (``_keeping_first``): each wrapper's calls and launches against
+    ``moonlight_per_step``; then every kept call held
+    (``hold_moonlight_call``; the expert groups as that step routed them)
+    and, on a card, its kernel timed (CUDA events, the wrapper's call,
+    ``iters`` times); the forecast's attention (v width 128, no
+    statistics) held at the step's operand and at one window. Returns the
+    step's ms (three steps, CUDA events), the memory peak, the first
+    expert layer's groups, and ``by_wrapper`` {name: row}: launches,
+    calls, the shapes held, the largest error and share of its limit, and
+    the kernel ms and bound ms a step (each shape's ms and bound times its
+    calls)."""
+    from chanamq_tpu_torch.kernels import forecaster as fk
+    from chanamq_tpu_torch.kernels import moonlight as mk
+    from chanamq_tpu_torch.kernels import products as pk
+    from chanamq_tpu_torch.models import moonlight as moon
+
+    cfg = cfg or moon.MoonlightConfig()
+    cuda = device.type == "cuda"
+    if cuda:
+        moon.set_matmul_precision()
+        torch.cuda.reset_peak_memory_stats(device)
+    params = moon.init_params(seed, cfg, device)
+    momentum = moon.init_momentum(params)
+    gen = torch.Generator(device=device).manual_seed(seed + 18)
+    x = torch.randn(batch, cfg.seq_len, cfg.n_features, generator=gen,
+                    device=device)
+    y = torch.randn(batch, cfg.n_features, generator=gen, device=device)
+    step = moon.make_train_step(cfg, lr=1e-3, clip_norm=1.0)
+    step(params, momentum, (x, y))  # builds and warms every kernel
+    counted = {**counted_wrappers(),
+               **{name: getattr(mk, name) for name in mk.WRAPPERS}}
+    for wrapper in counted.values():
+        wrapper.launches = 0
+    home = {**{name: mk for name in mk.WRAPPERS},
+            **{name: fk for name in MOON_SHARED},
+            **{name: pk for name in PRODUCT_KERNELS}}
+    calls: dict = {}
+    with standing_in(home, lambda name, fn: _keeping_first(
+            fn, calls.setdefault(name, {}))):
+        _, _, loss = step(params, momentum, (x, y))
+    launches = {name: w.launches for name, w in counted.items()}
+    launches["causal_attention_with_stats"] = launches.pop("causal_attention")
+    want = moonlight_per_step(cfg, batch)
+    got = {name: (sum(n for _, n in calls.get(name, {}).values()),
+                  launches.get(name, 0)) for name in want}
+    if not cuda:  # the wrappers count launches on a card only
+        got = {name: (n, want[name][1]) for name, (n, _) in got.items()}
+    got["clip_momentum_sgd"] = (1, got["clip_momentum_sgd"][1])
+    if got != want or not math.isfinite(float(loss)):
+        raise AssertionError(f"Moonlight step: (calls, launches) {got}, want "
+                             f"{want}; loss {float(loss)}")
+    step_ms = []
+    if cuda:
+        for _ in range(3):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            step(params, momentum, (x, y))
+            end.record()
+            torch.cuda.synchronize()
+            step_ms.append(start.elapsed_time(end))
+    peak = torch.cuda.max_memory_allocated(device) if cuda else 0
+    del params, momentum
+    if cuda:
+        torch.cuda.empty_cache()
+    # the first expert layer's groups as the kept step routed them
+    (first, _), = [v for s, v in calls["grouped_product"].items()
+                   if s[-1] == "nn"][:1]
+    sizes = (first[2][1:] - first[2][:-1]).tolist()
+    # the forecast's attention (no statistics) at the step's operand and at
+    # one window
+    att = next(iter(calls["causal_attention_with_stats"].values()))[0][0]
+    forecast = [(att, cfg.n_heads, cfg.v_dim),
+                (att[:1], cfg.n_heads, cfg.v_dim)]
+    out: dict = {"step_ms": step_ms, "memory_peak_bytes": peak,
+                 "loss": float(loss), "groups": sizes, "by_wrapper": {}}
+    nan = float("nan")
+    for name in want:
+        if name == "clip_momentum_sgd":
+            continue
+        row = {"launches": got[name][1], "calls": got[name][0],
+               "shapes": {}, "max_abs_err": 0.0, "of_limit": 0.0,
+               "ms": 0.0 if cuda else nan, "bound_ms": 0.0}
+        for args, n in calls[name].values():
+            r = hold_moonlight_call(name, args)
+            if cuda:
+                fn = _moon_wrapper(name)
+                r["ms"] = _time_ms(lambda: fn(*args), iters,
+                                   device_only=True)
+                row["ms"] += n * r["ms"]
+            row["shapes"][r["shape"]] = row["shapes"].get(r["shape"], 0) + n
+            row["max_abs_err"] = max(row["max_abs_err"], r["max_abs_err"])
+            if r["limit"]:
+                row["of_limit"] = max(row["of_limit"],
+                                      r["max_abs_err"] / r["limit"])
+            row["bound_ms"] += n * r["bound_ms"]
+            row["bound_by"] = r["bound_by"]
+        if name == "causal_attention_with_stats":
+            row["forecast"] = {}
+            for args in forecast:
+                r = hold_moonlight_call("causal_attention", args)
+                row["forecast"][r["shape"]] = {k: r[k] for k in (
+                    "max_abs_err", "limit", "bound_ms")}
+        out["by_wrapper"][name] = row
+        log(f"[moonlight] {name}: {row['launches']} launches in a train "
+            f"step at B={batch} (want {want[name][1]}), {row['calls']} calls "
+            f"of {len(row['shapes'])} shapes held against the plain version"
+            f": max abs err {row['max_abs_err']:.6g} ({row['of_limit']:.3g}"
+            f" of its limit); kernel {row['ms']:.4f} ms a step against the "
+            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}); shapes "
+            f"{row['shapes']}"
+            + (f"; the forecast's (v width {cfg.v_dim}, no statistics) "
+               f"{row['forecast']}" if "forecast" in row else ""))
+    out["update_launches"] = got["clip_momentum_sgd"][1]
+    mean = sum(sizes) / len(sizes)
+    log(f"[moonlight] train step at B={batch}, T={cfg.seq_len}, d_model "
+        f"{cfg.d_model}, {cfg.n_layers} layers, {cfg.n_experts} experts top "
+        f"{cfg.top_k}: ms {', '.join(f'{ms:.3f}' for ms in step_ms)} (CUDA "
+        f"events); loss {out['loss']:.6g}; memory peak {peak} B; the first "
+        f"expert layer's groups: largest {max(sizes)}, mean {mean:.1f}, "
+        f"empty {sum(s == 0 for s in sizes)}; update launches "
+        f"{out['update_launches']}")
+    del calls, forecast, att, first
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def moonlight_line(line: list, moonlight: dict, hmma: dict) -> None:
+    """The kernels line's Moonlight entries, from ``phase_moonlight``'s
+    result: each row of a kernel the backbone shares (attention, the
+    products, the update) gains ``moonlight_step``, its launches, held
+    calls and ms and bound a step in the Moonlight train step; each of
+    ``kernels/moonlight.py``'s wrappers is a row of its own, with the
+    tensor-core instructions of ``hmma``'s kernels."""
+    keys = ("launches", "calls", "shapes", "max_abs_err", "of_limit", "ms",
+            "bound_ms", "bound_by")
+    rows = moonlight["by_wrapper"]
+    for row in line:
+        name = ("causal_attention_with_stats"
+                if row["name"] == "causal_attention" else row["name"])
+        if name in rows:
+            row["moonlight_step"] = {k: rows[name][k] for k in keys + (
+                ("forecast",) if "forecast" in rows[name] else ())}
+        elif name == "clip_momentum_sgd":
+            row["moonlight_step"] = {
+                "launches": moonlight["update_launches"]}
+    for name, where in MOON_REPLACES.items():
+        line.append({
+            "name": name, "route": "cuda",
+            "source": "chanamq_tpu_torch/csrc/moonlight.cu",
+            "replaces": f"{MOON_FILE}:{where}",
+            **{k: rows[name][k] for k in keys},
+            "step_shape": f"B={MOON_BATCH}, T=2048",
+            **({"hmma": hmma[name]} if name in hmma else {})})
+
+
 def phase_init(device: torch.device) -> dict:
     """The flagship's default parameters (``init_params(0, cfg)``, the
     reference's ``PRNGKey(0)`` draw, made on the host) on the card equal
@@ -2811,11 +3324,12 @@ STEP_WRAPPERS = ("layernorm", "causal_attention_with_stats", "gelu_tanh",
 
 
 def _copied(args) -> tuple:
-    """``args`` with every tensor, also in a list, copied."""
+    """``args`` with every tensor, also in a list, copied (a named tuple
+    of widths as it is)."""
     def one(a):
         if isinstance(a, torch.Tensor):
             return a.detach().clone()
-        if isinstance(a, (list, tuple)):
+        if isinstance(a, (list, tuple)) and not hasattr(a, "_fields"):
             return [one(x) for x in a]
         return a
     return tuple(one(a) for a in args)
@@ -2832,21 +3346,14 @@ def _keeping(fn, calls: list):
 
 
 @contextlib.contextmanager
-def keeping_step_wrappers(calls: dict):
-    """While it is open, every ``STEP_WRAPPERS`` and ``PRODUCT_KERNELS``
-    call that the autograd Functions make (they look the wrappers up on
-    ``kernels/forecaster``'s and ``kernels/products``' module names) also
-    keeps a copy of its arguments in ``calls[name]``. A wrapper counts its
-    launches on the module's name for it, so the stand-in carries the
-    count and hands it back."""
-    from chanamq_tpu_torch.kernels import forecaster as fk
-    from chanamq_tpu_torch.kernels import products as pk
-
-    home = {**{name: fk for name in STEP_WRAPPERS},
-            **{name: pk for name in PRODUCT_KERNELS}}
+def standing_in(home: dict, make):
+    """While it is open, each wrapper ``name`` on its module ``home[name]``
+    is ``make(name, wrapper)`` (the autograd Functions look the wrappers
+    up on their modules' names). A wrapper counts its launches on the
+    module's name for it, so the stand-in carries the count and hands it
+    back."""
     real = {name: getattr(mod, name) for name, mod in home.items()}
-    stand_in = {name: _keeping(fn, calls.setdefault(name, []))
-                for name, fn in real.items()}
+    stand_in = {name: make(name, fn) for name, fn in real.items()}
     for name, fn in real.items():
         if hasattr(fn, "launches"):
             stand_in[name].launches = fn.launches
@@ -2858,6 +3365,21 @@ def keeping_step_wrappers(calls: dict):
             setattr(home[name], name, fn)
             if hasattr(fn, "launches"):
                 fn.launches = stand_in[name].launches
+
+
+@contextlib.contextmanager
+def keeping_step_wrappers(calls: dict):
+    """While it is open, every ``STEP_WRAPPERS`` and ``PRODUCT_KERNELS``
+    call that the autograd Functions make also keeps a copy of its
+    arguments in ``calls[name]`` (``standing_in``)."""
+    from chanamq_tpu_torch.kernels import forecaster as fk
+    from chanamq_tpu_torch.kernels import products as pk
+
+    home = {**{name: fk for name in STEP_WRAPPERS},
+            **{name: pk for name in PRODUCT_KERNELS}}
+    with standing_in(home, lambda name, fn: _keeping(
+            fn, calls.setdefault(name, []))):
+        yield
 
 
 def hold_step_call(wrapper: str, args) -> dict:
@@ -5088,6 +5610,7 @@ def main() -> int:
     bwd_warps = phase_bwd_warps(device, args.seed)
     long_windows = phase_long_windows(device, args.seed)
     warpgroup = phase_warpgroup_attention(device, args.seed)
+    moonlight = phase_moonlight(device, args.seed)
     train = phase_train(device, args.seed)
     log_train(train, dev)
     phase_init(device)
@@ -5471,6 +5994,7 @@ def main() -> int:
                       for (label, site, b), row in rows.items()},
             **({"hmma": hmma[name]} if name in hmma else {}),
             "sharded_path": sharded_path(name), "node_path": node_path(name)})
+    moonlight_line(line, moonlight, hmma)
     log(f"[time] every phase in {time.perf_counter() - t_run:.1f} s (host "
         f"clock, builds included); card {dev['smi']}")
     print(json.dumps({"kernels": line}))

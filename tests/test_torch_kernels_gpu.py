@@ -1224,3 +1224,261 @@ def test_train_step_matches_jax(cuda, record_property):
         if name != "clip_momentum_sgd":
             n += 2 * per_step[name] - no_dw.get(name, 0)
         assert w.launches - before[name] == n, name
+
+
+# -- the Moonlight backbone's kernels (kernels/moonlight.py) -----------------
+#
+# Each held to its plain version at the cell's shapes (moonlight-forecaster
+# .w2048: B = 4 windows of T = 2,048, d_model 2,048, 16 heads of 192/128,
+# 64 experts, top 6): one bf16 step at the largest output (two for
+# attention), as the forecaster's kernels are.
+
+from chanamq_tpu_torch.kernels import moonlight as mk  # noqa: E402
+from chanamq_tpu_torch.models import moonlight as moon  # noqa: E402
+
+
+def _held(name: str, got: torch.Tensor, want: torch.Tensor,
+          steps: float = 1.0) -> None:
+    top = float(want.float().abs().max())
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= steps * chip_smoke.bf16_ulp(top), (name, err, top)
+
+
+def _close(name: str, got: torch.Tensor, want: torch.Tensor,
+           rel: float) -> None:
+    """Float32 sums in another order: the largest gap within ``rel`` of
+    the largest value."""
+    top = float(want.float().abs().max())
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= rel * top, (name, err, top)
+
+
+@pytest.mark.parametrize("rows,full,width", [(8192, 2048, 2048),
+                                             (8192, 576, 512), (77, 512, 512)])
+def test_moonlight_rmsnorm_matches_plain(cuda, rows, full, width):
+    gen = torch.Generator(device=cuda).manual_seed(rows + width)
+    x = torch.randn(rows, full, generator=gen, device=cuda).to(torch.bfloat16)
+    w = 1 + 0.1 * torch.randn(width, generator=gen, device=cuda)
+    dy = torch.randn(rows, width, generator=gen, device=cuda).to(
+        torch.bfloat16)
+    _held("rmsnorm", mk.rmsnorm(x, w, 1e-5),
+          mk.rmsnorm_ref(x[:, :width], w, 1e-5))
+    dx, dw = mk.rmsnorm_bwd(dy, x, w, 1e-5, full)
+    want_dx, want_dw = mk._vjp(
+        lambda a, b: mk.rmsnorm_ref(a[..., :width], b, 1e-5), (x, w), dy)
+    _held("rmsnorm_bwd dx", dx, want_dx)
+    _close("rmsnorm_bwd dw", dw, want_dw, 1e-4)
+    again = mk.rmsnorm_bwd(dy, x, w, 1e-5, full)
+    assert torch.equal(again[0], dx) and torch.equal(again[1], dw)
+    if width == 2048:  # a strided view: the final norm's last positions
+        last = x.reshape(4, rows // 4, full)[:, -1]
+        _held("rmsnorm last rows", mk.rmsnorm(last, w, 1e-5),
+              mk.rmsnorm_ref(last, w, 1e-5))
+
+
+@pytest.mark.parametrize("b,t", [(4, 2048), (1, 128)])
+def test_moonlight_mla_qkv_matches_plain(cuda, b, t):
+    gen = torch.Generator(device=cuda).manual_seed(t)
+    dims = mk.MlaDims(16)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=cuda).to(
+            torch.bfloat16)
+
+    q, kv, kva = rnd(b, t, 16 * 192), rnd(b, t, 16 * 256), rnd(b, t, 576)
+    cs = mk.rope_table(t, 64, 50000.0, cuda)
+    got = mk.mla_qkv(q, kv, kva, cs, dims)
+    want = mk.mla_qkv_ref(q, kv, kva, cs, dims)
+    assert torch.equal(got, want)
+    d = rnd(b, t, 3 * 16 * 192)
+    got = mk.mla_qkv_bwd(d, cs, dims)
+    want = mk._vjp(lambda a, c, e: mk.mla_qkv_ref(a, c, e, cs, dims),
+                   (q, kv, kva), d)
+    _held("mla dq", got[0], want[0])
+    _held("mla dkv", got[1], want[1])
+    _held("mla dkva", got[2], want[2])
+
+
+@pytest.mark.parametrize("b,t", [(4, 2048), (1, 2048), (2, 300)])
+def test_moonlight_attention_matches_plain(cuda, b, t):
+    gen = torch.Generator(device=cuda).manual_seed(b * t)
+    dims = mk.MlaDims(16)
+    qkv = (torch.randn(b, t, 3 * 16 * 192, generator=gen, device=cuda)
+           ).to(torch.bfloat16)
+    qkv.view(b, t, 3, 16, 192)[:, :, 2, :, 128:] = 0
+    before = fk.causal_attention.warpgroup_launches
+    out, stats = fk.causal_attention_with_stats(qkv, 16, 128)
+    assert fk.causal_attention.warpgroup_launches == before + 1
+    want = fk.causal_attention_ref(qkv, 16, 128)
+    _held("mla attention", out, want, 2.0)
+    dout = torch.randn(b, t, 16 * 128, generator=gen, device=cuda).to(
+        torch.bfloat16)
+    leaf = qkv.detach().requires_grad_()
+    got = torch.autograd.grad(mk.MlaAttention.apply(leaf, dims), leaf,
+                              dout)[0]
+    want = torch.autograd.grad(mk.mla_attention_plain(leaf, dims), leaf,
+                               dout)[0]
+    _held("mla attention bwd", got, want, 2.0)
+
+
+def test_moonlight_attention_refuses_narrow_windows(cuda):
+    qkv = torch.zeros(1, 64, 3 * 16 * 192, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="v width 128"):
+        fk.causal_attention(qkv, 16, 128)
+
+
+@pytest.mark.parametrize("rows,f", [(8192, 11264), (49152, 1408),
+                                    (8192, 2816), (5, 8)])
+def test_moonlight_swiglu_matches_plain(cuda, rows, f):
+    gen = torch.Generator(device=cuda).manual_seed(rows + f)
+    gu = (2 * torch.randn(rows, 2 * f, generator=gen, device=cuda)).to(
+        torch.bfloat16)
+    dy = torch.randn(rows, f, generator=gen, device=cuda).to(torch.bfloat16)
+    _held("swiglu", mk.swiglu(gu), mk.swiglu_ref(gu))
+    _held("swiglu_bwd", mk.swiglu_bwd(dy, gu),
+          mk._vjp(mk.swiglu_ref, (gu,), dy)[0])
+
+
+def _routing(cuda, t=8192, e=64, k=6, d=2048, seed=0):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    scores = torch.sigmoid(torch.randn(t, e, generator=gen, device=cuda))
+    idx = torch.topk(scores, k, dim=-1).indices.sort(-1).values
+    return gen, scores, idx
+
+
+def test_moonlight_routing_matches_plain(cuda):
+    gen, scores, idx = _routing(cuda)
+    w = mk.route_weights(scores, idx, 2.446)
+    _close("route_weights", w, mk.route_weights_ref(scores, idx, 2.446),
+           1e-6)
+    dw = torch.randn(w.shape, generator=gen, device=cuda)
+    _close("route_weights_bwd", mk.route_weights_bwd(dw, scores, idx, 2.446),
+           mk._vjp(lambda s: mk.route_weights_ref(s, idx, 2.446), (scores,),
+                   dw)[0], 1e-5)
+    d = mk.dispatch(idx, 64)
+    assert int(d.counts.sum()) == idx.numel()
+    assert torch.equal(d.offsets[1:].long(), torch.cumsum(d.counts, 0))
+    x = torch.randn(8192, 2048, generator=gen, device=cuda).to(torch.bfloat16)
+    xs = mk.gather_rows(x, d.src)
+    assert torch.equal(xs, mk.gather_ref(x, d))
+    ys = torch.randn(xs.shape, generator=gen, device=cuda).to(torch.bfloat16)
+    back = mk.token_sum(ys, d.pos, 6)
+    want = ys[d.pos.long()].float().reshape(8192, 6, -1).sum(1)
+    _held("token_sum", back, want.to(torch.bfloat16))
+    sh, res = (torch.randn(8192, 2048, generator=gen, device=cuda).to(
+        torch.bfloat16) for _ in range(2))
+    _held("combine", mk.combine(ys, w, d.pos, sh, res),
+          mk.combine_ref(ys, w, d, sh, res))
+    dout = torch.randn(8192, 2048, generator=gen, device=cuda).to(
+        torch.bfloat16)
+    dys, dwt = mk.combine_bwd(dout, ys, w, d.pos)
+    zero = torch.zeros_like(dout)
+    want_ys, want_w = mk._vjp(
+        lambda a, b: mk.combine_ref(a, b, d, zero, zero), (ys, w), dout)
+    _held("combine_bwd dys", dys, want_ys)
+    _close("combine_bwd dw", dwt, want_w, 1e-4)
+
+
+def _groups(cuda, counts):
+    counts = torch.tensor(counts, device=cuda)
+    offsets = torch.zeros(len(counts) + 1, dtype=torch.int32, device=cuda)
+    offsets[1:] = torch.cumsum(counts, 0).to(torch.int32)
+    return offsets, int(counts.sum())
+
+
+GROUPED_CASES = [
+    # (group sizes, K, N): the cell's gate | up and down products
+    ([768] * 64, 2048, 2816),
+    ([768] * 64, 1408, 2048),
+    # uneven and empty groups, a group of one row, ragged tiles
+    ([0, 1, 300, 0, 1000, 129, 0, 2] + [0] * 56, 2048, 2816),
+    ([5000, 0, 0, 3] + [17] * 60, 1408, 2048),
+]
+
+
+@pytest.mark.parametrize("sizes,k,n", GROUPED_CASES)
+def test_moonlight_grouped_products_match_plain(cuda, sizes, k, n):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=cuda).manual_seed(k + n + len(sizes))
+    offsets, rows = _groups(cuda, sizes)
+    e = len(sizes)
+    x = torch.randn(rows, k, generator=gen, device=cuda).to(torch.bfloat16)
+    w = (torch.randn(e, k, n, generator=gen, device=cuda) / k ** 0.5).to(
+        torch.bfloat16)
+    dy = torch.randn(rows, n, generator=gen, device=cuda).to(torch.bfloat16)
+    for layout, a, b in (("nn", x, w), ("nt", dy, w), ("tn", x, dy)):
+        got = mk.grouped_product(a, b, offsets, layout)
+        want = mk.grouped_product_ref(a, b, offsets, layout)
+        _held(f"grouped {layout}", got, want)
+        assert torch.equal(got, mk.grouped_product(a, b, offsets, layout))
+    empty = [i for i, s in enumerate(sizes) if s == 0]
+    if empty:
+        dw = mk.grouped_product(x, dy, offsets, "tn")
+        assert not dw[empty].any()
+
+
+def _moon_cfg(**kw):
+    small = dict(seq_len=256, n_layers=2, n_experts=64)
+    small.update(kw)
+    return moon.MoonlightConfig(**small)
+
+
+def test_moonlight_forward_and_step_match_plain(cuda):
+    moon.set_matmul_precision()
+    cfg = _moon_cfg()
+    params = moon.init_params(3, cfg, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(2, cfg.seq_len, 8, generator=gen, device=cuda)
+    y = torch.randn(2, 8, generator=gen, device=cuda)
+    with torch.no_grad():
+        got = moon.forward(params, x, cfg)
+        want = moon.forward(params, x, cfg, ops=mk.PLAIN)
+    assert float((got - want).abs().max()) <= chip_smoke.FORWARD_LIMIT
+    names = sorted(params)
+    out = {}
+    for label, ops in (("kernels", mk.KERNELS), ("plain", mk.PLAIN)):
+        leaves = {n: params[n].detach().clone().requires_grad_()
+                  for n in names}
+        loss = moon.loss_fn(leaves, (x, y), cfg, ops=ops)
+        out[label] = (float(loss), torch.autograd.grad(
+            loss, [leaves[n] for n in names]))
+    assert abs(out["kernels"][0] - out["plain"][0]) <= 1e-2 * abs(
+        out["plain"][0])
+    for n, a, b in zip(names, out["kernels"][1], out["plain"][1]):
+        gap = float((a - b).norm()) / max(float(b.norm()), 1e-30)
+        assert gap <= 0.05, (n, gap)
+
+
+def test_moonlight_service_round_counts_rows(cuda):
+    from chanamq_tpu_torch.models.service import ForecastService
+
+    cfg = _moon_cfg()
+    svc = ForecastService(None, seq_len=cfg.seq_len, history=600, batch=2,
+                          steps_per_round=2, device="cuda",
+                          model_kwargs={"backbone": "moonlight",
+                                        "n_layers": 2})
+    hist = np.random.default_rng(0).random((600, 8)).astype(np.float32) * 10
+    steps, loss, forecast = svc._round(hist)
+    assert steps == 2 and np.isfinite(loss) and forecast is not None
+    assert svc.moe_routed_rows == 6 * 2 * cfg.seq_len * 1 * 2
+    assert svc.moonlight_launches > 0 and svc.snapshot()["backbone"] == \
+        "moonlight"
+
+
+@pytest.mark.parametrize("layout,m,n,k", [("nn", 8192, 64, 2048),
+                                          ("nt", 8192, 2048, 64),
+                                          ("tn", 2048, 64, 8192),
+                                          ("nn", 2048, 64, 2048),
+                                          ("tn", 100, 37, 1000)])
+def test_moonlight_router_product_matches_plain(cuda, layout, m, n, k):
+    moon.set_matmul_precision()
+    gen = torch.Generator(device=cuda).manual_seed(m + n + k)
+    a = torch.randn(*((k, m) if layout == "tn" else (m, k)), generator=gen,
+                    device=cuda)
+    b = torch.randn(*((n, k) if layout == "nt" else (k, n)), generator=gen,
+                    device=cuda)
+    got = mk.router_product(a, b, layout)
+    want = pk.f32_product_ref(a.double(), b.double(), layout)
+    # float32 sums of K terms: a few ulps of the terms' magnitudes
+    assert float((got.double() - want).abs().max()) <= 2e-5 * k ** 0.5
+    assert torch.equal(got, mk.router_product(a, b, layout))

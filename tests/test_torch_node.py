@@ -14,7 +14,8 @@
   ``/admin/health``, ``/admin/overview``, ``/admin/control`` and every
   other admin view a single node serves (``ADMIN_VIEWS``), but for the
   port's own additions (``PORT_ONLY``: the forecast service's kernel
-  launch count and its profile stages and round ring), the same
+  launch counts, backbone and routing counters, and its profile stages
+  and round ring), the same
   metric names in the same order on ``/metrics`` (the forecast stages'
   series after the reference's stages), and, after the same
   scripted declares, identical JSON from ``/admin/queues/<vhost>`` and
@@ -90,9 +91,13 @@ ENTITY_VIEWS = ("/admin/queues/%2F", "/admin/exchanges/%2F")
 # forecast service's stages, their subsystem and the ring of its rounds
 FORECAST_STAGES = ("forecast-round", "forecast-batch", "train-step",
                    "train-forward", "train-backward", "train-update",
-                   "forecast-wait", "forecast-predict")
+                   "forecast-wait", "forecast-predict", "mla-attention",
+                   "moe-route", "moe-dispatch", "moe-experts",
+                   "moe-combine")
 PORT_ONLY = {
-    "/admin/forecast": {"/kernel_launches", "/warpgroup_launches"},
+    "/admin/forecast": {"/kernel_launches", "/warpgroup_launches",
+                        "/backbone", "/moonlight_launches",
+                        "/moe_routed_rows", "/moe_max_expert_rows"},
     "/admin/profile": {
         f"/stages/{stage}{key}" for stage in FORECAST_STAGES
         for key in ("", "/subsystem", "/ns", "/calls", "/us_per_call",

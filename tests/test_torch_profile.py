@@ -156,13 +156,16 @@ def test_forecast_stages_follow_the_broker_stages():
     # their own subsystem, fine (never top-level), each nested in a round
     names = ("forecast-round", "forecast-batch", "train-step",
              "train-forward", "train-backward", "train-update",
-             "forecast-wait", "forecast-predict")
+             "forecast-wait", "forecast-predict", "mla-attention",
+             "moe-route", "moe-dispatch", "moe-experts", "moe-combine")
     assert profile.STAGES[13:] == names
     assert profile.STAGES.index("tx-commit") == profile.TX_COMMIT == 12
     assert [profile.STAGES[i] for i in (
         profile.FORECAST_ROUND, profile.FORECAST_BATCH, profile.TRAIN_STEP,
         profile.TRAIN_FORWARD, profile.TRAIN_BACKWARD, profile.TRAIN_UPDATE,
-        profile.FORECAST_WAIT, profile.FORECAST_PREDICT)] == list(names)
+        profile.FORECAST_WAIT, profile.FORECAST_PREDICT,
+        profile.MLA_ATTENTION, profile.MOE_ROUTE, profile.MOE_DISPATCH,
+        profile.MOE_EXPERTS, profile.MOE_COMBINE)] == list(names)
     assert profile.SUBSYSTEMS[13:] == ("forecast",) * len(names)
     assert not profile.TOP_LEVEL & set(range(13, len(profile.STAGES)))
     for stage in range(14, len(profile.STAGES)):
@@ -433,7 +436,10 @@ async def test_admin_profile_forecast_stages_and_rounds(profile_stack):
     assert {name: stage["calls"] for name, stage in forecast.items()} == {
         "forecast-round": 1, "forecast-batch": 1, "train-step": 2,
         "train-forward": 2, "train-backward": 2, "train-update": 2,
-        "forecast-wait": 1, "forecast-predict": 1}
+        "forecast-wait": 1, "forecast-predict": 1,
+        # the Moonlight backbone's layer stages: none in the forecaster
+        "mla-attention": 0, "moe-route": 0, "moe-dispatch": 0,
+        "moe-experts": 0, "moe-combine": 0}
     assert not any(stage["top_level"] for stage in forecast.values())
     assert snap["subsystems"]["forecast"] == {
         "ns": forecast["forecast-round"]["ns"], "calls": 1}
