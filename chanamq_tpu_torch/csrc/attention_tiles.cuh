@@ -41,16 +41,18 @@
 // every pass and whatever the ring's size, so the sums run in the same
 // order as when the prefix was held whole.
 //
-// Which shapes each design serves. These 16-row tiles on mma.sync serve the
-// backward at every shape, and the forward up to windows of 127 rows (the
-// service's default window 64, run_node's compact model at its window) and
-// at head widths that are not multiples of 16 or are over 128: at T = 64 a
-// forward is bound by launch latency and parallelism (more than 20x from
-// either roof), and a 64-row warpgroup tile would leave most of the card
-// idle. From 128 rows the 16-row forward re-reads a query tile's whole key
-// prefix three times for every 16 rows; there the forward is forecaster.cu's
+// Which shapes each design serves. These 16-row tiles on mma.sync serve
+// the forward and the backward up to windows of 127 rows (the service's
+// default window 64, run_node's compact model at its window) and at head
+// widths that are not multiples of 16 or are over 128: at T = 64 a call
+// is bound by launch latency and parallelism (more than 20x from either
+// roof), and a 64-row warpgroup tile would leave most of the card idle.
+// From 128 rows the 16-row kernels re-read a tile's whole prefix for
+// every 16 rows; there the forward is forecaster.cu's
 // causal_attention_warpgroup_kernel (64 query rows a block, wgmma, a TMA
-// key ring, two passes), which writes the same row statistics.
+// key ring, two passes), which writes the same row statistics, and the
+// backward forecaster_train.cu's warpgroup pair (64 rows a block, dq by
+// query rows, dk and dv by key rows).
 
 #pragma once
 

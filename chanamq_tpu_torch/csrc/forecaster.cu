@@ -48,6 +48,7 @@
 #include <string.h>
 
 #include "attention_tiles.cuh"
+#include "attention_warpgroup.cuh"
 #include "gelu.cuh"
 #include "layernorm_rows.cuh"
 #include "tma_wgmma.cuh"
@@ -172,7 +173,7 @@ __global__ void empty_kernel() {}
 // in every pass (and for every 64 output columns), its logits recomputed.
 // Given `stats` (training), the block also writes each row's max and sum
 // of exponentials, float32, into its first two planes ([3][B H rows]):
-// the backward's row pass reads them instead of recomputing them.
+// the backward reads them instead of recomputing them.
 
 __global__ void __launch_bounds__(chana_att::kWarps * 32, 4)
     causal_attention_kernel(const __nv_bfloat16* __restrict__ qkv,
@@ -386,11 +387,9 @@ __global__ void __launch_bounds__(chana_att::kWarps * 32, 4)
 //   planes at the rows the 16-row kernel writes (rows < stat_rows of each
 //   (b, h)), for the backward, which takes either forward's statistics.
 
-namespace wg_att {
+namespace wg_fwd {
 
-constexpr int kRows = 64;  // query rows of a block: wgmma's m64
-constexpr int kKeys = 64;  // keys of a ring tile: the n64 of Q K^T
-constexpr int kAtomBytes = 64 * 128;  // a box: 64 rows of 64 bf16
+using namespace ::wg_att;  // attention_warpgroup.cuh: the shared pieces
 
 // Heads of up to 64 kAtoms (q and k), values of up to 64 kVAtoms.
 template <int kAtoms, int kVAtoms = kAtoms>
@@ -411,50 +410,11 @@ struct Shape {
   static constexpr int kSmem = kQBytes + kStages * kStageBytes + 1024;
 };
 
-// x / d, correctly rounded, from r = 1 / d correctly rounded (one
-// correction step, Markstein's) for x a bf16 logit of 2^-100 or more in
-// magnitude and d = sqrt(HD): every such bf16 value at every width that
-// takes it (32, 48, 80, 96, 112, 128) gives the division's bits, while
-// some under 2^-118 do not, their residuals underflowing.
-__device__ __forceinline__ float quotient(float x, float d, float r) {
-  const float q = x * r;
-  return fmaf(fmaf(-q, d, x), r, q);
-}
-
-// x / d with the bits of the division (correctly rounded, as
-// chana_att::divide gives it) for 0 <= x <= 1 and d >= 1/2 where the
-// quotient is 0 or a normal float (2^-126 or more), from r = 1 / d
-// correctly rounded, without the division's reciprocal and branches for
-// each x: at x 2^100, so that every residual is exact, a product within
-// two ulp, a correction step that leaves it within one and Markstein's
-// step that rounds it correctly, scaled back exactly. (Under 2^-126 the
-// scaling back would round a second time.)
-__device__ __forceinline__ float quotient_rn(float x, float d, float r) {
-  const float xs = x * 0x1p100f;
-  float q = xs * r;
-  q = fmaf(fmaf(-q, d, xs), r, q);
-  return fmaf(fmaf(-q, d, xs), r, q) * 0x1p-100f;
-}
-
-// The widest span of a row's logits (max - min, at their true scale) under
-// which every weight exp(logit - m) / l is 0 or a normal float, l being at
-// most T < 2^31: e^-64 / 2^31 > 2^-124.
-constexpr float kQuotientSpan = 64.f;
-
-constexpr float kLog2e = 1.4426950408889634f;
-
-// 2^x by the special function unit (relative error ~2^-22; 2^-inf = 0).
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-}  // namespace wg_att
+}  // namespace wg_fwd
 
 template <int kAtoms, int kVAtoms>
-__global__ void __launch_bounds__(wg_att::Shape<kAtoms, kVAtoms>::kThreads,
-                                  wg_att::Shape<kAtoms, kVAtoms>::kBlocksPerSM)
+__global__ void __launch_bounds__(wg_fwd::Shape<kAtoms, kVAtoms>::kThreads,
+                                  wg_fwd::Shape<kAtoms, kVAtoms>::kBlocksPerSM)
     causal_attention_warpgroup_kernel(const __grid_constant__ CUtensorMap map,
                                       __nv_bfloat16* __restrict__ out,
                                       float* __restrict__ stats, int T, int H,
@@ -462,7 +422,7 @@ __global__ void __launch_bounds__(wg_att::Shape<kAtoms, kVAtoms>::kThreads,
                                       float scale_div) {
   using namespace chana_tma;
   using namespace wg_att;
-  using S = Shape<kAtoms, kVAtoms>;
+  using S = wg_fwd::Shape<kAtoms, kVAtoms>;
   using chana_att::neg_inf;
   using chana_att::pack_bf16;
   using chana_att::unpack_bf16;
@@ -826,32 +786,16 @@ __global__ void __launch_bounds__(CHANA_GELU_THREADS) gelu_tanh_kernel(
 // heads of width HDV; 0 where the kernel takes no such widths: one width
 // up to 128, or latent attention's 192 and 128.
 size_t warpgroup_smem(int HD, int HDV) {
-  if (HD == 192 && HDV == 128) return wg_att::Shape<3, 2>::kSmem;
+  if (HD == 192 && HDV == 128) return wg_fwd::Shape<3, 2>::kSmem;
   if (HDV != HD || HD < 16 || HD > 128 || HD % 16 != 0) return 0;
-  return HD > 64 ? wg_att::Shape<2>::kSmem : wg_att::Shape<1>::kSmem;
+  return HD > 64 ? wg_fwd::Shape<2>::kSmem : wg_fwd::Shape<1>::kSmem;
 }
 
 // The map of qkv [B, T, 3 H HD] as [B][T][3 H][HD] (q heads, then k's,
-// then v's): boxes of 64 rows of one head of one batch, 64 values of it a
-// row, 128-byte swizzled, zeros past every edge (past HD, past T).
+// then v's).
 cudaError_t encode_qkv(CUtensorMap* map, const void* qkv, int B, int T, int H,
                        int HD) {
-  const chana_tma::EncodeTiled fn = chana_tma::encoder();
-  if (fn == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t row = (cuuint64_t)3 * H * HD * 2;  // bytes
-  const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)3 * H,
-                              (cuuint64_t)T, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)HD * 2, row,
-                                 row * (cuuint64_t)T};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)wg_att::kKeys, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                        const_cast<void*>(qkv), dims, strides, box, unit,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  return wg_att::encode_heads(map, qkv, B, T, 3 * H, HD);
 }
 
 struct WarpgroupCall {
@@ -865,7 +809,7 @@ struct WarpgroupCall {
 
 template <int kAtoms, int kVAtoms = kAtoms>
 cudaError_t launch_warpgroup(const WarpgroupCall& c) {
-  using S = wg_att::Shape<kAtoms, kVAtoms>;
+  using S = wg_fwd::Shape<kAtoms, kVAtoms>;
   static size_t allowed[chana_att::kMaxDevices] = {};
   const cudaError_t err = chana_att::allow_smem(
       (const void*)causal_attention_warpgroup_kernel<kAtoms, kVAtoms>,

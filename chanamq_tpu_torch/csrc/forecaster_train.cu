@@ -36,19 +36,25 @@
 // update walks all parameter tensors in one launch from a table of
 // pointers passed by value, two launches a step in all.
 //
-// Attention's backward is the tensor-core design of attention_tiles.cuh:
-// all five of its products (q . k^T, dout . v^T, dlog . K, dlog^T . Q,
-// W^T . dout) on mma.sync, one block per (batch, head, 16-row tile) with
-// no float atomics, in two launches a call (a row pass for the softmax
-// statistics, then the gradients), streaming tiles through a ring in
-// shared memory so that any window fits.
+// Attention's backward has two designs, two launches a call each, no
+// float atomics, and any window: up to 127 rows the tensor-core design of
+// attention_tiles.cuh (all five of its products, q . k^T, dout . v^T,
+// dlog . K, dlog^T . Q and W^T . dout, on mma.sync, one block per (batch,
+// head, 16-row tile), a row pass for a softmax statistic, then the
+// gradients, tiles streamed through a cp.async ring); from 128 rows, where
+// the forward is the warpgroup kernel, a pair of warpgroup kernels on
+// wgmma over TMA rings (64-row blocks: dq by query rows, dk and dv by key
+// rows; the note at causal attention backward says which serves what).
 
 #include <cooperative_groups.h>
+#include <cuda.h>  // CUtensorMap; the encoder comes through the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 #include "attention_tiles.cuh"
+#include "attention_warpgroup.cuh"
 #include "layernorm_rows.cuh"
 
 namespace cg = cooperative_groups;
@@ -389,27 +395,50 @@ LayerNormBwdFn layernorm_bwd_fn(int chunks) {
 
 // -- causal attention backward ----------------------------------------------
 //
-// qkv [B, T, 3D] and dout [B, T, D] -> dqkv [B, T, 3D], the cotangent of the
-// fused qkv product (dq | dk | dv, head h at columns h * HD of each third).
-// For query rows i it recomputes the forward's softmax (logit =
-// float(bf16(q_i . k_j)) / sqrt(HD), float32 softmax y over j <= i), then
+// qkv [B, T, 3D] and dout [B, T, H HDV] -> dqkv [B, T, 3D], the cotangent of
+// the fused qkv product (dq | dk | dv, head h at columns h * HD of each
+// third; HDV = HD but for latent attention's values). For query rows i it
+// recomputes the forward's softmax (logit = float(bf16(q_i . k_j)) /
+// sqrt(HD), float32 softmax y over j <= i) from each row's max and sum of
+// exponentials, which the forward keeps in the first two planes of `stats`
+// [3][B H rows] when it runs for training, then
 //   dW_j  = bf16(dout_i . v_j)                 (the second einsum's cotangent)
-//   u_j   = y_j * dW_j,  dl_j = u_j - y_j * sum_j u_j     (softmax's jvp rule,
-//           transposed: it differentiates through the float32 y)
+//   dl_j  = y_j * dW_j - y_j * R_i       (softmax's jvp rule, transposed: it
+//           differentiates through the float32 y; R_i = sum_j y_j dW_j)
 //   dlog  = bf16(dl_j / sqrt(HD))   (the cotangent of the logits' bf16 cast)
 // and, with W = bf16(y):
 //   dq_i = bf16(sum_j<=i dlog_ij k_j),  dk_j = bf16(sum_i>=j dlog_ij q_i),
 //   dv_j = bf16(sum_i>=j W_ij dout_i).
 //
-// Two launches a call, no float atomics, O(T^2 HD) work in all:
-// - the row pass (causal_attention_bwd_stats_kernel) takes each row's max
-//   and sum of exponentials from the forward (csrc/forecaster.cu's
-//   causal_attention_kernel writes them, in the first two planes of
-//   `stats` [3][B H rows], when it runs for training), and makes the one
+// Two designs, two launches a call either way, no float atomics (a call
+// repeats bit for bit), O(T^2 HD) work in all. The wrapper takes the one
+// the forward takes at the shape (kernels/forecaster.py's
+// attention_warpgroup_geometry, one rule for both directions):
+//
+// - Up to windows of 127 rows (the service's default window 64, run_node's
+//   compact model at its window), and at head widths the warpgroup forward
+//   does not take: the 16-row pair on mma.sync below, R_i summed as
+//   sum_j u_j, u = y dW, the reference's own sum. At T = 64 a call is
+//   bound by its launches and by how few blocks the window makes; 64-row
+//   blocks would leave most of the card idle.
+// - From T = 128 at the warpgroup forward's widths (multiples of 16 up to
+//   128, and latent attention's q and k 192 with v 128): the warpgroup pair
+//   further below, 64-row blocks on wgmma over TMA rings, a query-major
+//   kernel for dq and a key-major one for dk and dv. The 16-row pair spends
+//   its time there re-reading the prefix (its row pass streams every query
+//   tile's whole key prefix only for R_i) and rebuilding every 16 x 16
+//   tile, once for each 64 output columns. The warpgroup pair takes R_i as
+//   FlashAttention-2's D_i = sum_c dout_ic out_ic over the forward's bf16
+//   output: su_i in exact arithmetic, rounded elsewhere (through out, not
+//   through y), and one pass over two rows in place of the row pass; it is
+//   bound by the tensor cores' and the softmax's work (its note is below).
+//
+// The 16-row pair:
+// - the row pass (causal_attention_bwd_stats_kernel) makes the one
 //   statistic the forward cannot: one block of four warps per (b, h,
 //   query tile) streams the tile's key prefix (k and v) through the ring
 //   once and writes each row's sum_j u_j, float32, summed in the forward's
-//   order, into the third plane;
+//   order, into the third plane of `stats`;
 // - the main kernel (causal_attention_bwd_kernel), one block of eight (or
 //   four) warps per (b, h, tile t), rebuilds any 16 x 16 tile of y, dlog
 //   and W from those statistics alone. Warps 0-3 make dk and dv of key
@@ -775,6 +804,907 @@ __global__ void __launch_bounds__(NW * 32, NW == 4 ? 4 : 2)
   }
 }
 
+// -- causal attention backward for long windows: a warpgroup pair ----------
+//
+// The same function as the 16-row pair above, from T = 128 at the widths
+// the warpgroup forward takes, with R_i = D_i = sum_c dout_ic out_ic.
+//
+// What bounds it. Seven bf16 products over the causal pairs (q . k^T and
+// dout . v^T in each kernel, then dq, dk and dv): 8 HD + 6 HDV operations
+// a pair, where the 16-row pair rebuilds far more. The flagship's training
+// call (B = 16, T = 2,048, 4 heads of 64) is 1.2e11 operations, 0.12 ms at
+// 989 TFLOP/s, and 64 x 64 tiles take the diagonal whole; above width 64
+// the key-major kernel forms q . k^T once more (its two passes). Besides,
+// each kernel's softmax work: an exponential and a reciprocal on the
+// special function unit and some thirty float32 instructions a pair. Each
+// kernel reads q, k, v and dout about T / 128 times from L2 (a 64-row
+// block streams the other side's tiles), ~1.1 GB a call at the flagship's
+// shape, and writes its outputs once.
+//
+// The design:
+// - Both kernels take 64 rows of one (b, h) a block on one consumer
+//   warpgroup (wgmma's m64), plus one producer warp that fills a ring of
+//   kStages stages through the tensor memory accelerator (full and empty
+//   mbarriers); blocks go longest first. Boxes and maps are the forward's
+//   (attention_warpgroup.cuh): 64 rows of one head, 64 columns, 128-byte
+//   swizzle, zeros past HD, HDV and T.
+// - The query-major kernel (causal_attention_bwd_dq_kernel): first D of
+//   its 64 rows from dout and out in float32 (two threads a row), into the
+//   third plane of `stats`; then, keeping q and dout, it streams the key
+//   prefix's k and v tiles: S = Q K^T and dP = dout V^T on wgmma (both
+//   operands from shared memory), the logits, y and dlog in registers
+//   (the 16-row pair's bits for y: expf of the rounded difference, the
+//   division as quotient_rn from each row's 1 / l), and dQ += dlog . K
+//   with dlog packed in registers as the A operand. dq is rounded once.
+// - The key-major kernel (causal_attention_bwd_dkv_kernel): keeping k and
+//   v, it streams the query tiles at and below its rows (q, dout and those
+//   rows' m, l and D) and forms the transposes, S^T = K Q^T and dP^T =
+//   V dout^T, so that W^T and dlog^T are the register A operands of
+//   dV += W^T . dout and dK += dlog^T . Q; each query column's statistics
+//   come from the stage in shared memory. Up to width 64 one pass makes
+//   both; wider, the registers of dk and dv together do not fit a thread,
+//   and the query tiles stream twice (dv from S^T alone, then dk).
+// - The tensor cores' work overlaps the softmax's: a tile's S and dP are
+//   issued with the last tile's output products, and its softmax work runs
+//   while those products do. No wgmma is in flight across a loop's back
+//   edge, sits in a branch, or has its accumulator read before the wait
+//   that retires it; otherwise the compiler serializes every wgmma.
+// - Every output element is written once, by one block, its sums in a
+//   fixed order: no atomics, and a call repeats bit for bit.
+
+namespace wg_bwd {
+
+using wg_att::kAtomBytes;
+using wg_att::kKeys;
+using wg_att::kRows;
+
+// q and k heads of up to 64 kAtoms, values of up to 64 kVAtoms.
+template <int kAtoms, int kVAtoms>
+struct Shape {
+  static constexpr int kThreads = 128 + 32;  // consumers, the producer
+  static constexpr bool kNarrow = kAtoms == 1 && kVAtoms == 1;
+  // the key-major kernel's two passes over the query tiles (dv, then dk)
+  // above width 64, whose dk and dv registers would not fit together
+  static constexpr bool kTwoPass = !kNarrow;
+  // blocks an SM as the compiler's bound on registers: two of the
+  // query-major kernel up to width 64 (168 registers a thread; 30% faster
+  // at the flagship's shape than at the 200 it takes unbound), one of the
+  // key-major kernel, which keeps dk, dv, S, dP and both A operands in
+  // registers (226 a thread up to width 64; bound to two blocks it spills)
+  static constexpr int kDqBlocksPerSM = kNarrow ? 2 : 1;
+  static constexpr int kDkvBlocksPerSM = 1;
+  // ring stages: a stage is released a tile late (once the output product
+  // that reads it has run), so the next tile's loads fly meanwhile
+  static constexpr int kStages = kNarrow ? 4 : 3;
+  static constexpr int kQBytes = kAtoms * kAtomBytes;   // a q or k tile
+  static constexpr int kVBytes = kVAtoms * kAtomBytes;  // a v or dout tile
+  // m, l and D of a stage's 64 rows (768 bytes), padded so that the next
+  // stage's boxes stay aligned for the swizzle
+  static constexpr int kStatBytes = 1024;
+  static constexpr int kStatTx = 3 * kRows * 4;
+  static constexpr int kDqStage = kQBytes + kVBytes;  // k and v tiles
+  static constexpr int kDkvStage = kQBytes + kVBytes + kStatBytes;
+  // the block's own tiles, the ring, + 1024 bytes to align the boxes
+  static constexpr int kDqSmem = kQBytes + kVBytes + kStages * kDqStage + 1024;
+  static constexpr int kDkvSmem =
+      kQBytes + kVBytes + kStages * kDkvStage + 1024;
+};
+
+// Which outputs a pass of the key-major kernel makes.
+template <bool kV, bool kK>
+struct Outputs {
+  static constexpr bool kDV = kV;
+  static constexpr bool kDK = kK;
+};
+
+// S to logits over sc in place: float(bf16(S)), divided by sqrt(HD) where
+// that is not a power of two, with the 16-row pair's bits (quotient, or
+// the division where the tile holds a logit under 2^-100).
+__device__ __forceinline__ void to_logits(float (&x)[32], int pow2,
+                                          float scale_div, float inv_scale) {
+  using chana_att::pack_bf16;
+  using chana_att::unpack_bf16;
+#pragma unroll
+  for (int e = 0; e < 32; e += 2) {  // one conversion a pair
+    const float2 p = unpack_bf16(pack_bf16(x[e], x[e + 1]));
+    x[e] = p.x;
+    x[e + 1] = p.y;
+  }
+  if (!pow2) {
+    int tiny = 0;
+#pragma unroll
+    for (int e = 0; e < 32; ++e) tiny |= fabsf(x[e]) < 0x1p-100f && x[e] != 0.f;
+    if (tiny) {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) x[e] = chana_att::divide(x[e], scale_div);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        x[e] = wg_att::quotient(x[e], scale_div, inv_scale);
+      }
+    }
+  }
+}
+
+// dlog (before its rounding) of dl = y dW - y R in place over sqrt(HD):
+// the multiply by 1 / sqrt(HD) where that is exact, else the division's
+// bits (quotient, or the division where a value is under 2^-100).
+__device__ __forceinline__ void over_scale(float (&x)[32], int pow2,
+                                           float scale_div, float inv_scale) {
+  if (pow2) {
+#pragma unroll
+    for (int e = 0; e < 32; ++e) x[e] *= inv_scale;
+    return;
+  }
+  int tiny = 0;
+#pragma unroll
+  for (int e = 0; e < 32; ++e) tiny |= fabsf(x[e]) < 0x1p-100f && x[e] != 0.f;
+  if (tiny) {
+#pragma unroll
+    for (int e = 0; e < 32; ++e) x[e] = chana_att::divide(x[e], scale_div);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      x[e] = wg_att::quotient(x[e], scale_div, inv_scale);
+    }
+  }
+}
+
+// A 64 x 64 accumulator's k16 slices, rounded to bf16, as the A operands
+// of the next product (tma_wgmma.cuh's wgmma_m64n64k16_rs).
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4][4],
+                                       const float (&x)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      a[kk][p] = chana_att::pack_bf16(x[8 * kk + 2 * p], x[8 * kk + 2 * p + 1]);
+    }
+  }
+}
+
+}  // namespace wg_bwd
+
+template <int kAtoms, int kVAtoms>
+__global__ void __launch_bounds__(
+    wg_bwd::Shape<kAtoms, kVAtoms>::kThreads,
+    wg_bwd::Shape<kAtoms, kVAtoms>::kDqBlocksPerSM)
+    causal_attention_bwd_dq_kernel(const __grid_constant__ CUtensorMap qkv_map,
+                                   const __grid_constant__ CUtensorMap dout_map,
+                                   const __nv_bfloat16* __restrict__ dout,
+                                   const __nv_bfloat16* __restrict__ out,
+                                   float* __restrict__ stats,
+                                   __nv_bfloat16* __restrict__ dqkv, int T,
+                                   int H, int HD, int HDV, int BH,
+                                   int stat_rows, float scale_div) {
+  using namespace chana_tma;
+  using namespace wg_att;
+  using S = wg_bwd::Shape<kAtoms, kVAtoms>;
+  using chana_att::neg_inf;
+  using chana_att::pack_bf16;
+  using chana_att::unpack_bf16;
+  extern __shared__ __align__(1024) uint8_t wg_smem[];
+  __shared__ __align__(8) uint64_t full[S::kStages];
+  __shared__ __align__(8) uint64_t empty[S::kStages];
+  __shared__ __align__(8) uint64_t own_full;
+  __shared__ float s_d[kRows];
+  uint8_t* const q_smem =
+      wg_smem + ((1024u - (smem_u32(wg_smem) & 1023u)) & 1023u);
+  uint8_t* const do_smem = q_smem + S::kQBytes;
+  uint8_t* const ring = do_smem + S::kVBytes;
+
+  const int qb = (int)gridDim.x / BH - 1 - (int)blockIdx.x / BH;
+  const int bh = (int)blockIdx.x % BH;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int r0 = qb * kRows;
+  const int n = (min(r0 + kRows, T) + kKeys - 1) / kKeys;  // key tiles
+  const int warp = (int)threadIdx.x >> 5;
+  const int lane = (int)threadIdx.x & 31;
+  const size_t plane = (size_t)BH * stat_rows;
+
+  if (threadIdx.x == 128) {
+    tma_prefetch(&qkv_map);
+    tma_prefetch(&dout_map);
+    for (int s = 0; s < S::kStages; ++s) {
+      chana_tma::mbar_init(&full[s], 1);
+      chana_tma::mbar_init(&empty[s], 4);  // one arrival a consumer warp
+    }
+    chana_tma::mbar_init(&own_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4) {  // the producer
+    if (lane == 0) {
+      chana_tma::mbar_expect_tx(&own_full, S::kQBytes + S::kVBytes);
+      for (int a = 0; a < kAtoms; ++a) {
+        tma_load_4d(q_smem + a * kAtomBytes, &qkv_map, &own_full, 64 * a, h,
+                    r0, b);
+      }
+      for (int a = 0; a < kVAtoms; ++a) {
+        tma_load_4d(do_smem + a * kAtomBytes, &dout_map, &own_full, 64 * a,
+                    h, r0, b);
+      }
+      // stage i: key tile i and its value tile (the first kVAtoms boxes)
+      for (int i = 0; i < n; ++i) {
+        const int slot = i % S::kStages;
+        if (i >= S::kStages) {
+          chana_tma::mbar_wait(&empty[slot], ((i / S::kStages) - 1) & 1);
+        }
+        uint8_t* const st = ring + slot * S::kDqStage;
+        chana_tma::mbar_expect_tx(&full[slot], S::kDqStage);
+        for (int a = 0; a < kAtoms; ++a) {
+          tma_load_4d(st + a * kAtomBytes, &qkv_map, &full[slot], 64 * a,
+                      H + h, i * kKeys, b);
+        }
+        for (int a = 0; a < kVAtoms; ++a) {
+          tma_load_4d(st + S::kQBytes + a * kAtomBytes, &qkv_map, &full[slot],
+                      64 * a, 2 * H + h, i * kKeys, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // D of the block's rows while the first tiles load: thread t sums half
+  // t % 2 of row t / 2's dout . out in float32, the halves then added
+  {
+    const int t = (int)threadIdx.x;
+    const int row = r0 + (t >> 1);
+    const int per = HDV / 2;  // a multiple of 8
+    float d = 0.f;
+    if (row < T) {
+      const size_t at = ((size_t)b * T + row) * H * HDV + (size_t)h * HDV +
+                        (size_t)(t & 1) * per;
+      for (int col = 0; col < per; col += 8) {
+        const uint4 x = *reinterpret_cast<const uint4*>(dout + at + col);
+        const uint4 y = *reinterpret_cast<const uint4*>(out + at + col);
+        const uint32_t xs[4] = {x.x, x.y, x.z, x.w};
+        const uint32_t ys[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const float2 u = unpack_bf16(xs[k]);
+          const float2 v = unpack_bf16(ys[k]);
+          d = fmaf(u.x, v.x, d);
+          d = fmaf(u.y, v.y, d);
+        }
+      }
+    }
+    d += __shfl_xor_sync(0xffffffffu, d, 1);
+    if ((t & 1) == 0) {
+      s_d[t >> 1] = d;
+      if (row < stat_rows) stats[2 * plane + (size_t)bh * stat_rows + row] = d;
+    }
+  }
+  named_barrier(1, 128);
+
+  // the consumer warpgroup: lane l of warp w holds rows
+  // row_a = r0 + 16 w + l / 4 and row_a + 8, and their statistics
+  const int row_a = r0 + 16 * warp + (lane >> 2);
+  const int c = lane & 3;
+  float mr[2], lr[2], rl[2], dr[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_a + 8 * r;
+    const bool kept = row < stat_rows;
+    mr[r] = kept ? stats[(size_t)bh * stat_rows + row] : 0.f;
+    lr[r] = kept ? stats[plane + (size_t)bh * stat_rows + row] : 1.f;
+    rl[r] = __frcp_rn(lr[r]);
+    dr[r] = s_d[row - r0];
+  }
+  // 1 / sqrt(HD), correctly rounded; where sqrt(HD) is a power of two the
+  // logits are kept as float(bf16(S)) and the exact scale sc rides in the
+  // exponent's argument (the forward's pass 2), elsewhere each logit is
+  // divided and sc is 1
+  const float inv_scale = __frcp_rn(scale_div);
+  const int pow2 = (__float_as_uint(scale_div) & 0x007fffffu) == 0u;
+  const float sc = pow2 ? inv_scale : 1.f;
+  const uint32_t q_base = smem_u32(q_smem);
+  const uint32_t do_base = smem_u32(do_smem);
+  chana_tma::mbar_wait(&own_full, 0);
+
+  float s[32], dp[32];
+  float dq[kAtoms][32];
+  uint32_t ds[4][4];  // dlog's k16 slices: the A operands of dQ += dlog . K
+  // stage i's S = Q K^T and dP = dout V^T
+  auto issue_sdp = [&](int i) {
+    const int slot = i % S::kStages;
+    chana_tma::mbar_wait(&full[slot], (i / S::kStages) & 1);
+    const uint32_t base = smem_u32(ring + slot * S::kDqStage);
+    fence_acc(s);
+    fence_acc(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4 * kAtoms; ++kk) {
+      const uint32_t off = (kk >> 2) * kAtomBytes + (kk & 3) * 32;
+      wgmma_m64n64k16<0, 0>(s, sw128_desc(q_base + off),
+                            sw128_desc(base + off), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4 * kVAtoms; ++kk) {
+      const uint32_t off = (kk >> 2) * kAtomBytes + (kk & 3) * 32;
+      wgmma_m64n64k16<0, 0>(dp, sw128_desc(do_base + off),
+                            sw128_desc(base + S::kQBytes + off), kk > 0);
+    }
+    wgmma_commit();
+  };
+  // dQ += dlog . K_i (K from shared memory, N-major)
+  auto issue_dq = [&](int i) {
+    const uint32_t k_base = smem_u32(ring + (i % S::kStages) * S::kDqStage);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int a = 0; a < kAtoms; ++a) {
+        wgmma_m64n64k16_rs<1>(
+            dq[a], ds[kk],
+            sw128_desc(k_base + a * kAtomBytes + kk * 16 * 128));
+      }
+    }
+    wgmma_commit();
+  };
+  // the tile of keys key0..: dlog = bf16((y dW - y D) / sqrt(HD)) into s
+  // (before its rounding), y = exp(logit - m) / l, -inf logits past the
+  // row or past T (only a tile that reaches past its first row or past T
+  // is masked key by key)
+  auto grads = [&](int key0) {
+    int p2 = pow2;
+    asm volatile("" : "+r"(p2));  // branches here, not copies of the loop
+    wg_bwd::to_logits(s, p2, scale_div, inv_scale);
+    if (key0 + kKeys - 1 > r0 || key0 + kKeys > T) {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int key = key0 + 8 * (e >> 2) + 2 * c + (e & 1);
+        if (key > row_a + 8 * ((e >> 1) & 1) || key >= T) s[e] = neg_inf();
+      }
+    }
+    int slow = 0;  // an exponential too small for quotient_rn
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int r = (e >> 1) & 1;
+      s[e] = expf(fmaf(s[e], sc, -mr[r]));
+      slow |= s[e] != 0.f && s[e] < kQuotientLeast;
+    }
+    if (slow) {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        s[e] = chana_att::divide(s[e], lr[(e >> 1) & 1]);
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int r = (e >> 1) & 1;
+        s[e] = quotient_rn(s[e], lr[r], rl[r]);
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const float dw = chana_att::round_bf16(dp[e]);
+      s[e] = s[e] * dw - s[e] * dr[(e >> 1) & 1];
+    }
+    wg_bwd::over_scale(s, p2, scale_div, inv_scale);
+  };
+
+  // Stage i's S and dP are issued with stage i - 1's dQ product; stage
+  // i's dlog is worked out while that product runs, and packed once it
+  // has finished (its A operand is the last tile's dlog).
+#pragma unroll
+  for (int a = 0; a < kAtoms; ++a) {
+#pragma unroll
+    for (int e = 0; e < 32; ++e) dq[a][e] = 0.f;
+  }
+  issue_sdp(0);
+  wgmma_wait<0>();
+  fence_acc(s);
+  fence_acc(dp);
+  grads(0);
+  wg_bwd::pack_a(ds, s);
+  for (int i = 1; i < n; ++i) {
+    issue_sdp(i);
+    issue_dq(i - 1);
+    wgmma_wait<1>();
+    fence_acc(s);
+    fence_acc(dp);
+    grads(i * kKeys);
+    wgmma_wait<0>();
+    // stage i - 1's key and value tiles are read
+    if (lane == 0) chana_tma::mbar_arrive(&empty[(i - 1) % S::kStages]);
+    wg_bwd::pack_a(ds, s);
+  }
+  issue_dq(n - 1);
+  wgmma_wait<0>();
+#pragma unroll
+  for (int a = 0; a < kAtoms; ++a) fence_acc(dq[a]);
+
+  const size_t ld = (size_t)3 * H * HD;  // dqkv's row
+  __nv_bfloat16* const dst = dqkv + (size_t)b * T * ld + (size_t)h * HD;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_a + 8 * r;
+    if (row >= T) continue;
+#pragma unroll
+    for (int a = 0; a < kAtoms; ++a) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = 64 * a + 8 * j + 2 * c;
+        if (col < HD) {
+          *reinterpret_cast<uint32_t*>(dst + (size_t)row * ld + col) =
+              pack_bf16(dq[a][4 * j + 2 * r], dq[a][4 * j + 2 * r + 1]);
+        }
+      }
+    }
+  }
+}
+
+template <int kAtoms, int kVAtoms>
+__global__ void __launch_bounds__(
+    wg_bwd::Shape<kAtoms, kVAtoms>::kThreads,
+    wg_bwd::Shape<kAtoms, kVAtoms>::kDkvBlocksPerSM)
+    causal_attention_bwd_dkv_kernel(
+        const __grid_constant__ CUtensorMap qkv_map,
+        const __grid_constant__ CUtensorMap dout_map,
+        const __grid_constant__ CUtensorMap stats_map,
+        __nv_bfloat16* __restrict__ dqkv, int T, int H, int HD, int HDV,
+        int BH, float scale_div) {
+  using namespace chana_tma;
+  using namespace wg_att;
+  using S = wg_bwd::Shape<kAtoms, kVAtoms>;
+  using chana_att::neg_inf;
+  using chana_att::pack_bf16;
+  extern __shared__ __align__(1024) uint8_t wg_smem[];
+  __shared__ __align__(8) uint64_t full[S::kStages];
+  __shared__ __align__(8) uint64_t empty[S::kStages];
+  __shared__ __align__(8) uint64_t own_full;
+  uint8_t* const k_smem =
+      wg_smem + ((1024u - (smem_u32(wg_smem) & 1023u)) & 1023u);
+  uint8_t* const v_smem = k_smem + S::kQBytes;
+  uint8_t* const ring = v_smem + S::kVBytes;
+
+  const int nq = (int)gridDim.x / BH;  // 64-row tiles of the window
+  const int kb = (int)blockIdx.x / BH;  // the most query tiles first
+  const int bh = (int)blockIdx.x % BH;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int k0 = kb * kRows;
+  const int tiles = nq - kb;  // query tiles kb .. nq - 1
+  constexpr int kPasses = S::kTwoPass ? 2 : 1;
+  const int warp = (int)threadIdx.x >> 5;
+  const int lane = (int)threadIdx.x & 31;
+
+  if (threadIdx.x == 128) {
+    tma_prefetch(&qkv_map);
+    tma_prefetch(&dout_map);
+    tma_prefetch(&stats_map);
+    for (int s = 0; s < S::kStages; ++s) {
+      chana_tma::mbar_init(&full[s], 1);
+      chana_tma::mbar_init(&empty[s], 4);  // one arrival a consumer warp
+    }
+    chana_tma::mbar_init(&own_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4) {  // the producer
+    if (lane == 0) {
+      chana_tma::mbar_expect_tx(&own_full, S::kQBytes + S::kVBytes);
+      for (int a = 0; a < kAtoms; ++a) {
+        tma_load_4d(k_smem + a * kAtomBytes, &qkv_map, &own_full, 64 * a,
+                    H + h, k0, b);
+      }
+      for (int a = 0; a < kVAtoms; ++a) {
+        tma_load_4d(v_smem + a * kAtomBytes, &qkv_map, &own_full, 64 * a,
+                    2 * H + h, k0, b);
+      }
+      // stage idx: query tile kb + idx % tiles (every pass streams them
+      // all): its q and dout rows and their m, l and D
+      for (int idx = 0; idx < kPasses * tiles; ++idx) {
+        const int q0 = (kb + idx % tiles) * kRows;
+        const int slot = idx % S::kStages;
+        if (idx >= S::kStages) {
+          chana_tma::mbar_wait(&empty[slot], ((idx / S::kStages) - 1) & 1);
+        }
+        uint8_t* const st = ring + slot * S::kDkvStage;
+        chana_tma::mbar_expect_tx(&full[slot], S::kQBytes + S::kVBytes + S::kStatTx);
+        for (int a = 0; a < kAtoms; ++a) {
+          tma_load_4d(st + a * kAtomBytes, &qkv_map, &full[slot], 64 * a, h,
+                      q0, b);
+        }
+        for (int a = 0; a < kVAtoms; ++a) {
+          tma_load_4d(st + S::kQBytes + a * kAtomBytes, &dout_map,
+                      &full[slot], 64 * a, h, q0, b);
+        }
+        tma_load_3d(st + S::kQBytes + S::kVBytes, &stats_map, &full[slot], q0,
+                    bh, 0);
+      }
+    }
+    return;
+  }
+
+  // the consumer warpgroup: lane l of warp w holds keys
+  // key_a = k0 + 16 w + l / 4 and key_a + 8 (rows of S^T), and of each
+  // query tile the columns 8 j + 2 (l % 4) + {0, 1}
+  const int key_a = k0 + 16 * warp + (lane >> 2);
+  const int c = lane & 3;
+  const float inv_scale = __frcp_rn(scale_div);
+  const int pow2 = (__float_as_uint(scale_div) & 0x007fffffu) == 0u;
+  const float sc = pow2 ? inv_scale : 1.f;
+  const uint32_t k_base = smem_u32(k_smem);
+  const uint32_t v_base = smem_u32(v_smem);
+  chana_tma::mbar_wait(&own_full, 0);
+
+  float s[32], dp[32];
+  float dk[kAtoms][32], dv[kVAtoms][32];
+  uint32_t pw[4][4], pd[4][4];  // W^T's and dlog^T's k16 slices
+  // stage idx's S^T = K Q^T (and dP^T = V dout^T when the pass makes dk)
+  auto issue_s = [&](auto o, int idx) {
+    constexpr bool kDK = decltype(o)::kDK;
+    const int slot = idx % S::kStages;
+    chana_tma::mbar_wait(&full[slot], (idx / S::kStages) & 1);
+    const uint32_t base = smem_u32(ring + slot * S::kDkvStage);
+    fence_acc(s);
+    if constexpr (kDK) fence_acc(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4 * kAtoms; ++kk) {
+      const uint32_t off = (kk >> 2) * kAtomBytes + (kk & 3) * 32;
+      wgmma_m64n64k16<0, 0>(s, sw128_desc(k_base + off),
+                            sw128_desc(base + off), kk > 0);
+    }
+    if constexpr (kDK) {
+#pragma unroll
+      for (int kk = 0; kk < 4 * kVAtoms; ++kk) {
+        const uint32_t off = (kk >> 2) * kAtomBytes + (kk & 3) * 32;
+        wgmma_m64n64k16<0, 0>(dp, sw128_desc(v_base + off),
+                              sw128_desc(base + S::kQBytes + off), kk > 0);
+      }
+    }
+    wgmma_commit();
+  };
+  // dV += W^T . dout and dK += dlog^T . Q over stage idx (dout and Q from
+  // shared memory, N-major)
+  auto issue_out = [&](auto o, int idx) {
+    constexpr bool kDV = decltype(o)::kDV;
+    constexpr bool kDK = decltype(o)::kDK;
+    const uint32_t base = smem_u32(ring + (idx % S::kStages) * S::kDkvStage);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      if constexpr (kDV) {
+#pragma unroll
+        for (int a = 0; a < kVAtoms; ++a) {
+          wgmma_m64n64k16_rs<1>(
+              dv[a], pw[kk],
+              sw128_desc(base + S::kQBytes + a * kAtomBytes + kk * 16 * 128));
+        }
+      }
+      if constexpr (kDK) {
+#pragma unroll
+        for (int a = 0; a < kAtoms; ++a) {
+          wgmma_m64n64k16_rs<1>(
+              dk[a], pd[kk],
+              sw128_desc(base + a * kAtomBytes + kk * 16 * 128));
+        }
+      }
+    }
+    wgmma_commit();
+  };
+  // stage idx's y into s and (for dk) dlog, before its rounding, into dp,
+  // column by column from the stage's m, l and D of each query; zero where
+  // the key is past the query or the query past T (only the diagonal tile
+  // and one past T are masked value by value)
+  auto grads = [&](auto o, int idx) {
+    constexpr bool kDK = decltype(o)::kDK;
+    const float* const sm = reinterpret_cast<const float*>(
+        ring + (idx % S::kStages) * S::kDkvStage + S::kQBytes + S::kVBytes);
+    const int q0 = (kb + idx % tiles) * kRows;
+    const bool edge = q0 == k0 || q0 + kRows > T;
+    int p2 = pow2;
+    asm volatile("" : "+r"(p2));  // branches here, not copies of the loop
+    wg_bwd::to_logits(s, p2, scale_div, inv_scale);
+    if (edge) {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int query = q0 + 8 * (e >> 2) + 2 * c + (e & 1);
+        if (key_a + 8 * ((e >> 1) & 1) > query || query >= T) {
+          s[e] = neg_inf();
+        }
+      }
+    }
+    // value e = 4 j + 2 r + cc: key row r, query column 8 j + 2 c + cc
+    int slow = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int cc = 0; cc < 2; ++cc) {
+        const float m = sm[8 * j + 2 * c + cc];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int e = 4 * j + 2 * r + cc;
+          s[e] = expf(fmaf(s[e], sc, -m));
+          slow |= s[e] != 0.f && s[e] < kQuotientLeast;
+        }
+      }
+    }
+    if (slow) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int cc = 0; cc < 2; ++cc) {
+          const float l = sm[kRows + 8 * j + 2 * c + cc];
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int e = 4 * j + 2 * r + cc;
+            s[e] = chana_att::divide(s[e], l);
+          }
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int cc = 0; cc < 2; ++cc) {
+          const float l = sm[kRows + 8 * j + 2 * c + cc];
+          const float rl = __frcp_rn(l);
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int e = 4 * j + 2 * r + cc;
+            s[e] = quotient_rn(s[e], l, rl);
+          }
+        }
+      }
+    }
+    if constexpr (kDK) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int cc = 0; cc < 2; ++cc) {
+          const float d = sm[2 * kRows + 8 * j + 2 * c + cc];
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int e = 4 * j + 2 * r + cc;
+            const float dw = chana_att::round_bf16(dp[e]);
+            dp[e] = s[e] * dw - s[e] * d;
+          }
+        }
+      }
+      wg_bwd::over_scale(dp, p2, scale_div, inv_scale);
+    }
+    if (edge) {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int query = q0 + 8 * (e >> 2) + 2 * c + (e & 1);
+        if (key_a + 8 * ((e >> 1) & 1) > query || query >= T) {
+          s[e] = 0.f;
+          if constexpr (kDK) dp[e] = 0.f;
+        }
+      }
+    }
+  };
+  auto pack = [&](auto o) {
+    if constexpr (decltype(o)::kDV) wg_bwd::pack_a(pw, s);
+    if constexpr (decltype(o)::kDK) wg_bwd::pack_a(pd, dp);
+  };
+
+  const size_t ld = (size_t)3 * H * HD;  // dqkv's row
+  const int D = H * HD;
+  __nv_bfloat16* const dst = dqkv + (size_t)b * T * ld + (size_t)h * HD;
+  // One pass over the query tiles (stages first .. first + tiles - 1):
+  // a stage's S^T (and dP^T) is issued with the last stage's output
+  // products, its softmax work runs while those do, and it is packed once
+  // they have finished; then the pass's outputs, rounded once.
+  auto pass = [&](auto o, int first) {
+    constexpr bool kDV = decltype(o)::kDV;
+    constexpr bool kDK = decltype(o)::kDK;
+    if constexpr (kDV) {
+#pragma unroll
+      for (int a = 0; a < kVAtoms; ++a) {
+#pragma unroll
+        for (int e = 0; e < 32; ++e) dv[a][e] = 0.f;
+      }
+    }
+    if constexpr (kDK) {
+#pragma unroll
+      for (int a = 0; a < kAtoms; ++a) {
+#pragma unroll
+        for (int e = 0; e < 32; ++e) dk[a][e] = 0.f;
+      }
+    }
+    issue_s(o, first);
+    wgmma_wait<0>();
+    fence_acc(s);
+    if constexpr (kDK) fence_acc(dp);
+    grads(o, first);
+    pack(o);
+    for (int t = 1; t < tiles; ++t) {
+      issue_s(o, first + t);
+      issue_out(o, first + t - 1);
+      wgmma_wait<1>();
+      fence_acc(s);
+      if constexpr (kDK) fence_acc(dp);
+      grads(o, first + t);
+      wgmma_wait<0>();
+      // the last stage's q and dout tiles are read
+      if (lane == 0) chana_tma::mbar_arrive(&empty[(first + t - 1) % S::kStages]);
+      pack(o);
+    }
+    issue_out(o, first + tiles - 1);
+    wgmma_wait<0>();
+    if (lane == 0) chana_tma::mbar_arrive(&empty[(first + tiles - 1) % S::kStages]);
+    if constexpr (kDV) {
+#pragma unroll
+      for (int a = 0; a < kVAtoms; ++a) fence_acc(dv[a]);
+    }
+    if constexpr (kDK) {
+#pragma unroll
+      for (int a = 0; a < kAtoms; ++a) fence_acc(dk[a]);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = key_a + 8 * r;
+      if (key >= T) continue;
+      __nv_bfloat16* const row = dst + (size_t)key * ld;
+      if constexpr (kDV) {
+#pragma unroll
+        for (int a = 0; a < kVAtoms; ++a) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int col = 64 * a + 8 * j + 2 * c;
+            if (col < HDV) {
+              *reinterpret_cast<uint32_t*>(row + 2 * D + col) =
+                  pack_bf16(dv[a][4 * j + 2 * r], dv[a][4 * j + 2 * r + 1]);
+            }
+          }
+        }
+        // a v head wider than its values (latent attention's): zeros
+        for (int col = HDV + 2 * c; col < HD; col += 8) {
+          *reinterpret_cast<uint32_t*>(row + 2 * D + col) = 0u;
+        }
+      }
+      if constexpr (kDK) {
+#pragma unroll
+        for (int a = 0; a < kAtoms; ++a) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int col = 64 * a + 8 * j + 2 * c;
+            if (col < HD) {
+              *reinterpret_cast<uint32_t*>(row + D + col) =
+                  pack_bf16(dk[a][4 * j + 2 * r], dk[a][4 * j + 2 * r + 1]);
+            }
+          }
+        }
+      }
+    }
+  };
+  if constexpr (S::kTwoPass) {
+    pass(wg_bwd::Outputs<true, false>{}, 0);
+    pass(wg_bwd::Outputs<false, true>{}, tiles);
+  } else {
+    pass(wg_bwd::Outputs<true, true>{}, 0);
+  }
+}
+
+// -- host side of the long-window backward ------------------------------------
+
+// Shared memory of the query-major kernel (dkv false) or the key-major one
+// (dkv true) for q and k heads of width HD and v heads of width HDV; 0
+// where the pair takes no such widths (the warpgroup forward's: one width,
+// a multiple of 16 up to 128, or latent attention's 192 and 128).
+size_t bwd_warpgroup_smem(int HD, int HDV, bool dkv) {
+  using wg_bwd::Shape;
+  if (HD == 192 && HDV == 128) {
+    return dkv ? Shape<3, 2>::kDkvSmem : Shape<3, 2>::kDqSmem;
+  }
+  if (HDV != HD || HD < 16 || HD > 128 || HD % 16 != 0) return 0;
+  if (HD > 64) return dkv ? Shape<2, 2>::kDkvSmem : Shape<2, 2>::kDqSmem;
+  return dkv ? Shape<1, 1>::kDkvSmem : Shape<1, 1>::kDqSmem;
+}
+
+// The map of stats, float32 [3][BH][stat_rows] (the planes m, l and the
+// backward's D): boxes of 64 rows of one (b, h) in all three planes, zeros
+// past stat_rows.
+cudaError_t encode_stats(CUtensorMap* map, const void* stats, int BH,
+                         int stat_rows) {
+  const chana_tma::EncodeTiled fn = chana_tma::encoder();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)stat_rows, (cuuint64_t)BH, 3};
+  const cuuint64_t strides[2] = {(cuuint64_t)stat_rows * 4,
+                                 (cuuint64_t)BH * stat_rows * 4};
+  const cuuint32_t box[3] = {(cuuint32_t)wg_att::kRows, 1, 3};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
+                        const_cast<void*>(stats), dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_NONE,
+                        CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+struct BwdCall {
+  CUtensorMap qkv, dout, stats;
+  const __nv_bfloat16* dout_p;
+  const __nv_bfloat16* out_p;
+  float* stats_p;
+  __nv_bfloat16* dqkv;
+  int T, H, HD, HDV, BH, stat_rows, blocks;
+  size_t smem;
+  float scale_div;
+  cudaStream_t stream;
+};
+
+// What both launchers check and bind: the shape, the shared memory the
+// wrapper passes (this file's, or refused), and the tensor maps (stats'
+// for the key-major kernel alone).
+cudaError_t bwd_call(BwdCall* c, const void* qkv, const void* dout,
+                     void* stats, void* dqkv, int B, int T, int H, int HD,
+                     int HDV, int stat_rows, size_t smem, bool dkv,
+                     float scale_div, void* stream) {
+  const size_t need = bwd_warpgroup_smem(HD, HDV, dkv);
+  const int rows = wg_att::kRows;
+  if (B <= 0 || T <= 0 || H <= 0 || need == 0 || smem != need ||
+      stat_rows != (T + chana_att::kTile - 1) / chana_att::kTile *
+                       chana_att::kTile ||
+      (long long)B * H * ((T + rows - 1) / rows) > 0x7fffffffLL ||
+      (long long)B * H * stat_rows * 4 >= (1ll << 40) ||
+      (long long)T * 3 * H * HD * 2 >= (1ll << 40)) {  // TMA's strides
+    return cudaErrorInvalidValue;
+  }
+  memset(c, 0, sizeof(*c));
+  cudaError_t err = wg_att::encode_heads(&c->qkv, qkv, B, T, 3 * H, HD);
+  if (err == cudaSuccess) {
+    err = wg_att::encode_heads(&c->dout, dout, B, T, H, HDV);
+  }
+  if (err == cudaSuccess && dkv) {
+    err = encode_stats(&c->stats, stats, B * H, stat_rows);
+  }
+  if (err != cudaSuccess) return err;
+  c->dout_p = (const __nv_bfloat16*)dout;
+  c->stats_p = (float*)stats;
+  c->dqkv = (__nv_bfloat16*)dqkv;
+  c->T = T;
+  c->H = H;
+  c->HD = HD;
+  c->HDV = HDV;
+  c->BH = B * H;
+  c->stat_rows = stat_rows;
+  c->blocks = B * H * ((T + rows - 1) / rows);
+  c->smem = smem;
+  c->scale_div = scale_div;
+  c->stream = (cudaStream_t)stream;
+  return cudaSuccess;
+}
+
+template <int kAtoms, int kVAtoms>
+cudaError_t launch_bwd_dq(const BwdCall& c) {
+  using S = wg_bwd::Shape<kAtoms, kVAtoms>;
+  static size_t allowed[chana_att::kMaxDevices] = {};
+  const cudaError_t err = chana_att::allow_smem(
+      (const void*)causal_attention_bwd_dq_kernel<kAtoms, kVAtoms>, c.smem,
+      allowed);
+  if (err != cudaSuccess) return err;
+  causal_attention_bwd_dq_kernel<kAtoms, kVAtoms>
+      <<<c.blocks, S::kThreads, c.smem, c.stream>>>(
+          c.qkv, c.dout, c.dout_p, c.out_p, c.stats_p, c.dqkv, c.T, c.H,
+          c.HD, c.HDV, c.BH, c.stat_rows, c.scale_div);
+  return cudaSuccess;
+}
+
+template <int kAtoms, int kVAtoms>
+cudaError_t launch_bwd_dkv(const BwdCall& c) {
+  using S = wg_bwd::Shape<kAtoms, kVAtoms>;
+  static size_t allowed[chana_att::kMaxDevices] = {};
+  const cudaError_t err = chana_att::allow_smem(
+      (const void*)causal_attention_bwd_dkv_kernel<kAtoms, kVAtoms>, c.smem,
+      allowed);
+  if (err != cudaSuccess) return err;
+  causal_attention_bwd_dkv_kernel<kAtoms, kVAtoms>
+      <<<c.blocks, S::kThreads, c.smem, c.stream>>>(
+          c.qkv, c.dout, c.stats, c.dqkv, c.T, c.H, c.HD, c.HDV, c.BH,
+          c.scale_div);
+  return cudaSuccess;
+}
+
 // -- tanh-GELU backward -----------------------------------------------------
 //
 // dx = bf16(dy * (0.5 (1 + tanh u) + 0.5 x (1 - tanh^2 u) k (1 + 3 a x^2))),
@@ -1001,7 +1931,8 @@ size_t chana_causal_attention_bwd_stats_smem(int T, int HD) {
   return chana_att::geometry(T, HD, &g) ? g.stats_smem : 0;
 }
 
-// The backward is two launches of B * H * tiles blocks of kWarps warps:
+// The 16-row backward (under T = 128, or at widths the long-window pair
+// does not take) is two launches of B * H * tiles blocks of kWarps warps:
 // the row pass (chana_causal_attention_bwd_stats), which reads each row's
 // max and sum from `stats` (float32 [3][B * H * tiles * 16], the first
 // two planes written by the forward, chana_causal_attention, for this
@@ -1068,6 +1999,59 @@ int chana_causal_attention_bwd(const void* qkv, const void* dout,
       (const __nv_bfloat16*)qkv, (const __nv_bfloat16*)dout,
       (const float*)stats, (__nv_bfloat16*)dqkv, T, H, HD, HDP, ld, tiles,
       bytes, stage, slots, scale_div);
+  return (int)cudaGetLastError();
+}
+
+// The long-window pair (from T = 128 at the warpgroup forward's widths;
+// kernels/forecaster.py's attention_warpgroup_geometry): shared memory of
+// the query-major kernel (dkv = 0) or the key-major one (dkv = 1) for q
+// and k heads of width HD and v heads of width HDV, 0 where refused.
+size_t chana_causal_attention_bwd_warpgroup_smem(int HD, int HDV, int dkv) {
+  return bwd_warpgroup_smem(HD, HDV, dkv != 0);
+}
+
+// The query-major kernel, B * H * ceil(T / 64) blocks of 64 query rows:
+// D = dout . out of every row into the third plane of `stats` (whose first
+// two the forward wrote, as for chana_causal_attention_bwd_stats;
+// stat_rows = T rounded up to 16), then dq into dqkv. dout and out are
+// [B, T, H HDV]; q and k are H heads HD wide in qkv, v H heads HD wide of
+// which the kernels read the first HDV columns (HDV = HD, or 128 at HD =
+// 192). The wrapper passes shared memory from its geometry; a value that
+// differs from this file's is refused.
+int chana_causal_attention_bwd_dq(const void* qkv, const void* dout,
+                                  const void* out, void* stats, void* dqkv,
+                                  int B, int T, int H, int HD, int HDV,
+                                  int stat_rows, size_t smem,
+                                  float scale_div, void* stream) {
+  BwdCall call;
+  cudaError_t err = bwd_call(&call, qkv, dout, stats, dqkv, B, T, H, HD, HDV,
+                             stat_rows, smem, false, scale_div, stream);
+  if (err != cudaSuccess) return (int)err;
+  call.out_p = (const __nv_bfloat16*)out;
+  err = HDV != HD  ? launch_bwd_dq<3, 2>(call)
+        : HD > 64 ? launch_bwd_dq<2, 2>(call)
+                  : launch_bwd_dq<1, 1>(call);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// The key-major kernel, launched after the query-major one on the same
+// stream (it reads D): B * H * ceil(T / 64) blocks of 64 key rows, dk and
+// dv into dqkv (a v head's columns from HDV to HD zero).
+int chana_causal_attention_bwd_dkv(const void* qkv, const void* dout,
+                                   const void* stats, void* dqkv, int B,
+                                   int T, int H, int HD, int HDV,
+                                   int stat_rows, size_t smem,
+                                   float scale_div, void* stream) {
+  BwdCall call;
+  cudaError_t err = bwd_call(&call, qkv, dout, const_cast<void*>(stats),
+                             dqkv, B, T, H, HD, HDV, stat_rows, smem, true,
+                             scale_div, stream);
+  if (err != cudaSuccess) return (int)err;
+  err = HDV != HD  ? launch_bwd_dkv<3, 2>(call)
+        : HD > 64 ? launch_bwd_dkv<2, 2>(call)
+                  : launch_bwd_dkv<1, 1>(call);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

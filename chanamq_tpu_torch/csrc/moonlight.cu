@@ -15,7 +15,6 @@
 //   product): the rotary positions on adjacent pairs (the config's
 //   rope_interleave), values padded with zeros to 192. Its backward sums
 //   the shared key's gradient over the heads and rotates back.
-// - pad_heads: heads of w_in columns into heads of w_out, zeros after.
 // - swiglu: bf16(bf16(silu(g)) * u) over a gate | up product; backward.
 // - route_weights: each token's chosen sigmoid scores, normalised and
 //   scaled; backward into the scores.
@@ -334,22 +333,6 @@ __global__ void mla_qkv_bwd_kernel(const bf16* __restrict__ dqkv,
         store8(dkva + row * kKva + kLatent + 2 * j, v);
       }
     }
-  }
-}
-
-// out [R][H][w_out] from in [R][H][w_in] (w_in <= w_out, multiples of 8),
-// zeros past w_in.
-__global__ void pad_heads_kernel(const bf16* __restrict__ in,
-                                 bf16* __restrict__ out, long long R, int H,
-                                 int w_in, int w_out) {
-  const long long total = R * H * (w_out / 8);
-  for (long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       n < total; n += (long long)gridDim.x * blockDim.x) {
-    const long long rh = n / (w_out / 8);
-    const int col = (int)(n - rh * (w_out / 8)) * 8;
-    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-    if (col < w_in) raw = *reinterpret_cast<const uint4*>(in + rh * w_in + col);
-    *reinterpret_cast<uint4*>(out + rh * w_out + col) = raw;
   }
 }
 
@@ -977,17 +960,6 @@ int chana_mla_qkv_bwd(const void* dqkv, const void* cs, void* dq, void* dkv,
                        (cudaStream_t)stream>>>(
       (const bf16*)dqkv, (const bf16*)cs, (bf16*)dq, (bf16*)dkv,
       (bf16*)dkva, R, T, H);
-  return (int)cudaGetLastError();
-}
-
-int chana_pad_heads(const void* in, void* out, long long R, int H, int w_in,
-                    int w_out, void* stream) {
-  if (R <= 0 || H <= 0 || w_in % 8 || w_out % 8 || w_in > w_out) {
-    return (int)cudaErrorInvalidValue;
-  }
-  pad_heads_kernel<<<grid_for(R * H * (w_out / 8), 256), 256, 0,
-                     (cudaStream_t)stream>>>((const bf16*)in, (bf16*)out, R,
-                                             H, w_in, w_out);
   return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,8 @@
 // Hopper building blocks of the kernels that run wgmma on a ring filled by
-// the tensor memory accelerator: products.cu's bf16 product and
-// forecaster.cu's long-window attention forward. mbarriers, TMA loads of
-// 2-d and 4-d boxes, the 128-byte-swizzle descriptor, wgmma's fences and
+// the tensor memory accelerator: products.cu's bf16 product and the
+// long-window attention kernels (forecaster.cu's forward,
+// forecaster_train.cu's backward pair). mbarriers, TMA loads of 2-d, 3-d
+// and 4-d boxes, the 128-byte-swizzle descriptor, wgmma's fences and
 // its m64n64k16 product with A from shared memory or from registers, and
 // the host's tensor-map encoder.
 
@@ -64,6 +65,17 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// The same for a 3-d map, coordinates c0 (innermost) to c2.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_u32(dst)),
+      "l"((uint64_t)map), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // The same for a 4-d map, coordinates c0 (innermost) to c3.
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
                                             uint64_t* bar, int c0, int c1,
@@ -74,6 +86,13 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "l"((uint64_t)map), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
       : "memory");
+}
+
+// A barrier of the `threads` threads (whole warps) that reach barrier
+// `id` (1-15; __syncthreads takes 0): a warpgroup's own barrier while a
+// producer warp goes its way.
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
 }
 
 __device__ __forceinline__ void tma_prefetch(const CUtensorMap* map) {

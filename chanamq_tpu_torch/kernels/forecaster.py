@@ -23,7 +23,9 @@ the cotangents of those two einsums.
 Each wrapper's ``launches`` attribute counts its kernel launches, and only
 those (``launch_count`` sums them, with the products' and the update's);
 ``causal_attention.warpgroup_launches`` counts the forwards that took the
-long-window (warpgroup) kernel, which ``launches`` also counts.
+long-window (warpgroup) kernel, which ``launches`` also counts, and
+``causal_attention_bwd.warpgroup_launches`` the backward calls that took
+the long-window pair (two launches each in ``launches``).
 ``prepare_*`` check a call's CUDA inputs and bind its launch; the
 wrappers launch what they return, and a timing loop can launch it again
 without the checks (and without counting). ``LayerNorm``,
@@ -202,7 +204,7 @@ layernorm.launches = 0
 # width alone. ``attention_geometry`` is their launch geometry, by the same
 # rules as the C launchers, which refuse any other. In training the
 # forward also keeps each row's max and sum of exponentials
-# (``causal_attention_with_stats``), and the backward's row pass reads them.
+# (``causal_attention_with_stats``), and the backward reads them.
 
 ATT_TILE = 16
 ATT_WARPS = 4    # warps a block of the forward and the backward's row
@@ -210,8 +212,10 @@ ATT_WARPS = 4    # warps a block of the forward and the backward's row
 ATT_STAGES = (ATT_WARPS, 2, 1)  # tiles a ring slot may hold, the most first
 ATT_COLS = 64    # output columns summed at a time
 ATT_STATS = 3    # float32 statistics a row: max, sum (the forward's) and
-                 # sum of y dW (the backward's row pass)
-ATT_BWD_LAUNCHES = 2  # the backward's row pass, then its main kernel
+                 # sum of y dW (the backward's row pass) or, from T = 128,
+                 # dout . out (the long-window backward's first kernel)
+ATT_BWD_LAUNCHES = 2  # the backward's row pass, then its main kernel; or
+                      # the long-window pair (dq, then dk and dv)
 SMEM_LIMIT = 227 * 1024  # dynamic shared memory a block can have (H100)
 
 
@@ -341,10 +345,41 @@ def attention_warpgroup_geometry(b: int, t: int, hd: int, n_heads: int,
     """The warpgroup kernel's geometry for ``b`` windows of ``t`` rows of
     ``n_heads`` heads, q and k of width ``hd`` and v of ``hdv`` (``hd``
     when None), or None where the 16-row kernel runs: a window under
-    ``WG_MIN_T`` rows, or widths the warpgroup kernel does not take."""
+    ``WG_MIN_T`` rows, or widths the warpgroup kernel does not take. The
+    backward follows the same rule (``WarpgroupBwdGeometry``)."""
     if t < WG_MIN_T or not _warpgroup_width(hd, hdv):
         return None
     return WarpgroupGeometry.of(b, t, hd, n_heads, hdv)
+
+
+# The backward takes the long-window pair of ``csrc/forecaster_train.cu``
+# wherever the forward takes the warpgroup kernel: a query-major kernel
+# (D = dout . out of its rows, then dq over the key prefix) and a key-major
+# one (dk and dv over the query tiles at and below its rows), 64 rows a
+# block each, every tile on a TMA ring (four stages up to width 64,
+# three above).
+
+WG_STAT_BYTES = 1024  # a key-major stage's m, l and D of 64 rows, aligned
+
+
+class WarpgroupBwdGeometry(NamedTuple):
+    blocks: int    # B * H * ceil(T / 64) for each kernel, longest first
+    dq_smem: int   # the query-major kernel: its q and dout rows and the
+                   # ring's stages of a key and a value tile, in 64-column
+                   # boxes, and 1 KB to align them
+    dkv_smem: int  # the key-major kernel: its k and v rows and the ring's
+                   # stages of a q and a dout tile and their rows' m, l, D
+
+    @staticmethod
+    def of(b: int, t: int, hd: int, n_heads: int,
+           hdv: Optional[int] = None) -> "WarpgroupBwdGeometry":
+        boxes = -(-hd // 64) + -(-(hd if hdv is None else hdv) // 64)
+        stages = 4 if boxes == 2 else 3  # up to width 64: four
+        own = boxes * WG_BOX
+        return WarpgroupBwdGeometry(
+            blocks=b * n_heads * -(-t // WG_ROWS),
+            dq_smem=own + stages * own + 1024,
+            dkv_smem=own + stages * (own + WG_STAT_BYTES) + 1024)
 
 
 def causal_attention_ref(qkv: torch.Tensor, n_heads: int,
@@ -472,7 +507,8 @@ def causal_attention_with_stats(qkv: torch.Tensor, n_heads: int,
     """``causal_attention`` for training: ``(out, stats)``, where
     ``stats`` holds each row's softmax max and sum for
     ``causal_attention_bwd`` (None on the CPU, whose backward recomputes
-    them). One launch of the forward kernel, counted as its launches."""
+    them), which from T = 128 also reads ``out``. One launch of the
+    forward kernel, counted as its launches."""
     if qkv.device.type == "cpu":
         return causal_attention_ref(qkv, n_heads, v_width), None
     (out, stats), launch = prepare_causal_attention(qkv, n_heads,
@@ -545,6 +581,14 @@ def train_library() -> ctypes.CDLL:
                      lib.chana_causal_attention_bwd_stats_smem):
             smem.argtypes = [_int, _int]
             smem.restype = ctypes.c_size_t
+        wg = [_int] * 6 + [ctypes.c_size_t, ctypes.c_float, _ptr]
+        lib.chana_causal_attention_bwd_dq.argtypes = [_ptr] * 5 + wg
+        lib.chana_causal_attention_bwd_dq.restype = _int
+        lib.chana_causal_attention_bwd_dkv.argtypes = [_ptr] * 4 + wg
+        lib.chana_causal_attention_bwd_dkv.restype = _int
+        lib.chana_causal_attention_bwd_warpgroup_smem.argtypes = [_int] * 3
+        lib.chana_causal_attention_bwd_warpgroup_smem.restype = \
+            ctypes.c_size_t
         lib.chana_gelu_tanh_bwd.argtypes = [_ptr] * 3 + [ctypes.c_int64, _ptr]
         lib.chana_gelu_tanh_bwd.restype = _int
         lib.chana_cuda_error_string.argtypes = [_int]
@@ -649,17 +693,21 @@ def _heads(z: torch.Tensor, n_heads: int) -> torch.Tensor:
 
 
 def causal_attention_bwd_ref(qkv: torch.Tensor, dout: torch.Tensor,
-                             n_heads: int, stats=None) -> torch.Tensor:
-    """Plain PyTorch version of the attention backward kernel (any
+                             n_heads: int, stats=None,
+                             out=None) -> torch.Tensor:
+    """Plain PyTorch version of the attention backward kernels (any
     device): the cotangent of the fused ``qkv`` product for the cotangent
-    ``dout [B, T, D]`` of ``causal_attention(qkv, n_heads)``. It takes the
-    kernel's arguments but recomputes the row statistics (``stats`` is
-    not read)."""
+    ``dout [B, T, H * v_width]`` of ``causal_attention(qkv, n_heads,
+    v_width)`` (``v_width`` read from ``dout``; the v heads' columns past
+    it get zeros). It takes the kernels' arguments but recomputes the row
+    statistics (``stats`` and ``out`` are not read)."""
     b, t, d3 = qkv.shape
     d = d3 // 3
     hd = d // n_heads
     q, k, v = (_heads(z, n_heads) for z in qkv.split(d, dim=-1))
     do = _heads(dout, n_heads)
+    hdv = do.shape[-1]
+    v = v[..., :hdv]
     logits = torch.matmul(q, k.transpose(-1, -2)).to(_F32) / math.sqrt(hd)
     causal = torch.ones(t, t, dtype=torch.bool, device=qkv.device).tril()
     logits = torch.where(causal, logits, torch.full_like(logits, -1e30))
@@ -673,24 +721,42 @@ def causal_attention_bwd_ref(qkv: torch.Tensor, dout: torch.Tensor,
     dq = torch.matmul(dlog, k)
     dk = torch.matmul(dlog.transpose(-1, -2), q)
     dv = torch.matmul(y.to(qkv.dtype).transpose(-1, -2), do)
+    dv = torch.nn.functional.pad(dv, (0, hd - hdv))
     return torch.cat([z.transpose(1, 2).reshape(b, t, d)
                       for z in (dq, dk, dv)], dim=-1)
 
 
 def prepare_causal_attention_bwd(qkv: torch.Tensor, dout: torch.Tensor,
-                                 n_heads: int, stats=None, *,
-                                 warps: int | None = None):
+                                 n_heads: int, stats=None, out=None, *,
+                                 warps: int | None = None,
+                                 warpgroup: bool | None = None):
     """Check the attention backward kernels' CUDA inputs and bind their
-    launch: ``(dqkv, launch)``; ``launch()`` runs the row pass and the
-    main kernel (``ATT_BWD_LAUNCHES`` launches), and is None for an empty
-    batch. ``stats`` is what ``causal_attention_with_stats`` returned for
-    this ``qkv``: the row pass reads its max and sum and writes the third
-    plane. ``warps`` (4 or 8) overrides ``attention_bwd_warps``."""
+    launch: ``(dqkv, launch)``; ``launch()`` runs ``ATT_BWD_LAUNCHES``
+    launches, and is None for an empty batch. ``stats`` and ``out`` are
+    what ``causal_attention_with_stats`` returned for this ``qkv``. The
+    pair is the shape's, the forward's rule
+    (``attention_warpgroup_geometry``); ``launch.warpgroup`` says which:
+    - the 16-row pair: the row pass reads the max and sum in ``stats`` and
+      writes the third plane, then the main kernel; ``warps`` (4 or 8)
+      overrides ``attention_bwd_warps``;
+    - the long-window pair, which also reads ``out`` (D = dout . out into
+      the third plane, then dq), then dk and dv. ``dout`` may be narrower
+      than the v heads (``[B, T, n_heads * v_width]``, latent attention's
+      values): the pair alone takes that, at ``WG_KV_WIDTHS``.
+    ``warpgroup`` forces one pair, for the GPU tests and timing only;
+    ``launch.parts`` are the two launches, each alone, for timing."""
     device = build.cuda_device("causal_attention_bwd", qkv)
     build.check("qkv", qkv, _BF16, 3, device)
     b, t, hd = _attention_dims("causal_attention_bwd", qkv, n_heads)
     build.check("dout", dout, _BF16, 3, device)
-    build.check_shape("dout", dout, (b, t, n_heads * hd))
+    hdv = dout.shape[-1] // n_heads
+    build.check_shape("dout", dout, (b, t, n_heads * hdv))
+    if hdv != hd and (warpgroup is False or t < WG_MIN_T
+                      or not _warpgroup_width(hd, hdv)):
+        raise ValueError(
+            f"causal_attention_bwd: q and k width {hd}, v width {hdv} at "
+            f"T={t}; differing widths take the long-window pair alone, at "
+            f"widths {WG_KV_WIDTHS} and T >= {WG_MIN_T}")
     dqkv = torch.empty_like(qkv)
     if b == 0 or t == 0:
         return dqkv, None
@@ -702,45 +768,76 @@ def prepare_causal_attention_bwd(qkv: torch.Tensor, dout: torch.Tensor,
     build.check_shape("stats", stats,
                       (ATT_STATS * g.grid(b, n_heads) * ATT_TILE,))
     build.aligned("causal_attention_bwd", qkv, dout, dqkv)
+    if warpgroup is None:
+        warpgroup = attention_warpgroup_geometry(b, t, hd, n_heads,
+                                                 hdv) is not None
+    elif warpgroup and not _warpgroup_width(hd, hdv):
+        raise ValueError(f"causal_attention_bwd: the long-window pair does "
+                         f"not take q and k width {hd} with v width {hdv}")
     lib = train_library()
-    dims = (b, t, n_heads, hd, g.hd_pad, g.ld, g.tiles, g.copy_bytes,
-            g.stage, g.slots)
-    row_pass = build.launcher(
-        lib, lib.chana_causal_attention_bwd_stats, "causal_attention_bwd",
-        device, qkv.data_ptr(), dout.data_ptr(), stats.data_ptr(), *dims,
-        g.stats_smem, math.sqrt(hd))
-    main = build.launcher(
-        lib, lib.chana_causal_attention_bwd, "causal_attention_bwd", device,
-        qkv.data_ptr(), dout.data_ptr(), stats.data_ptr(), dqkv.data_ptr(),
-        *dims, g.bwd_smem,
-        warps or attention_bwd_warps(g.grid(b, n_heads), _sm_count(device)),
-        math.sqrt(hd))
+    if not warpgroup:
+        dims = (b, t, n_heads, hd, g.hd_pad, g.ld, g.tiles, g.copy_bytes,
+                g.stage, g.slots)
+        first = build.launcher(
+            lib, lib.chana_causal_attention_bwd_stats,
+            "causal_attention_bwd", device, qkv.data_ptr(), dout.data_ptr(),
+            stats.data_ptr(), *dims, g.stats_smem, math.sqrt(hd))
+        second = build.launcher(
+            lib, lib.chana_causal_attention_bwd, "causal_attention_bwd",
+            device, qkv.data_ptr(), dout.data_ptr(), stats.data_ptr(),
+            dqkv.data_ptr(), *dims, g.bwd_smem,
+            warps or attention_bwd_warps(g.grid(b, n_heads),
+                                         _sm_count(device)),
+            math.sqrt(hd))
+    else:
+        if out is None:
+            raise ValueError("causal_attention_bwd: no forward output; the "
+                             "long-window pair reads it (D = dout . out)")
+        build.check("out", out, _BF16, 3, device)
+        build.check_shape("out", out, (b, t, n_heads * hdv))
+        build.aligned("causal_attention_bwd", out)
+        bg = WarpgroupBwdGeometry.of(b, t, hd, n_heads, hdv)
+        dims = (b, t, n_heads, hd, hdv, g.tiles * ATT_TILE)
+        first = build.launcher(
+            lib, lib.chana_causal_attention_bwd_dq, "causal_attention_bwd",
+            device, qkv.data_ptr(), dout.data_ptr(), out.data_ptr(),
+            stats.data_ptr(), dqkv.data_ptr(), *dims, bg.dq_smem,
+            math.sqrt(hd))
+        second = build.launcher(
+            lib, lib.chana_causal_attention_bwd_dkv, "causal_attention_bwd",
+            device, qkv.data_ptr(), dout.data_ptr(), stats.data_ptr(),
+            dqkv.data_ptr(), *dims, bg.dkv_smem, math.sqrt(hd))
 
     def launch() -> None:
-        row_pass()
-        main()
+        first()
+        second()
 
-    launch.parts = (row_pass, main)  # each alone, for timing
+    launch.parts = (first, second)  # each alone, for timing
+    launch.warpgroup = warpgroup
     return dqkv, launch
 
 
 def causal_attention_bwd(qkv: torch.Tensor, dout: torch.Tensor,
-                         n_heads: int, stats=None) -> torch.Tensor:
+                         n_heads: int, stats=None, out=None) -> torch.Tensor:
     """Backward of ``causal_attention``: dq | dk | dv in the fused ``[B, T,
     3D]`` layout of ``qkv``, the cotangent of the qkv product. ``stats``
-    is the second output of ``causal_attention_with_stats(qkv, n_heads)``
-    (None on the CPU). On a card: two launches a call, the row pass and
-    the main kernel."""
+    and ``out`` are the two outputs of ``causal_attention_with_stats(qkv,
+    n_heads)`` (None on the CPU); ``dout`` is ``[B, T, n_heads *
+    v_width]``. On a card: two launches a call, the shape's pair
+    (``prepare_causal_attention_bwd``)."""
     if qkv.device.type == "cpu":
         return causal_attention_bwd_ref(qkv, dout, n_heads)
-    dqkv, launch = prepare_causal_attention_bwd(qkv, dout, n_heads, stats)
+    dqkv, launch = prepare_causal_attention_bwd(qkv, dout, n_heads, stats,
+                                                out)
     if launch is not None:
         launch()
         causal_attention_bwd.launches += ATT_BWD_LAUNCHES
+        causal_attention_bwd.warpgroup_launches += launch.warpgroup
     return dqkv
 
 
 causal_attention_bwd.launches = 0
+causal_attention_bwd.warpgroup_launches = 0
 
 
 def gelu_tanh_bwd_ref(dy: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -816,8 +913,8 @@ class LayerNorm(torch.autograd.Function):
 
 class CausalAttention(torch.autograd.Function):
     """``causal_attention`` whose backward is ``causal_attention_bwd``,
-    from the row statistics the forward kept (only when ``qkv`` needs a
-    gradient: a forecast keeps none)."""
+    from the row statistics and the output the forward kept (only when
+    ``qkv`` needs a gradient: a forecast keeps none)."""
 
     @staticmethod
     def forward(ctx, qkv, n_heads):
@@ -825,15 +922,15 @@ class CausalAttention(torch.autograd.Function):
             out, ctx.stats = causal_attention_with_stats(qkv, n_heads)
         else:
             out, ctx.stats = causal_attention(qkv, n_heads), None
-        ctx.save_for_backward(qkv)
+        ctx.save_for_backward(qkv, out)
         ctx.n_heads = n_heads
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        (qkv,) = ctx.saved_tensors
+        qkv, out = ctx.saved_tensors
         return causal_attention_bwd(qkv, dout.contiguous(), ctx.n_heads,
-                                    ctx.stats), None
+                                    ctx.stats, out), None
 
 
 class GeluTanh(torch.autograd.Function):

@@ -6,9 +6,9 @@ Moonlight-16B-A3B sizes it: latent attention (queries and keys 192 wide,
 128 plain and 64 rotated, values 128, a 512-wide key-value latent), one
 dense SwiGLU layer, then layers of 64 sigmoid-routed SwiGLU experts (top
 6) beside shared experts. Besides ``products.py``'s bf16 and float32
-products and ``forecaster.py``'s attention (the warpgroup forward at q
-and k width 192 with v width 128, and the 16-row backward over the v
-heads padded to 192), it takes the kernels of ``csrc/moonlight.cu``:
+products and ``forecaster.py``'s attention (the warpgroup forward and
+the long-window backward pair at q and k width 192 with v width 128), it
+takes the kernels of ``csrc/moonlight.cu``:
 
 - ``rmsnorm`` (and ``rmsnorm_bwd``): ``bf16(w * float(bf16(x *
   rsqrt(mean(x^2) + eps))))``, the modeling file's RMSNorm with a float32
@@ -17,7 +17,6 @@ heads padded to 192), it takes the kernels of ``csrc/moonlight.cu``:
   192]`` operand from the query product, the latent's key-value product
   and the shared rotated key, with the rotary positions (adjacent pairs,
   the config's ``rope_interleave``) and the values padded with zeros;
-  ``pad_heads`` pads the attention output's gradient the same way;
 - ``swiglu`` (``swiglu_bwd``): ``bf16(bf16(silu(g)) * u)`` over a gate |
   up product;
 - ``route_weights`` (``route_weights_bwd``): the chosen sigmoid scores,
@@ -80,7 +79,6 @@ def library() -> ctypes.CDLL:
                                   _ptr, _int, _int, _float, _ptr],
             "chana_mla_qkv": [_ptr] * 5 + [_ll, _int, _int, _ptr],
             "chana_mla_qkv_bwd": [_ptr] * 5 + [_ll, _int, _int, _ptr],
-            "chana_pad_heads": [_ptr, _ptr, _ll, _int, _int, _int, _ptr],
             "chana_swiglu": [_ptr, _ptr, _ll, _int, _ptr],
             "chana_swiglu_bwd": [_ptr] * 3 + [_ll, _int, _ptr],
             "chana_route_weights": [_ptr] * 3 + [_int] * 3 + [_float, _ptr],
@@ -364,32 +362,12 @@ class MlaQkv(torch.autograd.Function):
         return dq, dkv, dkva, None, None
 
 
-@_counted
-def pad_heads(x: torch.Tensor, n_heads: int, width: int) -> torch.Tensor:
-    """``x [B, T, H*w]`` with each head padded with zeros to ``width``.
-    One launch."""
-    b, t, hw = x.shape
-    w_in = hw // n_heads
-    if x.device.type == "cpu":
-        pad = x.new_zeros(b, t, n_heads, width - w_in)
-        return torch.cat([x.reshape(b, t, n_heads, w_in), pad],
-                         dim=-1).reshape(b, t, n_heads * width)
-    device = build.cuda_device("pad_heads", x)
-    build.check("x", x, _BF16, 3, device)
-    out = torch.empty((b, t, n_heads * width), dtype=_BF16, device=device)
-    if b * t:
-        _launch("pad_heads", device, "chana_pad_heads", x.data_ptr(),
-                out.data_ptr(), b * t, n_heads, w_in, width)
-        pad_heads.launches += 1
-    return out
-
-
 class MlaAttention(torch.autograd.Function):
     """Causal attention over the fused ``[B, T, 3*H*192]`` operand with v
     width 128: ``forecaster.py``'s warpgroup forward at those widths,
-    keeping the row statistics; backward: the output's gradient padded to
-    192 a head (``pad_heads``) and the 16-row backward at 192, whose v
-    columns past 128 are zeros."""
+    keeping the row statistics and the output; backward: the long-window
+    pair at q and k 192, v and the output's gradient 128 (the v heads'
+    columns past 128 get zeros)."""
 
     @staticmethod
     def forward(ctx, qkv, dims):
@@ -399,16 +377,15 @@ class MlaAttention(torch.autograd.Function):
                                                             dims.v)
         else:
             out, ctx.stats = fk.causal_attention(qkv, n_heads, dims.v), None
-        ctx.save_for_backward(qkv)
-        ctx.n_heads, ctx.qk = n_heads, dims.qk
+        ctx.save_for_backward(qkv, out)
+        ctx.n_heads = n_heads
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        (qkv,) = ctx.saved_tensors
-        dpad = pad_heads(dout.contiguous(), ctx.n_heads, ctx.qk)
-        return fk.causal_attention_bwd(qkv, dpad, ctx.n_heads,
-                                       ctx.stats), None
+        qkv, out = ctx.saved_tensors
+        return fk.causal_attention_bwd(qkv, dout.contiguous(), ctx.n_heads,
+                                       ctx.stats, out), None
 
 
 def mla_attention_plain(qkv: torch.Tensor, dims: MlaDims) -> torch.Tensor:
@@ -940,10 +917,10 @@ PLAIN = Ops(rmsnorm_plain, products.head_ref, mla_qkv_ref, mla_attention_plain, 
 
 
 # every wrapper here that counts its launches
-WRAPPERS = ("rmsnorm", "rmsnorm_bwd", "mla_qkv", "mla_qkv_bwd", "pad_heads",
-            "swiglu", "swiglu_bwd", "route_weights", "route_weights_bwd",
-            "gather_rows", "token_sum", "combine", "combine_bwd",
-            "grouped_product", "router_product")
+WRAPPERS = ("rmsnorm", "rmsnorm_bwd", "mla_qkv", "mla_qkv_bwd", "swiglu",
+            "swiglu_bwd", "route_weights", "route_weights_bwd", "gather_rows",
+            "token_sum", "combine", "combine_bwd", "grouped_product",
+            "router_product")
 
 
 def launch_count() -> int:

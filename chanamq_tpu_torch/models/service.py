@@ -137,9 +137,11 @@ class ForecastService:
         self.rounds = 0
         # the forecaster wrappers' kernel launches in every round so far,
         # and of those the attention forwards on the long-window
-        # (warpgroup) kernel (the worker writes both)
+        # (warpgroup) kernel and the attention backward calls on the
+        # long-window pair (the worker writes all three)
         self.kernel_launches = 0
         self.warpgroup_launches = 0
+        self.bwd_warpgroup_launches = 0
         # the Moonlight backbone: its own kernels' launches (beside the
         # forecaster kernels it shares, counted above), and its routing
         # counters over every train step so far (read at each round's end):
@@ -386,17 +388,21 @@ class ForecastService:
     ) -> tuple[int, Optional[float], Optional[dict[str, float]]]:
         """One off-path round: K train steps + next-tick forecast. Adds
         the round's kernel launches to ``kernel_launches`` (its attention
-        forwards on the warpgroup kernel to ``warpgroup_launches``, and
-        the Moonlight kernels' to ``moonlight_launches``) and, with the
+        forwards on the warpgroup kernel to ``warpgroup_launches``, its
+        attention backward calls on the long-window pair to
+        ``bwd_warpgroup_launches``, and the Moonlight kernels' to
+        ``moonlight_launches``) and, with the
         Moonlight backbone, reads its routing counters once the forecast
         has waited on the card; with profiling on, the round and its parts
         are the ``forecast`` stages (``profile.span``)."""
         from ..kernels import moonlight
-        from ..kernels.forecaster import causal_attention, launch_count
+        from ..kernels.forecaster import (causal_attention,
+                                          causal_attention_bwd, launch_count)
 
         launches = launch_count()
         moon = moonlight.launch_count()
         warpgroup = causal_attention.warpgroup_launches
+        bwd_warpgroup = causal_attention_bwd.warpgroup_launches
         try:
             with profile.span(profile.FORECAST_ROUND):
                 return self._train_and_forecast(history)
@@ -404,6 +410,8 @@ class ForecastService:
             self.kernel_launches += launch_count() - launches
             self.warpgroup_launches += \
                 causal_attention.warpgroup_launches - warpgroup
+            self.bwd_warpgroup_launches += \
+                causal_attention_bwd.warpgroup_launches - bwd_warpgroup
             self.moonlight_launches += moonlight.launch_count() - moon
             state = self._torch_state
             if state is not None and "counters" in state:
@@ -475,6 +483,7 @@ class ForecastService:
             "trained_steps": self.trained_steps,
             "kernel_launches": self.kernel_launches,
             "warpgroup_launches": self.warpgroup_launches,
+            "bwd_warpgroup_launches": self.bwd_warpgroup_launches,
             "backbone": self.backbone,
             "moonlight_launches": self.moonlight_launches,
             "moe_routed_rows": self.moe_routed_rows,

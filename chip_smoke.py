@@ -316,6 +316,8 @@ def phase_device() -> dict:
 
 SOURCES = ("router_match", "forecaster", "forecaster_train", "products",
            "moonlight")
+# the long-window attention backward's two kernels (forecaster_train.cu)
+WG_BWD_KERNELS = ("causal_attention_bwd_dq", "causal_attention_bwd_dkv")
 # the kernels whose tensor-core instructions the build reports
 MMA_KERNELS = {"forecaster": "causal_attention",
                "forecaster_train": "causal_attention_bwd",
@@ -396,6 +398,18 @@ def phase_build() -> dict:
     if not isinstance(hgmma, str) and hgmma["HGMMA"] == 0:
         raise AssertionError("bf16_product_kernel has no HGMMA (wgmma) "
                              "instruction")
+    # the long-window attention backward's pair: no spill, and no wgmma
+    # that ptxas serializes (its C7514/C7515 warnings name the function)
+    train_log = built["forecaster_train"].log
+    for kernel in WG_BWD_KERNELS:
+        spills = ptxas_spills(train_log, kernel)
+        serial = [ln.strip() for ln in train_log.splitlines()
+                  if "wgmma" in ln.lower() and kernel in ln]
+        log(f"[build] {kernel}_kernel: {spills} bytes of spills"
+            + "".join(f"; {ln}" for ln in serial))
+        if spills or serial:
+            raise AssertionError(f"{kernel}_kernel spills {spills} bytes or "
+                                 f"has serialized wgmma: {serial}")
     log(f"[build] {len(SOURCES)} sources in "
         f"{time.perf_counter() - t0:.2f} s (wall)")
     return out
@@ -1098,7 +1112,9 @@ def _recording(fn, calls: list):
 KERNEL_SYMBOLS = {"clip_momentum_sgd": ("sumsq_kernel", "momentum_sgd_kernel"),
                   "sum_of_squares": ("sumsq_kernel",),
                   "causal_attention_bwd": ("causal_attention_bwd_stats_kernel",
-                                           "causal_attention_bwd_kernel")}
+                                           "causal_attention_bwd_kernel",
+                                           "causal_attention_bwd_dq_kernel",
+                                           "causal_attention_bwd_dkv_kernel")}
 
 
 def device_busy(trace, names=("topic_match", "headers_match")) -> dict:
@@ -1808,12 +1824,14 @@ SCALE_RTOL = 1e-5
 
 def attention_bwd_inputs(qkv: torch.Tensor, dout: torch.Tensor,
                          heads: int) -> tuple:
-    """The attention backward's arguments ``(qkv, dout, heads, stats)``:
-    ``stats``, the row statistics the forward keeps in training, from one
-    launch of the forward kernel on a card (None on the CPU)."""
+    """The attention backward's arguments ``(qkv, dout, heads, stats,
+    out)``: ``stats`` and ``out``, the row statistics and the output the
+    forward keeps in training, from one launch of the forward kernel on a
+    card (None and the plain output on the CPU)."""
     from chanamq_tpu_torch.kernels import forecaster as fk
 
-    return qkv, dout, heads, fk.causal_attention_with_stats(qkv, heads)[1]
+    out, stats = fk.causal_attention_with_stats(qkv, heads)
+    return qkv, dout, heads, stats, out
 
 
 def train_inputs(gen: torch.Generator, cfg, b: int,
@@ -2009,11 +2027,12 @@ def hold_train_kernel(name: str, args, *, timed: bool = True,
         else:
             _, launch = getattr(mod, f"prepare_{name}")(*args)
             work = args
-            if hasattr(launch, "parts"):  # attention's row pass and main
+            if hasattr(launch, "parts"):  # attention's two launches
                 row["parts_ms"] = [_time_ms(part, iters, device_only=True)
                                    for part in launch.parts]
+                row["warpgroup"] = launch.warpgroup
                 # what keeping the row statistics costs the forward
-                qkv, _, heads, _ = args
+                qkv, _, heads = args[:3]
                 row["fwd_ms"], row["fwd_stats_ms"] = (
                     _time_ms(mod.prepare_causal_attention(
                         qkv, heads, keep_stats=keep)[1], iters,
@@ -2205,7 +2224,7 @@ MOON_SHARED = ("causal_attention_with_stats", "causal_attention_bwd")
 MOON_FILE = "transformers/models/deepseek_v3/modeling_deepseek_v3.py"
 MOON_REPLACES = {
     "rmsnorm": 48, "rmsnorm_bwd": 48, "mla_qkv": 283, "mla_qkv_bwd": 283,
-    "pad_heads": 445, "swiglu": 104, "swiglu_bwd": 104,
+    "swiglu": 104, "swiglu_bwd": 104,
     "route_weights": 148, "route_weights_bwd": 148, "gather_rows": 191,
     "token_sum": 191, "combine": 194, "combine_bwd": 194,
     "grouped_product": 192, "router_product": 145}
@@ -2225,12 +2244,12 @@ def moonlight_per_step(cfg, b: int) -> dict:
     router, its weights, the gather, two grouped products, two SwiGLUs
     (the experts' and the shared experts') between the shared experts'
     two products, the combine. Then the final norm and the head. The
-    backward: each norm (two launches), the operand, the padding of
-    attention's gradient and its backward (two launches), each SwiGLU,
-    the weights, the gather's token sum, the combine, each grouped
-    product's dX and dW, each product's dX and dW (the embed's dW alone),
-    the router's dX and dW (``router_splits`` decides one or two launches
-    a call); and the update's two."""
+    backward: each norm (two launches), the operand, attention's backward
+    (two launches, the long-window pair), each SwiGLU, the weights, the
+    gather's token sum, the combine, each grouped product's dX and dW,
+    each product's dX and dW (the embed's dW alone), the router's dX and
+    dW (``router_splits`` decides one or two launches a call); and the
+    update's two."""
     from chanamq_tpu_torch.kernels import forecaster as fk
     from chanamq_tpu_torch.kernels import moonlight as mk
 
@@ -2242,7 +2261,7 @@ def moonlight_per_step(cfg, b: int) -> dict:
     router = [1 + (mk.router_splits(m, n, k) > 1)
               for m, n, k in ((r, e, d), (r, d, e), (d, e, r))]
     one = {"rmsnorm": norms, "mla_qkv": layers, "mla_qkv_bwd": layers,
-           "pad_heads": layers, "swiglu": dense + 2 * moe,
+           "swiglu": dense + 2 * moe,
            "swiglu_bwd": dense + 2 * moe, "route_weights": moe,
            "route_weights_bwd": moe, "gather_rows": moe, "token_sum": moe,
            "combine": moe, "combine_bwd": moe, "grouped_product": 6 * moe,
@@ -2317,7 +2336,7 @@ def moonlight_plain(name: str, args) -> tuple:
         if name == "causal_attention_with_stats":
             return ((lambda *a: wrapper(*a)[0]),
                     (fk.causal_attention_ref(*args),), (_ulps(2.0),))
-        qkv, dout, heads, _ = args
+        qkv, dout, heads = args[:3]
         return (wrapper, (fk.causal_attention_bwd_ref(qkv, dout, heads),),
                 (_ulps(TRAIN_STEPS[name]),))
     wrapper = getattr(mk, name)
@@ -2347,13 +2366,6 @@ def moonlight_plain(name: str, args) -> tuple:
         return wrapper, mk._vjp(
             lambda q, kv, kva: mk.mla_qkv_ref(q, kv, kva, cs, dims), zeros,
             dqkv), (one,) * 3
-    if name == "pad_heads":
-        x, heads, width = args
-        b, t, hw = x.shape
-        want = torch.cat([x.reshape(b, t, heads, hw // heads),
-                          x.new_zeros(b, t, heads, width - hw // heads)],
-                         dim=-1).reshape(b, t, heads * width)
-        return wrapper, (want,), (exact,)
     if name == "swiglu":
         return wrapper, (mk.swiglu_ref(*args),), (one,)
     if name == "swiglu_bwd":
@@ -2422,9 +2434,6 @@ def moonlight_work(name: str, args) -> tuple[int, int, float]:
                                                          + dims.v)
                                          + dims.latent + dims.rope))
         return nbytes, ops, ops / F32_FLOPS_PER_S
-    if name == "pad_heads":
-        x, heads, width = args
-        return _nbytes(x) + 2 * x.shape[0] * x.shape[1] * heads * width, 0, 0.0
     if name in ("swiglu", "swiglu_bwd"):
         gu = args[-1]
         f = gu.numel() // 2
@@ -2757,8 +2766,10 @@ def _parts_note(row: dict) -> str:
     """The attention backward's two launches timed alone, for a log line."""
     if "parts_ms" not in row:
         return ""
-    row_pass, main = (ms * 1e3 for ms in row["parts_ms"])
-    return (f"; row pass {row_pass:.3f} us + main kernel {main:.3f} us "
+    first, second = (ms * 1e3 for ms in row["parts_ms"])
+    names = (("dq kernel", "dk, dv kernel") if row.get("warpgroup") else
+             ("row pass", "main kernel"))
+    return (f"; {names[0]} {first:.3f} us + {names[1]} {second:.3f} us "
             f"alone; the forward keeping the row statistics "
             f"{row['fwd_stats_ms'] * 1e3:.3f} us ({row['fwd_ms'] * 1e3:.3f} "
             "us without)")
@@ -3171,7 +3182,8 @@ def forward_launches(cfg) -> dict:
 def train_per_step(cfg) -> dict:
     """Each kernel's launches in one train step: the forward's, as many
     backward passes of layernorm and attention (attention's two launches
-    each: row pass, then gradients), GELU's backward once a layer, each
+    each: the row pass and the gradients, or from T = 128 dq, then dk and
+    dv), GELU's backward once a layer, each
     product's dX and dW (the embed's dW alone: its input is the data), and
     the update's two (sum of squares, then update)."""
     from chanamq_tpu_torch.kernels import forecaster as fk
@@ -3349,22 +3361,25 @@ def _keeping(fn, calls: list):
 def standing_in(home: dict, make):
     """While it is open, each wrapper ``name`` on its module ``home[name]``
     is ``make(name, wrapper)`` (the autograd Functions look the wrappers
-    up on their modules' names). A wrapper counts its launches on the
-    module's name for it, so the stand-in carries the count and hands it
-    back."""
+    up on their modules' names). A wrapper counts its launches (and the
+    attention wrappers their long-window calls) on the module's name for
+    it, so the stand-in carries the counts and hands them back."""
+    counters = ("launches", "warpgroup_launches")
     real = {name: getattr(mod, name) for name, mod in home.items()}
     stand_in = {name: make(name, fn) for name, fn in real.items()}
     for name, fn in real.items():
-        if hasattr(fn, "launches"):
-            stand_in[name].launches = fn.launches
+        for counter in counters:
+            if hasattr(fn, counter):
+                setattr(stand_in[name], counter, getattr(fn, counter))
         setattr(home[name], name, stand_in[name])
     try:
         yield
     finally:
         for name, fn in real.items():
             setattr(home[name], name, fn)
-            if hasattr(fn, "launches"):
-                fn.launches = stand_in[name].launches
+            for counter in counters:
+                if hasattr(fn, counter):
+                    setattr(fn, counter, getattr(stand_in[name], counter))
 
 
 @contextlib.contextmanager

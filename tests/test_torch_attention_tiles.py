@@ -14,10 +14,12 @@ held here:
   split into 16-row query tiles and 16-key tiles, the diagonal tile masked,
   the head width and the window zero-padded as the kernels stage them, and
   ``W`` and ``dlog`` held in the working dtype, as the kernels hold them in
-  shared memory. Each model is held against the plain versions
-  (``causal_attention_ref``, ``causal_attention_bwd_ref``) and, as a
-  differentiable op, against ``jax.vjp`` of the JAX package's
-  ``_attention`` on the same numpy inputs.
+  shared memory; and of the long-window kernels (from T = 128), 64-row
+  blocks over 64-row tiles, the backward pair with D = dout . out. Each
+  model is held against the plain versions (``causal_attention_ref``,
+  ``causal_attention_bwd_ref``) and, as a differentiable op, against
+  ``jax.vjp`` of the JAX package's ``_attention`` on the same numpy
+  inputs.
 
 Tolerances, max abs error, those ``tests/test_torch_forecaster_train.py``
 states for attention: float32 within 1e-5 of the largest value (the same
@@ -658,24 +660,28 @@ def test_warpgroup_rule_at_the_window_edges(t):
             assert g.blocks == b * 4 * -(-t // 64)
 
 
-def attention_warpgroup(qkv: torch.Tensor, n_heads: int) -> tuple:
+def attention_warpgroup(qkv: torch.Tensor, n_heads: int,
+                        v_width=None) -> tuple:
     """The warpgroup kernel's order: blocks of 64 query rows, each over the
     64-key tiles its rows see, in order; pass 1 a running max of the
     logits and a running sum of exponentials it rescales at every new max
     (the kernel takes these exponentials as 2^(x log2 e) on its special
     function unit); pass 2 the kernel's W = exp(logit - m) / l in float32,
     rounded to qkv's dtype, and O += W . V a tile at a time, rounded once.
-    Returns ``(out, (m, l))``, m and l of every row of the 16-row tiles
-    ([B, H, tiles * 16, 1], the rows the kernel writes)."""
+    With ``v_width``, each v head is read to its first ``v_width``
+    columns. Returns ``(out, (m, l))``, m and l of every row of the 16-row
+    tiles ([B, H, tiles * 16, 1], the rows the kernel writes)."""
     b, t, d3 = qkv.shape
     hd = d3 // 3 // n_heads
+    hdv = hd if v_width is None else v_width
     rows, keys = fk.WG_ROWS, fk.WG_KEYS
     dtype = qkv.dtype
     padded = -(-t // rows) * rows
     q, k, v = (F.pad(z.reshape(b, t, n_heads, hd).transpose(1, 2),
                      (0, 0, 0, padded - t))
                for z in qkv.split(d3 // 3, dim=-1))
-    out = torch.zeros_like(q)
+    v = v[..., :hdv]
+    out = torch.zeros_like(v)
     m_all = torch.zeros(b, n_heads, padded, 1)
     l_all = torch.zeros_like(m_all)
     for r0 in range(0, padded, rows):  # a block's rows
@@ -699,7 +705,7 @@ def attention_warpgroup(qkv: torch.Tensor, n_heads: int) -> tuple:
         out[:, :, own] = o.to(dtype)
         m_all[:, :, own], l_all[:, :, own] = m, l
     stat_rows = -(-t // TILE) * TILE
-    out = out[:, :, :t].transpose(1, 2).reshape(b, t, n_heads * hd)
+    out = out[:, :, :t].transpose(1, 2).reshape(b, t, n_heads * hdv)
     return out, (m_all[:, :, :stat_rows], l_all[:, :, :stat_rows])
 
 
@@ -720,6 +726,88 @@ class WarpgroupTileAttention(torch.autograd.Function):
         (qkv,) = ctx.saved_tensors
         return attention_bwd_stream(qkv, dout.contiguous(), ctx.n_heads,
                                     ctx.kept), None
+
+
+def attention_bwd_warpgroup(qkv: torch.Tensor, dout: torch.Tensor,
+                            out: torch.Tensor, n_heads: int, kept,
+                            v_width=None) -> torch.Tensor:
+    """The long-window backward pair's order. The query-major kernel: D =
+    dout . out of each row in float32 (FlashAttention-2's D, in place of
+    the 16-row pair's sum of y dW over the prefix), then for each block of
+    64 query rows dQ over the 64-key tiles its rows see. The key-major
+    kernel: for each block of 64 key rows, dK and dV over the 64-row query
+    tiles at and below it. Both rebuild a tile's y = exp(logit - m) / l
+    from the m and l the forward kept (``kept``, [B, H, rows, 1] each),
+    dlog = (y dW - y D) / sqrt(hd) and W = y in qkv's dtype, zero for
+    rows past T; each tile's partial product is added in order and
+    rounded once. With ``v_width``, v and dout heads are ``v_width`` wide
+    (v read to its first ``v_width`` columns) and dv is padded with zeros
+    to the head width."""
+    b, t, d3 = qkv.shape
+    hd = d3 // 3 // n_heads
+    hdv = hd if v_width is None else v_width
+    rows = fk.WG_ROWS
+    dtype = qkv.dtype
+    padded = -(-t // rows) * rows
+
+    def heads(z, width):
+        return F.pad(z.reshape(b, t, n_heads, width).transpose(1, 2),
+                     (0, 0, 0, padded - t))
+
+    q, k, v = (heads(z, hd) for z in qkv.split(d3 // 3, dim=-1))
+    v = v[..., :hdv]
+    do, o = heads(dout, hdv), heads(out, hdv)
+    dd = (do.float() * o.float()).sum(-1, keepdim=True)
+    # rows past the kept ones read m 0 and l 1, as the kernels guard them
+    m, l = (F.pad(z, (0, 0, 0, padded - z.shape[-2]), value=fill)
+            for z, fill in zip(kept, (0.0, 1.0)))
+    blocks = [slice(r0, r0 + rows) for r0 in range(0, padded, rows)]
+
+    def tile(rs, ks):  # dlog and W of query rows rs against keys ks
+        y = torch.exp(_logits(q[:, :, rs], k[:, :, ks], rs.start, ks.start,
+                              t, hd, dtype) - m[:, :, rs]) / l[:, :, rs]
+        dw = _mma(do[:, :, rs], v[:, :, ks].transpose(-1, -2)).to(dtype)
+        dl = (y * dw.float() - y * dd[:, :, rs]) / math.sqrt(hd)
+        real = (torch.arange(rs.start, rs.stop) < t)[:, None]
+        zero = torch.zeros_like(y).to(dtype)
+        return (torch.where(real, dl.to(dtype), zero),
+                torch.where(real, y.to(dtype), zero))
+
+    dq, dk = torch.zeros_like(q), torch.zeros_like(k)
+    dv = torch.zeros_like(v)
+    for n, own in enumerate(blocks):
+        acc = 0
+        for ks in blocks[:n + 1]:  # the key tiles the rows see
+            acc = acc + _mma(tile(own, ks)[0], k[:, :, ks])
+        dq[:, :, own] = acc.to(dtype)
+        acc_k = acc_v = 0
+        for rs in blocks[n:]:  # the query tiles at and below the keys
+            dl, w = tile(rs, own)
+            acc_k = acc_k + _mma(dl.transpose(-1, -2), q[:, :, rs])
+            acc_v = acc_v + _mma(w.transpose(-1, -2), do[:, :, rs])
+        dk[:, :, own], dv[:, :, own] = acc_k.to(dtype), acc_v.to(dtype)
+    dv = F.pad(dv, (0, hd - hdv))
+    return torch.cat([z[:, :, :t].transpose(1, 2).reshape(b, t, n_heads * hd)
+                      for z in (dq, dk, dv)], dim=-1)
+
+
+class WarpgroupBwdAttention(torch.autograd.Function):
+    """``attention_warpgroup`` whose backward is ``attention_bwd_warpgroup``
+    on the statistics and the output it kept, as the training op runs the
+    long-window pair."""
+
+    @staticmethod
+    def forward(ctx, qkv, n_heads):
+        out, ctx.kept = attention_warpgroup(qkv, n_heads)
+        ctx.save_for_backward(qkv, out)
+        ctx.n_heads = n_heads
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        qkv, out = ctx.saved_tensors
+        return attention_bwd_warpgroup(qkv, dout.contiguous(), out,
+                                       ctx.n_heads, ctx.kept), None
 
 
 # (B, T, d_model, heads): a ragged window of four blocks at width 16; the
@@ -781,3 +869,108 @@ def test_warpgroup_model_matches_jax_vjp(t, d, heads, dtype):
                                  torch.from_numpy(dy).to(tcfg.dtype))
     assert_close(da, want_da, op_tol(dtype, "attention", want_da), "da")
     assert_close(dw, want_dw, op_tol(dtype, "attention", want_dw), "dw")
+
+
+# latent attention's widths at a small window: q and k 192 wide, v 128
+# (zeros past it in the operand), two heads
+MLA_SHAPE = (1, 130, 2, 192, 128)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("b,t,d,heads", WG_SHAPES)
+def test_warpgroup_backward_model_matches_plain(b, t, d, heads, dtype):
+    """The long-window backward pair's order, on the statistics and the
+    output of the warpgroup forward's, against ``causal_attention_bwd_ref``
+    within the attention tolerances, dq, dk and dv each within its own."""
+    qkv_np, dout_np = _inputs(b, t, d, 900 + t)
+    qkv = torch.from_numpy(qkv_np).to(DTYPES[dtype])
+    dout = torch.from_numpy(dout_np).to(DTYPES[dtype])
+    out, kept = attention_warpgroup(qkv, heads)
+    got = attention_bwd_warpgroup(qkv, dout, out, heads, kept)
+    want = fk.causal_attention_bwd_ref(qkv, dout, heads)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    for part in range(3):
+        cols = slice(part * d, (part + 1) * d)
+        w = want[..., cols]
+        assert_close(got[..., cols], w.float(),
+                     op_tol(dtype, "attention", _np(w)), f"part {part}")
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_warpgroup_backward_model_at_latent_widths(dtype):
+    """The same at latent attention's widths (q and k 192, v and dout 128):
+    dq, dk and the first 128 columns of each dv head within the attention
+    tolerances of the plain version, the rest of each dv head zero."""
+    b, t, heads, hd, hdv = MLA_SHAPE
+    rng = np.random.default_rng(950)
+    qkv = torch.from_numpy(rng.normal(size=(b, t, 3, heads, hd)).astype(
+        np.float32))
+    qkv[:, :, 2, :, hdv:] = 0
+    qkv = qkv.reshape(b, t, 3 * heads * hd).to(DTYPES[dtype])
+    dout = torch.from_numpy(rng.normal(size=(b, t, heads * hdv)).astype(
+        np.float32)).to(DTYPES[dtype])
+    out, kept = attention_warpgroup(qkv, heads, hdv)
+    torch.testing.assert_close(out, fk.causal_attention_ref(qkv, heads, hdv),
+                               rtol=0, atol=op_tol(dtype, "attention",
+                                                   _np(out)))
+    got = attention_bwd_warpgroup(qkv, dout, out, heads, kept, hdv)
+    want = fk.causal_attention_bwd_ref(qkv, dout, heads)
+    d = heads * hd
+    for part in range(3):
+        cols = slice(part * d, (part + 1) * d)
+        w = want[..., cols]
+        assert_close(got[..., cols], w.float(),
+                     op_tol(dtype, "attention", _np(w)), f"part {part}")
+    assert not got[..., 2 * d:].reshape(b, t, heads, hd)[..., hdv:].any()
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("t,d,heads", [(200, 32, 2), (130, 64, 2)])
+def test_warpgroup_backward_model_matches_jax_vjp(t, d, heads, dtype):
+    """qkv product -> the warpgroup order with the long-window backward's
+    order -> identity proj against jax.vjp of the reference's
+    ``_attention`` with an identity ``proj``."""
+    jcfg, tcfg = configs(dtype, seq_len=t, d_model=d, n_heads=heads,
+                         d_ff=4 * d, n_layers=1)
+    rng = np.random.default_rng(1000 + t)
+    a = rng.normal(size=(2, t, d)).astype(np.float32)
+    w = (rng.normal(size=(d, 3 * d)) / math.sqrt(d)).astype(np.float32)
+    dy = rng.normal(size=(2, t, d)).astype(np.float32)
+    eye = np.eye(d, dtype=np.float32)
+    out, vjp = jax.vjp(lambda a, w: ref._attention(a, w, eye, jcfg),
+                       jnp.asarray(a, jcfg.dtype), jnp.asarray(w))
+    want_da, want_dw = vjp(jnp.asarray(dy, jcfg.dtype))
+    ta = torch.from_numpy(a).to(tcfg.dtype).requires_grad_()
+    tw = torch.from_numpy(w).requires_grad_()
+    fused = torch.matmul(ta, tw.to(tcfg.dtype))
+    got = torch.matmul(WarpgroupBwdAttention.apply(fused, heads),
+                       torch.from_numpy(eye).to(tcfg.dtype))
+    assert_close(got, np.asarray(out, np.float32),
+                 op_tol(dtype, "attention", np.asarray(out, np.float32)),
+                 "out")
+    da, dw = torch.autograd.grad(got, (ta, tw),
+                                 torch.from_numpy(dy).to(tcfg.dtype))
+    assert_close(da, want_da, op_tol(dtype, "attention", want_da), "da")
+    assert_close(dw, want_dw, op_tol(dtype, "attention", want_dw), "dw")
+
+
+def test_warpgroup_backward_geometry():
+    """The long-window pair's blocks and shared memory: 64 rows a block
+    for each kernel; its own tiles and a ring of four stages up to width
+    64 (three above) of a key and a value tile (query-major) or a q and a
+    dout tile and 1 KB of their rows' m, l and D (key-major), in 8 KB
+    boxes of 64 columns, and 1 KB to align them; two query-major blocks an
+    SM up to width 64, and every instance within a block's 227 KB."""
+    for hd, hdv in [(hd, hd) for hd in range(16, 129, 16)] + [
+            fk.WG_KV_WIDTHS]:
+        g = fk.WarpgroupBwdGeometry.of(4, 2048, hd, 16, hdv)
+        boxes = -(-hd // 64) + -(-hdv // 64)
+        stages = 4 if boxes == 2 else 3
+        assert g.blocks == 4 * 16 * 32
+        assert g.dq_smem == (1 + stages) * boxes * 8192 + 1024
+        assert g.dkv_smem == (1 + stages) * boxes * 8192 + stages * 1024 \
+            + 1024
+        assert max(g.dq_smem, g.dkv_smem) <= fk.SMEM_LIMIT
+        if boxes == 2:
+            assert 2 * (g.dq_smem + 1024) <= 228 * 1024
+    assert fk.WarpgroupBwdGeometry.of(2, 257, 64, 1).blocks == 2 * 5

@@ -476,6 +476,47 @@ def test_round_counts_the_warpgroup_launches(monkeypatch):
     svc._round(_history(40, 1))
     assert svc.snapshot()["warpgroup_launches"] == 12
 
+
+def test_stand_ins_carry_the_attention_counters():
+    """``chip_smoke.standing_in`` hands a stood-in wrapper's counters to
+    its stand-in and back: the attention wrappers count their launches and
+    their long-window calls on their module's name, which the stand-in
+    holds meanwhile (the backward's on every call, either pair)."""
+    bwd = fk.causal_attention_bwd
+    before = (bwd.launches, bwd.warpgroup_launches)
+    with chip_smoke.standing_in({"causal_attention_bwd": fk},
+                                lambda name, fn: (lambda *a: fn(*a))):
+        stand_in = fk.causal_attention_bwd
+        assert stand_in is not bwd
+        assert (stand_in.launches, stand_in.warpgroup_launches) == before
+        stand_in.launches += 2
+        stand_in.warpgroup_launches += 1
+    assert fk.causal_attention_bwd is bwd
+    assert (bwd.launches, bwd.warpgroup_launches) == (before[0] + 2,
+                                                      before[1] + 1)
+    bwd.launches, bwd.warpgroup_launches = before
+
+
+def test_round_counts_the_backward_warpgroup_launches(monkeypatch):
+    """``bwd_warpgroup_launches`` gains the change in the attention
+    backward wrapper's ``warpgroup_launches`` over each round (the calls
+    the long-window pair ran), apart from the forwards'."""
+    svc = _tiny_service(steps=2)
+    step = svc._torch_state["step"]
+
+    def counted_step(*args):
+        monkeypatch.setattr(fk.causal_attention_bwd, "warpgroup_launches",
+                            fk.causal_attention_bwd.warpgroup_launches + 2)
+        return step(*args)
+
+    svc._torch_state["step"] = counted_step
+    assert svc.snapshot()["bwd_warpgroup_launches"] == 0
+    svc._round(_history(40, 0))
+    assert svc.snapshot()["bwd_warpgroup_launches"] == 4
+    assert svc.snapshot()["warpgroup_launches"] == 0
+    svc._round(_history(40, 1))
+    assert svc.snapshot()["bwd_warpgroup_launches"] == 8
+
 # -- end to end: the port's broker under load -> forecast ---------------------
 
 

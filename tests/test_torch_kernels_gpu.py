@@ -25,8 +25,13 @@ versions within ``chip_smoke.FORWARD_LIMIT``.
 The attention forward's warpgroup kernel, which its wrapper takes from
 T = 128 at head widths that are multiples of 16 up to 128, is held at the
 flagship's training call and forecast, ragged windows and widths 16, 32
-and 128, its row statistics fed to the unchanged backward, and its launch
-counter at T = 2,048 and T = 64.
+and 128, its row statistics and output fed to the backward, and its launch
+counter at T = 2,048 and T = 64. The backward's long-window pair, which
+its wrapper takes at the same shapes, is held at the flagship's training
+call, at latent attention's widths (q and k 192, v 128), at T = 128 and at
+ragged windows of 200 and 257 rows, twice for the same bits, with its
+launch counter, its shared memory against the library's and its build's
+register report (no spill, no serialized wgmma).
 
 Both attention kernels and the layernorm backward are also launched twice
 on the same inputs and must give the same bits, the attention kernels also
@@ -51,6 +56,8 @@ the JAX package's own functions (``_layernorm``, ``_attention``,
 ``jax.nn.gelu``, the jitted ``forward`` on its ``init_params(PRNGKey(0))``)
 run on the CPU beside the card, on the same numpy-made inputs.
 """
+
+import re
 
 import numpy as np
 import pytest
@@ -707,7 +714,7 @@ def test_attention_kernels_are_deterministic(cuda, b, t, d, heads):
     cfg = port_fc.ForecasterConfig(seq_len=t, d_model=d, n_heads=heads,
                                    d_ff=4 * d)
     gen = torch.Generator().manual_seed(b * 1000 + t + 2)
-    qkv, dout, _, stats = chip_smoke.train_inputs(gen, cfg, b, cuda)[
+    qkv, dout, _, stats, _ = chip_smoke.train_inputs(gen, cfg, b, cuda)[
         "causal_attention_bwd"]
     # the forward's row statistics: its two planes (the third is the
     # backward row pass's)
@@ -830,9 +837,10 @@ def test_warpgroup_attention_matches_plain(cuda, b, t, hd, heads):
     """The long-window forward, which the wrapper takes from the shape,
     against ``causal_attention_ref`` within ``chip_smoke``'s attention
     limit; two launches and the launch that keeps the statistics give the
-    same bits; those statistics, fed to the unchanged backward, give dqkv
-    within its limit of ``causal_attention_bwd_ref``. Each call counts as
-    one launch of the forward and one of the warpgroup kernel."""
+    same bits; those statistics and that output, fed to the backward (the
+    long-window pair), give dqkv within its limit of
+    ``causal_attention_bwd_ref``. Each call counts as one launch of the
+    forward and one of the warpgroup kernel."""
     g = fk.attention_warpgroup_geometry(b, t, hd, heads)
     assert g is not None and g.blocks == b * heads * -(-t // fk.WG_ROWS)
     cfg = port_fc.ForecasterConfig(seq_len=t, d_model=heads * hd,
@@ -853,7 +861,7 @@ def test_warpgroup_attention_matches_plain(cuda, b, t, hd, heads):
     dout = torch.randn(b, t, heads * hd, generator=gen).to(
         torch.bfloat16).to(cuda)
     chip_smoke.hold_train_kernel("causal_attention_bwd",
-                                 (qkv, dout, heads, stats), timed=False)
+                                 (qkv, dout, heads, stats, out), timed=False)
 
 
 @pytest.mark.parametrize("hd,heads", [(64, 4), (32, 4), (128, 2)])
@@ -937,6 +945,139 @@ def test_warpgroup_geometry_matches_launcher(cuda):
             fk.WarpgroupGeometry.of(1, 2048, hd, 4).smem
     for hd in (8, 24, 144):
         assert lib.chana_causal_attention_warpgroup_smem(hd) == 0
+
+
+# (B, T, q and k head width, heads, v width) of the backward's long-window
+# pair: the flagship's training call, latent attention's (Moonlight's 16
+# heads, q and k 192, v 128; B = 1 keeps it short), the shortest window,
+# ragged windows of 200 rows at width 32 and of 257 (a last block of one
+# row), and width 128 (two boxes)
+WG_BWD_SHAPES = [(16, 2048, 64, 4, 64), (1, 2048, 192, 16, 128),
+                 (2, 128, 64, 4, 64), (2, 200, 32, 2, 32),
+                 (2, 257, 64, 1, 64), (1, 400, 128, 2, 128)]
+
+
+@pytest.mark.parametrize("b,t,hd,heads,hdv", WG_BWD_SHAPES)
+def test_warpgroup_backward_matches_plain(cuda, b, t, hd, heads, hdv):
+    """The long-window backward pair, which the wrapper takes from the
+    shape, on the statistics and output of the forward, against
+    ``causal_attention_bwd_ref`` within ``chip_smoke``'s limit (four bf16
+    steps at the largest output), latent attention's v heads zero past
+    128; two calls give the same bits; a call counts two launches and one
+    long-window call."""
+    assert fk.attention_warpgroup_geometry(
+        b, t, hd, heads, None if hdv == hd else hdv) is not None
+    gen = torch.Generator().manual_seed(t * 10 + hd + b)
+    qkv = torch.randn(b, t, 3 * heads * hd, generator=gen)
+    qkv.view(b, t, 3, heads, hd)[:, :, 2, :, hdv:] = 0
+    qkv = qkv.to(torch.bfloat16).to(cuda)
+    out, stats = fk.causal_attention_with_stats(
+        qkv, heads, None if hdv == hd else hdv)
+    dout = torch.randn(b, t, heads * hdv, generator=gen).to(
+        torch.bfloat16).to(cuda)
+    args = (qkv, dout, heads, stats, out)
+    before = (fk.causal_attention_bwd.launches,
+              fk.causal_attention_bwd.warpgroup_launches)
+    row = chip_smoke.hold_train_kernel("causal_attention_bwd", args,
+                                       timed=False)
+    first, second = (fk.causal_attention_bwd(*args) for _ in range(2))
+    torch.cuda.synchronize()
+    assert (fk.causal_attention_bwd.launches,
+            fk.causal_attention_bwd.warpgroup_launches) == (
+                before[0] + 3 * fk.ATT_BWD_LAUNCHES, before[1] + 3)
+    assert torch.equal(first, second)
+    assert row["max_abs_err"] <= row["limit"]
+    # the v heads' columns past the values are zeros
+    assert not first.view(b, t, 3, heads, hd)[:, :, 2, :, hdv:].any()
+
+
+def test_warpgroup_backward_counts_only_long_windows(cuda):
+    """``causal_attention_bwd.warpgroup_launches`` counts every backward
+    call through the training op from T = 128 and none at T = 64, where
+    the 16-row pair runs; ``launches`` counts two launches either way."""
+    bf16 = torch.bfloat16
+    for t, taken in ((2048, 1), (128, 1), (64, 0)):
+        qkv = torch.randn(2, t, 3 * 256, device=cuda).to(bf16)
+        leaf = qkv.requires_grad_()
+        got = fk.CausalAttention.apply(leaf, 4)
+        before = (fk.causal_attention_bwd.launches,
+                  fk.causal_attention_bwd.warpgroup_launches)
+        torch.autograd.grad(got, leaf, torch.ones_like(got))
+        torch.cuda.synchronize()
+        assert (fk.causal_attention_bwd.launches,
+                fk.causal_attention_bwd.warpgroup_launches) == (
+                    before[0] + fk.ATT_BWD_LAUNCHES, before[1] + taken)
+
+
+def test_warpgroup_backward_agrees_with_the_16_row_pair(cuda):
+    """At a window both pairs take (forced through ``warpgroup``), the
+    long-window pair and the 16-row pair each hold to the plain version
+    within the limit, and to each other within twice it: D from the
+    output in place of the 16-row pair's sum over the prefix."""
+    b, t, hd, heads = 2, 300, 64, 2
+    gen = torch.Generator().manual_seed(31)
+    qkv = torch.randn(b, t, 3 * heads * hd, generator=gen).to(
+        torch.bfloat16).to(cuda)
+    dout = torch.randn(b, t, heads * hd, generator=gen).to(
+        torch.bfloat16).to(cuda)
+    out, stats = fk.causal_attention_with_stats(qkv, heads)
+    want = fk.causal_attention_bwd_ref(qkv, dout, heads)
+    limit = chip_smoke.TRAIN_STEPS["causal_attention_bwd"] * \
+        chip_smoke.bf16_ulp(float(want.float().abs().max()))
+    got = {}
+    for warpgroup in (False, True):
+        dqkv, launch = fk.prepare_causal_attention_bwd(
+            qkv, dout, heads, stats.clone(), out, warpgroup=warpgroup)
+        assert launch.warpgroup == warpgroup
+        launch()
+        got[warpgroup] = dqkv
+    torch.cuda.synchronize()
+    for dqkv in got.values():
+        assert float((dqkv.float() - want.float()).abs().max()) <= limit
+    assert float((got[True].float() - got[False].float()).abs().max()) <= \
+        2 * limit
+
+
+def test_warpgroup_backward_geometry_matches_launcher(cuda):
+    """The shared memory ``WarpgroupBwdGeometry`` gives each kernel of the
+    pair is what the C library computes, at every width pair it takes; a
+    width it does not take gives 0."""
+    tlib = fk.train_library()
+    pairs = [(hd, hd) for hd in range(16, fk.WG_MAX_HD + 1, 16)] + [
+        fk.WG_KV_WIDTHS]
+    for hd, hdv in pairs:
+        g = fk.WarpgroupBwdGeometry.of(1, 2048, hd, 4, hdv)
+        assert tlib.chana_causal_attention_bwd_warpgroup_smem(
+            hd, hdv, 0) == g.dq_smem
+        assert tlib.chana_causal_attention_bwd_warpgroup_smem(
+            hd, hdv, 1) == g.dkv_smem
+    for hd, hdv in ((8, 8), (24, 24), (144, 144), (192, 192), (128, 64)):
+        for dkv in (0, 1):
+            assert tlib.chana_causal_attention_bwd_warpgroup_smem(
+                hd, hdv, dkv) == 0
+
+
+def test_warpgroup_backward_builds_without_spills(cuda, record_property):
+    """The build's register report (``-Xptxas -v``) for each instance of
+    both kernels of the pair: no spill, and no wgmma that ptxas
+    serializes (its warnings name the function). The report is kept as a
+    test property."""
+    from chanamq_tpu_torch.kernels import build
+
+    log = build.load("forecaster_train")[1].log
+    for kernel in chip_smoke.WG_BWD_KERNELS:
+        assert chip_smoke.ptxas_spills(log, kernel) == 0, kernel
+        assert not [ln for ln in log.splitlines()
+                    if "wgmma" in ln.lower() and kernel in ln], kernel
+    report, inside = [], False
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            inside = any(f"{k}_kernel" in line
+                         for k in chip_smoke.WG_BWD_KERNELS)
+        if inside and re.search(r"entry|registers|spill", line):
+            report.append(line.strip())
+    assert len([ln for ln in report if "registers" in ln]) >= 6
+    record_property("ptxas", "\n".join(report))
 
 
 # (rows, width) for the layernorm kernels: one row and 7 rows (a single
@@ -1165,11 +1306,14 @@ def test_train_kernels_reject_bad_input(cuda):
     # window of one tile) is refused
     for t, d, heads in ((400, 256, 4), (16, 400, 1)):
         qkv = torch.zeros(1, t, 3 * d, dtype=bf16, device=cuda)
-        _, stats = fk.causal_attention_with_stats(qkv, heads)
-        dqkv = fk.causal_attention_bwd(
-            qkv, torch.zeros(1, t, d, dtype=bf16, device=cuda), heads, stats)
+        out, stats = fk.causal_attention_with_stats(qkv, heads)
+        dout = torch.zeros(1, t, d, dtype=bf16, device=cuda)
+        dqkv = fk.causal_attention_bwd(qkv, dout, heads, stats, out)
         torch.cuda.synchronize()
         assert dqkv.shape == (1, t, 3 * d) and not dqkv.any()
+        if t >= fk.WG_MIN_T:  # the long-window pair reads the output
+            with pytest.raises(ValueError, match="no forward output"):
+                fk.causal_attention_bwd(qkv, dout, heads, stats)
     for t, hd in ((32, 896), (16, 1792)):  # over 227 KB
         with pytest.raises(ValueError):
             fk.causal_attention_bwd(

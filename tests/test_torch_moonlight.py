@@ -280,8 +280,9 @@ def test_rotation_and_its_inverse_gradient():
 def test_attention_with_wider_keys_than_values():
     """Attention over the fused operand with q and k 24 wide and v 16
     (padded to 24 in the operand) against a float32 causal softmax over
-    q, k and the first 16 columns of v; its gradient padded to 24 and
-    through the forecaster's attention backward matches autograd's."""
+    q, k and the first 16 columns of v; its gradient at width 16 through
+    the forecaster's attention backward matches autograd's, the v heads'
+    columns past 16 zero."""
     b, t, h, qk, v = 2, 20, 4, 24, 16
     gen = torch.Generator().manual_seed(8)
     q, k, vv = (torch.randn(b, t, h, qk, generator=gen) for _ in range(3))
@@ -297,9 +298,9 @@ def test_attention_with_wider_keys_than_values():
     dout = torch.randn(b, t, h * v, generator=gen)
     (want_g,) = torch.autograd.grad(mk.mla_attention_plain(leaf, dims), leaf,
                                     dout)
-    dpad = mk.pad_heads(dout, h, qk)
-    got_g = fk.causal_attention_bwd_ref(fused, dpad, h)
+    got_g = fk.causal_attention_bwd_ref(fused, dout, h)
     torch.testing.assert_close(got_g, want_g, rtol=1e-4, atol=1e-5)
+    assert not got_g.view(b, t, 3, h, qk)[:, :, 2, :, v:].any()
 
 
 # -- the forecast service with the backbone --------------------------------

@@ -87,7 +87,8 @@ ADMIN_VIEWS = ("/admin/forecast", "/admin/health", "/admin/overview",
 ENTITY_VIEWS = ("/admin/queues/%2F", "/admin/exchanges/%2F")
 # the key paths the port adds to the reference's views: the forecaster
 # wrappers' launches (and of those the attention forwards on the
-# warpgroup kernel) on /admin/forecast, and on /admin/profile the
+# warpgroup kernel, and the backward calls on the long-window pair) on
+# /admin/forecast, and on /admin/profile the
 # forecast service's stages, their subsystem and the ring of its rounds
 FORECAST_STAGES = ("forecast-round", "forecast-batch", "train-step",
                    "train-forward", "train-backward", "train-update",
@@ -96,7 +97,7 @@ FORECAST_STAGES = ("forecast-round", "forecast-batch", "train-step",
                    "moe-combine")
 PORT_ONLY = {
     "/admin/forecast": {"/kernel_launches", "/warpgroup_launches",
-                        "/backbone", "/moonlight_launches",
+                        "/bwd_warpgroup_launches", "/backbone", "/moonlight_launches",
                         "/moe_routed_rows", "/moe_max_expert_rows"},
     "/admin/profile": {
         f"/stages/{stage}{key}" for stage in FORECAST_STAGES
